@@ -1,0 +1,70 @@
+"""Model-facing wrappers around the port's kernels.
+
+Port of ``repro/kernels/ops.py``: they adapt model-layout tensors (GQA head
+grouping, ``[B, S, H, D]``) to the kernels' flat ``[BH, S, D]`` layout and
+pad exactly as the reference does, so the same call sites work on the CPU
+(plain versions) and on the card (the CUDA kernels).  There is no switch
+and no fallback: the device of the tensors decides.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.swiglu_matmul import swiglu_matmul
+
+__all__ = ["gqa_flash_attention", "fused_swiglu"]
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    pad = (-x.shape[axis]) % mult
+    if not pad:
+        return x
+    widths = [0, 0] * (x.ndim - 1 - axis) + [0, pad]  # F.pad lists the last dim first
+    return F.pad(x, widths)
+
+
+def gqa_flash_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, S, KV, D]
+    v: torch.Tensor,  # [B, S, KV, D]
+    causal: bool = True,
+    block_q: int = 256,
+    block_k: int = 256,
+) -> torch.Tensor:
+    """GQA wrapper: repeats KV per query group, flattens heads into batch."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    if G != 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    bq = min(block_q, max(8, S))
+    bk = min(block_k, max(8, S))
+    qf = _pad_to(q.movedim(2, 1).reshape(B * H, S, D), 1, bq).contiguous()
+    kf = _pad_to(k.movedim(2, 1).reshape(B * H, S, D), 1, bk).contiguous()
+    vf = _pad_to(v.movedim(2, 1).reshape(B * H, S, D), 1, bk).contiguous()
+    # padded KV rows are masked out by causality (they sit beyond every q
+    # row); as in the reference, the call is causal whatever ``causal`` says
+    o = flash_attention(qf, kf, vf, causal=True if not causal else causal)
+    o = o[:, :S].reshape(B, H, S, D)
+    return o.movedim(1, 2)
+
+
+def fused_swiglu(
+    x: torch.Tensor,   # [..., D]
+    wg: torch.Tensor,  # [D, F]
+    wu: torch.Tensor,  # [D, F]
+    block_m: int = 256,
+) -> torch.Tensor:
+    """``silu(x @ wg) * (x @ wu)`` over the flattened leading dims; pads only M."""
+    lead = x.shape[:-1]
+    D = x.shape[-1]
+    Fd = wg.shape[1]
+    xf = x.reshape(-1, D)
+    M = xf.shape[0]
+    bm = min(block_m, M)
+    xf = _pad_to(xf, 0, bm).contiguous()
+    o = swiglu_matmul(xf, wg, wu)
+    return o[:M].reshape(*lead, Fd)

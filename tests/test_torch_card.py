@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA card (the kernels are CUDA C++ with no CPU mode) and skip
+without one.  The file imports neither JAX nor the reference, so it also runs
+on a machine without them; there, skip the repository's conftest, which
+imports the reference:
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_card.py
+
+Tolerances are those of ``tests/test_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import (
+    FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu, gqa_flash_attention,
+    swiglu_matmul,
+)
+from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(card, seed, shapes, dtype, scales=None):
+    rng = np.random.default_rng(seed)
+    scales = scales or [1.0] * len(shapes)
+    return [torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(card, dtype)
+            for s, sc in zip(shapes, scales)]
+
+
+def _tol(dtype, f32, bf16):
+    return bf16 if dtype == torch.bfloat16 else f32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D", [(100, 130, 64), (130, 100, 64), (256, 256, 128), (64, 64, 32)])
+def test_flash_kernel(card, dtype, causal, Sq, Sk, D):
+    q, k, v = _inputs(card, 0, [(2, Sq, D), (2, Sk, D), (2, Sk, D)], dtype)
+    before = FLASH_LIBRARY.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.launches == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype, 2e-5, 3e-2), rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(8, 256, 96), (200, 256, 96), (5, 100, 70)])
+def test_swiglu_kernel(card, dtype, M, D, F):
+    x, wg, wu = _inputs(card, 1, [(M, D), (D, F), (D, F)], dtype, scales=[1.0, D ** -0.5, D ** -0.5])
+    before = SWIGLU_LIBRARY.launches
+    out = swiglu_matmul(x, wg, wu)
+    assert SWIGLU_LIBRARY.launches == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), swiglu_ref(x, wg, wu).float(),
+                               atol=_tol(dtype, 1e-4, 5e-2), rtol=2e-2)
+
+
+def test_wrappers_launch_on_card(card):
+    q, k, v = _inputs(card, 2, [(1, 40, 8, 16), (1, 40, 2, 16), (1, 40, 2, 16)], torch.float32)
+    before = FLASH_LIBRARY.launches
+    out = gqa_flash_attention(q, k, v, block_q=32, block_k=16)
+    assert FLASH_LIBRARY.launches == before + 1
+    cpu = gqa_flash_attention(q.cpu(), k.cpu(), v.cpu(), block_q=32, block_k=16)
+    torch.testing.assert_close(out.cpu(), cpu, atol=2e-5, rtol=1e-2)
+    x, wg, wu = _inputs(card, 3, [(2, 24, 64), (64, 128), (64, 128)], torch.float32,
+                        scales=[1.0, 1 / 8, 1 / 8])
+    before = SWIGLU_LIBRARY.launches
+    out = fused_swiglu(x, wg, wu, block_m=32)
+    assert SWIGLU_LIBRARY.launches == before + 1
+    torch.testing.assert_close(out.cpu(), fused_swiglu(x.cpu(), wg.cpu(), wu.cpu(), block_m=32),
+                               atol=1e-4, rtol=2e-2)
+
+
+def test_mixed_devices_raise(card):
+    q = torch.zeros((1, 8, 16), device=card)
+    with pytest.raises(ValueError, match="mixed dtypes|operands on"):
+        flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)

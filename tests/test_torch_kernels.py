@@ -1,0 +1,179 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers take their kernels' plain PyTorch versions
+(the CUDA kernels run only on the card, where ``chip_smoke.py`` and
+``tests/test_torch_card.py`` hold them to the same plain versions); the JAX side
+runs its Pallas kernels in interpret mode, as ``tests/test_kernels.py``
+does.  Inputs are drawn with numpy from a seed and handed to both.
+Tolerances are those of ``tests/test_kernels.py``: flash f32 atol 2e-5,
+bf16 3e-2, rtol 1e-2; swiglu f32 1e-4, bf16 5e-2, rtol 2e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jax_flash_attention
+from repro.kernels import fused_swiglu as jax_fused_swiglu
+from repro.kernels import gqa_flash_attention as jax_gqa_flash_attention
+from repro.kernels import swiglu_matmul as jax_swiglu_matmul
+from repro.models import layers as jax_layers
+from repro_torch.kernels import (
+    FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu, gqa_flash_attention,
+    swiglu_matmul,
+)
+from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+from repro_torch.models import layers
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(seed, shapes, dtype="float32", scales=None):
+    """The same numbers for both packages: numpy f32 draws, cast to dtype."""
+    rng = np.random.default_rng(seed)
+    scales = scales or [1.0] * len(shapes)
+    arrs = [(rng.standard_normal(s) * sc).astype(np.float32) for s, sc in zip(shapes, scales)]
+    jd, td = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jd) for a in arrs],
+            [torch.from_numpy(a).to(td) for a in arrs])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _tol(dtype, f32, bf16):
+    return bf16 if dtype == "bfloat16" else f32
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("BH,S,D,bq,bk", [
+        (2, 128, 64, 32, 32),
+        (3, 256, 128, 64, 128),
+        (1, 64, 32, 64, 64),
+        (2, 128, 64, 128, 32),   # bq > bk
+        (2, 96, 64, 32, 96),     # uneven grid
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_sweep(self, BH, S, D, bq, bk, dtype, causal):
+        (jq, jk, jv), (tq, tk, tv) = _inputs(0, [(BH, S, D)] * 3, dtype)
+        ref = jax_flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                                  interpret=True)
+        out = flash_attention(tq, tk, tv, causal=causal)
+        assert out.dtype == DTYPES[dtype][1]
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=_tol(dtype, 2e-5, 3e-2),
+                                   rtol=1e-2)
+
+    @pytest.mark.parametrize("B,S,H,KV,D,bq,bk", [
+        (2, 64, 8, 2, 32, 32, 32),    # the reference test's GQA case
+        (1, 40, 4, 1, 16, 32, 16),    # S padded to 64 (q) and 48 (kv): offset mask
+        (2, 20, 4, 4, 16, 256, 256),  # blocks larger than S: no padding
+    ])
+    def test_gqa_wrapper(self, B, S, H, KV, D, bq, bk):
+        (jq, jk, jv), (tq, tk, tv) = _inputs(1, [(B, S, H, D), (B, S, KV, D), (B, S, KV, D)])
+        ref = jax_gqa_flash_attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk,
+                                      interpret=True)
+        out = gqa_flash_attention(tq, tk, tv, causal=True, block_q=bq, block_k=bk)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=3e-5, rtol=1e-3)
+
+    def test_gqa_wrapper_is_always_causal(self):
+        """``ops.py:61`` passes causal=True whatever it is given; so does the port."""
+        _, (tq, tk, tv) = _inputs(2, [(1, 16, 2, 8)] * 3)
+        a = gqa_flash_attention(tq, tk, tv, causal=False)
+        b = gqa_flash_attention(tq, tk, tv, causal=True)
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+    def test_matches_jax_model_attention(self):
+        """The port's kernel route agrees with the reference model's chunked attention."""
+        (jq, jk, jv), (tq, tk, tv) = _inputs(3, [(1, 64, 4, 32)] * 3)
+        ref = jax_layers.chunked_attention(jq, jk, jv, causal=True, q_chunk=16)
+        out = gqa_flash_attention(tq, tk, tv, causal=True, block_q=32, block_k=32)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=3e-5, rtol=1e-3)
+
+
+class TestSwiGLU:
+    @pytest.mark.parametrize("M,D,F,bm,bf,bk", [
+        (64, 128, 256, 32, 128, 64),
+        (128, 256, 128, 64, 64, 128),
+        (32, 64, 64, 32, 64, 64),
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_sweep(self, M, D, F, bm, bf, bk, dtype):
+        (jx, jg, ju), (tx, tg, tu) = _inputs(
+            4, [(M, D), (D, F), (D, F)], dtype, scales=[1.0, D ** -0.5, D ** -0.5])
+        ref = jax_swiglu_matmul(jx, jg, ju, block_m=bm, block_f=bf, block_k=bk, interpret=True)
+        out = swiglu_matmul(tx, tg, tu)
+        assert out.dtype == DTYPES[dtype][1]
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=_tol(dtype, 1e-4, 5e-2),
+                                   rtol=2e-2)
+
+    def test_fused_wrapper_pads_m(self):
+        (jx, jg, ju), (tx, tg, tu) = _inputs(
+            5, [(2, 24, 64), (64, 128), (64, 128)], scales=[1.0, 1 / 8, 1 / 8])
+        ref = jax_fused_swiglu(jx, jg, ju, block_m=32, block_f=128, block_k=64, interpret=True)
+        out = fused_swiglu(tx, tg, tu, block_m=32)  # M = 48 padded to 64
+        assert out.shape == (2, 24, 128)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-4)
+
+    def test_mlp_matches_jax_mlp(self):
+        (jx, jg, ju, jd), (tx, tg, tu, td) = _inputs(
+            6, [(1, 32, 64), (64, 128), (64, 128), (128, 64)], scales=[1.0, 1 / 8, 1 / 8, 1 / 11])
+        ref = jax_layers.mlp({"wg": jg, "wu": ju, "wd": jd}, jx)
+        out = layers.mlp({"wg": tg, "wu": tu, "wd": td}, tx)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-4, rtol=1e-3)
+
+
+class TestChunkedAttention:
+    """The port's plain ``chunked_attention`` (decode attention) against the reference's."""
+
+    @pytest.mark.parametrize("kv_len", [[5, 32, 17], 9])
+    def test_decode_form(self, kv_len):
+        """q_chunk=1 over a bf16 cache with a per-slot (or shared) valid length.
+        Both round the probabilities and the output to bf16 after identical
+        f32 math, so they may differ by about one bf16 ulp of the output."""
+        (jq, jk, jv), (tq, tk, tv) = _inputs(7, [(3, 1, 4, 16), (3, 32, 2, 16), (3, 32, 2, 16)])
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+        ref = jax_layers.chunked_attention(jq, jk, jv, causal=False, q_chunk=1,
+                                           kv_len=jnp.asarray(kv_len))
+        out = layers.chunked_attention(tq, tk, tv, causal=False, q_chunk=1,
+                                       kv_len=torch.tensor(kv_len))
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=0)
+
+    def test_causal_chunks_with_offset(self):
+        (jq, jk, jv), (tq, tk, tv) = _inputs(8, [(2, 24, 4, 16), (2, 30, 2, 16), (2, 30, 2, 16)])
+        ref = jax_layers.chunked_attention(jq, jk, jv, causal=True, q_chunk=7, q_offset=6)
+        out = layers.chunked_attention(tq, tk, tv, causal=True, q_chunk=7, q_offset=6)
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-5, rtol=1e-5)
+
+
+class TestWrappers:
+    def test_cpu_path_launches_nothing(self):
+        """The counters move only where a CUDA kernel is launched."""
+        before = (FLASH_LIBRARY.launches, SWIGLU_LIBRARY.launches)
+        _, (tq, tk, tv) = _inputs(9, [(2, 16, 8)] * 3)
+        flash_attention(tq, tk, tv)
+        swiglu_matmul(tq[0], tk[0].T.contiguous(), tv[0].T.contiguous())
+        assert (FLASH_LIBRARY.launches, SWIGLU_LIBRARY.launches) == before
+
+    def test_plain_versions_are_the_cpu_route(self):
+        _, (tq, tk, tv) = _inputs(10, [(2, 16, 8)] * 3)
+        torch.testing.assert_close(flash_attention(tq, tk, tv, causal=True),
+                                   flash_attention_ref(tq, tk, tv, causal=True), atol=0, rtol=0)
+        x, wg, wu = tq[0], tk[0].T.contiguous(), tv[0].T.contiguous()
+        torch.testing.assert_close(swiglu_matmul(x, wg, wu), swiglu_ref(x, wg, wu),
+                                   atol=0, rtol=0)
+
+    def test_other_devices_raise(self):
+        """No silent fallback: a tensor that is neither on the CPU nor on a
+        CUDA card is refused, not computed by the plain version."""
+        q = torch.empty((2, 16, 8), device="meta")
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            flash_attention(q, q, q)
+        x, w = torch.empty((4, 8), device="meta"), torch.empty((8, 16), device="meta")
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            swiglu_matmul(x, w, w)
