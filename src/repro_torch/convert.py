@@ -3,8 +3,8 @@
 ``params_from_numpy(cfg, jax.tree.map(np.asarray, params))`` gives the port's
 model with exactly the reference's weights, so that tests can run both
 packages on the same numbers.  The reference stacks every layer's parameters
-with a leading ``[L]`` dim under ``segments/dense/p0``; they are unstacked
-here into the port's per-layer ``Block``s.
+with a leading ``[L]`` dim under ``segments/<name>/p0`` (``dense`` or
+``ssm``); they are unstacked here into the port's per-layer blocks.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, segment_name
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
@@ -34,12 +34,13 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
                       device: DeviceLike = "cuda") -> Transformer:
     """Build the port's model from the reference's parameter tree (numpy
-    leaves).  The model's dtype is the tree's; every leaf must be present
-    with the shape the port expects."""
+    leaves).  The model's dtype is the embedding's; every leaf must be
+    present with the shape and dtype the port expects (the SSM's f32 leaves
+    stay f32 in a bf16 model)."""
     dev = resolve_device(device)
     embed = tensor_from_numpy(tree["embed"])
     model = Transformer(cfg, device=dev, dtype=embed.dtype)
-    stacked = tree["segments"]["dense"]["p0"]
+    stacked = tree["segments"][segment_name(cfg)]["p0"]
     for name, prm in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
@@ -52,8 +53,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
             for key in parts:
                 node = node[key]
             value = tensor_from_numpy(node)
-        if tuple(value.shape) != tuple(prm.shape):
-            raise ValueError(f"{name}: reference shape {tuple(value.shape)}, "
-                             f"port shape {tuple(prm.shape)}")
+        if tuple(value.shape) != tuple(prm.shape) or value.dtype != prm.dtype:
+            raise ValueError(f"{name}: reference {tuple(value.shape)} {value.dtype}, "
+                             f"port {tuple(prm.shape)} {prm.dtype}")
         prm.copy_(value)
     return model

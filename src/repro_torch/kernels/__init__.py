@@ -1,18 +1,22 @@
-from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention
+from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, ssd_mixer
 from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_attention
+from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
 from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_matmul
 from repro_torch.kernels import ref
 
 # every kernel library of the port, in the order chip_smoke.py reports them
-LIBRARIES = (FLASH_LIBRARY, SWIGLU_LIBRARY)
+LIBRARIES = (FLASH_LIBRARY, SWIGLU_LIBRARY, SSD_LIBRARY)
 
 __all__ = [
     "gqa_flash_attention",
+    "ssd_mixer",
     "fused_swiglu",
     "flash_attention",
+    "ssd_scan",
     "swiglu_matmul",
     "ref",
     "FLASH_LIBRARY",
+    "SSD_LIBRARY",
     "SWIGLU_LIBRARY",
     "LIBRARIES",
 ]

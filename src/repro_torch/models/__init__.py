@@ -1,5 +1,6 @@
 from repro_torch.models.transformer import (
     Block,
+    SSMBlock,
     Transformer,
     decode_step,
     forward,
@@ -7,4 +8,5 @@ from repro_torch.models.transformer import (
     init_params,
 )
 
-__all__ = ["Block", "Transformer", "decode_step", "forward", "init_cache", "init_params"]
+__all__ = ["Block", "SSMBlock", "Transformer", "decode_step", "forward", "init_cache",
+           "init_params"]

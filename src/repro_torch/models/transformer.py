@@ -1,10 +1,12 @@
-"""Dense decoder-only LM: parameters, cache and the three entry points.
+"""Decoder-only LMs (dense and SSM): parameters, cache and the three entry points.
 
-Port of the dense segment of ``repro/models/transformer.py``.  The
-reference stacks the layers' parameters under ``segments/dense/p0`` and
-runs them with ``lax.scan``; here each layer is a :class:`Block` in an
-``nn.ModuleList`` and the scan is a Python loop.  The cache keeps the
-reference's tree and layer-stacked ``[L, B, Smax, KV, D]`` layout, and is
+Port of the ``dense`` and ``ssm`` segments of ``repro/models/transformer.py``.
+The reference stacks the layers' parameters under ``segments/<name>/p0`` and
+runs them with ``lax.scan``; here each layer is a :class:`Block` (attention
+and SwiGLU) or an :class:`SSMBlock` (a mamba2 mixer, no FFN) in an
+``nn.ModuleList``, and the scan is a Python loop.  The cache keeps the
+reference's tree and layer-stacked layouts (``[L, B, Smax, KV, D]`` k/v;
+``[L, B, w-1, CH]`` conv window and ``[L, B, H, P, N]`` state), and is
 updated in place.  ``constrain`` (mesh sharding hints) has no counterpart on
 one card.
 
@@ -25,20 +27,23 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
-__all__ = ["Transformer", "Block", "init_params", "init_cache", "forward", "decode_step"]
+__all__ = ["Transformer", "Block", "SSMBlock", "segment_name", "init_params", "init_cache",
+           "forward", "decode_step"]
 
 # parameter leaves by initializer (``ParamDef.init`` in the reference)
-_ONES = {"scale", "q_norm", "k_norm"}
-_ZEROS = {"bq", "bk", "bv"}
+_ONES = {"scale", "q_norm", "k_norm", "Dskip", "norm"}
+_ZEROS = {"bq", "bk", "bv", "dt_bias", "A_log", "conv_b"}
 _EMBED_SCALE = 0.02
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for configs outside this slice."""
     todo = (
-        (cfg.family == "ssm" or cfg.ssm is not None or cfg.hybrid is not None,
-         "SSM and hybrid models (ROADMAP Queue 1, item 1: the ssd_scan slice)"),
+        (cfg.hybrid is not None,
+         "hybrid SSM/attention models (ROADMAP Queue 1, item 2: MoE/MLA serving, "
+         "with the super segment)"),
         (cfg.moe is not None, "MoE models (ROADMAP Queue 1, item 2: MoE/MLA serving)"),
         (cfg.mla is not None, "MLA attention (ROADMAP Queue 1, item 2: MoE/MLA serving)"),
         (cfg.frontend is not None or not cfg.causal,
@@ -87,8 +92,31 @@ class Block(nn.Module):
         return x + L.mlp(self.mlp, h)
 
 
+class SSMBlock(nn.Module):
+    """One pre-norm mamba2 layer: rmsnorm → SSD mixer (no FFN).  ``dt_bias``,
+    ``A_log`` and ``Dskip`` stay f32 whatever the model's dtype, as in the
+    reference."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.ln1 = _pdict({"scale": (cfg.d_model,)}, device, dtype)
+        self.ssm = nn.ParameterDict({
+            n: _param(shape, device, torch.float32 if n in S.F32_LEAVES else dtype)
+            for n, shape in S.ssm_defs(cfg).items()})
+
+    def forward(self, cfg: ArchConfig, x, cache, pos, mode: str):
+        o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos, mode)
+        return x + o
+
+
+def segment_name(cfg: ArchConfig) -> str:
+    """The reference's one segment for this config: its layers' parameters
+    and cache sit under ``segments/<name>/p0``."""
+    return "ssm" if cfg.family == "ssm" else "dense"
+
+
 class Transformer(nn.Module):
-    """Parameters of a dense LM (``model_defs`` of the reference) on one device."""
+    """Parameters of a dense or SSM LM (``model_defs`` of the reference) on one device."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -98,7 +126,8 @@ class Transformer(nn.Module):
         self.embed = _param((V, d), device, dtype)
         self.final_norm = _pdict({"scale": (d,)}, device, dtype)
         self.lm_head = None if cfg.tie_embeddings else _param((d, V), device, dtype)
-        self.layers = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.n_layers))
+        block = SSMBlock if segment_name(cfg) == "ssm" else Block
+        self.layers = nn.ModuleList(block(cfg, device, dtype) for _ in range(cfg.n_layers))
 
 
 def _default_scale(shape: Tuple[int, ...]) -> float:
@@ -111,7 +140,8 @@ def _default_scale(shape: Tuple[int, ...]) -> float:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda", dtype=torch.bfloat16) -> Transformer:
     """Random weights drawn as the reference's ``ParamDef`` does: normals at
-    ``default_scale`` (``embed`` at 0.02), norm scales at one, biases at zero.
+    ``default_scale`` (``embed`` at 0.02, ``conv_w`` at 1/conv_width), norm
+    scales and ``Dskip`` at one, biases, ``dt_bias`` and ``A_log`` at zero.
     The normals come from ``generator`` (drawn in f32 on its device, then cast),
     so they differ from ``jax.random``'s; tests that compare the two packages
     convert the reference's weights with ``params_from_numpy`` instead."""
@@ -123,7 +153,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         elif leaf in _ZEROS:
             prm.zero_()
         else:
-            scale = _EMBED_SCALE if leaf == "embed" else _default_scale(tuple(prm.shape))
+            if leaf == "embed":
+                scale = _EMBED_SCALE
+            elif leaf == "conv_w":
+                scale = 1.0 / cfg.ssm.conv_width
+            else:
+                scale = _default_scale(tuple(prm.shape))
             draw = torch.randn(prm.shape, generator=generator, device=generator.device)
             prm.copy_(draw * scale)
     return model
@@ -131,13 +166,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: DeviceLike = "cuda", dtype=torch.bfloat16):
-    """Zeroed KV cache in the reference's tree: bf16 whatever the params are
-    (``ParamDef``'s default dtype), with a scalar ``pos``."""
+    """Zeroed cache in the reference's tree, with a scalar ``pos``: k/v in
+    ``dtype`` (bf16, ``ParamDef``'s default, whatever the params are), or the
+    SSM's conv window in ``dtype`` and its state in f32.  ``max_seq`` is
+    unused by an SSM."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    p0 = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-          "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    return {"segments": {"dense": {"p0": p0}},
+    seg = segment_name(cfg)
+    if seg == "ssm":
+        p0 = {n: torch.zeros((cfg.n_layers, *shape), dtype=dt, device=dev)
+              for n, (shape, dt) in S.ssm_cache_defs(cfg, batch, dtype).items()}
+    else:
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        p0 = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+              "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {"segments": {seg: {"p0": p0}},
             "pos": torch.zeros((), dtype=torch.int64, device=dev)}
 
 
@@ -149,9 +191,9 @@ def _unembed(params: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Ten
 
 
 def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str):
-    kv = cache["segments"]["dense"]["p0"] if cache is not None else None
+    leaves = cache["segments"][segment_name(cfg)]["p0"] if cache is not None else None
     for i, block in enumerate(params.layers):
-        layer_cache = {"k": kv["k"][i], "v": kv["v"][i]} if kv is not None else None
+        layer_cache = {n: t[i] for n, t in leaves.items()} if leaves is not None else None
         x = block(cfg, x, layer_cache, pos, mode)
     return x
 

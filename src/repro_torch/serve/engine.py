@@ -8,8 +8,12 @@ slots at once (idle slots too), with a per-slot position vector so that
 ragged slots stay exact.  Decoding is greedy (``argmax``).
 
 The steps run eagerly on the engine's device (CUDA unless the caller passes
-``device="cpu"``); prefill attention and every MLP go through the port's
-CUDA kernels there.  The cache is updated in place.
+``device="cpu"``); prefill attention and every MLP of a dense model, and the
+SSD scan of every mamba2 prefill, go through the port's CUDA kernels there.
+The cache (k/v, or an SSM's conv window and state) is updated in place.  The
+reference's steps return an SSM's conv window in the activations' dtype and
+its engine keeps what they return, so here the window takes that dtype before
+a step writes it (see :func:`_conv_in`).
 
 Graceful degradation is wired as in the reference and duck-typed: with a
 ``monitor`` (``check(certificate=, slack=)``, ``record_step``) the engine
@@ -105,6 +109,7 @@ class Engine:
         self._ticks = 0
         self._prefill1 = make_prefill_step(cfg, scfg)
         self._decode = make_decode_step(cfg, scfg)
+        self._act_dtype = params.embed.dtype
         # slot-pool state: one shared batched cache, per-slot bookkeeping
         self.cache = T.init_cache(cfg, scfg.slots, scfg.max_seq, device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * scfg.slots
@@ -137,7 +142,9 @@ class Engine:
                 admitted += 1
                 r = self.queue.pop(0)
                 # per-slot prefill with a single-sequence cache
-                tmp_cache = T.init_cache(self.cfg, 1, self.scfg.max_seq, device=self.device)
+                tmp_cache = _conv_in(
+                    T.init_cache(self.cfg, 1, self.scfg.max_seq, device=self.device),
+                    self._act_dtype)
                 toks = torch.tensor(r.prompt, dtype=torch.int64, device=self.device)[None, :]
                 last, tmp_cache = self._prefill1(self.params, tmp_cache, {"tokens": toks})
                 tok0 = int(torch.argmax(last[0]))
@@ -194,6 +201,7 @@ class Engine:
         # a single fixed-shape decode step serves every slot (idle slots too);
         # per-slot positions make ragged continuous batching exact
         self.cache["pos"] = torch.tensor(self.slot_pos, dtype=torch.int64, device=self.device)
+        self.cache = _conv_in(self.cache, self._act_dtype)
         logits, self.cache = self._decode(self.params, self.cache, self.next_tok)
         toks = torch.argmax(logits, dim=-1)
         host = toks.tolist()
@@ -227,6 +235,20 @@ class Engine:
                 return
             self.tick()
         raise RuntimeError("engine did not drain")
+
+
+def _conv_in(cache, dtype: torch.dtype):
+    """Give an SSM cache's conv windows ``dtype`` (no-op for other caches).
+
+    The reference's prefill and decode return the window in the activations'
+    dtype and its engine keeps what they return: its pool starts in bf16,
+    rounds the prefills spliced in before the first decode tick, and holds
+    the activations' dtype from that tick on."""
+    for positions in cache["segments"].values():
+        for leaves in positions.values():
+            if "conv" in leaves:
+                leaves["conv"] = leaves["conv"].to(dtype)
+    return cache
 
 
 def _splice_cache(cache, single, slot: int):

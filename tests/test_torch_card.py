@@ -7,17 +7,19 @@ imports the reference:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_card.py
 
-Tolerances are those of ``tests/test_kernels.py``.
+Tolerances are those of ``tests/test_kernels.py`` for flash attention and
+SwiGLU; ssd_scan is held element by element against the exact sequential
+recurrence, as ``chip_smoke.py`` holds it (see ``_ssd_close``).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (
-    FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu, gqa_flash_attention,
-    swiglu_matmul,
+    FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
+    gqa_flash_attention, ssd_mixer, ssd_scan, swiglu_matmul,
 )
-from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
 
 
 @pytest.fixture
@@ -63,6 +65,42 @@ def test_swiglu_kernel(card, dtype, M, D, F):
                                atol=_tol(dtype, 1e-4, 5e-2), rtol=2e-2)
 
 
+def _ssd_inputs(card, seed, BH, S, P, N, dtype):
+    """x, dt = softplus(normal), A = -exp(normal / 2), B and C at 0.5, as
+    ``tests/test_kernels.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    x, B, C = _inputs(card, seed, [(BH, S, P), (BH, S, N), (BH, S, N)], dtype,
+                      scales=[1.0, 0.5, 0.5])
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((BH, S))).astype(np.float32))
+    A = torch.from_numpy(-np.exp(rng.standard_normal(BH) * 0.5).astype(np.float32))
+    return x, dt.to(card), A.to(card), B, C
+
+
+def _ssd_close(out, ref):
+    """Element by element, against the sequential recurrence: y to
+    1e-4·max(|ref|, 1), plus one bf16 ulp (2**-7·|ref|) when it is rounded to
+    bf16; the f32 final state to 1e-4·max(|ref|, 1)."""
+    scale = max(float(ref.float().abs().max()), 1.0)
+    rtol = 2.0 ** -7 if out.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4 * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,P,N", [(2, 128, 32, 64), (3, 256, 64, 128), (2, 128, 64, 32),
+                                      (1, 64, 16, 16), (2, 100, 64, 128), (1, 37, 24, 8)])
+def test_ssd_scan_kernel(card, dtype, BH, S, P, N):
+    """y and the final state against the sequential recurrence; ragged S and P."""
+    x, dt, A, B, C = _ssd_inputs(card, 4, BH, S, P, N, dtype)
+    before = SSD_LIBRARY.launches
+    y, h = ssd_scan(x, dt, A, B, C, return_state=True)
+    assert SSD_LIBRARY.launches == before + 1
+    ry, rh = ssd_scan_ref(x, dt, A, B, C, return_state=True)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _ssd_close(y, ry)
+    _ssd_close(h, rh)
+    torch.testing.assert_close(ssd_scan(x, dt, A, B, C), y, atol=0, rtol=0)
+
+
 def test_wrappers_launch_on_card(card):
     q, k, v = _inputs(card, 2, [(1, 40, 8, 16), (1, 40, 2, 16), (1, 40, 2, 16)], torch.float32)
     before = FLASH_LIBRARY.launches
@@ -77,6 +115,16 @@ def test_wrappers_launch_on_card(card):
     assert SWIGLU_LIBRARY.launches == before + 1
     torch.testing.assert_close(out.cpu(), fused_swiglu(x.cpu(), wg.cpu(), wu.cpu(), block_m=32),
                                atol=1e-4, rtol=2e-2)
+    x, dt, _, Bm, Cm = _ssd_inputs(card, 5, 2, 40, 4 * 16, 2 * 32, torch.float32)
+    x, dt = x.reshape(2, 40, 4, 16), dt[:, :, None].expand(2, 40, 4).contiguous()
+    Bm, Cm = Bm.reshape(2, 40, 2, 32), Cm.reshape(2, 40, 2, 32)
+    A = -torch.linspace(0.5, 2.0, 4, device=card)
+    before = SSD_LIBRARY.launches
+    y, h = ssd_mixer(x, dt, A, Bm, Cm, return_state=True)
+    assert SSD_LIBRARY.launches == before + 1
+    ry, rh = ssd_mixer(*(t.cpu() for t in (x, dt, A, Bm, Cm)), return_state=True)
+    _ssd_close(y.cpu(), ry)
+    _ssd_close(h.cpu(), rh)
 
 
 def test_mixed_devices_raise(card):
@@ -85,3 +133,8 @@ def test_mixed_devices_raise(card):
         flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    x, dt, A, B, C = _ssd_inputs(card, 6, 1, 8, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        ssd_scan(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="not supported"):
+        ssd_scan(x, dt.double(), A.double(), B, C)

@@ -6,7 +6,8 @@ On the CPU the port's wrappers take their kernels' plain PyTorch versions
 runs its Pallas kernels in interpret mode, as ``tests/test_kernels.py``
 does.  Inputs are drawn with numpy from a seed and handed to both.
 Tolerances are those of ``tests/test_kernels.py``: flash f32 atol 2e-5,
-bf16 3e-2, rtol 1e-2; swiglu f32 1e-4, bf16 5e-2, rtol 2e-2.
+bf16 3e-2, rtol 1e-2; swiglu f32 1e-4, bf16 5e-2, rtol 2e-2; ssd_scan f32
+2e-3·scale, bf16 0.15·scale with scale = max(|ref|, 1).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,13 +17,16 @@ import torch
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.kernels import fused_swiglu as jax_fused_swiglu
 from repro.kernels import gqa_flash_attention as jax_gqa_flash_attention
+from repro.kernels import ssd_mixer as jax_ssd_mixer
+from repro.kernels import ssd_scan as jax_ssd_scan
 from repro.kernels import swiglu_matmul as jax_swiglu_matmul
 from repro.models import layers as jax_layers
+from repro.models import ssm as jax_ssm
 from repro_torch.kernels import (
-    FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu, gqa_flash_attention,
-    swiglu_matmul,
+    FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
+    gqa_flash_attention, ssd_mixer, ssd_scan, swiglu_matmul,
 )
-from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
 from repro_torch.models import layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -126,6 +130,100 @@ class TestSwiGLU:
         np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-4, rtol=1e-3)
 
 
+def _ssd_inputs(seed, BH, S, P, N, dtype="float32"):
+    """x, dt, A, B, C for both packages, drawn as ``tests/test_kernels.py``
+    draws them: dt = softplus(normal), A = -exp(normal / 2), B and C at 0.5."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BH, S, P)).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((BH, S))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(BH) * 0.5).astype(np.float32)
+    B = (rng.standard_normal((BH, S, N)) * 0.5).astype(np.float32)
+    C = (rng.standard_normal((BH, S, N)) * 0.5).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return ([jnp.asarray(x).astype(jd), jnp.asarray(dt), jnp.asarray(A),
+             jnp.asarray(B).astype(jd), jnp.asarray(C).astype(jd)],
+            [torch.from_numpy(x).to(td), torch.from_numpy(dt), torch.from_numpy(A),
+             torch.from_numpy(B).to(td), torch.from_numpy(C).to(td)])
+
+
+def _ssd_tol(ref, dtype):
+    scale = max(float(np.abs(_f32(ref)).max()), 1.0)
+    return (0.15 if dtype == "bfloat16" else 2e-3) * scale
+
+
+class TestSSDScan:
+    @pytest.mark.parametrize("BH,S,P,N,bs", [
+        (2, 128, 32, 64, 32),
+        (3, 256, 64, 128, 64),
+        (2, 128, 64, 32, 128),
+        (1, 64, 16, 16, 16),
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_sweep(self, BH, S, P, N, bs, dtype):
+        jin, tin = _ssd_inputs(11, BH, S, P, N, dtype)
+        ref = jax_ssd_scan(*jin, block_s=bs, interpret=True)
+        out = ssd_scan(*tin)
+        assert out.dtype == DTYPES[dtype][1] and out.shape == (BH, S, P)
+        np.testing.assert_allclose(_f32(out), _f32(ref), rtol=0, atol=_ssd_tol(ref, dtype))
+
+    @pytest.mark.parametrize("S", [100, 37])
+    def test_final_state_of_ragged_sequence(self, S):
+        """The state the scan returns is the reference's ``_ssd_chunked``
+        state after the last step, on a length no chunk divides; y with the
+        state is y without it."""
+        jin, (x, dt, A, B, C) = _ssd_inputs(12, 2, S, 16, 32)
+        y, h = ssd_scan(x, dt, A, B, C, return_state=True)
+        assert h.dtype == torch.float32 and h.shape == (2, 16, 32)
+        torch.testing.assert_close(y, ssd_scan(x, dt, A, B, C), atol=0, rtol=0)
+        # the two sequences as two heads (and two groups) of one batch row
+        jx, jdt, jA, jB, jC = jin
+        ref_y, ref_h = jax_ssm._ssd_chunked(
+            jnp.moveaxis(jx, 0, 1)[None], jnp.moveaxis(jdt, 0, 1)[None], jA,
+            jnp.moveaxis(jB, 0, 1)[None], jnp.moveaxis(jC, 0, 1)[None], chunk=16)
+        np.testing.assert_allclose(_f32(y), _f32(jnp.moveaxis(ref_y[0], 1, 0)), rtol=0,
+                                   atol=_ssd_tol(ref_y, "float32"))
+        np.testing.assert_allclose(_f32(h), _f32(ref_h[0]), rtol=0,
+                                   atol=_ssd_tol(ref_h, "float32"))
+
+    @pytest.mark.parametrize("B,S,H,G,bs", [
+        (2, 64, 4, 1, 16),    # the reference test's mixer case
+        (1, 40, 4, 2, 16),    # groups broadcast to heads; S no multiple of the block
+        (2, 20, 2, 2, 256),   # block larger than S
+    ])
+    def test_mixer_matches_jax_mixer(self, B, S, H, G, bs):
+        P, N = 16, 32
+        rng = np.random.default_rng(13)
+        x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+        dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+        A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+        Bm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        Cm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        ref = jax_ssd_mixer(*map(jnp.asarray, (x, dt, A, Bm, Cm)), block_s=bs, interpret=True)
+        out = ssd_mixer(*map(torch.from_numpy, (x, dt, A, Bm, Cm)))
+        assert out.shape == (B, S, H, P)
+        np.testing.assert_allclose(_f32(out), _f32(ref), rtol=0, atol=_ssd_tol(ref, "float32"))
+        # the model's chunked SSD, on y and on the final state
+        ref_y, ref_h = jax_ssm._ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=bs)
+        y, h = ssd_mixer(*map(torch.from_numpy, (x, dt, A, Bm, Cm)), return_state=True)
+        assert h.shape == (B, H, P, N) and h.dtype == torch.float32
+        np.testing.assert_allclose(_f32(y), _f32(ref_y), rtol=0, atol=_ssd_tol(ref_y, "float32"))
+        np.testing.assert_allclose(_f32(h), _f32(ref_h), rtol=0, atol=_ssd_tol(ref_h, "float32"))
+
+    def test_mixer_matches_model_ssd(self):
+        """Port of ``tests/test_kernels.py::test_mixer_matches_model_ssd``,
+        at that test's tolerance (atol 5e-3, rtol 1e-2)."""
+        B, S, H, P, N, G = 2, 64, 4, 16, 32, 1
+        rng = np.random.default_rng(14)
+        x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+        dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+        A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+        Bm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        Cm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        ref, _ = jax_ssm._ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=16)
+        out = ssd_mixer(*map(torch.from_numpy, (x, dt, A, Bm, Cm)))
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=5e-3, rtol=1e-2)
+
+
 class TestChunkedAttention:
     """The port's plain ``chunked_attention`` (decode attention) against the reference's."""
 
@@ -154,11 +252,13 @@ class TestChunkedAttention:
 class TestWrappers:
     def test_cpu_path_launches_nothing(self):
         """The counters move only where a CUDA kernel is launched."""
-        before = (FLASH_LIBRARY.launches, SWIGLU_LIBRARY.launches)
+        libs = (FLASH_LIBRARY, SWIGLU_LIBRARY, SSD_LIBRARY)
+        before = [lib.launches for lib in libs]
         _, (tq, tk, tv) = _inputs(9, [(2, 16, 8)] * 3)
         flash_attention(tq, tk, tv)
         swiglu_matmul(tq[0], tk[0].T.contiguous(), tv[0].T.contiguous())
-        assert (FLASH_LIBRARY.launches, SWIGLU_LIBRARY.launches) == before
+        ssd_scan(*_ssd_inputs(9, 2, 16, 8, 8)[1], return_state=True)
+        assert [lib.launches for lib in libs] == before
 
     def test_plain_versions_are_the_cpu_route(self):
         _, (tq, tk, tv) = _inputs(10, [(2, 16, 8)] * 3)
@@ -167,6 +267,8 @@ class TestWrappers:
         x, wg, wu = tq[0], tk[0].T.contiguous(), tv[0].T.contiguous()
         torch.testing.assert_close(swiglu_matmul(x, wg, wu), swiglu_ref(x, wg, wu),
                                    atol=0, rtol=0)
+        _, ssd_in = _ssd_inputs(10, 2, 16, 8, 8)
+        torch.testing.assert_close(ssd_scan(*ssd_in), ssd_scan_ref(*ssd_in), atol=0, rtol=0)
 
     def test_other_devices_raise(self):
         """No silent fallback: a tensor that is neither on the CPU nor on a
@@ -177,3 +279,6 @@ class TestWrappers:
         x, w = torch.empty((4, 8), device="meta"), torch.empty((8, 16), device="meta")
         with pytest.raises(ValueError, match="CPU or CUDA"):
             swiglu_matmul(x, w, w)
+        x, dt, B = (torch.empty(s, device="meta") for s in ((2, 16, 8), (2, 16), (2, 16, 8)))
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ssd_scan(x, dt, dt[:, 0], B, B)

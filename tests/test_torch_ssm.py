@@ -1,0 +1,244 @@
+"""The port's mamba2 (SSM) mixer, model and engine against the JAX package's.
+
+Both packages get the same weights: the reference's ``init_params`` tree for
+the reduced ``mamba2-370m``, handed over as numpy through
+``params_from_numpy``.  The port's full and prefill mixers run the SSD scan
+through ``ops.ssd_mixer`` (on the CPU its plain version, the exact
+sequential recurrence), where the reference's run ``_ssd_chunked``; decode
+is the same one-token recurrence in both.
+
+Tolerances:
+* mixer outputs and logits, relative to their largest magnitude: f32 1e-4,
+  bf16 5e-2 (``tests/test_torch_serve.py``'s logit tolerances).  In f32 the
+  two differ in summation order and in the scan's form (sequential against
+  chunked: measured up to 3.5e-7 of the logits' magnitude); in bf16 also in
+  where matmul outputs and the scan's y are rounded to bf16.
+* the cache's f32 state in f32 runs: atol 1e-4 + rtol 1e-4 (summation order).
+  The conv window holds inputs of the mixer's convolution, rounded alike in
+  both: rtol 1e-5 in f32, and in bf16 rtol 2**-7 (one bf16 ulp) for one
+  mixer; in a bf16 model the cache takes the logits' tolerance.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import ssm as jax_ssm
+from repro.models import transformer as jax_T
+from repro.serve import Engine as JaxEngine, ServeConfig as JaxServeConfig
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.kernels import SSD_LIBRARY
+from repro_torch.models import decode_step, forward, init_cache, init_params, ssm
+from repro_torch.serve import Engine, ServeConfig
+
+ARCH = "mamba2-370m"
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+PROMPTS = [[1, 2, 3], [9, 8, 7, 6], [4, 4], [5, 1, 2, 3, 4]]  # test_train_serve_elastic.py:74
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(reference config, port config, reference params) per dtype."""
+    jcfg = jax_get_config(ARCH).reduced()
+    params = jax_T.init_params(jcfg, jax.random.PRNGKey(0))
+    return {"bfloat16": (jcfg, get_config(ARCH).reduced(), params),
+            "float32": (jcfg, get_config(ARCH).reduced(),
+                        jax.tree.map(lambda a: a.astype(jnp.float32), params))}
+
+
+def _port(cfg, params):
+    return params_from_numpy(cfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _assert_rel(out, ref, dtype):
+    out, ref = _f32(out), _f32(ref)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=TOL[dtype] * np.abs(ref).max())
+
+
+def _assert_ssm_cache(tcache, jcache, dtype, one_layer=False):
+    """conv window and f32 state, each in the reference's dtype.  Past the
+    first layer of a bf16 model the layers' inputs already differ as the
+    logits do, so the cache takes the logits' tolerance."""
+    for name in ("conv", "ssd"):
+        t, j = tcache[name], jcache[name]
+        assert t.dtype == getattr(torch, str(j.dtype)), (name, t.dtype, j.dtype)
+        if name == "conv" and (one_layer or dtype == "float32"):
+            rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+            np.testing.assert_allclose(_f32(t), _f32(j), rtol=rtol, atol=1e-6)
+        elif dtype == "float32":
+            np.testing.assert_allclose(_f32(t), _f32(j), rtol=1e-4, atol=1e-4)
+        else:
+            _assert_rel(t, j, dtype)
+
+
+def _layer0(params):
+    """The first layer's mixer parameters from the stacked reference tree."""
+    return jax.tree.map(lambda a: a[0], params["segments"]["ssm"]["p0"]["ssm"])
+
+
+def _both(a, dtype):
+    return jnp.asarray(a).astype(getattr(jnp, dtype)), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+class TestMixer:
+    def test_full_and_prefill(self, weights, dtype):
+        jcfg, cfg, params = weights[dtype]
+        jp = _layer0(params)
+        tp = {k: tensor_from_numpy(np.asarray(v)) for k, v in jp.items()}
+        jx, tx = _both(np.random.default_rng(0).standard_normal((2, 21, cfg.d_model))
+                       .astype(np.float32), dtype)
+        ref_full, _ = jax_ssm.ssm_block(jp, jcfg, jx, mode="full")
+        out_full, _ = ssm.ssm_block(tp, cfg, tx, mode="full")
+        assert out_full.dtype == getattr(torch, dtype)
+        _assert_rel(out_full, ref_full, dtype)
+        ref, jcache = jax_ssm.ssm_block(jp, jcfg, jx, mode="prefill")
+        shapes = ssm.ssm_cache_defs(cfg, 2, getattr(torch, dtype))
+        cache = {n: torch.zeros(s, dtype=d) for n, (s, d) in shapes.items()}
+        out, cache = ssm.ssm_block(tp, cfg, tx, cache, mode="prefill")
+        _assert_rel(out, ref, dtype)
+        _assert_ssm_cache(cache, jcache, dtype, one_layer=True)
+
+    def test_decode(self, weights, dtype):
+        jcfg, cfg, params = weights[dtype]
+        jp = _layer0(params)
+        tp = {k: tensor_from_numpy(np.asarray(v)) for k, v in jp.items()}
+        rng = np.random.default_rng(1)
+        (cs, _), (ss, _) = ssm.ssm_cache_defs(cfg, 3).values()
+        conv = rng.standard_normal(cs).astype(np.float32)
+        state = rng.standard_normal(ss).astype(np.float32)
+        jx, tx = _both(rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32), dtype)
+        jconv, tconv = _both(conv, dtype)
+        ref, jcache = jax_ssm.ssm_block(jp, jcfg, jx, {"conv": jconv, "ssd": jnp.asarray(state)},
+                                        mode="decode")
+        cache = {"conv": tconv, "ssd": torch.from_numpy(state.copy())}
+        out, cache = ssm.ssm_block(tp, cfg, tx, cache, mode="decode")
+        _assert_rel(out, ref, dtype)
+        _assert_ssm_cache(cache, jcache, dtype, one_layer=True)
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+class TestModelParity:
+    def test_forward_train(self, weights, dtype):
+        jcfg, cfg, params = weights[dtype]
+        toks = _tokens(0, (2, 40), cfg.vocab)  # S = 40: no multiple of the reference's chunk (16)
+        ref = jax_T.forward(params, jcfg, {"tokens": jnp.asarray(toks)}, mode="train")
+        out = forward(_port(cfg, params), cfg, {"tokens": torch.from_numpy(toks)}, mode="train")
+        assert out.shape == (2, 40, cfg.vocab) and out.dtype == getattr(torch, dtype)
+        _assert_rel(out, ref, dtype)
+
+    def test_prefill_logits_and_cache(self, weights, dtype):
+        jcfg, cfg, params = weights[dtype]
+        toks = _tokens(1, (2, 13), cfg.vocab)
+        ref, jcache = jax_T.forward(params, jcfg, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                                    cache=jax_T.init_cache(jcfg, 2, 32))
+        out, cache = forward(_port(cfg, params), cfg, {"tokens": torch.from_numpy(toks)},
+                             mode="prefill",
+                             cache=init_cache(cfg, 2, 32, device="cpu", dtype=getattr(torch, dtype)))
+        _assert_rel(out, ref, dtype)
+        _assert_ssm_cache(cache["segments"]["ssm"]["p0"], jcache["segments"]["ssm"]["p0"], dtype)
+        assert int(cache["pos"]) == int(jcache["pos"]) == 13
+
+    def test_decode_step(self, weights, dtype):
+        """One decode tick on the same (reference-prefilled) cache for both."""
+        jcfg, cfg, params = weights[dtype]
+        toks = _tokens(2, (3, 12), cfg.vocab)
+        _, jcache = jax_T.forward(params, jcfg, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                                  cache=jax_T.init_cache(jcfg, 3, 32))
+        cache = {"segments": {"ssm": {"p0": {
+            n: tensor_from_numpy(np.asarray(v))
+            for n, v in jcache["segments"]["ssm"]["p0"].items()}}}}
+        pos = np.array([12, 7, 10])
+        jcache["pos"], cache["pos"] = jnp.asarray(pos, jnp.int32), torch.from_numpy(pos)
+        step = _tokens(3, (3, 1), cfg.vocab)
+        ref, jcache = jax_T.decode_step(params, jcfg, jcache, jnp.asarray(step))
+        out, cache = decode_step(_port(cfg, params), cfg, cache, torch.from_numpy(step))
+        _assert_rel(out, ref, dtype)
+        _assert_ssm_cache(cache["segments"]["ssm"]["p0"], jcache["segments"]["ssm"]["p0"], dtype)
+        np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
+
+
+class TestEngine:
+    def test_tokens_and_cache_equal_jax_engine(self, weights):
+        """f32 weights: the port's engine emits exactly the reference engine's
+        tokens, and its slot pool ends equal to the reference's: the conv
+        window in the dtype the reference's steps leave it in (f32 once a
+        decode tick has run), the state in f32."""
+        jcfg, cfg, params = weights["float32"]
+        jeng = JaxEngine(jcfg, params, JaxServeConfig(max_seq=64, slots=3))
+        jreqs = [jeng.submit(p, max_new=5) for p in PROMPTS]
+        jeng.run_until_done()
+        eng = Engine(cfg, _port(cfg, params), ServeConfig(max_seq=64, slots=3), device="cpu")
+        reqs = [eng.submit(p, max_new=5) for p in PROMPTS]
+        eng.run_until_done()
+        assert [r.out for r in reqs] == [r.out for r in jreqs]
+        _assert_ssm_cache(eng.cache["segments"]["ssm"]["p0"],
+                          jeng.cache["segments"]["ssm"]["p0"], "float32")
+        assert eng.cache["segments"]["ssm"]["p0"]["conv"].dtype == torch.float32
+
+    def test_engine_matches_teacher_forced(self, weights):
+        """bf16 weights: engine tokens == teacher-forced greedy decoding."""
+        _, cfg, params = weights["bfloat16"]
+        model = _port(cfg, params)
+        eng = Engine(cfg, model, ServeConfig(max_seq=64, slots=3), device="cpu")
+        reqs = [eng.submit(p, max_new=5) for p in PROMPTS]
+        eng.run_until_done()
+        for r, p in zip(reqs, PROMPTS):
+            toks, ref = list(p), []
+            for _ in range(5):
+                lg = forward(model, cfg, {"tokens": torch.tensor(toks)[None]}, mode="train")
+                ref.append(int(torch.argmax(lg[0, -1])))
+                toks.append(ref[-1])
+            assert r.out == ref, (r.out, ref)
+
+    def test_cpu_route_launches_nothing(self, weights):
+        _, cfg, params = weights["bfloat16"]
+        before = SSD_LIBRARY.launches
+        eng = Engine(cfg, _port(cfg, params), ServeConfig(max_seq=64, slots=2), device="cpu")
+        eng.submit([1, 2, 3], max_new=3)
+        eng.run_until_done()
+        assert SSD_LIBRARY.launches == before
+
+
+def test_init_params_follows_param_defs():
+    """``init_params`` gives the reference's shapes, dtypes and initializers
+    for the SSM leaves: f32 ``dt_bias``/``A_log``/``Dskip`` in a bf16 model,
+    zeros and ones where ``ParamDef`` says so, ``conv_w`` at 1/conv_width."""
+    cfg = get_config(ARCH).reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ref = jax_T.abstract_params(jax_get_config(ARCH).reduced())
+    port = params_from_numpy(  # every port leaf exists, with the reference's shape and dtype
+        cfg, jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), ref), device="cpu")
+    for (name, p), (_, q) in zip(model.named_parameters(), port.named_parameters()):
+        assert p.dtype == q.dtype and p.shape == q.shape and not p.requires_grad, name
+        leaf = name.rsplit(".", 1)[-1]
+        assert p.dtype == (torch.float32 if leaf in ("dt_bias", "A_log", "Dskip")
+                           else torch.bfloat16), name
+        if leaf in ("scale", "Dskip", "norm"):
+            assert bool((p == 1).all()), name
+        elif leaf in ("dt_bias", "A_log", "conv_b"):
+            assert bool((p == 0).all()), name
+        else:
+            want = {"embed": 0.02, "conv_w": 1 / cfg.ssm.conv_width}.get(leaf, p.shape[-2] ** -0.5)
+            assert abs(float(p.float().std()) / want - 1) < 0.15, name
+
+
+def test_cache_follows_reference_defs():
+    cfg = get_config(ARCH).reduced()
+    cache = init_cache(cfg, 3, 32, device="cpu")
+    ref = jax_T.init_cache(jax_get_config(ARCH).reduced(), 3, 32)
+    for n, j in ref["segments"]["ssm"]["p0"].items():
+        t = cache["segments"]["ssm"]["p0"][n]
+        assert tuple(t.shape) == j.shape and t.dtype == getattr(torch, str(j.dtype)), n
+        assert not bool(t.any())
