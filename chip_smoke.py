@@ -10,20 +10,24 @@ Phases, each of which exits non-zero (and prints no result) on failure:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every kernel of the port from ``src/repro_torch/csrc``
              (one ``nvcc`` per source, all started together).
-3. kernels — hold each kernel against its plain PyTorch version on the card
-             at the CPU tests' shapes and at the serving paths' shapes, and
-             time kernel, plain version and a PyTorch library call that
-             computes the same function where there is one (a yardstick the
-             port never calls).
+3. kernels — hold every variant of each kernel against its plain PyTorch
+             version on the card, at the CPU tests' shapes (each case going
+             through the variant its wrapper's selector picks; every variant
+             must be reached) and at the serving paths' shapes, and time
+             variant, plain version and one PyTorch call that computes the
+             same function (a yardstick the port never calls: SDPA on 4-D
+             views under a forced, named fused backend; cuBLAS for SwiGLU).
 4. serve   — two serving runs, each with the same traffic (16 requests):
              a full-width TinyLlama-1.1B ``Engine`` (bf16, random weights
              from a seeded generator, 22 layers; flash attention and fused
              SwiGLU), then a full-width Mamba2-370M one (48 layers; the SSD
-             scan).  Launch counters, zeroed just before each run, prove
-             that run went through its kernels and no other; two requests
-             of each are checked against a teacher-forced forward, and one
-             prefill and one decode tick are profiled.
-5. report  — one JSON line of per-kernel numbers, then the device line.
+             scan).  Launch counters, per kernel variant and zeroed just
+             before each run, prove that run went through its kernels, each
+             through the variant its selector picks for the step's shapes
+             (TinyLlama: tensor-core variants only), and no other; two
+             requests of each are checked against a teacher-forced forward,
+             and one prefill and one decode tick are profiled.
+5. report  — one JSON line of numbers per kernel variant, then the device line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -188,9 +192,40 @@ def within(a, b, tol) -> bool:
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
+def launched(lib, fn):
+    """Call ``fn``; return its result and the one variant of ``lib`` whose
+    count it raised."""
+    before = dict(lib.counts)
+    out = fn()
+    moved = [v for v in lib.counts if lib.counts[v] != before[v]]
+    if len(moved) != 1 or lib.counts[moved[0]] != before[moved[0]] + 1:
+        raise AssertionError(f"{lib.name}: one launch expected, counts {before} -> {lib.counts}")
+    return out, moved[0]
+
+
+def sdpa_call(torch, backend, q, k, v):
+    """PyTorch's fused attention on 4-D views ``[1, BH, S, D]`` of the
+    kernel's ``[BH, S, D]`` operands, forced onto ``backend``: the call fails
+    rather than silently taking another backend (a 3-D call takes the math
+    backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    q4, k4, v4 = (t.view(1, *t.shape) for t in (q, k, v))
+
+    def call():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    return call
+
+
 def check_kernels(torch, timer):
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ssd_scan, swiglu_matmul
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels import (
+        FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_scan, swiglu_matmul,
+    )
     from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -201,65 +236,92 @@ def check_kernels(torch, timer):
     rows = {}
     f32, bf16 = torch.float32, torch.bfloat16
     # (BH, Sq, Sk, D): the CPU tests' sweep, ragged ends, Sq != Sk both ways,
-    # then the serving path's prefill shapes (32 heads, head dim 64)
+    # a head dim that is not a multiple of 16 (bf16 on the CUDA cores); f32
+    # goes to the CUDA-core kernel, bf16 with D % 16 == 0 to the tensor cores
     flash_cases = [(2, 128, 128, 64), (3, 256, 256, 128), (1, 64, 64, 32), (2, 96, 96, 64),
-                   (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64)]
+                   (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40)]
+    hit = {FLASH_LIBRARY.name: set(), SWIGLU_LIBRARY.name: set()}
     for (BH, Sq, Sk, D) in flash_cases:
         for dtype in (f32, bf16):
             for causal in (True, False):
                 q, k, v = (randn(BH, s, D, dtype=dtype) for s in (Sq, Sk, Sk))
-                o = flash_attention(q, k, v, causal=causal)
+                o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
+                hit[FLASH_LIBRARY.name].add(variant)
                 r = flash_attention_ref(q, k, v, causal=causal)
                 tol = FLASH_TOL[str(dtype)]
                 if not within(o, r, tol):
-                    raise AssertionError(f"flash_attention {(BH, Sq, Sk, D)} {dtype} causal={causal}: "
-                                         f"max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"flash_attention: {len(flash_cases) * 4} sweep cases within tolerance")
-    for S in (128, 1024):
-        BH, D, dtype = 32, 64, bf16
+                    raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D)} {dtype} "
+                                         f"causal={causal}: max err {max_err(o, r):.3g} > tol {tol}")
+    log(f"flash_attention: {len(flash_cases) * 4} sweep cases within tolerance "
+        f"(variants {sorted(hit[FLASH_LIBRARY.name])})")
+    # the serving path's prefill shapes (32 heads, head dim 64): the bf16
+    # tensor-core kernel, and the CUDA-core kernel on the same shapes in f32
+    # (its route); the yardstick is SDPA on 4-D views, forced onto a named
+    # fused backend (flash takes no f32: the f32 row uses memory-efficient)
+    for S, dtype in ((128, bf16), (1024, bf16), (1024, f32)):
+        BH, D = 32, 64
         q, k, v = (randn(BH, S, D, dtype=dtype) for _ in range(3))
-        o = flash_attention(q, k, v, causal=True)
+        o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=True))
         r = flash_attention_ref(q, k, v, causal=True)
         tol = FLASH_TOL[str(dtype)]
         if not within(o, r, tol):
-            raise AssertionError(f"flash_attention path S={S}: max err {max_err(o, r):.3g} > {tol}")
-        nbytes, ops = flash_work(BH, S, S, D, True, 2)
+            raise AssertionError(f"flash_attention[{variant}] path S={S} {dtype}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        backend, lib_name = ((SDPBackend.FLASH_ATTENTION, "sdpa[flash]") if dtype == bf16 else
+                             (SDPBackend.EFFICIENT_ATTENTION, "sdpa[efficient]"))
+        nbytes, ops = flash_work(BH, S, S, D, True, q.element_size())
         b_ms, b_by = bound(nbytes, ops, dtype)
-        rows[("flash_attention", S)] = dict(
-            shape=f"BH={BH} S={S} D={D} bf16 causal", max_abs_err=max_err(o, r), tol=list(tol),
-            ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+        rows[("flash_attention", variant, S)] = dict(
+            shape=f"BH={BH} S={S} D={D} {str(dtype)[6:]} causal", max_abs_err=max_err(o, r),
+            tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
             plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+            library=lib_name, library_ms=timer.ms(sdpa_call(torch, backend, q, k, v)),
             bound_ms=b_ms, bound_by=b_by)
 
-    swiglu_cases = [(64, 128, 256), (128, 256, 128), (32, 64, 64), (5, 100, 70), (24, 64, 96)]
+    # (M, D, F): the CPU tests' sweep, then a K tail (D = 2056) with F not a
+    # multiple of the column tiles at both ends of the bf16 row range; bf16
+    # goes to the decode kernel below 64 rows and to wgmma from 64, f32 and
+    # unaligned bf16 (5, 100, 70) to the CUDA cores
+    swiglu_cases = [(64, 128, 256), (128, 256, 128), (32, 64, 64), (5, 100, 70), (24, 64, 96),
+                    (1, 2056, 200), (79, 2056, 200)]
     for (M, D, Fd) in swiglu_cases:
         for dtype in (f32, bf16):
             x = randn(M, D, dtype=dtype)
             wg = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
             wu = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
-            o, r = swiglu_matmul(x, wg, wu), swiglu_ref(x, wg, wu)
+            o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
+            hit[SWIGLU_LIBRARY.name].add(variant)
+            r = swiglu_ref(x, wg, wu)
             tol = SWIGLU_TOL[str(dtype)]
             if not within(o, r, tol):
-                raise AssertionError(f"swiglu_matmul {(M, D, Fd)} {dtype}: "
+                raise AssertionError(f"swiglu_matmul[{variant}] {(M, D, Fd)} {dtype}: "
                                      f"max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases within tolerance")
-    for M in (8, 512):
-        D, Fd, dtype = 2048, 5632, bf16
+    log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases within tolerance "
+        f"(variants {sorted(hit[SWIGLU_LIBRARY.name])})")
+    for lib in (FLASH_LIBRARY, SWIGLU_LIBRARY):
+        if hit[lib.name] != set(lib.variants):
+            raise AssertionError(f"{lib.name}: the sweep reached {sorted(hit[lib.name])}, "
+                                 f"not every variant of {sorted(lib.variants)}")
+    # the serving path's shapes: decode (8 slots) and prefill rows, bf16;
+    # the CUDA-core kernel on the prefill shape in f32 (its route)
+    for M, dtype in ((8, bf16), (512, bf16), (1024, bf16), (512, f32)):
+        D, Fd = 2048, 5632
         x = randn(M, D, dtype=dtype)
         wg = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
         wu = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
-        o, r = swiglu_matmul(x, wg, wu), swiglu_ref(x, wg, wu)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
+        r = swiglu_ref(x, wg, wu)
         tol = SWIGLU_TOL[str(dtype)]
         if not within(o, r, tol):
-            raise AssertionError(f"swiglu_matmul path M={M}: max err {max_err(o, r):.3g} > {tol}")
-        nbytes, ops = swiglu_work(M, D, Fd, 2)
+            raise AssertionError(f"swiglu_matmul[{variant}] path M={M} {dtype}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        nbytes, ops = swiglu_work(M, D, Fd, x.element_size())
         b_ms, b_by = bound(nbytes, ops, dtype)
-        rows[("swiglu_matmul", M)] = dict(
-            shape=f"M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
-            ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
+        rows[("swiglu_matmul", variant, M)] = dict(
+            shape=f"M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
+            tol=list(tol), ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
             plain_ms=timer.ms(lambda: swiglu_ref(x, wg, wu)),
-            library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
+            library="F.silu(x@wg)*(x@wu)", library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
             bound_ms=b_ms, bound_by=b_by)
 
     def ssd_inputs(BH, S, P, N, dtype):
@@ -304,36 +366,48 @@ def check_kernels(torch, timer):
         args = ssd_inputs(BH, S, P, N, dtype)
         err, tol = ssd_check(f"path S={S}", args, dtype)
         b_ms, b_by = bound(*ssd_work(BH, S, P, N, 2), dtype)
-        rows[("ssd_scan", S)] = dict(
+        rows[("ssd_scan", "cuda_core", S)] = dict(
             shape=f"BH={BH} S={S} P={P} N={N} bf16", max_abs_err=err, tol=list(tol),
             ms=timer.ms(lambda: ssd_scan(*args, return_state=True)),
             plain_ms=timer.ms(lambda: ssd_scan_ref(*args, return_state=True), reps=5),
-            library_ms=None,  # no single PyTorch call computes an SSD scan
+            library=None, library_ms=None,  # no single PyTorch call computes an SSD scan
             bound_ms=b_ms, bound_by=b_by)
     log(f"ssd_scan: largest error over its tolerance, element by element, in the sweep and at "
         f"the path shapes: y {worst['y']:.3g}, final state {worst['state']:.3g}")
 
-    log(f"{'kernel':16} {'shape':30} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
-        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by")
-    for (name, _), r in rows.items():
+    log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
+        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
+    for (name, variant, _), r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"{name:16} {r['shape']:30} {r['max_abs_err']:9.3g} "
-            f"{'(' + ', '.join(f'{t:.3g}' for t in r['tol']) + ')':>14} {r['ms']:9.4f} {r['plain_ms']:9.4f} "
-            f"{lib:>10} {r['bound_ms']:9.4f} {r['bound_by']}")
+        log(f"{name + '[' + variant + ']':26} {r['shape']:32} {r['max_abs_err']:9.3g} "
+            f"{'(' + ', '.join(f'{t:.3g}' for t in r['tol']) + ')':>14} {r['ms']:9.4f} "
+            f"{r['plain_ms']:9.4f} {lib:>10} {r['bound_ms']:9.4f} {r['bound_by']:11} {r['library']}")
     return rows
 
 
 # --------------------------------------------------------------------------- #
 # phase 4: serving
 # --------------------------------------------------------------------------- #
-def expected_launches(cfg, n_prefill: int, n_decode: int) -> dict:
-    """Launches of each kernel on a serving run: one per layer and step of
-    the kernels the model's layers call, none of the others."""
+def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dict:
+    """Launches of each kernel variant on a serving run: one per layer and
+    step of the kernels the model's layers call, through the variant each
+    wrapper's selector picks for that step's shapes (bf16; the MLP's rows
+    padded as ``ops.fused_swiglu`` pads them), and none of the others."""
+    from repro_torch.kernels import LIBRARIES, select_flash_variant, select_swiglu_variant
+
     L = cfg.n_layers
+    expect = {lib.name: {v: 0 for v in lib.variants} for lib in LIBRARIES}
     if cfg.family == "ssm":  # the SSD scan in every prefill mixer; decode is plain
-        return {"flash_attention": 0, "swiglu_matmul": 0, "ssd_scan": L * n_prefill}
-    return {"flash_attention": L * n_prefill, "swiglu_matmul": L * (n_prefill + n_decode),
-            "ssd_scan": 0}
+        expect["ssd_scan"]["cuda_core"] = L * len(prompt_lens)
+        return expect
+    bf16 = torch.bfloat16
+    for n in prompt_lens:
+        expect["flash_attention"][select_flash_variant(cfg.head_dim, bf16)] += L
+        m = -(-n // min(256, n)) * min(256, n)
+        expect["swiglu_matmul"][select_swiglu_variant(m, cfg.d_model, cfg.d_ff, bf16)] += L
+    expect["swiglu_matmul"][select_swiglu_variant(slots, cfg.d_model, cfg.d_ff, bf16)] += (
+        L * n_decode)
+    return expect
 
 
 def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
@@ -404,12 +478,12 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
     engine._prefill1, engine._decode = timed_prefill, timed_decode
     torch.cuda.reset_peak_memory_stats()
     for lib in LIBRARIES:
-        lib.launches = 0
+        lib.reset()
     t0 = time.perf_counter()
     engine.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {lib.name: lib.launches for lib in LIBRARIES}
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
 
     for r in reqs:
         if not (r.done and len(r.out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.out)):
@@ -420,10 +494,15 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
         f"{len(prefill_ms)} prefills mean {np.mean(prefill_ms):.2f} ms, "
         f"{len(decode_ms)} decode ticks mean {np.mean(decode_ms):.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    expect = expected_launches(cfg, len(prefill_ms), len(decode_ms))
+    if len(prefill_ms) != len(reqs):
+        raise AssertionError(f"{len(prefill_ms)} prefills for {len(reqs)} requests")
+    expect = expected_launches(torch, cfg, [len(p) for p in prompts], len(decode_ms), SLOTS)
     log(f"launches on the serving path: {launches} (expected {expect})")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    if cfg.family != "ssm" and (launches["flash_attention"]["cuda_core"]
+                                or launches["swiglu_matmul"]["cuda_core"]):
+        raise AssertionError("a dense serving launch went through a CUDA-core kernel")
 
     profile_steps(torch, engine, prompts[int(np.argmax(lens))])
 
@@ -548,27 +627,39 @@ def main() -> None:
         launches.update(flash_attention=run["flash_attention"], swiglu_matmul=run["swiglu_matmul"])
     torch.cuda.empty_cache()
     with phase("serve mamba2-370m"):
-        launches["ssd_scan"] = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)["ssd_scan"]
+        run = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
+        launches["ssd_scan"] = run["ssd_scan"]
 
     with phase("report"):
-        picks = {"flash_attention": (("flash_attention", 1024), "src/repro/kernels/flash_attention.py:81"),
-                 "swiglu_matmul": (("swiglu_matmul", 8), "src/repro/kernels/swiglu_matmul.py:50"),
-                 "ssd_scan": (("ssd_scan", 1024), "src/repro/kernels/ssd_scan.py:75")}
+        # each variant's row: the path shape it serves (f32 for the CUDA-core
+        # kernels of flash and swiglu, whose route that is)
+        picks = {("flash_attention", "mma"): 1024, ("flash_attention", "cuda_core"): 1024,
+                 ("swiglu_matmul", "wgmma"): 512, ("swiglu_matmul", "decode"): 8,
+                 ("swiglu_matmul", "cuda_core"): 512, ("ssd_scan", "cuda_core"): 1024}
+        replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:81",
+                    "swiglu_matmul": "src/repro/kernels/swiglu_matmul.py:50",
+                    "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
         kernels = []
         for lib in LIBRARIES:
-            key, replaces = picks[lib.name]
-            r = rows[key]
-            kernels.append({
-                "name": lib.name, "route": "cuda",
-                "source": os.path.relpath(lib.source, ROOT), "replaces": replaces,
-                "launches": launches[lib.name], "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-            })
+            for variant in lib.variants:
+                r = rows[(lib.name, variant, picks[(lib.name, variant)])]
+                kernels.append({
+                    "name": lib.name if len(lib.variants) == 1 else f"{lib.name}[{variant}]",
+                    "route": "cuda", "source": os.path.relpath(lib.source, ROOT),
+                    "replaces": replaces[lib.name], "launches": launches[lib.name][variant],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
+                })
         if any(not math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError("a kernel number is not finite")
-        if any(k["launches"] <= 0 for k in kernels):
-            raise AssertionError(f"a kernel was not launched on its serving path: {launches}")
+        # the CUDA-core kernels of flash and swiglu serve f32 (and unaligned
+        # bf16), which no serving run here uses: every other variant must
+        # have been launched on its path
+        idle = [k["name"] for k in kernels if k["launches"] <= 0
+                and not k["name"].endswith("[cuda_core]")]
+        if idle:
+            raise AssertionError(f"not launched on their serving paths: {idle} ({launches})")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

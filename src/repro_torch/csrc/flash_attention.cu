@@ -4,30 +4,52 @@
 // (body `_kernel`): softmax(q k^T * scale) v over [BH, S, D] with an online
 // (streaming) softmax, an optional causal mask offset by Sk - Sq, the finite
 // -1e30 mask value, f32 running max / denominator / accumulator, and the
-// output cast to the input type.
+// output cast to the input type.  Two kernels, one C entry point each; the
+// wrapper (kernels/flash_attention.py::select_variant) picks one.
 //
 // What bounds it on this card: at the serving path's prefill shapes (32 heads,
 // S up to 1024, D = 64) the work is ~4*S*S*D/2 operations per head against
 // 4*S*D elements moved, i.e. hundreds of operations per byte: it is bound by
-// operations.  This first kernel computes in f32 on the CUDA cores (no tensor
-// cores), so it runs far from the bf16 tensor-core bound; a wgmma/TMA design
-// is later work.
+// operations, so the bf16 path belongs on the tensor cores.  Both kernels
+// turn the TPU kernel's sequential KV grid axis (scratch carried across grid
+// steps) into a loop inside one CTA per (bh, q tile), skip KV tiles wholly
+// above the causal diagonal (every key in them is masked for every row of
+// the tile, so they add exactly zero; the TPU kernel's docstring allows it)
+// and mask ragged sequence ends themselves.
 //
-// What the design does about it: the TPU kernel's sequential KV grid axis
-// (scratch carried across grid steps) becomes a loop inside one thread block
-// per (bh, 64-row q tile).  Q stays in shared memory for the whole loop; each
-// 64-key K/V tile is staged once in shared memory and reused by all 64 query
-// rows, so device memory is read ~once per q tile.  Scores and P·V are
-// register-blocked (each of the 256 threads owns a 4 x 4 score block and a
-// 4 x D/16 accumulator block) so every shared-memory load feeds several FMAs.
-// KV tiles lying wholly above the causal diagonal are skipped (the TPU
-// kernel's docstring allows it): every key in them is masked for every row of
-// the block, so they add exactly zero.  Sequence ends that are not a multiple
-// of the tile are masked inside the kernel.
+// 1. `flash_mma_kernel` (entry flash_attention_mma_fwd): bf16, D a multiple
+//    of 16 up to 128 (padded to 32, 64 or 128 in shared memory).  FA2's
+//    layout: 128-row q tiles (8 warps of 16 rows; 32 heads x 8 tiles = 256
+//    CTAs at S = 1024), Q·Kᵀ and P·V on mma.sync m16n8k16 with operands from
+//    swizzled shared memory by ldmatrix (V through its transposing form), K/V
+//    tiles of 64 keys double-buffered by cp.async.  The scores stay in
+//    registers: the online softmax runs on them in f32 (scale·log2(e) folded
+//    into one multiply, exp2f), and P, rounded to bf16, goes from the score
+//    registers into P·V's A fragments without touching shared memory.  Only
+//    tiles that reach past the diagonal or Sk are masked.  Causal q tiles do
+//    unequal work, so the grid launches the last (longest) q tiles first.
+//    Why mma.sync and not wgmma (FA3's layout): this kernel comes within
+//    10% of PyTorch's own flash backend (FA2) at S = 1024, and it takes
+//    under a tenth of a TinyLlama prefill's device time in a step whose wall
+//    the host sets (H100, chip_smoke.py; PERF.md): a faster attention would
+//    not show end to end, and a 128-row q tile runs only 8.5 KV tiles on
+//    average at the path's S <= 1024, short for a producer-consumer
+//    pipeline to amortise.
+// 2. `flash_fwd_kernel` (entry flash_attention_fwd): f32, and bf16 with other
+//    head dims.  CUDA cores, f32: one block per (bh, 64-row q tile) holds Q in
+//    shared memory and stages each 64-key K/V tile there once; scores and
+//    P·V are register-blocked (each of the 256 threads owns a 4 x 4 score
+//    block and a 4 x D/16 accumulator block).
+//
+// -Xptxas -v (sm_90a, nvcc 12.8), no spills: flash_mma_kernel 103 / 128 / 209
+// registers for head dims padded to 32 / 64 / 128, with 24 / 48 / 96 KB of
+// dynamic shared memory; flash_fwd_kernel 64 to 108 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -231,6 +253,213 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int bh, int
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------------------- //
+// bf16 on the tensor cores: mma.sync m16n8k16, ldmatrix, cp.async (FA2's layout)
+// ------------------------------------------------------------------------- //
+namespace tc {
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;   // query rows per CTA: 8 warps of 16
+constexpr int BKV = 64;   // keys per K/V tile
+constexpr int NTH = 256;
+
+template <int DP>  // head dim padded to 32, 64 or 128
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ * DP + 4 * BKV * DP) * 2;  // q, then k and v double-buffered
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NTH) flash_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int Sq, int Sk, int D, float scale_log2, int causal) {
+  constexpr int CPR = DP / 8;   // 16-byte chunks a row
+  constexpr int KT = DP / 16;   // k16 steps of Q·Kᵀ over the head dim
+  constexpr int NJ = BKV / 8;   // n8 score tiles of a KV tile
+  constexpr int ND = DP / 8;    // n8 output tiles
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + BQ * DP;        // [2][BKV * DP]
+  bf16* vs = ks + 2 * BKV * DP;   // [2][BKV * DP]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest (last) q tiles launch first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* qg = q + (long long)bh * Sq * D;
+  const bf16* kg = k + (long long)bh * Sk * D;
+  const bf16* vg = v + (long long)bh * Sk * D;
+  const int off = Sk - Sq;  // aligns the diagonals when Sq != Sk
+
+  // rows [row0, row0 + n) of a [*, D] matrix into a swizzled [n, DP] tile;
+  // rows past `valid` and columns past D are zero-filled
+  auto load_rows = [&](bf16* dst, const bf16* src, int row0, int n, int valid) {
+    for (int i = tid; i < n * CPR; i += NTH) {
+      const int r = i / CPR, c = i % CPR, row = row0 + r;
+      const bool ok = row < valid && c * 8 < D;
+      hopper::cp_async16(dst + hopper::swz<CPR>(r, c), ok ? src + (long long)row * D + c * 8 : src,
+                         ok);
+    }
+  };
+
+  int n_tiles = (Sk + BKV - 1) / BKV;
+  if (causal && off >= 0) {
+    // keys past the block's last row (shifted by off) are masked for every row
+    const int last_row = min(q0 + BQ, Sq) - 1;
+    n_tiles = min(n_tiles, (last_row + off) / BKV + 1);
+  }
+
+  load_rows(qs, qg, q0, BQ, Sq);
+  load_rows(ks, kg, 0, BKV, Sk);
+  load_rows(vs, vg, 0, BKV, Sk);
+  hopper::cp_async_commit();
+
+  uint32_t qf[KT][4];
+  float oacc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
+  // this thread's two rows: r_lo and r_lo + 8; running max (log2 units) and
+  // the thread's share of the running denominator
+  const int r_lo = q0 + warp * 16 + (lane >> 2);
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_rows(ks + (buf ^ 1) * BKV * DP, kg, (t + 1) * BKV, BKV, Sk);
+      load_rows(vs + (buf ^ 1) * BKV * DP, vg, (t + 1) * BKV, BKV, Sk);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // tile t (and q) have landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+        hopper::ldmatrix_x4(qf[kt], qs + hopper::swz<CPR>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                          kt * 2 + (lane >> 4)));
+    }
+    const bf16* kb = ks + buf * BKV * DP;
+    const bf16* vb = vs + buf * BKV * DP;
+
+    // S = Q Kᵀ (f32)
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t b[4];
+        hopper::ldmatrix_x4(b, kb + hopper::swz<CPR>(jp * 16 + (lane & 7) + ((lane >> 4) & 1) * 8,
+                                                     kt * 2 + ((lane >> 3) & 1)));
+        hopper::mma_bf16(s[2 * jp], qf[kt], b[0], b[1]);
+        hopper::mma_bf16(s[2 * jp + 1], qf[kt], b[2], b[3]);
+      }
+
+    // scale into log2 units; mask only tiles that reach past the diagonal or Sk
+    const int k0 = t * BKV;
+    const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = r_lo + (e >> 1) * 8;
+          if (key >= Sk) x = -INFINITY;                  // not a key at all
+          else if (causal && key > row + off) x = NEG_INF;  // the reference's finite mask
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax, f32: a row's four owners are lanes 4i .. 4i + 3
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = mrow[h];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[h] = exp2f(mrow[h] - mx);
+      mrow[h] = mx;
+      lrow[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mrow[e >> 1]);
+        lrow[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[d][e] *= alpha[e >> 1];
+
+    // O += P V: P (rounded to bf16) goes from the score registers straight
+    // into mma's A fragments
+#pragma unroll
+    for (int kp = 0; kp < BKV / 16; ++kp) {
+      const uint32_t a[4] = {hopper::pack_bf16(s[2 * kp][0], s[2 * kp][1]),
+                             hopper::pack_bf16(s[2 * kp][2], s[2 * kp][3]),
+                             hopper::pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]),
+                             hopper::pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t b[4];
+        hopper::ldmatrix_x4_trans(b, vb + hopper::swz<CPR>(kp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                           dp * 2 + (lane >> 4)));
+        hopper::mma_bf16(oacc[2 * dp], a, b[0], b[1]);
+        hopper::mma_bf16(oacc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
+  }
+  bf16* og = o + (long long)bh * Sq * D;
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + h * 8, col = d * 8 + (lane & 3) * 2;
+      if (row < Sq && col < D) {  // D is a multiple of 16, so col + 1 < D too
+        const float inv = 1.f / lrow[h];
+        *reinterpret_cast<__nv_bfloat162*>(og + (long long)row * D + col) =
+            __floats2bfloat162_rn(oacc[d][2 * h] * inv, oacc[d][2 * h + 1] * inv);
+      }
+    }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
+           float scale, int causal, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (sq + BQ - 1) / BQ);
+  flash_mma_kernel<DP><<<grid, NTH, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), sq, sk, d, scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
+             float scale, int causal, cudaStream_t stream) {
+  if (d <= 32) return launch<32>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
+  if (d <= 64) return launch<64>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
+  return launch<128>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
+}
+}  // namespace tc
+
 }  // namespace
 
 // q, o: [bh, sq, d]; k, v: [bh, sk, d]; contiguous; dtype 0 = f32, 1 = bf16.
@@ -243,6 +472,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (dtype == 0) return dispatch_d<float>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core variant: same operands, bf16 only, d a multiple of 16
+// up to 128.
+extern "C" int flash_attention_mma_fwd(const void* q, const void* k, const void* v, void* o,
+                                       int bh, int sq, int sk, int d, float scale, int causal,
+                                       void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 || d % 16) return (int)cudaErrorInvalidValue;
+  return tc::dispatch(q, k, v, o, bh, sq, sk, d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,7 +1,9 @@
 from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, ssd_mixer
 from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_attention
+from repro_torch.kernels.flash_attention import select_variant as select_flash_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
 from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_matmul
+from repro_torch.kernels.swiglu_matmul import select_variant as select_swiglu_variant
 from repro_torch.kernels import ref
 
 # every kernel library of the port, in the order chip_smoke.py reports them
@@ -14,6 +16,8 @@ __all__ = [
     "flash_attention",
     "ssd_scan",
     "swiglu_matmul",
+    "select_flash_variant",
+    "select_swiglu_variant",
     "ref",
     "FLASH_LIBRARY",
     "SSD_LIBRARY",

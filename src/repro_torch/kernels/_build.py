@@ -1,11 +1,12 @@
 """Build the port's CUDA sources and bind them with ``ctypes``.
 
-Each ``repro_torch/csrc/<name>.cu`` exposes a plain C entry point: pointers
-and the stream as ``void*``, sizes as ``int``, returning
-``cudaGetLastError()`` after its launch.  On first use it is compiled by
-``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/`` at the root of
-the checkout (listed in ``.gitignore``).  The library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
+Each ``repro_torch/csrc/<name>.cu`` exposes one plain C entry point per
+kernel variant: pointers and the stream as ``void*``, sizes as ``int``,
+returning ``cudaGetLastError()`` after its launch.  On first use it is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/`` at
+the root of the checkout (listed in ``.gitignore``).  The library's file
+name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
 never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at once,
 and waits for every one of them.
 
@@ -22,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -47,25 +48,39 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """One ``csrc/<name>.cu``: its build, its C entry point and a launch count.
+    """One ``csrc/<name>.cu``: its build, its C entry points and their
+    launch counts.
 
-    ``launches`` is a plain integer that :meth:`launch` raises by one each
-    time the kernel is launched, and nowhere else: a run reads it to show
-    that its path went through the kernel.
+    ``variants`` maps each variant's name to its C entry point's symbol and
+    argtypes.
+    ``counts[variant]`` is a plain integer that :meth:`launch` raises by one
+    each time that variant's kernel is launched, and nowhere else: a run
+    reads the counts to show that its path went through the kernels.
+    ``launches`` is their total.
     """
 
-    def __init__(self, name: str, argtypes: Sequence[type]):
+    def __init__(self, name: str, variants: Dict[str, Tuple[str, Sequence[type]]]):
         self.name = name
         self.source = CSRC / f"{name}.cu"
-        self.argtypes = list(argtypes)
-        self.launches = 0
-        self._fn = None
+        self.variants = dict(variants)
+        self.counts = {v: 0 for v in variants}
+        self._fns: Dict[str, object] = {}
         self._error_string = None
 
     @property
+    def launches(self) -> int:
+        return sum(self.counts.values())
+
+    def reset(self) -> None:
+        """Set every variant's count to 0."""
+        self.counts = {v: 0 for v in self.variants}
+
+    @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     @property
     def log_path(self) -> Path:
@@ -74,23 +89,28 @@ class KernelLibrary:
     def _load(self):
         build_all([self])
         lib = ctypes.CDLL(str(self.path))
-        fn = getattr(lib, f"{self.name}_fwd")
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
+        fns = {}
+        for variant, (entry, argtypes) in self.variants.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[variant] = fn
         err = getattr(lib, f"{self.name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fn, self._error_string = fn, err
+        self._fns, self._error_string = fns, err
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise if the launch reported an error."""
-        if self._fn is None:
+    def launch(self, variant: str, *args) -> None:
+        """Call ``variant``'s C entry point; raise if the launch reported an
+        error."""
+        if not self._fns:
             self._load()
-        code = self._fn(*args)
+        code = self._fns[variant](*args)
         if code != 0:
             msg = self._error_string(code).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {code} ({msg})")
-        self.launches += 1
+            raise RuntimeError(
+                f"{self.name} ({variant}) kernel launch failed: CUDA error {code} ({msg})")
+        self.counts[variant] += 1
 
 
 def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, float]:
@@ -129,6 +149,14 @@ def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, float]:
 def stream_handle(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_aligned(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless every tensor starts on a 16-byte boundary,
+    as TMA and 16-byte ``cp.async`` copies need."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start on a 16-byte boundary")
 
 
 def check_cuda_operands(name: str, tensors: Sequence[torch.Tensor],

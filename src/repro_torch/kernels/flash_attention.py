@@ -5,12 +5,18 @@ Port of ``repro/kernels/flash_attention.py`` (a Pallas TPU kernel).  The
 Pallas grid's sequential KV axis, with the online-softmax state carried in
 VMEM scratch, becomes a loop over shared-memory K/V tiles inside one CUDA
 thread block per (batch·head, 64-row query tile); the design note is at the
-top of the CUDA source.  The kernel masks ragged sequence ends itself, so it
-takes any ``Sq``/``Sk``; the reference's block divisibility is a property of
-the TPU grid and is kept by the padding in ``ops.gqa_flash_attention``.
+top of the CUDA source.  The kernels mask ragged sequence ends themselves,
+so they take any ``Sq``/``Sk``; the reference's block divisibility is a
+property of the TPU grid and is kept by the padding in
+``ops.gqa_flash_attention``.
 
-CPU tensors take the plain version, :func:`ref.flash_attention_ref`; CUDA
-tensors launch the kernel or raise.
+The source holds two kernels, each with its own entry point and launch
+count (``LIBRARY.counts``); :func:`select_variant` picks one from the head
+dim and the dtype alone: ``mma`` (bf16, head dim a multiple of 16 up to
+128: tensor cores) or ``cuda_core`` (f32, and bf16 with other head dims).
+Nothing catches a failed build or launch and tries another.  CPU tensors
+take the plain version, :func:`ref.flash_attention_ref`; CUDA tensors launch
+a kernel or raise.
 """
 from __future__ import annotations
 
@@ -19,18 +25,28 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, check_cuda_operands, stream_handle
+from repro_torch.kernels._build import (
+    KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
+)
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "LIBRARY"]
+__all__ = ["flash_attention", "select_variant", "LIBRARY"]
 
 MAX_HEAD_DIM = 128
-_P, _I = ctypes.c_void_p, ctypes.c_int
-LIBRARY = KernelLibrary(
-    "flash_attention",
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = KernelLibrary("flash_attention", {
+    # q, k, v, o, bh, sq, sk, d, scale, causal, stream
+    "mma": ("flash_attention_mma_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
     # q, k, v, o, bh, sq, sk, d, scale, causal, dtype, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-)
+    "cuda_core": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+})
+
+
+def select_variant(D: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with head dim ``D`` and ``dtype`` launches."""
+    if dtype == torch.bfloat16 and D % 16 == 0 and D <= MAX_HEAD_DIM:
+        return "mma"
+    return "cuda_core"
 
 
 def flash_attention(
@@ -52,6 +68,12 @@ def flash_attention(
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
     o = torch.empty_like(q)
-    LIBRARY.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   BH, Sq, Sk, D, float(sc), int(causal), dtype, stream_handle(q))
+    variant = select_variant(D, q.dtype)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq, Sk, D, float(sc),
+            int(causal))
+    if variant == "cuda_core":
+        LIBRARY.launch(variant, *args, dtype, stream_handle(q))
+    else:
+        check_aligned("flash_attention", (q, k, v))
+        LIBRARY.launch(variant, *args, stream_handle(q))
     return o

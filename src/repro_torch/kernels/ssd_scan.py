@@ -26,11 +26,10 @@ __all__ = ["ssd_scan", "LIBRARY"]
 
 MAX_STATE = 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
-LIBRARY = KernelLibrary(
-    "ssd_scan",
+LIBRARY = KernelLibrary("ssd_scan", {
     # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-)
+    "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+})
 
 
 def ssd_scan(
@@ -58,7 +57,7 @@ def ssd_scan(
         raise ValueError(f"ssd_scan: state width {N} is not a multiple of 4 up to {MAX_STATE}")
     y = torch.empty_like(x)
     h = torch.empty((BH, P, N), dtype=torch.float32, device=x.device) if return_state else None
-    LIBRARY.launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                   y.data_ptr(), h.data_ptr() if return_state else None,
+    LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                   C.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
                    BH, S, P, N, dtype, stream_handle(x))
     return (y, h) if return_state else y

@@ -7,9 +7,13 @@ imports the reference:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_card.py
 
-Tolerances are those of ``tests/test_kernels.py`` for flash attention and
-SwiGLU; ssd_scan is held element by element against the exact sequential
-recurrence, as ``chip_smoke.py`` holds it (see ``_ssd_close``).
+Each call goes through the kernel variant its wrapper's selector picks:
+f32 to the CUDA-core kernels, bf16 to the tensor-core ones (SwiGLU: the
+decode kernel below 64 rows, wgmma from 64; flash: mma.sync for head dims
+that are multiples of 16) unless the shapes rule them out.  Tolerances are
+those of ``tests/test_kernels.py`` for flash attention and SwiGLU; ssd_scan
+is held element by element against the exact sequential recurrence, as
+``chip_smoke.py`` holds it (see ``_ssd_close``).
 """
 import numpy as np
 import pytest
@@ -17,7 +21,8 @@ import torch
 
 from repro_torch.kernels import (
     FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, ssd_mixer, ssd_scan, swiglu_matmul,
+    gqa_flash_attention, select_flash_variant, select_swiglu_variant, ssd_mixer, ssd_scan,
+    swiglu_matmul,
 )
 from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
 
@@ -63,6 +68,40 @@ def test_swiglu_kernel(card, dtype, M, D, F):
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), swiglu_ref(x, wg, wu).float(),
                                atol=_tol(dtype, 1e-4, 5e-2), rtol=2e-2)
+
+
+@pytest.mark.parametrize("D,F", [(256, 96), (2056, 200)])
+@pytest.mark.parametrize("M", [1, 8, 15, 16, 63, 64, 79, 996])
+def test_swiglu_tensor_core_variants(card, M, D, F):
+    """bf16 through the variant the selector picks (decode below 64 rows,
+    wgmma from 64): a K tail (D = 2056 is not a multiple of the 64- or
+    32-row K tiles) and F not a multiple of the column tiles."""
+    variant = select_swiglu_variant(M, D, F, torch.bfloat16)
+    assert variant == ("wgmma" if M >= 64 else "decode")
+    x, wg, wu = _inputs(card, 7, [(M, D), (D, F), (D, F)], torch.bfloat16,
+                        scales=[1.0, D ** -0.5, D ** -0.5])
+    before = dict(SWIGLU_LIBRARY.counts)
+    out = swiglu_matmul(x, wg, wu)
+    assert SWIGLU_LIBRARY.counts[variant] == before[variant] + 1
+    assert SWIGLU_LIBRARY.launches == sum(before.values()) + 1
+    torch.testing.assert_close(out.float(), swiglu_ref(x, wg, wu).float(), atol=5e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D", [(100, 100, 64), (996, 996, 64), (100, 130, 64),
+                                     (130, 100, 64), (100, 100, 128), (996, 996, 128),
+                                     (100, 130, 128), (130, 100, 128), (200, 200, 16),
+                                     (200, 200, 48)])
+def test_flash_tensor_core_variant(card, causal, Sq, Sk, D):
+    """bf16 through the mma.sync kernel: ragged S, Sq != Sk both ways, head
+    dims 16 to 128 (padded in shared memory), causal and not."""
+    assert select_flash_variant(D, torch.bfloat16) == "mma"
+    q, k, v = _inputs(card, 8, [(2, Sq, D), (2, Sk, D), (2, Sk, D)], torch.bfloat16)
+    before = FLASH_LIBRARY.counts["mma"]
+    out = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.counts["mma"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=1e-2)
 
 
 def _ssd_inputs(card, seed, BH, S, P, N, dtype):
