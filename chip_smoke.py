@@ -13,7 +13,8 @@ Phases, each of which exits non-zero (and prints no result) on failure:
 3. kernels — hold every variant of each kernel against its plain PyTorch
              version on the card, at the CPU tests' shapes (each case going
              through the variant its wrapper's selector picks; every variant
-             must be reached) and at the serving paths' shapes, and time
+             must be reached) and at the serving paths' shapes (the SSD scan
+             also on the mixer's own strided, grouped layout), and time
              variant, plain version and one PyTorch call that computes the
              same function (a yardstick the port never calls: SDPA on 4-D
              views under a forced, named fused backend; cuBLAS for SwiGLU).
@@ -21,7 +22,7 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              a full-width TinyLlama-1.1B ``Engine`` (bf16, random weights
              from a seeded generator, 22 layers; flash attention and fused
              SwiGLU), then a full-width Mamba2-370M one (48 layers; the SSD
-             scan).  Launch counters, per kernel variant and zeroed just
+             scan's wgmma variant).  Launch counters, per kernel variant and zeroed just
              before each run, prove that run went through its kernels, each
              through the variant its selector picks for the step's shapes
              (TinyLlama: tensor-core variants only), and no other; two
@@ -66,7 +67,6 @@ SWIGLU_TOL = {"torch.float32": (1e-4, 2e-2), "torch.bfloat16": (5e-2, 2e-2)}
 # A kernel missing one of its terms fails this (PERF.md, PR 12).
 SSD_Y_TOL = {"torch.float32": (1e-4, 0.0), "torch.bfloat16": (1e-4, 2 ** -7)}
 SSD_STATE_TOL = 1e-4
-SSD_CHUNK = 32  # the kernel's chunk length (csrc/ssd_scan.cu), for its operation count
 
 # serving: engine logits against a teacher-forced forward over the same
 # tokens, both bf16 end to end.  They differ in decode attention (plain
@@ -91,6 +91,8 @@ LOGIT_TOL = 0.25
 # reduced width).  So the first decode step, which reads only what prefill
 # cached, is held to 0.5, and every step to 2.0 (PERF.md, PR 12).
 MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL = 2.0, 0.5
+# name fragments of the kernels in src/repro_torch/csrc, for the profiles
+PORT_KERNELS = ("flash_", "swiglu_", "ssd_")
 N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = 16, 32, 8, 2048
 
 
@@ -123,7 +125,12 @@ def nvidia_smi_line() -> str:
 # --------------------------------------------------------------------------- #
 class Timer:
     """Median device time of a call, each run after flushing the 50 MB L2
-    (as the serving path finds its weights: 22 layers do not fit in L2)."""
+    (as the serving path finds its weights: 22 layers do not fit in L2).
+    The device then spins ~0.5 ms before the start event, so that the host
+    has enqueued the whole call by the time the device reaches it: the
+    events time the device's work, not a wrapper's Python between its
+    launches (a busy host took more than 0.1 ms to enqueue the SSD scan's
+    three kernels)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -136,6 +143,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -168,15 +176,19 @@ def swiglu_work(M, D, F, elem):
     return (M * D + 2 * D * F + M * F) * elem, 4.0 * M * D * F
 
 
-def ssd_work(BH, S, P, N, elem):
-    """Bytes (x, B, C read, y written in the input type; dt, A read and the
-    final state written in f32) and operations of the chunked form at the
-    kernel's chunk: per chunk C·B^T and (C·B^T∘L)·x over the lower triangle,
-    C·h and the state update in full; 2 per multiply-add."""
-    nbytes = BH * S * (2 * P + 2 * N) * elem + BH * S * 4 + BH * 4 + BH * P * N * 4
-    Q = SSD_CHUNK
+def ssd_work(heads, groups, S, P, N, elem, chunk):
+    """Bytes and operations of one scan over ``heads`` sequences that read
+    ``groups`` B and C sequences (a flat ``[BH, S, *]`` call: groups =
+    heads; the mixer's layout: the model's groups).  Bytes: x read and y
+    written, B and C read, in the input type; dt, A read and the final state
+    written in f32.  Operations: the chunked form at the variant's
+    ``chunk``, per head and chunk C·B^T and (C·B^T∘L)·x over the lower
+    triangle, C·h and the state update in full; 2 per multiply-add."""
+    nbytes = ((2 * heads * S * P + 2 * groups * S * N) * elem + heads * S * 4 + heads * 4
+              + heads * P * N * 4)
+    Q = chunk
     macs = -(-S // Q) * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * P * N)
-    return nbytes, 2.0 * BH * macs
+    return nbytes, 2.0 * heads * macs
 
 
 def max_err(a, b) -> float:
@@ -224,9 +236,12 @@ def check_kernels(torch, timer):
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels import (
-        FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_scan, swiglu_matmul,
+        FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_mixer, ssd_scan,
+        swiglu_matmul,
     )
+    from repro_torch.kernels._build import stream_handle
     from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
+    from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -240,7 +255,7 @@ def check_kernels(torch, timer):
     # goes to the CUDA-core kernel, bf16 with D % 16 == 0 to the tensor cores
     flash_cases = [(2, 128, 128, 64), (3, 256, 256, 128), (1, 64, 64, 32), (2, 96, 96, 64),
                    (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40)]
-    hit = {FLASH_LIBRARY.name: set(), SWIGLU_LIBRARY.name: set()}
+    hit = {FLASH_LIBRARY.name: set(), SWIGLU_LIBRARY.name: set(), SSD_LIBRARY.name: set()}
     for (BH, Sq, Sk, D) in flash_cases:
         for dtype in (f32, bf16):
             for causal in (True, False):
@@ -324,20 +339,22 @@ def check_kernels(torch, timer):
             library="F.silu(x@wg)*(x@wu)", library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
             bound_ms=b_ms, bound_by=b_by)
 
-    def ssd_inputs(BH, S, P, N, dtype):
+    def ssd_inputs(BH, S, P, N, dtype, dt_shift=0.0):
+        """dt = softplus(normal - dt_shift): at 0 a chunk of 64 decays by
+        ~e^-50, so the state carried across chunks is negligible; at 4 (dt
+        ~0.02, as in trained models) by 0.1-0.4, and it counts."""
         x = randn(BH, S, P, dtype=dtype)
-        dt = torch.nn.functional.softplus(randn(BH, S, dtype=f32))
+        dt = torch.nn.functional.softplus(randn(BH, S, dtype=f32) - dt_shift)
         A = -torch.exp(randn(BH, dtype=f32, scale=0.5))
         B, C = randn(BH, S, N, dtype=dtype, scale=0.5), randn(BH, S, N, dtype=dtype, scale=0.5)
         return x, dt, A, B, C
 
     worst = {"y": 0.0, "state": 0.0}  # largest error over its tolerance, element by element
 
-    def ssd_check(what, args, dtype):
+    def ssd_hold(what, out, ref, dtype):
         """Hold y and the final state to tolerance, element by element;
         return y's max error and its (atol, rtol)."""
-        y, h = ssd_scan(*args, return_state=True)
-        ry, rh = ssd_scan_ref(*args, return_state=True)
+        (y, h), (ry, rh) = out, ref
         atol, rtol = SSD_Y_TOL[str(dtype)]
         tols = {"y": (atol * max(float(ry.float().abs().max()), 1.0), rtol),
                 "state": (SSD_STATE_TOL * max(float(rh.abs().max()), 1.0), 0.0)}
@@ -353,25 +370,115 @@ def check_kernels(torch, timer):
             worst[name] = max(worst[name], ratio)
         return max_err(y, ry), tols["y"]
 
-    # (BH, S, P, N): the CPU tests' sweep, then ragged S and P
+    def ssd_check(what, args, dtype):
+        out, variant = launched(SSD_LIBRARY, lambda: ssd_scan(*args, return_state=True))
+        hit[SSD_LIBRARY.name].add(variant)
+        return ssd_hold(f"[{variant}] {what}", out, ssd_scan_ref(*args, return_state=True),
+                        dtype), variant
+
+    def cuda_core_bf16(x, dt, A, B, C):
+        """The CUDA-core kernel on bf16 operands the selector now sends to
+        wgmma: the earlier kernel of the mamba2 path, timed beside the new
+        one in the same run (the call the wrapper made before)."""
+        BH, S, P = x.shape
+        y = torch.empty_like(x)
+        h = torch.empty((BH, P, B.shape[-1]), dtype=f32, device="cuda")
+        SSD_LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                           C.data_ptr(), y.data_ptr(), h.data_ptr(), BH, S, P, B.shape[-1], 1,
+                           stream_handle(x))
+        return y, h
+
+    # (BH, S, P, N): the CPU tests' sweep, then ragged S and P; f32 and bf16
+    # with P != 64 or N % 16 != 0 go to the CUDA-core kernel, bf16 with
+    # P = 64 to wgmma
     ssd_cases = [(2, 128, 32, 64), (3, 256, 64, 128), (2, 128, 64, 32), (1, 64, 16, 16),
                  (2, 100, 64, 128), (1, 37, 24, 8)]
     for (BH, S, P, N) in ssd_cases:
         for dtype in (f32, bf16):
             ssd_check((BH, S, P, N), ssd_inputs(BH, S, P, N, dtype), dtype)
-    log(f"ssd_scan: {len(ssd_cases) * 2} sweep cases within tolerance (y and final state)")
-    for S in (128, 1024):
-        # mamba2-370m's prefill: 32 heads, head dim 64, state 128 (one group)
-        BH, P, N, dtype = 32, 64, 128, bf16
+    # the wgmma variant's edges: ragged S, one position, one chunk, state
+    # widths 16 to 128, a prefill-length sequence
+    wgmma_cases = [(2, 100, 64, 128), (3, 256, 64, 128), (1, 37, 64, 16), (2, 64, 64, 64),
+                   (1, 1, 64, 128), (2, 1000, 64, 128)]
+    for (BH, S, P, N) in wgmma_cases:
+        _, variant = ssd_check((BH, S, P, N), ssd_inputs(BH, S, P, N, bf16), bf16)
+        if variant != "wgmma":
+            raise AssertionError(f"ssd_scan {(BH, S, P, N)} bf16 took {variant}, not wgmma")
+    # slow decay, where the state carried from chunk to chunk counts: both
+    # variants
+    slow_cases = [(2, 1000, 64, 128, bf16), (3, 256, 64, 128, bf16), (2, 300, 64, 16, bf16),
+                  (2, 300, 64, 128, f32)]
+    for (BH, S, P, N, dtype) in slow_cases:
+        ssd_check(f"{(BH, S, P, N)} slow decay", ssd_inputs(BH, S, P, N, dtype, dt_shift=4.0),
+                  dtype)
+    if hit[SSD_LIBRARY.name] != set(SSD_LIBRARY.variants):
+        raise AssertionError(f"ssd_scan: the sweep reached {sorted(hit[SSD_LIBRARY.name])}")
+
+    def conv_views(Bsz, S, H, G, P, N, scale=1.0):
+        """x, dt, A, B, C in the mixer's layout: x, B and C strided views of
+        one conv-output buffer [Bsz, S, H·P + 2·G·N] (bf16), as
+        ``models/ssm.py::_split`` slices them."""
+        buf = randn(Bsz, S, H * P + 2 * G * N, dtype=bf16, scale=scale)
+        x = buf[..., :H * P].reshape(Bsz, S, H, P)
+        Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+        Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+        dt = torch.nn.functional.softplus(randn(Bsz, S, H, dtype=f32))
+        A = -torch.exp(randn(H, dtype=f32, scale=0.5))
+        return x, dt, A, Bm, Cm
+
+    # the mixer's own layout, grouped (8 heads on 2 groups) and strided,
+    # against the plain version on the CPU (broadcast copies)
+    args = conv_views(2, 150, 8, 2, 64, 128, scale=0.5)
+    out, variant = launched(SSD_LIBRARY, lambda: ssd_mixer(*args, return_state=True))
+    if variant != "wgmma":
+        raise AssertionError(f"ssd_mixer on strided views took {variant}, not wgmma")
+    ref = ssd_mixer(*(t.cpu() for t in args), return_state=True)
+    ssd_hold("[wgmma] mixer B=2 S=150 H=8 G=2 strided", (out[0].cpu(), out[1].cpu()), ref, bf16)
+    log(f"ssd_scan: {len(ssd_cases) * 2 + len(wgmma_cases) + len(slow_cases)} sweep cases and "
+        f"a strided grouped "
+        f"mixer within tolerance (y and final state; variants {sorted(hit[SSD_LIBRARY.name])})")
+
+    # mamba2-370m's prefill: 32 heads, head dim 64, state 128 (one group).
+    # [BH, S, *] rows: wgmma in bf16, the CUDA-core kernel in f32 (its route)
+    # and, for comparison, in bf16 (the mamba2 path's kernel before wgmma)
+    for S, dtype in ((128, bf16), (1024, bf16), (1024, f32)):
+        BH, P, N = 32, 64, 128
         args = ssd_inputs(BH, S, P, N, dtype)
-        err, tol = ssd_check(f"path S={S}", args, dtype)
-        b_ms, b_by = bound(*ssd_work(BH, S, P, N, 2), dtype)
-        rows[("ssd_scan", "cuda_core", S)] = dict(
-            shape=f"BH={BH} S={S} P={P} N={N} bf16", max_abs_err=err, tol=list(tol),
+        (err, tol), variant = ssd_check(f"path S={S}", args, dtype)
+        b_ms, b_by = bound(*ssd_work(BH, BH, S, P, N, args[0].element_size(), SSD_CHUNK[variant]),
+                           dtype)
+        rows[("ssd_scan", variant, S)] = dict(
+            shape=f"BH={BH} S={S} P={P} N={N} {str(dtype)[6:]}", max_abs_err=err, tol=list(tol),
             ms=timer.ms(lambda: ssd_scan(*args, return_state=True)),
             plain_ms=timer.ms(lambda: ssd_scan_ref(*args, return_state=True), reps=5),
             library=None, library_ms=None,  # no single PyTorch call computes an SSD scan
             bound_ms=b_ms, bound_by=b_by)
+        if S == 1024 and dtype == bf16:
+            out = cuda_core_bf16(*args)
+            err, tol = ssd_hold("[cuda_core] path S=1024", out,
+                                ssd_scan_ref(*args, return_state=True), bf16)
+            b_ms, b_by = bound(*ssd_work(BH, BH, S, P, N, 2, SSD_CHUNK["cuda_core"]), bf16)
+            rows[("ssd_scan", "cuda_core", "bf16")] = dict(
+                rows[("ssd_scan", variant, S)], shape=f"BH={BH} S={S} P={P} N={N} bf16, earlier",
+                max_abs_err=err, tol=list(tol),
+                ms=timer.ms(lambda: cuda_core_bf16(*args)), bound_ms=b_ms, bound_by=b_by)
+    # the serving layout: x, B and C views of mamba2's conv output [1, S,
+    # 2048 + 2·128], one group; the bound counts the bytes this layout needs
+    S, H, G, P, N = 1024, 32, 1, 64, 128
+    args = conv_views(1, S, H, G, P, N)
+    flat = (args[0][0].movedim(1, 0).contiguous(), args[1][0].T.contiguous(), args[2],
+            args[3][0, :, 0][None].expand(H, S, N).contiguous(),
+            args[4][0, :, 0][None].expand(H, S, N).contiguous())
+    out, variant = launched(SSD_LIBRARY, lambda: ssd_mixer(*args, return_state=True))
+    ref = ssd_scan_ref(*flat, return_state=True)
+    err, tol = ssd_hold(f"[{variant}] serving layout S={S}",
+                        (out[0][0].movedim(1, 0), out[1][0]), ref, bf16)
+    b_ms, b_by = bound(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    rows[("ssd_scan", variant, "serving")] = dict(
+        shape=f"B=1 S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
+        tol=list(tol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
+        plain_ms=timer.ms(lambda: ssd_scan_ref(*flat, return_state=True), reps=5),
+        library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     log(f"ssd_scan: largest error over its tolerance, element by element, in the sweep and at "
         f"the path shapes: y {worst['y']:.3g}, final state {worst['state']:.3g}")
 
@@ -393,14 +500,17 @@ def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dic
     step of the kernels the model's layers call, through the variant each
     wrapper's selector picks for that step's shapes (bf16; the MLP's rows
     padded as ``ops.fused_swiglu`` pads them), and none of the others."""
-    from repro_torch.kernels import LIBRARIES, select_flash_variant, select_swiglu_variant
+    from repro_torch.kernels import (
+        LIBRARIES, select_flash_variant, select_ssd_variant, select_swiglu_variant,
+    )
 
     L = cfg.n_layers
+    bf16 = torch.bfloat16
     expect = {lib.name: {v: 0 for v in lib.variants} for lib in LIBRARIES}
     if cfg.family == "ssm":  # the SSD scan in every prefill mixer; decode is plain
-        expect["ssd_scan"]["cuda_core"] = L * len(prompt_lens)
+        variant = select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state, bf16)
+        expect["ssd_scan"][variant] = L * len(prompt_lens)
         return expect
-    bf16 = torch.bfloat16
     for n in prompt_lens:
         expect["flash_attention"][select_flash_variant(cfg.head_dim, bf16)] += L
         m = -(-n // min(256, n)) * min(256, n)
@@ -500,9 +610,8 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
     log(f"launches on the serving path: {launches} (expected {expect})")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
-    if cfg.family != "ssm" and (launches["flash_attention"]["cuda_core"]
-                                or launches["swiglu_matmul"]["cuda_core"]):
-        raise AssertionError("a dense serving launch went through a CUDA-core kernel")
+    if any(launches[lib]["cuda_core"] for lib in launches):
+        raise AssertionError("a serving launch went through a CUDA-core kernel")
 
     profile_steps(torch, engine, prompts[int(np.argmax(lens))])
 
@@ -578,7 +687,9 @@ def profile_steps(torch, engine, prompt) -> None:
         busy = sum(e.self_device_time_total for e in events) / 1e3
         log(f"profile {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
             f"device idle {100 * max(0.0, 1 - busy / wall):.1f}%")
-        for e in events[:8]:
+        # the eight largest, then every other kernel of the port's sources
+        ours = [e for e in events[8:] if any(k in e.key for k in PORT_KERNELS)]
+        for e in events[:8] + ours:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
@@ -632,10 +743,11 @@ def main() -> None:
 
     with phase("report"):
         # each variant's row: the path shape it serves (f32 for the CUDA-core
-        # kernels of flash and swiglu, whose route that is)
+        # kernels, whose route that is)
         picks = {("flash_attention", "mma"): 1024, ("flash_attention", "cuda_core"): 1024,
                  ("swiglu_matmul", "wgmma"): 512, ("swiglu_matmul", "decode"): 8,
-                 ("swiglu_matmul", "cuda_core"): 512, ("ssd_scan", "cuda_core"): 1024}
+                 ("swiglu_matmul", "cuda_core"): 512, ("ssd_scan", "wgmma"): 1024,
+                 ("ssd_scan", "cuda_core"): 1024}
         replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:81",
                     "swiglu_matmul": "src/repro/kernels/swiglu_matmul.py:50",
                     "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
@@ -653,9 +765,9 @@ def main() -> None:
                 })
         if any(not math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError("a kernel number is not finite")
-        # the CUDA-core kernels of flash and swiglu serve f32 (and unaligned
-        # bf16), which no serving run here uses: every other variant must
-        # have been launched on its path
+        # the CUDA-core kernels serve f32 (and shapes the tensor-core ones do
+        # not take), which no serving run here uses: every other variant
+        # must have been launched on its path
         idle = [k["name"] for k in kernels if k["launches"] <= 0
                 and not k["name"].endswith("[cuda_core]")]
         if idle:

@@ -8,40 +8,69 @@
 //     y   = (C B^T ∘ L)(dt·x) + exp(cs) ∘ (C h^T),   L_ij = exp(cs_i - cs_j), i >= j
 //     h  <- exp(cs_Q) h + (x ∘ w)^T B,               w_j = exp(cs_Q - cs_j) dt_j
 // with the f32 state h [P, N] carried from chunk to chunk.  y is written in
-// x's dtype; the final state, on request, in f32.
+// x's dtype; the final state, on request, in f32.  Two variants, one C entry
+// point each; the wrapper (kernels/ssd_scan.py::select_variant) picks one
+// from (P, N, dtype).  Every exponent is of a non-positive number (cs_i - cs_j
+// for i >= j, cs, cs_Q - cs_j), so nothing overflows; positions past S are
+// masked with dt = 0, which leaves y and h unchanged.
 //
-// What bounds it on this card: at the serving path's prefill shape
-// (BH = 32 heads, S = 1024, P = 64, N = 128, bf16) it moves ~26 MB (x, dt, B
-// and C after the group broadcast, y, the final state): ~7.9 us at 3.35 TB/s.
-// Its chunked form does ~1.3 GFLOP at Q = 32, ~1.3 us at the bf16 tensor-core
-// peak, so it is bound by bytes.  This first kernel computes in f32 on the
-// CUDA cores (~20 us for those operations at the 67 TFLOP/s f32 peak) and
-// reads B and C once per P-tile; tensor cores (wgmma) for C·B^T and
-// (C·B^T∘L)·x, and TMA loads, are later work.
+// What bounds it on this card: at mamba2-370m's prefill (32 heads, S = 1024,
+// P = 64, N = 128, one group, bf16) the scan needs the bytes of x, y, B and C
+// of the one group, dt and the final state: 10.1 MB in the mixer's layout,
+// ~3.0 us at 3.35 TB/s (26 MB, ~7.9 us, on flat [BH, S, *] operands with B and
+// C per head).  Its chunked form does ~1.3 GFLOP, ~1.3 us at the bf16
+// tensor-core peak: it is bound by bytes.
 //
-// What the design does about it:
-// - The TPU kernel carries h in VMEM across a sequential chunk axis of its
-//   grid.  CUDA blocks run in no order, so one block walks all chunks of its
-//   sequence in order, with h in registers (and a copy in shared memory).
-// - Filling the card: rows p of h evolve independently; only cs, L and C·B^T
-//   are shared across p.  The grid is (bh, P-tile of 16 rows): 32 heads × 4
-//   tiles = 128 blocks on the 132 SMs at a batch-1 prefill, at the cost of
-//   computing C·B^T once per P-tile.
-// - Chunk length Q = 32 (one warp-wide scan for cs): per position the
-//   chunked form costs Q·N for C·B^T plus P·N for each of C·h and the state
-//   update, so a short chunk does less work than the TPU's 256; the chunks
-//   are sequential anyway inside the block.
-// - Each chunk's x, dt, B and C are loaded from device memory into registers
-//   while the previous chunk computes, then stored to shared memory (f32,
-//   rows padded by 4 floats against bank conflicts; ~60 KB of dynamic
-//   shared memory at N = 128).
-// - Every exponent is of a non-positive number (cs_i - cs_j for i >= j, cs,
-//   cs_Q - cs_j), so nothing overflows.  Positions past S are masked inside
-//   the kernel with dt = 0, which leaves y and h unchanged.
+// 1. `wgmma` (entry ssd_scan_wgmma_fwd): bf16, P = 64, N a multiple of 16 up
+//    to 128, on the mixer's own layout by strides (x [batch, S, H, P], dt
+//    [batch, S, H], B and C [batch, S, G, N], head h reading group h / (H/G)),
+//    so the model's conv-output views go in uncopied.  The TPU kernel's
+//    sequential chunk axis becomes three kernels that are parallel over
+//    chunks of Q = 64 (one wgmma M tile), with only the f32 state recurrence
+//    sequential, on PyTorch's stream:
+//    - chunk_state, grid (chunk, batch·H): cs by two warp scans; s_c =
+//      (x∘w)^T B on wgmma m64n(64|128)k16 (A from registers, B MN-major);
+//    - state_pass, grid (blocks of P·N, batch·H): h_{c+1} = exp(cs_Q) h_c + s_c,
+//      loads of 16 chunks in flight before their chain of FMAs; it leaves the
+//      state each chunk starts from in the scratch, and the final state;
+//    - chunk_scan, grid (chunk, batch·H): y^T = exp(cs) ∘ (h C^T) + x^T S^T
+//      with S = C B^T ∘ L ∘ dt, computed transposed so that h enters as
+//      register A fragments and S, split, takes the B tile's shared memory.
+//      (Untransposed, with S in registers and h split into K-major shared
+//      memory, a CTA needed 75 KB: 3 CTAs an SM, 1.3 waves of 512 CTAs.
+//      Transposed it needs 42 KB: 4 an SM, one wave.)
+//    x, B and C tiles come by 4-D TMA (128-byte swizzle, zero fill past S)
+//    on an mbarrier; the scratch keeps each state in the wgmma accumulator's
+//    register order, so phase 3 reads h as its A fragments with coalesced
+//    loads.  At the path shape that is 32 × 16 = 512 CTAs a phase, against
+//    128 blocks walking 32 chunks in series before.  Numerics: C·B^T reads
+//    bf16 inputs and is exact on the tensor cores; the f32 operands x∘w, S
+//    and h enter as bf16 pairs hi + lo (two MMAs into one f32 accumulator),
+//    since a single bf16 or TF32 rounding misses the y or state tolerance
+//    (PERF.md).  Phases 2 and 3 are launched with programmatic dependent
+//    launch: each starts while the one before drains, and waits
+//    (griddepcontrol.wait) only where it reads that phase's results.  One
+//    call of the wrapper counts as one launch of the variant.
+// 2. `ssd_scan_kernel` (entry ssd_scan_fwd, `cuda_core`): f32, and every
+//    other shape (N a multiple of 4 up to 128), on flat contiguous [BH, S, *]
+//    operands.  The TPU grid's sequential chunk axis as a loop inside one
+//    block per (bh, 16-row P tile): 32 heads × 4 tiles = 128 blocks at a
+//    batch-1 prefill; chunks of 32 (one warp-wide scan for cs); h in registers
+//    and double-buffered shared memory; the next chunk's operands prefetched
+//    into registers; f32 products on the CUDA cores.
+//
+// -Xptxas -v (sm_90a, nvcc 12.8), no spills: ssd_chunk_scan_kernel 128 / 113
+// registers (N > 64 / N <= 64; launch bounds of 4 CTAs an SM), 42,760 /
+// 34,568 bytes of dynamic shared memory; ssd_chunk_state_kernel 122 / 90
+// registers, 26,376 / 18,184 bytes; ssd_state_pass_kernel 141 registers;
+// ssd_scan_kernel 214 registers, ~60 KB of dynamic shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -283,6 +312,434 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------- //
+// wgmma variant: three chunk-parallel phases on the tensor cores
+// ------------------------------------------------------------------------- //
+namespace tc {
+using bf16 = __nv_bfloat16;
+
+constexpr int Q = 64;                  // chunk length: one wgmma M tile
+constexpr int P = 64;                  // head dim: one 128-byte swizzle atom of bf16
+constexpr int ATOM = 64;               // bf16 columns of one swizzle atom
+constexpr int TILE = Q * ATOM;         // elements of one [64, 64] atom
+constexpr int TILE_BYTES = TILE * 2;   // 8 KB
+constexpr int NT = 128;                // one warpgroup per chunk
+constexpr int PASS_NT = 256;           // state_pass threads per block
+constexpr int PASS_CH = 16;            // chunks whose loads state_pass starts at once
+
+// Element strides of the mixer's layout: x [batch, S, H, P], dt [batch, S, H],
+// A [batch, H], B and C [batch, S, G, N], y [batch, S, H, P]; the last dim of
+// x, B, C and y is contiguous.
+struct Layout {
+  long long x_b, x_s, x_h, dt_b, dt_s, dt_h, a_b, a_h, bc_b, bc_s, bc_g, y_b, y_s, y_h;
+};
+
+// element offset of (row r, column c) in a [64, 64] bf16 atom written by TMA
+// with 128-byte swizzle: the 16-byte chunk index is XORed with r % 8
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * ATOM + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// v0, v1 -> bf16 pairs hi = bf16(v), lo = bf16(v - hi): hi + lo keeps ~16
+// bits of each f32 operand, which the y and state tolerances need
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = hopper::pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// one mbarrier for the CTA's TMA loads, initialised before any thread uses it
+__device__ __forceinline__ void init_barrier(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// cs = cumsum(dt·A) over the chunk (dt = 0 past S), and dt, into shared
+// memory: two warp-wide scans, the second offset by the first's total.
+__device__ __forceinline__ void chunk_cumsum(float* cs, float* dts, const float* __restrict__ dt,
+                                             const Layout& L, int b, int h, int t0, int S,
+                                             float a) {
+  const int tid = threadIdx.x;
+  if (tid < Q) {
+    const int t = t0 + tid;
+    const float d = t < S ? dt[b * L.dt_b + t * L.dt_s + h * L.dt_h] : 0.f;
+    float v = d * a;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if ((tid & 31) >= o) v += u;
+    }
+    cs[tid] = v;
+    dts[tid] = d;
+  }
+  __syncthreads();
+  if (tid >= 32 && tid < Q) cs[tid] += cs[31];
+  __syncthreads();
+}
+
+// The [P, 64 NA] f32 state of one (bh, chunk) in states[] is kept in the
+// order of the wgmma accumulator that phase 1 computes it in: float4 g of
+// thread t at (g NT + t), holding that thread's values 4g .. 4g + 3.  Value v
+// of thread t (warp w, lane l) is element (16 w + l / 4 + 8 ((v / 2) % 2),
+// 8 (v / 4) + 2 (l % 4) + v % 2), and the values of k16 step kk along the
+// columns (v in [8 kk, 8 kk + 8)) are exactly the A fragment of that step
+// (FA3's identity), so phase 3 reads its A operand h_start as it was
+// written: coalesced, with no transpose.  Phase 2 is elementwise.
+
+// Phase 1, grid (chunk, batch·H): the chunk's own contribution to the state,
+//   s_c = (x ∘ w)^T B,  w_j = exp(cs_Q - cs_j) dt_j   ([P, N], f32),
+// into states[bh, c], and its decay exp(cs_Q) into decay[bh, c].  A is
+// (x∘w)^T, built in registers from the swizzled x tile as hi + lo halves;
+// B is the chunk's B tile, MN-major.
+template <int NA>
+__global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ states,
+    float* __restrict__ decay, const Layout L, int S, int H, int G, int nch) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  bf16* sx = reinterpret_cast<bf16*>(smem_raw + pad);  // [Q][P]
+  bf16* sb = sx + TILE;                                // NA atoms [Q][64]
+  float* w = reinterpret_cast<float*>(sb + NA * TILE);  // [Q]
+  float* cs = w + Q;                                   // [Q]
+  float* dts = cs + Q;                                 // [Q]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(dts + Q);
+
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int t0 = c * Q, tid = threadIdx.x;
+  hopper::griddep_launch_dependents();
+  init_barrier(bar);
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, (1 + NA) * TILE_BYTES);
+    hopper::tma_load_4d(sx, &xmap, bar, 0, h, t0, b);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
+  }
+  chunk_cumsum(cs, dts, dt, L, b, h, t0, S, A[b * L.a_b + h * L.a_h]);
+  if (tid < Q) w[tid] = expf(cs[Q - 1] - cs[tid]) * dts[tid];
+  if (tid == 0) decay[(long long)bh * nch + c] = expf(cs[Q - 1]);
+  __syncthreads();
+  hopper::mbar_wait(bar, 0);
+
+  // A fragments of (x∘w)^T [p, j] for the four k16 steps along j: register r
+  // of step kk holds rows p0 + 8 (r & 1), columns 16 kk + 8 (r >> 1) + 2 (lane % 4) + {0, 1}
+  const int warp = tid >> 5, lane = tid & 31;
+  const int p0 = warp * 16 + (lane >> 2);
+  uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = p0 + 8 * (r & 1);
+      const int j = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
+      split2(__bfloat162float(sx[swz(j, p)]) * w[j], __bfloat162float(sx[swz(j + 1, p)]) * w[j + 1],
+             ahi[kk][r], alo[kk][r]);
+    }
+  }
+  float acc[32 * NA];
+#pragma unroll
+  for (int i = 0; i < 32 * NA; ++i) acc[i] = 0.f;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // B: MN-major [j rows][n], atoms 8 KB apart (LBO), 8-row groups 1024 B apart (SBO)
+    const uint64_t db = hopper::wgmma_desc(sb + kk * 16 * ATOM, TILE_BYTES, 1024);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if constexpr (NA == 2) {
+        hopper::wgmma_m64n128k16_rs<1>(acc, half ? alo[kk] : ahi[kk], db, 1);
+      } else {
+        hopper::wgmma_m64n64k16_rs<1>(acc, half ? alo[kk] : ahi[kk], db, 1);
+      }
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+
+  float4* out = reinterpret_cast<float4*>(states + ((long long)bh * nch + c) * P * ATOM * NA);
+#pragma unroll
+  for (int q = 0; q < 8 * NA; ++q)
+    out[q * NT + tid] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+}
+
+// Phase 2, grid (P·64 NA / 4 / PASS_NT, batch·H): the only sequential part.
+//   h_0 = 0,  h_{c+1} = decay_c h_c + s_c
+// over the chunks, float4 by float4; states[bh, c] (c >= 1) is overwritten
+// with h_c, the state chunk c starts from, and h_nch goes to h_out
+// ([batch·H, P, N], natural order) if asked.  Each group of PASS_CH chunks
+// starts all its loads before the chain of FMAs.
+__global__ void __launch_bounds__(PASS_NT) ssd_state_pass_kernel(
+    float* __restrict__ states, const float* __restrict__ decay, float* __restrict__ h_out,
+    int PN4, int N, int nch) {
+  const int e = blockIdx.x * PASS_NT + threadIdx.x;
+  const long long bh = blockIdx.y;
+  hopper::griddep_launch_dependents();
+  hopper::griddep_wait();  // phase 1's states and decays
+  if (e >= PN4) return;
+  float4* st = reinterpret_cast<float4*>(states) + bh * nch * PN4 + e;
+  const float* dec = decay + bh * nch;
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nch; c0 += PASS_CH) {
+    float4 s[PASS_CH];
+    float d[PASS_CH];
+#pragma unroll
+    for (int k = 0; k < PASS_CH; ++k) {
+      if (c0 + k < nch) {
+        s[k] = st[(long long)(c0 + k) * PN4];
+        d[k] = dec[c0 + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_CH; ++k) {
+      if (c0 + k < nch) {
+        if (c0 + k > 0) st[(long long)(c0 + k) * PN4] = h;
+        h.x = fmaf(d[k], h.x, s[k].x);
+        h.y = fmaf(d[k], h.y, s[k].y);
+        h.z = fmaf(d[k], h.z, s[k].z);
+        h.w = fmaf(d[k], h.w, s[k].w);
+      }
+    }
+  }
+  if (h_out == nullptr) return;
+  // float4 g of thread t: (row p0, columns n, n + 1) and (row p0 + 8, the same)
+  const int t = e % NT, q = e / NT;
+  const int p0 = 16 * (t >> 5) + ((t & 31) >> 2), n = 8 * q + 2 * (t & 3);
+  if (n < N) {
+    float* o = h_out + bh * P * N;
+    *reinterpret_cast<float2*>(o + p0 * N + n) = make_float2(h.x, h.y);
+    *reinterpret_cast<float2*>(o + (p0 + 8) * N + n) = make_float2(h.z, h.w);
+  }
+}
+
+// Phase 3, grid (chunk, batch·H): the chunk's output, computed transposed,
+//   y^T = exp(cs) ∘ (h_start C^T) + x^T (C B^T ∘ L ∘ dt)^T,   L_ij = exp(cs_i - cs_j), j <= i
+// so that every f32 operand has a cheap home: C B^T (both K-major, shared
+// memory) gives S = C B^T ∘ L ∘ dt in registers, which is split into hi + lo
+// and stored K-major into the B tile's place (dead once C B^T is done);
+// h_start enters as register A fragments, split from phase 2's f32 in
+// fragment order (coalesced loads); x^T is the x tile read MN-major.  y^T
+// goes through shared memory (C's place) to coalesced 16-byte stores.
+template <int NA>
+__global__ void __launch_bounds__(NT, 4) ssd_chunk_scan_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap cmap, const float* __restrict__ dt,
+    const float* __restrict__ A, const float* __restrict__ states, bf16* __restrict__ y,
+    const Layout L, int S, int H, int G, int nch) {
+  constexpr int NB = NA > 2 ? NA : 2;  // the B tile's atoms, later S hi and S lo
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  bf16* sc = reinterpret_cast<bf16*>(smem_raw + pad);  // NA atoms [Q][64] of C; then y [Q][P]
+  bf16* sb = sc + NA * TILE;                           // NA atoms of B; then S hi, S lo [Q][Q]
+  bf16* sx = sb + NB * TILE;                           // [Q][P]
+  float* cs = reinterpret_cast<float*>(sx + TILE);     // [Q]
+  float* dts = cs + Q;                                 // [Q]
+  float* ecs = dts + Q;                                // [Q]: exp(cs)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ecs + Q);
+
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int t0 = c * Q, tid = threadIdx.x;
+  init_barrier(bar);
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, (2 * NA + 1) * TILE_BYTES);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      hopper::tma_load_4d(sc + a * TILE, &cmap, bar, a * ATOM, g, t0, b);
+      hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
+    }
+    hopper::tma_load_4d(sx, &xmap, bar, 0, h, t0, b);
+  }
+  chunk_cumsum(cs, dts, dt, L, b, h, t0, S, A[b * L.a_b + h * L.a_h]);
+  if (tid < Q) ecs[tid] = expf(cs[tid]);
+  // all of the above overlaps phase 2; then the start state (chunk 0 starts
+  // from 0) is in flight while the tiles land and C B^T runs
+  hopper::griddep_wait();
+  const float4* hs =
+      reinterpret_cast<const float4*>(states + ((long long)bh * nch + c) * P * ATOM * NA) + tid;
+  float4 hf[NA][8];  // atom a's float4s; the second atom's are loaded once S is out
+  if (c > 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) hf[0][k] = hs[k * NT];
+  }
+  hopper::mbar_wait(bar, 0);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  {
+    float cb[32];
+    hopper::wgmma_fence();
+    // C B^T [i, j]: K-major tiles, a k16 step is 32 bytes inside a 128-byte row
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+      hopper::wgmma_m64n64k16_ss<0, 0>(cb, hopper::wgmma_desc(sc + o, 16, 1024),
+                                       hopper::wgmma_desc(sb + o, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    __syncthreads();  // every warp's reads of the B tile are done
+
+    // S from C B^T, split into hi and lo, into the B tile's place: value v
+    // of a thread is row i = r0 + 8 ((v / 2) % 2), column
+    // j = 8 (v / 4) + 2 (lane % 4) + v % 2
+#pragma unroll
+    for (int v = 0; v < 32; v += 2) {
+      const int i = r0 + 8 * ((v >> 1) & 1);
+      const int j = 8 * (v >> 2) + 2 * (lane & 3);
+      const float csi = cs[i];
+      const float s0 = j <= i ? cb[v] * expf(csi - cs[j]) * dts[j] : 0.f;
+      const float s1 = j + 1 <= i ? cb[v + 1] * expf(csi - cs[j + 1]) * dts[j + 1] : 0.f;
+      uint32_t hi, lo;
+      split2(s0, s1, hi, lo);
+      *reinterpret_cast<uint32_t*>(sb + swz(i, j)) = hi;
+      *reinterpret_cast<uint32_t*>(sb + TILE + swz(i, j)) = lo;
+    }
+  }
+  hopper::fence_proxy_async();
+
+  // y^T [p, i]; its value v is (row p = r0 + 8 ((v / 2) % 2), column
+  // i = 8 (v / 4) + 2 (lane % 4) + v % 2)
+  float yt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) yt[i] = 0.f;
+  if (c > 0) {
+#pragma unroll
+    for (int a = 1; a < NA; ++a)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) hf[a][k] = hs[(8 * a + k) * NT];
+    // h_start C^T, 64 columns of n (one C atom) at a time; the A fragment
+    // of k16 step k is the thread's float4s 2k and 2k + 1 of the atom
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      uint32_t hhi[4][4], hlo[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 f0 = hf[a][2 * k], f1 = hf[a][2 * k + 1];
+        split2(f0.x, f0.y, hhi[k][0], hlo[k][0]);
+        split2(f0.z, f0.w, hhi[k][1], hlo[k][1]);
+        split2(f1.x, f1.y, hhi[k][2], hlo[k][2]);
+        split2(f1.z, f1.w, hhi[k][3], hlo[k][3]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint64_t db = hopper::wgmma_desc(sc + a * TILE + k * 16, 16, 1024);
+        hopper::wgmma_m64n64k16_rs<0>(yt, hhi[k], db, 1);
+        hopper::wgmma_m64n64k16_rs<0>(yt, hlo[k], db, 1);
+      }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    // column i takes exp(cs_i)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) yt[v] *= ecs[8 * (v >> 2) + 2 * (lane & 3) + (v & 1)];
+  }
+  __syncthreads();  // S is in shared memory
+  hopper::wgmma_fence();
+  // x^T S^T [p, i]: A = x^T, the x tile MN-major (a k16 step is 16 rows of j);
+  // B = S^T, i.e. S [i rows][j] K-major
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = hopper::wgmma_desc(sx + kk * 16 * ATOM, TILE_BYTES, 1024);
+    hopper::wgmma_m64n64k16_ss<1, 0>(yt, da, hopper::wgmma_desc(sb + kk * 16, 16, 1024), 1);
+    hopper::wgmma_m64n64k16_ss<1, 0>(yt, da, hopper::wgmma_desc(sb + TILE + kk * 16, 16, 1024),
+                                     1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  __syncthreads();  // every warp's reads of C are done
+
+  // y^T -> y [i][p] in C's place (swizzled), then 16-byte rows out
+  bf16* sy = sc;
+#pragma unroll
+  for (int v = 0; v < 32; ++v) {
+    const int p = r0 + 8 * ((v >> 1) & 1);
+    const int i = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+    sy[swz(i, p)] = __float2bfloat16_rn(yt[v]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = tid; e < Q * P / 8; e += NT) {
+    const int i = e >> 3, ch = e & 7;
+    const int t = t0 + i;
+    if (t < S)
+      *reinterpret_cast<uint4*>(y + b * L.y_b + t * L.y_s + h * L.y_h + ch * 8) =
+          *reinterpret_cast<const uint4*>(sy + swz(i, ch * 8));
+  }
+}
+
+template <int NA>
+constexpr size_t state_smem() {
+  return (size_t)(1 + NA) * TILE_BYTES + 3 * Q * sizeof(float) + 8 + 1024;
+}
+template <int NA>
+constexpr size_t scan_smem() {
+  return (size_t)(NA + (NA > 2 ? NA : 2) + 1) * TILE_BYTES + 3 * Q * sizeof(float) + 8 + 1024;
+}
+
+template <int NA>
+int launch(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
+           void* h_out, void* states, void* decay, int batch, int S, int H, int G, int N,
+           const Layout& L, cudaStream_t stream) {
+  CUtensorMap xm, bm, cm;
+  const int box[4] = {ATOM, 1, Q, 1};
+  const long long xd[4] = {P, H, S, batch};
+  const long long xs[3] = {2 * L.x_h, 2 * L.x_s, 2 * L.x_b};
+  const long long bd[4] = {N, G, S, batch};
+  const long long bs[3] = {2 * L.bc_g, 2 * L.bc_s, 2 * L.bc_b};
+  if (!hopper::make_map_bf16_4d(&xm, x, xd, xs, box) ||
+      !hopper::make_map_bf16_4d(&bm, B, bd, bs, box) ||
+      !hopper::make_map_bf16_4d(&cm, C, bd, bs, box))
+    return (int)cudaErrorInvalidValue;
+  static bool attributes_set = false;  // per instantiation, once per process
+  cudaError_t err = cudaSuccess;
+  if (!attributes_set) {
+    err = cudaFuncSetAttribute(ssd_chunk_state_kernel<NA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem<NA>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_chunk_scan_kernel<NA>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scan_smem<NA>());
+    if (err != cudaSuccess) return (int)err;
+    attributes_set = true;
+  }
+  const int nch = (S + Q - 1) / Q;
+  const dim3 grid(nch, batch * H);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* st = static_cast<float*>(states);
+  float* dec = static_cast<float*>(decay);
+  ssd_chunk_state_kernel<NA><<<grid, NT, state_smem<NA>(), stream>>>(xm, bm, dtf, Af, st, dec, L,
+                                                                     S, H, G, nch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // phases 2 and 3 start while the phase before them drains (griddep_wait)
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const int PN4 = P * ATOM * NA / 4;
+  cfg.gridDim = dim3((PN4 + PASS_NT - 1) / PASS_NT, batch * H);
+  cfg.blockDim = dim3(PASS_NT);
+  cfg.dynamicSmemBytes = 0;
+  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_kernel, st, static_cast<const float*>(dec),
+                           static_cast<float*>(h_out), PN4, N, nch);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = scan_smem<NA>();
+  err = cudaLaunchKernelEx(&cfg, ssd_chunk_scan_kernel<NA>, xm, bm, cm, dtf, Af,
+                           static_cast<const float*>(st), static_cast<bf16*>(y), L, S, H, G, nch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+}  // namespace tc
+
 }  // namespace
 
 // x: [BH, S, P]; dt: [BH, S] f32; A: [BH] f32; B, C: [BH, S, N]; y: [BH, S, P];
@@ -298,6 +755,32 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
   if (dtype == 0) return launch<float>(x, dt, A, B, C, y, h_out, BH, S, P, N, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, dt, A, B, C, y, h_out, BH, S, P, N, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma variant, on the mixer's layout (bf16 x, B, C and y; f32 dt, A):
+// x [batch, S, H, P], dt [batch, S, H], A [batch, H], B and C [batch, S, G, N],
+// y [batch, S, H, P]; head h reads group h / (H / G).  `strides` holds 14
+// element strides: x (batch, S, H), dt (batch, S, H), A (batch, H), B and C
+// (batch, S, G; the same for both), y (batch, S, H).  The last dim of x, B, C
+// and y is contiguous, x, B and C start on 16 bytes and their strides are
+// multiples of 8 elements (TMA).  states [batch·H, ceil(S / 64), P·64] (P·128
+// for N > 64) and decay [batch·H, ceil(S / 64)] are f32 scratch; h_out [batch, H, P, N] f32
+// or null.  P = 64; N a multiple of 16 up to 128.  Enqueues three kernels on
+// `stream`; returns cudaGetLastError() after them (0 on success).
+extern "C" int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* A, const void* B,
+                                  const void* C, void* y, void* h_out, void* states, void* decay,
+                                  int batch, int S, int H, int G, int P, int N,
+                                  const long long* strides, void* stream) {
+  if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P != tc::P || N < 16 ||
+      N > NMAX || N % 16 != 0 || strides == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* t = strides;
+  const tc::Layout L = {t[0], t[1], t[2], t[3], t[4],  t[5],  t[6],
+                        t[7], t[8], t[9], t[10], t[11], t[12], t[13]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= tc::ATOM)
+    return tc::launch<1>(x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, N, L, s);
+  return tc::launch<2>(x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, N, L, s);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

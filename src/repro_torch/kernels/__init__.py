@@ -2,6 +2,7 @@ from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, ssd_mixer
 from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_attention
 from repro_torch.kernels.flash_attention import select_variant as select_flash_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
+from repro_torch.kernels.ssd_scan import select_variant as select_ssd_variant
 from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_matmul
 from repro_torch.kernels.swiglu_matmul import select_variant as select_swiglu_variant
 from repro_torch.kernels import ref
@@ -18,6 +19,7 @@ __all__ = [
     "swiglu_matmul",
     "select_flash_variant",
     "select_swiglu_variant",
+    "select_ssd_variant",
     "ref",
     "FLASH_LIBRARY",
     "SSD_LIBRARY",

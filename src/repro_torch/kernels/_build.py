@@ -160,11 +160,12 @@ def check_aligned(name: str, tensors: Sequence[torch.Tensor]) -> None:
 
 
 def check_cuda_operands(name: str, tensors: Sequence[torch.Tensor],
-                        dtypes: Sequence[torch.dtype]) -> int:
+                        dtypes: Sequence[torch.dtype], contiguous: bool = True) -> int:
     """Validate operands for a kernel launch; return the kernel's dtype code
     (0 = float32, 1 = bfloat16).  Raises ``ValueError`` on what the kernel
     does not take: another device type, mixed devices or dtypes, an
-    unsupported dtype, or a non-contiguous tensor."""
+    unsupported dtype, or (unless the kernel takes strides) a non-contiguous
+    tensor."""
     first = tensors[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: expected CPU or CUDA tensors, got {first.device}")
@@ -173,7 +174,7 @@ def check_cuda_operands(name: str, tensors: Sequence[torch.Tensor],
             raise ValueError(f"{name}: operands on {first.device} and {t.device}")
         if t.dtype != first.dtype:
             raise ValueError(f"{name}: mixed dtypes {first.dtype} and {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     if first.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {first.dtype} not supported (takes {list(dtypes)})")

@@ -1,9 +1,10 @@
 """Model-facing wrappers around the port's kernels.
 
 Port of ``repro/kernels/ops.py``: they adapt model-layout tensors (GQA head
-grouping, SSM group broadcast, ``[B, S, H, D]``) to the kernels' flat
-``[BH, S, D]`` layout and pad attention and SwiGLU operands as the reference
-does, so the same call sites work on the CPU
+grouping, ``[B, S, H, D]``) to the attention kernel's flat ``[BH, S, D]``
+layout and pad attention and SwiGLU operands as the reference does; the SSM
+mixer's ``ssd_mixer`` lives with its kernel (``kernels/ssd_scan.py``),
+which reads the model's own layout.  The same call sites work on the CPU
 (plain versions) and on the card (the CUDA kernels).  There is no switch
 and no fallback: the device of the tensors decides.
 """
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_mixer
 from repro_torch.kernels.swiglu_matmul import swiglu_matmul
 
 __all__ = ["gqa_flash_attention", "ssd_mixer", "fused_swiglu"]
@@ -52,35 +53,6 @@ def gqa_flash_attention(
     o = flash_attention(qf, kf, vf, causal=True if not causal else causal)
     o = o[:, :S].reshape(B, H, S, D)
     return o.movedim(1, 2)
-
-
-def ssd_mixer(
-    x: torch.Tensor,   # [B, S, H, P]
-    dt: torch.Tensor,  # [B, S, H]
-    A: torch.Tensor,   # [H]
-    Bm: torch.Tensor,  # [B, S, G, N]
-    Cm: torch.Tensor,  # [B, S, G, N]
-    return_state: bool = False,
-):
-    """Model-layout wrapper: broadcast groups to heads and flatten [B*H].
-    Unlike the reference it does not pad S to its block: the kernel masks a
-    ragged end itself.  Returns y [B, S, H, P]; with ``return_state`` also
-    the final state [B, H, P, N] (f32), which the reference's ``ssm_block``
-    takes from ``_ssd_chunked``."""
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    if rep != 1:
-        Bm = Bm.repeat_interleave(rep, dim=2)
-        Cm = Cm.repeat_interleave(rep, dim=2)
-    xf = x.movedim(2, 1).reshape(B * H, S, P).contiguous()
-    dtf = dt.movedim(2, 1).reshape(B * H, S).to(torch.float32).contiguous()
-    Bf = Bm.movedim(2, 1).reshape(B * H, S, N).contiguous()
-    Cf = Cm.movedim(2, 1).reshape(B * H, S, N).contiguous()
-    Af = A.to(torch.float32).repeat(B)
-    out = ssd_scan(xf, dtf, Af, Bf, Cf, return_state=return_state)
-    y = (out[0] if return_state else out).reshape(B, H, S, P).movedim(1, 2)
-    return (y, out[1].reshape(B, H, P, N)) if return_state else y
 
 
 def fused_swiglu(

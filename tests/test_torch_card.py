@@ -10,7 +10,8 @@ imports the reference:
 Each call goes through the kernel variant its wrapper's selector picks:
 f32 to the CUDA-core kernels, bf16 to the tensor-core ones (SwiGLU: the
 decode kernel below 64 rows, wgmma from 64; flash: mma.sync for head dims
-that are multiples of 16) unless the shapes rule them out.  Tolerances are
+that are multiples of 16; the SSD scan: wgmma for head dim 64 and a state
+width that is a multiple of 16 up to 128) unless the shapes rule them out.  Tolerances are
 those of ``tests/test_kernels.py`` for flash attention and SwiGLU; ssd_scan
 is held element by element against the exact sequential recurrence, as
 ``chip_smoke.py`` holds it (see ``_ssd_close``).
@@ -21,8 +22,8 @@ import torch
 
 from repro_torch.kernels import (
     FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, select_flash_variant, select_swiglu_variant, ssd_mixer, ssd_scan,
-    swiglu_matmul,
+    gqa_flash_attention, select_flash_variant, select_ssd_variant, select_swiglu_variant,
+    ssd_mixer, ssd_scan, swiglu_matmul,
 )
 from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
 
@@ -104,13 +105,16 @@ def test_flash_tensor_core_variant(card, causal, Sq, Sk, D):
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=1e-2)
 
 
-def _ssd_inputs(card, seed, BH, S, P, N, dtype):
-    """x, dt = softplus(normal), A = -exp(normal / 2), B and C at 0.5, as
-    ``tests/test_kernels.py`` draws them."""
+def _ssd_inputs(card, seed, BH, S, P, N, dtype, dt_shift=0.0):
+    """x, dt = softplus(normal - dt_shift), A = -exp(normal / 2), B and C at
+    0.5, as ``tests/test_kernels.py`` draws them (dt_shift 0).  At dt_shift 4
+    (dt ~0.02) a chunk of 64 positions decays by 0.1-0.4 instead of ~e^-50,
+    so the state carried across chunks counts."""
     rng = np.random.default_rng(seed)
     x, B, C = _inputs(card, seed, [(BH, S, P), (BH, S, N), (BH, S, N)], dtype,
                       scales=[1.0, 0.5, 0.5])
-    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((BH, S))).astype(np.float32))
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((BH, S)) - dt_shift)
+                          .astype(np.float32))
     A = torch.from_numpy(-np.exp(rng.standard_normal(BH) * 0.5).astype(np.float32))
     return x, dt.to(card), A.to(card), B, C
 
@@ -138,6 +142,77 @@ def test_ssd_scan_kernel(card, dtype, BH, S, P, N):
     _ssd_close(y, ry)
     _ssd_close(h, rh)
     torch.testing.assert_close(ssd_scan(x, dt, A, B, C), y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("BH,S,P,N", [(2, 100, 64, 128), (3, 256, 64, 128), (1, 37, 64, 16),
+                                      (2, 64, 64, 64), (1, 1, 64, 128), (2, 1000, 64, 128),
+                                      (2, 130, 64, 48), (1, 200, 64, 80)])
+def test_ssd_scan_wgmma(card, BH, S, P, N):
+    """bf16 through the tensor-core variant: ragged S, a single position,
+    state widths 16 to 128 (48 and 80 fill part of a 64-column tile); y and
+    the final state against the sequential recurrence."""
+    assert select_ssd_variant(P, N, torch.bfloat16) == "wgmma"
+    x, dt, A, B, C = _ssd_inputs(card, 4, BH, S, P, N, torch.bfloat16)
+    before = dict(SSD_LIBRARY.counts)
+    y, h = ssd_scan(x, dt, A, B, C, return_state=True)
+    assert SSD_LIBRARY.counts["wgmma"] == before["wgmma"] + 1
+    assert SSD_LIBRARY.counts["cuda_core"] == before["cuda_core"]
+    ry, rh = ssd_scan_ref(x, dt, A, B, C, return_state=True)
+    assert y.shape == (BH, S, P) and h.shape == (BH, P, N) and h.dtype == torch.float32
+    _ssd_close(y, ry)
+    _ssd_close(h, rh)
+    torch.testing.assert_close(ssd_scan(x, dt, A, B, C), y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,N", [(torch.bfloat16, 128), (torch.bfloat16, 16),
+                                     (torch.float32, 128)])
+@pytest.mark.parametrize("S", [300, 1000])
+def test_ssd_scan_slow_decay(card, dtype, N, S):
+    """Both variants where the carried state counts (dt ~0.02)."""
+    x, dt, A, B, C = _ssd_inputs(card, 10, 2, S, 64, N, dtype, dt_shift=4.0)
+    variant = select_ssd_variant(64, N, dtype)
+    before = SSD_LIBRARY.counts[variant]
+    y, h = ssd_scan(x, dt, A, B, C, return_state=True)
+    assert SSD_LIBRARY.counts[variant] == before + 1
+    ry, rh = ssd_scan_ref(x, dt, A, B, C, return_state=True)
+    _ssd_close(y, ry)
+    _ssd_close(h, rh)
+
+
+@pytest.mark.parametrize("N", [128, 16])
+def test_ssd_mixer_strided_groups(card, N):
+    """The mixer's own layout on the card: x, B and C as strided views of
+    one conv-output buffer [B, S, H·P + 2·G·N], two groups for eight heads;
+    one wgmma launch, equal to the CPU mixer (the plain version on broadcast
+    copies)."""
+    Bsz, S, H, G, P = 2, 150, 8, 2, 64
+    rng = np.random.default_rng(9)
+    buf = torch.from_numpy((rng.standard_normal((Bsz, S, H * P + 2 * G * N)) * 0.5)
+                           .astype(np.float32)).to(card, torch.bfloat16)
+    x = buf[..., :H * P].reshape(Bsz, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((Bsz, S, H)))
+                          .astype(np.float32)).to(card)
+    A = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)).to(card)
+    before = dict(SSD_LIBRARY.counts)
+    y, h = ssd_mixer(x, dt, A, Bm, Cm, return_state=True)
+    assert SSD_LIBRARY.counts["wgmma"] == before["wgmma"] + 1
+    assert SSD_LIBRARY.launches == sum(before.values()) + 1
+    ry, rh = ssd_mixer(*(t.cpu() for t in (x, dt, A, Bm, Cm)), return_state=True)
+    _ssd_close(y.cpu(), ry)
+    _ssd_close(h.cpu(), rh)
+
+
+def test_ssd_shapes_no_variant_takes_raise(card):
+    """A state wider than 128 in bf16 goes to the CUDA-core variant, which
+    refuses it: the call raises and nothing is launched."""
+    x, dt, A, B, C = _ssd_inputs(card, 6, 1, 8, 64, 256, torch.bfloat16)
+    assert select_ssd_variant(64, 256, torch.bfloat16) == "cuda_core"
+    before = SSD_LIBRARY.launches
+    with pytest.raises(ValueError, match="state width"):
+        ssd_scan(x, dt, A, B, C)
+    assert SSD_LIBRARY.launches == before
 
 
 def test_wrappers_launch_on_card(card):

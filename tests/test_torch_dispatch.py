@@ -1,10 +1,10 @@
 """Which hand-written kernel a CUDA call of the port launches.
 
-``swiglu_matmul`` and ``flash_attention`` each hold several CUDA kernels;
-their wrappers pick one by a pure function of the shapes and the dtype
-(``select_variant``), which these tests hold on the CPU: the serving path's
-bf16 shapes go to the tensor-core kernels, f32 and bf16 shapes the tensor
-cores cannot take go to the CUDA-core kernels.  They also check that every
+``swiglu_matmul``, ``flash_attention`` and ``ssd_scan`` each hold several
+CUDA kernels; their wrappers pick one by a pure function of the shapes and
+the dtype (``select_variant``), which these tests hold on the CPU: the
+serving path's bf16 shapes go to the tensor-core kernels, f32 and bf16
+shapes the tensor cores cannot take go to the CUDA-core kernels.  They also check that every
 variant's entry point exists in its CUDA source, and that a CPU tensor
 launches nothing whatever its shape.  The kernels themselves run only on the
 card (``tests/test_torch_card.py``, ``chip_smoke.py``).
@@ -14,9 +14,11 @@ import re
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import (
     FLASH_LIBRARY, LIBRARIES, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, select_flash_variant, select_swiglu_variant, swiglu_matmul,
+    gqa_flash_attention, select_flash_variant, select_ssd_variant, select_swiglu_variant,
+    ssd_mixer, ssd_scan, swiglu_matmul,
 )
 from repro_torch.kernels.swiglu_matmul import PREFILL_MIN_M
 
@@ -68,6 +70,28 @@ def test_flash_other_head_dims_take_cuda_cores(D, dtype):
     assert select_flash_variant(D, dtype) == "cuda_core"
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_ssd_model_shapes_take_tensor_cores(arch):
+    """The SSM mixers' own widths in bf16: head dim 64, state 128 (mamba2)
+    and 16 (jamba)."""
+    s = get_config(arch).ssm
+    assert select_ssd_variant(s.head_dim, s.d_state, BF16) == "wgmma"
+
+
+@pytest.mark.parametrize("N", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_ssd_state_widths_on_tensor_cores(N):
+    assert select_ssd_variant(64, N, BF16) == "wgmma"
+
+
+@pytest.mark.parametrize("P,N,dtype", [
+    (64, 128, F32), (64, 16, F32),  # f32 at the models' widths
+    (32, 64, BF16), (16, 16, BF16), (24, 8, BF16), (128, 128, BF16),  # head dims other than 64
+    (64, 8, BF16), (64, 40, BF16), (64, 136, BF16), (64, 256, BF16),  # N no multiple of 16, or > 128
+])
+def test_ssd_other_shapes_take_cuda_cores(P, N, dtype):
+    assert select_ssd_variant(P, N, dtype) == "cuda_core"
+
+
 @pytest.mark.parametrize("lib", LIBRARIES, ids=lambda lib: lib.name)
 def test_every_variant_has_its_entry_point(lib):
     """Each variant's C symbol is defined, ``extern "C"``, in its source, and
@@ -90,7 +114,7 @@ def test_every_variant_has_its_entry_point(lib):
 def test_variant_names():
     assert set(SWIGLU_LIBRARY.variants) == {"wgmma", "decode", "cuda_core"}
     assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core"}
-    assert set(SSD_LIBRARY.variants) == {"cuda_core"}
+    assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core"}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -108,4 +132,9 @@ def test_cpu_tensors_launch_nothing(dtype, M):
     flash_attention(q, q, q, causal=True)
     gqa_flash_attention(q.reshape(1, 2, M, 64).movedim(1, 2), q[:1, :, None].expand(1, M, 1, 64),
                         q[:1, :, None].expand(1, M, 1, 64))
+    # the SSD scan at the wgmma variant's widths (head dim 64, state 128)
+    dt = torch.rand(2, M, generator=g)
+    B = torch.randn(2, M, 128, generator=g).to(dtype)
+    ssd_scan(q, dt, -torch.ones(2), B, B, return_state=True)
+    ssd_mixer(q.movedim(0, 1)[None], dt.T[None], -torch.ones(2), B[:1, :, None], B[:1, :, None])
     assert {lib.name: dict(lib.counts) for lib in LIBRARIES} == before

@@ -26,7 +26,9 @@ from repro_torch.kernels import (
     FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
     gqa_flash_attention, ssd_mixer, ssd_scan, swiglu_matmul,
 )
-from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
+from repro_torch.kernels.ref import (
+    flash_attention_ref, ssd_scan_ref, ssd_scan_three_phase, swiglu_ref,
+)
 from repro_torch.models import layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -130,12 +132,15 @@ class TestSwiGLU:
         np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-4, rtol=1e-3)
 
 
-def _ssd_inputs(seed, BH, S, P, N, dtype="float32"):
+def _ssd_inputs(seed, BH, S, P, N, dtype="float32", dt_shift=0.0):
     """x, dt, A, B, C for both packages, drawn as ``tests/test_kernels.py``
-    draws them: dt = softplus(normal), A = -exp(normal / 2), B and C at 0.5."""
+    draws them: dt = softplus(normal), A = -exp(normal / 2), B and C at 0.5.
+    ``dt_shift`` moves dt to softplus(normal - dt_shift): at 4 (dt ~0.02) a
+    chunk of 64 decays by 0.1-0.4 instead of ~e^-50, and the carried state
+    counts."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((BH, S, P)).astype(np.float32)
-    dt = np.logaddexp(0.0, rng.standard_normal((BH, S))).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((BH, S)) - dt_shift).astype(np.float32)
     A = -np.exp(rng.standard_normal(BH) * 0.5).astype(np.float32)
     B = (rng.standard_normal((BH, S, N)) * 0.5).astype(np.float32)
     C = (rng.standard_normal((BH, S, N)) * 0.5).astype(np.float32)
@@ -222,6 +227,108 @@ class TestSSDScan:
         ref, _ = jax_ssm._ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=16)
         out = ssd_mixer(*map(torch.from_numpy, (x, dt, A, Bm, Cm)))
         np.testing.assert_allclose(_f32(out), _f32(ref), atol=5e-3, rtol=1e-2)
+
+
+def _three_phase_flat(x, dt, A, B, C, **kw):
+    """The emulation on ``[BH, S, *]`` operands, each sequence a batch row
+    of one head and one group, as ``ssd_scan`` hands them to the kernel."""
+    out = ssd_scan_three_phase(x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None],
+                               C[:, :, None], **kw)
+    if kw.get("return_state"):
+        return out[0][:, :, 0], out[1][:, 0]
+    return out[:, :, 0]
+
+
+def _card_ratio(out, ref, state=False):
+    """Largest error over the card's tolerance (``chip_smoke.py``'s
+    SSD_Y_TOL / SSD_STATE_TOL, ``tests/test_torch_card.py::_ssd_close``),
+    element by element: y to 1e-4·max(|ref|, 1) plus 2**-7·|ref| in bf16,
+    the f32 state to 1e-4·max(|ref|, 1).  The check fails above 1."""
+    out, ref = out.float(), ref.float()
+    atol = 1e-4 * max(float(ref.abs().max()), 1.0)
+    rtol = 2.0 ** -7 if not state else 0.0
+    return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+class TestThreePhase:
+    """The ``wgmma`` SSD-scan kernel's design, emulated on the CPU
+    (``ref.ssd_scan_three_phase``): chunks of 64, the three phases, and the
+    f32 operands of the bf16 tensor cores as hi + lo halves."""
+
+    @pytest.mark.parametrize("BH,S,P,N,bs", [
+        (2, 128, 32, 64, 32),
+        (3, 256, 64, 128, 64),
+        (2, 128, 64, 32, 128),
+        (1, 64, 16, 16, 16),
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_pallas_kernel(self, BH, S, P, N, bs, dtype):
+        jin, tin = _ssd_inputs(11, BH, S, P, N, dtype)
+        ref = jax_ssd_scan(*jin, block_s=bs, interpret=True)
+        out = _three_phase_flat(*tin)
+        assert out.dtype == DTYPES[dtype][1] and out.shape == (BH, S, P)
+        np.testing.assert_allclose(_f32(out), _f32(ref), rtol=0, atol=_ssd_tol(ref, dtype))
+
+    @pytest.mark.parametrize("B,S,H,G,bs", [(2, 64, 4, 1, 16), (1, 40, 4, 2, 16), (2, 20, 2, 2, 256)])
+    def test_matches_model_chunked_ssd(self, B, S, H, G, bs):
+        """y and the final state against the reference's ``_ssd_chunked``,
+        groups read by head in place (no broadcast)."""
+        P, N = 16, 32
+        rng = np.random.default_rng(13)
+        x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+        dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+        A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+        Bm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        Cm = (rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32)
+        ref_y, ref_h = jax_ssm._ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=bs)
+        y, h = ssd_scan_three_phase(*map(torch.from_numpy, (x, dt, A, Bm, Cm)), return_state=True)
+        np.testing.assert_allclose(_f32(y), _f32(ref_y), rtol=0, atol=_ssd_tol(ref_y, "float32"))
+        np.testing.assert_allclose(_f32(h), _f32(ref_h), rtol=0, atol=_ssd_tol(ref_h, "float32"))
+
+    @pytest.mark.parametrize("BH,S,P,N,dt_shift", [
+        (2, 100, 64, 128, 0.0), (1, 37, 64, 16, 0.0), (2, 64, 64, 64, 0.0), (1, 1, 64, 128, 0.0),
+        (2, 200, 64, 32, 0.0), (2, 300, 64, 128, 4.0), (2, 300, 64, 16, 4.0),
+    ])
+    def test_within_card_tolerance_of_exact_recurrence(self, BH, S, P, N, dt_shift):
+        """bf16 at the kernel's widths: y and the state within the unchanged
+        tolerances the card holds the kernel to, also where the carried state
+        counts (dt_shift 4)."""
+        _, tin = _ssd_inputs(15, BH, S, P, N, "bfloat16", dt_shift=dt_shift)
+        y, h = _three_phase_flat(*tin, return_state=True)
+        ry, rh = ssd_scan_ref(*tin, return_state=True)
+        assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+        assert _card_ratio(y, ry) <= 1.0
+        assert _card_ratio(h, rh, state=True) <= 1.0
+
+    @pytest.mark.parametrize("BH,S,P,N", [(2, 100, 64, 128), (2, 64, 64, 64)])
+    def test_dropping_lo_halves_fails(self, BH, S, P, N):
+        """Planted fault: operands rounded once to bf16 (the lo halves
+        dropped).  The state misses its tolerance many times over."""
+        _, tin = _ssd_inputs(15, BH, S, P, N, "bfloat16")
+        y, h = _three_phase_flat(*tin, return_state=True, lo=False)
+        _, rh = ssd_scan_ref(*tin, return_state=True)
+        assert _card_ratio(h, rh, state=True) > 4.0
+
+    def test_grouped_strided_views_equal_repeated_copies(self):
+        """Head h reads group h // (H/G) from strided views of one conv-output
+        row, as the kernel does; the same as broadcast contiguous copies."""
+        B, S, H, G, P, N = 2, 70, 8, 2, 64, 32
+        rng = np.random.default_rng(16)
+        buf = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * G * N)).astype(np.float32)
+                               * 0.5).to(torch.bfloat16)
+        x = buf[..., :H * P].reshape(B, S, H, P)
+        Bm = buf[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        Cm = buf[..., H * P + G * N:].reshape(B, S, G, N)
+        dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32))
+        A = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32))
+        y, h = ssd_scan_three_phase(x, dt, A, Bm, Cm, return_state=True)
+        rep = H // G
+        ry, rh = ssd_scan_three_phase(x.contiguous(), dt, A,
+                                      Bm.repeat_interleave(rep, dim=2).contiguous(),
+                                      Cm.repeat_interleave(rep, dim=2).contiguous(),
+                                      return_state=True)
+        torch.testing.assert_close(y, ry, atol=0, rtol=0)
+        torch.testing.assert_close(h, rh, atol=0, rtol=0)
 
 
 class TestChunkedAttention:

@@ -30,7 +30,8 @@ from repro.models import transformer as jax_T
 from repro.serve import Engine as JaxEngine, ServeConfig as JaxServeConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, tensor_from_numpy
-from repro_torch.kernels import SSD_LIBRARY
+from repro_torch.kernels import SSD_LIBRARY, select_ssd_variant, ssd_mixer
+from repro_torch.kernels.ssd_scan import wgmma_operands
 from repro_torch.models import decode_step, forward, init_cache, init_params, ssm
 from repro_torch.serve import Engine, ServeConfig
 
@@ -242,3 +243,74 @@ def test_cache_follows_reference_defs():
         t = cache["segments"]["ssm"]["p0"][n]
         assert tuple(t.shape) == j.shape and t.dtype == getattr(torch, str(j.dtype)), n
         assert not bool(t.any())
+
+
+def test_mixer_on_strided_group_views_equals_repeated_copies():
+    """``ssd_mixer`` on the views ``ssm._split`` slices from the conv output
+    (row stride d_in + 2GN, one group for all heads) equals ``ssd_mixer`` on
+    contiguous copies with the group repeated to every head."""
+    cfg = get_config(ARCH).reduced()
+    d_in, H, P, N, G = ssm.ssm_dims(cfg)
+    assert G < H
+    rng = np.random.default_rng(5)
+    conv_out = torch.from_numpy(rng.standard_normal((2, 19, d_in + 2 * G * N))
+                                .astype(np.float32) * 0.5)
+    xh, Bm, Cm = ssm._split(cfg, conv_out)
+    assert not xh.is_contiguous() and xh.data_ptr() == conv_out.data_ptr()
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((2, 19, H))).astype(np.float32))
+    A = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32))
+    y, h = ssd_mixer(xh, dt, A, Bm, Cm, return_state=True)
+    ry, rh = ssd_mixer(xh.contiguous(), dt, A, Bm.repeat_interleave(H // G, dim=2).contiguous(),
+                       Cm.repeat_interleave(H // G, dim=2).contiguous(), return_state=True)
+    torch.testing.assert_close(y, ry, atol=0, rtol=0)
+    torch.testing.assert_close(h, rh, atol=0, rtol=0)
+
+
+def test_prefill_hands_the_scan_conv_views_uncopied(monkeypatch):
+    """At mamba2-370m's full widths (bf16), the prefill mixer passes x, B and
+    C to the scan as views of its conv output and dt, A as they come: the
+    ``wgmma`` kernel takes them, and its operands are those very views (no
+    ``repeat_interleave``, no ``.contiguous()`` copy)."""
+    cfg = get_config(ARCH)
+    d_in, H, P, N, G = ssm.ssm_dims(cfg)
+    assert select_ssd_variant(P, N, torch.bfloat16) == "wgmma"
+    g = torch.Generator().manual_seed(0)
+    p = {k: (torch.randn(s, generator=g) * 0.02).to(
+        torch.float32 if k in ssm.F32_LEAVES else torch.bfloat16)
+        for k, s in ssm.ssm_defs(cfg).items()}
+    seen = {}
+
+    def spy(x, dt, A, Bm, Cm, return_state=False):
+        seen.update(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm)
+        return ssd_mixer(x, dt, A, Bm, Cm, return_state=return_state)
+
+    monkeypatch.setattr(ssm, "ssd_mixer", spy)
+    S = 5
+    cache = {n: torch.zeros(s, dtype=d) for n, (s, d) in ssm.ssm_cache_defs(cfg, 1).items()}
+    ssm.ssm_block(p, cfg, torch.randn(1, S, cfg.d_model, generator=g).to(torch.bfloat16), cache,
+                  mode="prefill")
+    x, dt, A, Bm, Cm = (seen[k] for k in ("x", "dt", "A", "Bm", "Cm"))
+    row = d_in + 2 * G * N
+    assert x.stride() == (S * row, row, P, 1) and Bm.stride() == Cm.stride() == (S * row, row, N, 1)
+    assert Bm.data_ptr() - x.data_ptr() == 2 * d_in and Cm.data_ptr() - Bm.data_ptr() == 2 * G * N
+    assert dt.dtype == A.dtype == torch.float32 and dt.is_contiguous()
+    A2 = A[None].expand(1, H)
+    ox, odt, oA, oB, oC, strides = wgmma_operands(x, dt, A2, Bm, Cm)
+    for a, b in ((ox, x), (odt, dt), (oA, A2), (oB, Bm), (oC, Cm)):
+        assert a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+    assert strides == [S * row, row, P, S * H, H, 1, *A2.stride(), S * row, row, N,
+                       S * H * P, H * P, P]
+
+
+def test_views_tma_cannot_take_are_copied():
+    """A view whose start or strides are not on 16 bytes is copied (made
+    contiguous) before the kernel reads it; the others stay views."""
+    buf = torch.zeros(1, 8, 2 * 64 + 2 * 16 + 1, dtype=torch.bfloat16)
+    x = buf[..., :128].reshape(1, 8, 2, 64)            # row stride of 161 elements
+    Bm = buf[..., 129:145].reshape(1, 8, 1, 16)         # odd start
+    dt, A2 = torch.zeros(1, 8, 2), torch.zeros(1, 2)
+    ox, _, _, oB, oC, _ = wgmma_operands(x, dt, A2, Bm, Bm)
+    assert ox.is_contiguous() and ox.data_ptr() != x.data_ptr()
+    assert oB.is_contiguous() and oC.is_contiguous()
+    good = torch.zeros(1, 8, 128, dtype=torch.bfloat16).reshape(1, 8, 2, 64)
+    assert wgmma_operands(good, dt, A2, good[..., :16], good[..., 16:32])[0] is good
