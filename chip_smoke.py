@@ -28,7 +28,15 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              (TinyLlama: tensor-core variants only), and no other; two
              requests of each are checked against a teacher-forced forward,
              and one prefill and one decode tick are profiled.
-5. report  — one JSON line of numbers per kernel variant, then the device line.
+5. cnn     — the paper's pipeline: inception_net(224) at batch 8 (random
+             weights from a seeded generator), DSH plans on the whole model
+             (m=4) and on the grid-sliced one (m=8), validated; run_sequential,
+             the plan interpreter and the MPMD executor on m CUDA streams
+             (eager, and captured into one CUDA graph, replayed twice), each
+             held against the float64 run on the CPU; the executor's stream
+             count and copied bytes checked; wall times and the device's busy
+             share printed.  None of the three kernels may launch here.
+6. report  — one JSON line of numbers per kernel variant, then the device line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -693,6 +701,151 @@ def profile_steps(torch, engine, prompt) -> None:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: the paper's pipeline, inception_net(224) on m streams
+# --------------------------------------------------------------------------- #
+CNN_HW, CNN_BATCH, CNN_REPS = 224, 8, 20
+# every run against the port's float64 run_sequential on the CPU: f32 on the
+# card (TF32 off) differs from it by f32 rounding only
+CNN_TOL = 1e-4
+
+
+def wall_ms(torch, fn, reps: int = CNN_REPS, warm: int = 3) -> float:
+    """Median wall time of one call: CUDA events on the calling stream
+    around the call, host enqueue included (an executor joins its worker
+    streams back into the calling stream before it returns)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_busy_ms(torch, fn) -> tuple:
+    """Device time of one call under the profiler: the union of its device
+    events' intervals (kernels, copies, fills) over every stream, and their
+    plain sum (above the union where streams overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union, total, end = 0.0, 0.0, -math.inf
+    for lo, hi in spans:
+        total += hi - lo
+        if hi > end:
+            union += hi - max(lo, end)
+            end = hi
+    return union / 1e3, total / 1e3, len(spans)
+
+
+def cnn_phase(torch) -> dict:
+    """inception_net(224) at batch 8 through the paper's pipeline: DSH m=4 on
+    the whole model and DSH m=8 on the grid-sliced one, each plan validated,
+    interpreted and executed on m CUDA streams (eager, then as one captured
+    CUDA graph), every result held against the float64 CPU run."""
+    from repro_torch.codegen import (
+        build_mpmd_executor, build_plan, coalesce_transfer_steps, executed_comm_bytes,
+        interpret_plan, validate_plan,
+    )
+    from repro_torch.core import dsh
+    from repro_torch.core.costmodel import KEYSTONE_CPU
+    from repro_torch.kernels import LIBRARIES
+    from repro_torch.models.cnn import inception_net, run_sequential
+    from repro_torch.models.slicing import choose_slice_factors, slice_model
+
+    for lib in LIBRARIES:
+        lib.reset()
+    model = inception_net(CNN_HW)
+    params = model.init_params(0, device="cuda")
+    x = torch.randn((CNN_BATCH, CNN_HW, CNN_HW, 3), generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    ref = run_sequential(model, {k: {n: t.cpu().double() for n, t in d.items()}
+                                 for k, d in params.items()}, x.double())
+    tol = CNN_TOL * max(1.0, float(ref.abs().max()))
+    log(f"inception_net({CNN_HW}): {len(model.layers)} layers, "
+        f"{sum(t.numel() for d in params.values() for t in d.values()) / 1e6:.2f} M weights; "
+        f"float64 CPU reference at batch {CNN_BATCH} in {time.perf_counter() - t0:.1f} s, "
+        f"max |ref| {float(ref.abs().max()):.4g}, tolerance {tol:.3g}")
+    x = x.cuda()
+    worst = {}
+
+    def hold(what, out):
+        if tuple(out.shape) != tuple(ref.shape) or out.dtype != torch.float32:
+            raise AssertionError(f"{what}: {tuple(out.shape)} {out.dtype}, expected "
+                                 f"{tuple(ref.shape)} float32")
+        err = float((out.cpu().double() - ref).abs().max())
+        if not err <= tol:  # NaN fails too
+            raise AssertionError(f"{what}: max abs error {err:.3g} > {tol:.3g}")
+        worst[what] = err
+
+    sliced = slice_model(model, choose_slice_factors(model, KEYSTONE_CPU))
+    times = {}
+    for name, mdl in (("whole", model), ("sliced", sliced)):
+        hold(f"run_sequential {name}", run_sequential(mdl, params, x))
+        times[f"run_sequential {name}"] = wall_ms(torch, lambda: run_sequential(mdl, params, x))
+    plans = {}
+    for name, mdl, m in (("whole m=4", model, 4), ("sliced m=8", sliced, 8)):
+        dag = mdl.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+        plan = build_plan(dsh(dag, m), dag)
+        stats = validate_plan(plan, dag, mdl)
+        log(f"DSH {name}: {len(mdl.layers)} tasks, {len(plan.steps)} supersteps "
+            f"({len(coalesce_transfer_steps(plan).steps)} after coalescing), {plan.n_transfers} "
+            f"transfers, makespan {plan.makespan:.1f} us (KEYSTONE_CPU cost model); "
+            f"validate_plan: {stats}")
+        hold(f"interpret_plan {name}", interpret_plan(plan, mdl, params, x))
+        f = build_mpmd_executor(plan, mdl, params, device="cuda", batch=CNN_BATCH)
+        hold(f"executor eager {name}", f.eager(x))
+        torch.cuda.synchronize()
+        handles = {s.cuda_stream for s in f.streams}
+        if len(handles) != m or f.streams_used != handles:
+            raise AssertionError(f"{name}: work went to {len(f.streams_used)} of {len(handles)} "
+                                 f"streams, {m} workers")
+        want = executed_comm_bytes(plan, mdl, batch=CNN_BATCH)
+        if f.comm_bytes != want:
+            raise AssertionError(f"{name}: copied {f.comm_bytes} bytes, executed_comm_bytes {want}")
+        first, second = f(x), f(x)
+        hold(f"executor captured {name} (replay 1)", first)
+        hold(f"executor captured {name} (replay 2)", second)
+        times[f"executor eager {name}"] = wall_ms(torch, lambda: f.eager(x))
+        times[f"executor captured {name}"] = wall_ms(torch, lambda: f(x))
+        busy, total, n_events = device_busy_ms(torch, lambda: f.eager(x))
+        eager_ms = times[f"executor eager {name}"]
+        plans[name] = dict(m=m, tasks=len(mdl.layers), supersteps=len(plan.steps),
+                           transfers=plan.n_transfers, comm_bytes=f.comm_bytes,
+                           streams=len(handles), busy_ms=busy, kernel_sum_ms=total,
+                           device_events=n_events, busy_share=busy / eager_ms)
+        log(f"executor {name}: {len(handles)} streams, {f.comm_bytes} bytes copied between "
+            f"workers (= executed_comm_bytes); one eager call: {n_events} device events, busy "
+            f"{busy:.3f} ms (union over streams; sum {total:.3f} ms), {100 * busy / eager_ms:.1f}% "
+            f"of its {eager_ms:.3f} ms wall")
+        del f
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
+    if any(n for counts in launches.values() for n in counts.values()):
+        raise AssertionError(f"the CNN path launched a Hopper kernel: {launches}")
+    log(f"all {len(worst)} runs within tolerance; largest error {max(worst.values()):.3g} "
+        f"({max(worst, key=worst.get)})")
+    log(f"median wall of one call at batch {CNN_BATCH} ({CNN_REPS} calls, CUDA events):")
+    for k, v in times.items():
+        log(f"  {k:34} {v:9.3f} ms")
+    log(f"launches of the port's kernels on this path: {launches}")
+    return {"times_ms": times, "plans": plans, "max_abs_err": worst}
+
+
 def main() -> None:
     import torch
 
@@ -740,6 +893,10 @@ def main() -> None:
     with phase("serve mamba2-370m"):
         run = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
         launches["ssd_scan"] = run["ssd_scan"]
+    torch.cuda.empty_cache()
+    with phase(f"cnn inception-{CNN_HW}"):
+        cnn = cnn_phase(torch)
+        log("cnn: " + json.dumps(cnn))
 
     with phase("report"):
         # each variant's row: the path shape it serves (f32 for the CUDA-core

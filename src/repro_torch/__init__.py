@@ -6,6 +6,8 @@ become CUDA kernels written by hand (``repro_torch/csrc``), each with a
 plain PyTorch version that the CPU tests and ``chip_smoke.py`` hold it to.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
-Ported so far: the dense-LM serving path (``serve.Engine`` over
-``models.transformer``) with the flash-attention and fused-SwiGLU kernels.
+Ported so far: LM serving (``serve.Engine`` over ``models.transformer``)
+with the flash-attention, fused-SwiGLU and SSD-scan kernels, and the
+paper's pipeline up to the unrolled executor (``core``, ``models.cnn``,
+``models.slicing``, ``codegen``: plans run on m CUDA streams).
 """

@@ -5,10 +5,14 @@ model with exactly the reference's weights, so that tests can run both
 packages on the same numbers.  The reference stacks every layer's parameters
 with a leading ``[L]`` dim under ``segments/<name>/p0`` (``dense`` or
 ``ssm``); they are unstacked here into the port's per-layer blocks.
+
+``cnn_params_from_numpy`` does the same for a ``CNNModel``'s weights
+(``{layer: {"w", "b"}}``, HWIO conv and ``[in, out]`` dense weights, kept in
+those layouts).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -17,7 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import Transformer, segment_name
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["cnn_params_from_numpy", "params_from_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -58,3 +62,12 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
                              f"port {tuple(prm.shape)} {prm.dtype}")
         prm.copy_(value)
     return model
+
+
+def cnn_params_from_numpy(params: Mapping[str, Mapping[str, Any]],
+                          device: DeviceLike = "cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's ``CNNModel.init_params`` tree (numpy leaves) as the
+    port's: the same layers, leaves and layouts, on ``device``."""
+    dev = resolve_device(device)
+    return {layer: {k: tensor_from_numpy(v, dev) for k, v in leaves.items()}
+            for layer, leaves in params.items()}

@@ -252,3 +252,88 @@ def test_mixed_devices_raise(card):
         ssd_scan(x, dt, A, B.to(torch.bfloat16), C)
     with pytest.raises(ValueError, match="not supported"):
         ssd_scan(x, dt.double(), A.double(), B, C)
+
+
+# --------------------------------------------------------------------------- #
+# the CNN pipeline's MPMD executor: m workers as m CUDA streams
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def f32_card(card):
+    """The card with TF32 off in cuDNN and cuBLAS (f32 parity), restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _cnn_case(sliced: bool, m: int):
+    """inception_net(32), whole or grid-sliced, its DSH plan on m workers,
+    seeded weights (f32 on the card) and a batch-2 input; the reference is
+    the port's own run_sequential on the CPU in float64."""
+    from repro_torch.codegen import build_plan
+    from repro_torch.core import dsh
+    from repro_torch.core.costmodel import KEYSTONE_CPU
+    from repro_torch.models.cnn import inception_net, run_sequential
+    from repro_torch.models.slicing import choose_slice_factors, slice_model
+
+    model = inception_net(32)
+    params = model.init_params(0, device="cpu")
+    if sliced:
+        model = slice_model(model, choose_slice_factors(model, KEYSTONE_CPU))
+    dag = model.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+    plan = build_plan(dsh(dag, m), dag)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(np.float32))
+    ref = run_sequential(model, {k: {n: t.double() for n, t in d.items()} for k, d in params.items()},
+                         x.double())
+    return model, plan, params, x, ref
+
+
+def _cnn_close(out, ref):
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    err = float((out.cpu().double() - ref).abs().max())
+    assert err <= tol, f"max abs error {err:.3g} > {tol:.3g}"
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+def test_mpmd_executor_on_streams(f32_card, m, sliced, fuse):
+    """Eager and captured, the executor on m streams gives the float64
+    sequential result, copies executed_comm_bytes between workers, and
+    replays bit for bit what its eager run gives."""
+    from repro_torch.codegen import build_mpmd_executor, executed_comm_bytes
+    from repro_torch.kernels import LIBRARIES
+
+    model, plan, params, x, ref = _cnn_case(sliced, m)
+    dparams = {k: {n: t.to(f32_card) for n, t in d.items()} for k, d in params.items()}
+    f = build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2, fuse_transfers=fuse)
+    xd = x.to(f32_card)
+    before = [dict(lib.counts) for lib in LIBRARIES]
+    eager = f.eager(xd)
+    torch.cuda.synchronize()
+    _cnn_close(eager, ref)
+    assert len(f.streams_used) == m == len({s.cuda_stream for s in f.streams})
+    assert f.comm_bytes == executed_comm_bytes(plan, model, batch=2, fuse_transfers=fuse)
+    first = f(xd)
+    second = f(xd)
+    torch.cuda.synchronize()
+    _cnn_close(first, ref)
+    assert torch.equal(first, second) and torch.equal(first, eager)
+    assert [dict(lib.counts) for lib in LIBRARIES] == before  # no Hopper kernel on this path
+
+
+def test_mpmd_executor_replays_new_inputs(f32_card):
+    """The captured graph reads each call's input: a second input gives its
+    own result, equal bit for bit to the eager run on it."""
+    from repro_torch.codegen import build_mpmd_executor
+
+    model, plan, params, x, _ref = _cnn_case(True, 4)
+    dparams = {k: {n: t.to(f32_card) for n, t in d.items()} for k, d in params.items()}
+    f = build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2)
+    a = f(x.to(f32_card))
+    x2 = (x * 0.5 + 1.0).to(f32_card)
+    b = f(x2)
+    assert not torch.equal(a, b)
+    assert torch.equal(b, f.eager(x2))
+    with pytest.raises(ValueError, match="batch=2"):
+        f(x2[:1])

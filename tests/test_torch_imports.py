@@ -38,6 +38,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import repro_torch.serve.engine, repro_torch.convert, repro_torch.kernels\n"
+        "import repro_torch.core, repro_torch.models.cnn, repro_torch.models.slicing\n"
+        "import repro_torch.codegen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
