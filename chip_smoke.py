@@ -36,13 +36,27 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              held against the float64 run on the CPU; the executor's stream
              count and copied bytes checked; wall times and the device's busy
              share printed.  None of the three kernels may launch here.
-6. report  — one JSON line of numbers per kernel variant, then the device line.
+6. faults  — the fault runner on the cnn phase's grid-sliced model, weights,
+             input and reference (DSH m=8): a run with no faults on 8
+             streams; the kill drill (worker 3 dies at superstep 8, heartbeats
+             detect it, the planner replans to 7 workers and deep-validates the
+             replan with the happens-before analyzer, the barrier snapshot
+             migrates, the resume runs on 7 streams); a seeded campaign of
+             stragglers and dropped rounds.  Streams are counted from the
+             profiler's device events; outputs are held to the float64 run;
+             none of the three kernels may launch here.
+7. report  — one JSON line of numbers per kernel variant, then the device line.
+
+Device memory still allocated is printed at the start of each serving, cnn
+and faults phase; the cyclic collector runs before the cache is emptied
+between phases.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -621,6 +635,10 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
     if any(launches[lib]["cuda_core"] for lib in launches):
         raise AssertionError("a serving launch went through a CUDA-core kernel")
 
+    # the timing closures read the engine and are stored on it: put the
+    # engine's own steps back, so that the engine and its weights are freed
+    # with the last reference to them, not at the next cyclic collection
+    engine._prefill1, engine._decode = prefill, decode
     profile_steps(torch, engine, prompts[int(np.argmax(lens))])
 
     # teacher-forced check: a train-mode forward over prompt + generated tokens
@@ -730,20 +748,23 @@ def wall_ms(torch, fn, reps: int = CNN_REPS, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_busy_ms(torch, fn) -> tuple:
-    """Device time of one call under the profiler: the union of its device
-    events' intervals (kernels, copies, fills) over every stream, and their
-    plain sum (above the union where streams overlap)."""
+def device_events(torch, fn) -> tuple:
+    """Run ``fn`` once under the profiler; return its result and its device
+    events (kernels, copies, fills)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    return out, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy(events) -> tuple:
+    """The union of the events' intervals over every stream and their plain
+    sum (above the union where streams overlap), in ms, and their count."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     union, total, end = 0.0, 0.0, -math.inf
     for lo, hi in spans:
         total += hi - lo
@@ -753,11 +774,20 @@ def device_busy_ms(torch, fn) -> tuple:
     return union / 1e3, total / 1e3, len(spans)
 
 
-def cnn_phase(torch) -> dict:
+def device_busy_ms(torch, fn) -> tuple:
+    """Device time of one call under the profiler (after one call unprofiled):
+    ``busy`` of its device events."""
+    fn()
+    return busy(device_events(torch, fn)[1])
+
+
+def cnn_phase(torch) -> tuple:
     """inception_net(224) at batch 8 through the paper's pipeline: DSH m=4 on
     the whole model and DSH m=8 on the grid-sliced one, each plan validated,
     interpreted and executed on m CUDA streams (eager, then as one captured
-    CUDA graph), every result held against the float64 CPU run."""
+    CUDA graph), every result held against the float64 CPU run.  Returns
+    the report and what the faults phase reuses (the sliced model, weights,
+    input, reference and tolerance)."""
     from repro_torch.codegen import (
         build_mpmd_executor, build_plan, coalesce_transfer_steps, executed_comm_bytes,
         interpret_plan, validate_plan,
@@ -843,7 +873,264 @@ def cnn_phase(torch) -> dict:
     for k, v in times.items():
         log(f"  {k:34} {v:9.3f} ms")
     log(f"launches of the port's kernels on this path: {launches}")
-    return {"times_ms": times, "plans": plans, "max_abs_err": worst}
+    shared = dict(sliced=sliced, params=params, x=x, ref=ref, tol=tol)
+    return {"times_ms": times, "plans": plans, "max_abs_err": worst}, shared
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: the fault runner and the kill drill on the sliced plan
+# --------------------------------------------------------------------------- #
+FAULT_M, FAULT_KILL_STEP, FAULT_KILL_WORKER, FAULT_REPS = 8, 8, 3, 5
+
+
+def device_streams(torch, fn) -> tuple:
+    """Run ``fn`` once under the profiler; return its result, the streams
+    (the profiler's ids) that copied to the host, the count of device events
+    per stream and name, and the device's busy ms (``busy``) with the part
+    of it spent copying to the host.
+
+    A runner worker copies its barrier snapshot to the host on its own
+    stream, so the streams that copied to the host are the workers that
+    ran.  cuDNN may run part of a convolution on a stream of its own (FFT
+    kernels, on the card's machine): such a stream carries the worker's
+    convolution, not a worker, and is reported beside them.  Raises if a
+    copy, fill or PyTorch kernel ran on a stream that is not a worker's."""
+    from collections import Counter, defaultdict
+
+    out, evs = device_events(torch, fn)
+    events = defaultdict(Counter)
+    for e in evs:
+        events[getattr(e, "device_resource_id", e.thread)][e.name] += 1
+    to_host = {s for s, names in events.items() if any(n.startswith("Memcpy DtoH") for n in names)}
+    strays = {s: names for s, names in events.items() if s not in to_host and any(
+        n.startswith(("Memcpy", "Memset")) or "at::native" in n for n in names)}
+    if strays:
+        raise AssertionError(f"PyTorch's own device work off the workers' streams: {strays}")
+    union, _total, _n = busy(evs)
+    dtoh = busy([e for e in evs if e.name.startswith("Memcpy DtoH")])[0]
+    return out, to_host, events, (union, dtoh)
+
+
+def stream_report(to_host, events) -> str:
+    """Per stream: its device events; the other streams' names too."""
+    parts = [f"{sum(events[s].values())}" for s in sorted(to_host)]
+    other = {s: dict(events[s].most_common(3)) for s in events if s not in to_host}
+    return f"workers' streams {len(to_host)} (events {', '.join(parts)}); other streams {other}"
+
+
+def faults_phase(torch, shared: dict) -> dict:
+    """The fault runner (``runtime/faults.py``) on the grid-sliced
+    inception_net(224) at batch 8, DSH m=8, with the cnn phase's weights,
+    input and float64 reference: a run with no faults on 8 streams; the
+    kill drill (worker 3 dies entering superstep 8, the monitor detects it,
+    the planner replans to 7 workers and deep-validates the replan, the
+    barrier snapshot migrates, the resume runs on 7 streams); a seeded
+    campaign of stragglers and dropped rounds.  None of the three kernels
+    may launch here."""
+    import repro_torch.codegen.analyze as analyze_mod
+    import repro_torch.runtime.faults as faults_mod
+    from repro_torch.codegen import build_plan, coalesce_transfer_steps, plan_fingerprint
+    from repro_torch.core import dsh
+    from repro_torch.core.costmodel import KEYSTONE_CPU
+    from repro_torch.kernels import LIBRARIES
+    from repro_torch.runtime import FaultPlan, HealthMonitor, kill_and_resume_drill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for lib in LIBRARIES:
+        lib.reset()
+    sliced, params, x, ref, tol = (shared[k] for k in ("sliced", "params", "x", "ref", "tol"))
+    worst = {}
+
+    def hold(what, out):
+        if out is None or tuple(out.shape) != tuple(ref.shape) or str(out.dtype) != "float32":
+            raise AssertionError(f"{what}: {None if out is None else (out.shape, out.dtype)}, "
+                                 f"expected {tuple(ref.shape)} float32")
+        err = float((torch.from_numpy(out).double() - ref).abs().max())
+        if not err <= tol:  # NaN fails too
+            raise AssertionError(f"{what}: max abs error {err:.3g} > {tol:.3g}")
+        worst[what] = err
+
+    def snapshot_bytes(outcome) -> int:
+        return sum(b.nbytes for snap in outcome.snapshots.values() for b in snap)
+
+    dag = sliced.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+    plan = coalesce_transfer_steps(build_plan(dsh(dag, FAULT_M), dag))
+    layout = faults_mod._plan_layout(plan, sliced)
+    n_steps = len(plan.steps)
+    log(f"DSH m={FAULT_M} on {len(sliced.layers)} tasks: {n_steps} supersteps, "
+        f"{plan.n_transfers} transfers, {layout.total} packed columns per worker")
+
+    # 1. no faults: every superstep on 8 streams, the final barrier's snapshot
+    def run():
+        return faults_mod.run_with_faults(plan, sliced, params, x, layout)
+
+    out = run()
+    if out.status != "ok":
+        raise AssertionError(f"no-fault run ended {out.status}")
+    hold("run_with_faults, no faults", out.output)
+    walls = []
+    for _ in range(FAULT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out, streams, events, (busy_ms, dtoh_ms) = device_streams(torch, run)
+    hold("run_with_faults, no faults (profiled)", out.output)
+    if len(streams) != FAULT_M:
+        raise AssertionError(f"no-fault run: {stream_report(streams, events)}; not {FAULT_M}")
+    no_faults = dict(wall_ms=sorted(walls)[len(walls) // 2], walls_ms=walls,
+                     streams=len(streams), device_streams=len(events),
+                     snapshot_bytes=snapshot_bytes(out), busy_ms=busy_ms, to_host_ms=dtoh_ms)
+    log(f"no faults: median wall {no_faults['wall_ms']:.3f} ms of {FAULT_REPS} calls (host clock, "
+        f"final barrier's snapshot to the host included: {no_faults['snapshot_bytes']} bytes); "
+        f"one profiled call: device busy {busy_ms:.3f} ms (union over streams), of which "
+        f"copies to the host {dtoh_ms:.3f} ms; {stream_report(streams, events)}")
+
+    # 2. the kill drill, its runs and its deep analysis observed through
+    # wrappers of the module functions it calls (the drill itself is the
+    # reference's, verbatim)
+    runs, analyses, resume = [], [], {}
+    real_run, real_resume, real_analyze = (
+        faults_mod.run_with_faults, faults_mod.resume_plan, analyze_mod.analyze_plan)
+
+    def timed_run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outcome = real_run(*a, **kw)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3, outcome))
+        return outcome
+
+    def timed_analyze(*a, **kw):
+        t0 = time.perf_counter()
+        report = real_analyze(*a, **kw)
+        analyses.append(((time.perf_counter() - t0) * 1e3, a[0], kw.get("depths"), report))
+        return report
+
+    def counted_resume(*a, **kw):
+        """The resume as the drill calls it, then once more under the
+        profiler, to count the streams it runs on."""
+        outcome = real_resume(*a, **kw)
+        again, resume["streams"], resume["events"], resume["busy"] = device_streams(
+            torch, lambda: real_resume(*a, **kw))
+        hold("kill drill, resumed (profiled)", again.output)
+        return outcome
+
+    faults_mod.run_with_faults, faults_mod.resume_plan = timed_run, counted_resume
+    analyze_mod.analyze_plan = timed_analyze
+    try:
+        t0 = time.perf_counter()
+        drill = kill_and_resume_drill(sliced, params, x, dag, m=FAULT_M,
+                                      kill_step=FAULT_KILL_STEP, kill_worker=FAULT_KILL_WORKER,
+                                      hw=KEYSTONE_CPU)
+        drill_s = time.perf_counter() - t0
+    finally:
+        faults_mod.run_with_faults, faults_mod.resume_plan = real_run, real_resume
+        analyze_mod.analyze_plan = real_analyze
+    new_plan, cert = drill["new_plan"], drill["certificate"]
+    if not (drill["detected"] and new_plan.n_workers == FAULT_M - 1
+            and drill["recomputed_supersteps"] <= 1 and drill["migrated_bytes"] > 0
+            and cert is not None and cert.total >= new_plan.makespan):
+        raise AssertionError(f"drill: detected {drill['detected']}, {new_plan.n_workers} workers, "
+                             f"{drill['recomputed_supersteps']} recomputed supersteps, "
+                             f"{drill['migrated_bytes']} migrated bytes, certificate "
+                             f"{None if cert is None else cert.total} for makespan "
+                             f"{new_plan.makespan}")
+    hold("kill drill, resumed", drill["output"])
+    deep = [a for a in analyses if plan_fingerprint(a[1]) == plan_fingerprint(new_plan)]
+    if len(deep) != 1 or tuple(deep[0][2]) != (1, 2, 4) or not deep[0][3].ok:
+        raise AssertionError(f"the replan was not deep-validated once at depths (1, 2, 4): "
+                             f"{[(round(w), d, r.ok) for w, _p, d, r in deep]}")
+    analysis_ms, _plan, _depths, report = deep[0]
+    # the run up to the kill, the resume, and the resume again under the profiler
+    if len(runs) != 3 or runs[0][1].status != "killed" or runs[1][1].status != "ok":
+        raise AssertionError(f"drill runs: {[(o.status, o.step) for _w, o in runs]}")
+    if len(resume["streams"]) != FAULT_M - 1:
+        raise AssertionError(f"resume: {stream_report(resume['streams'], resume['events'])}; "
+                             f"not {FAULT_M - 1}")
+    events = report.stats["plan_events"] + report.stats["cell_events"]
+    kill = dict(
+        drill_s=drill_s, replan_ms=drill["replan_ms"], analysis_ms=analysis_ms,
+        analysis_events=events, plan_events=report.stats["plan_events"],
+        cell_events=report.stats["cell_events"], to_kill_ms=runs[0][0],
+        kill_snapshot_bytes=snapshot_bytes(runs[0][1]), resume_ms=runs[1][0],
+        resume_snapshot_bytes=snapshot_bytes(runs[1][1]), resume_streams=len(resume["streams"]),
+        resume_busy_ms=resume["busy"][0], resume_to_host_ms=resume["busy"][1],
+        migrated_bytes=drill["migrated_bytes"], placements=drill["placements"],
+        recomputed_nodes=drill["recomputed_nodes"], completed_nodes=drill["completed_nodes"],
+        n_steps_new=drill["n_steps_new"], transfers_new=new_plan.n_transfers,
+        cert_total=cert.total, makespan_new=new_plan.makespan)
+    log(f"kill drill (worker {FAULT_KILL_WORKER} at superstep {FAULT_KILL_STEP}): {drill_s:.1f} s "
+        f"in all; up to the kill {kill['to_kill_ms']:.3f} ms ({kill['kill_snapshot_bytes']} "
+        f"snapshot bytes to the host); replan to {new_plan.n_workers} workers "
+        f"({kill['n_steps_new']} supersteps, {kill['transfers_new']} transfers) "
+        f"{kill['replan_ms']:.1f} ms, of which the deep analysis at depths (1, 2, 4) "
+        f"{analysis_ms:.1f} ms over {events} events ({kill['plan_events']} superstep, "
+        f"{kill['cell_events']} cell); migrated {kill['migrated_bytes']} bytes in "
+        f"{kill['placements']} placements, {kill['recomputed_nodes']} nodes recomputed; "
+        f"resume {kill['resume_ms']:.3f} ms (profiled: device busy {resume['busy'][0]:.3f} ms, "
+        f"copies to the host {resume['busy'][1]:.3f} ms), "
+        f"{stream_report(resume['streams'], resume['events'])} "
+        f"({kill['resume_snapshot_bytes']} snapshot bytes to the host); certificate "
+        f"{cert.total:.1f} >= makespan {new_plan.makespan:.1f} (KEYSTONE_CPU units)")
+
+    # 3. a seeded campaign of stragglers and dropped rounds
+    seed = next(s for s in range(1000) if {"straggle", "drop_round"} <= {
+        e.kind for e in FaultPlan.random(FAULT_M, n_steps, seed=s, p_kill=0.0).events})
+    campaign = FaultPlan.random(FAULT_M, n_steps, seed=seed, p_kill=0.0)
+    monitor = HealthMonitor(FAULT_M, heartbeat_timeout=1e9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = faults_mod.run_with_faults(plan, sliced, params, x, layout, faults=campaign,
+                                     monitor=monitor, dag=dag)
+    campaign_ms = (time.perf_counter() - t0) * 1e3
+    if out.status != "ok":
+        raise AssertionError(f"campaign run ended {out.status}")
+    hold("campaign", out.output)
+    out_bytes = {n: layout.size(n) * 4.0 for n in layout.offsets}
+    dropped = sorted({e.step for e in campaign.events if e.kind == "drop_round"})
+    want = sum(faults_mod._round_bytes(plan.steps[i], out_bytes) for i in dropped) * CNN_BATCH
+    slow = {}
+    for e in campaign.events:
+        if e.kind == "straggle":
+            slow[e.worker] = max(slow.get(e.worker, 1.0), e.factor)
+    if out.retransmitted_bytes != want or out.straggled != slow:
+        raise AssertionError(f"campaign: retransmitted {out.retransmitted_bytes} bytes (want "
+                             f"{want}), straggled {out.straggled} (want {slow})")
+    if any(len(w.timings) != min(n_steps, monitor.window) for w in monitor.workers.values()):
+        raise AssertionError("campaign: the monitor missed a superstep")
+    verdict = monitor.check()
+    log(f"campaign seed {seed}: {[(e.kind, e.step, e.worker) for e in campaign.events]}; "
+        f"{campaign_ms:.3f} ms; retransmitted {out.retransmitted_bytes:.0f} bytes over dropped "
+        f"rounds {dropped}; straggled {slow}; monitor verdict {verdict}")
+
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
+    if any(n for counts in launches.values() for n in counts.values()):
+        raise AssertionError(f"the fault runner launched a Hopper kernel: {launches}")
+    log(f"all {len(worst)} outputs within tolerance {tol:.3g}; largest error "
+        f"{max(worst.values()):.3g} ({max(worst, key=worst.get)}); launches of the port's "
+        f"kernels: {launches}")
+    return {"no_faults": no_faults, "kill": kill,
+            "campaign": dict(seed=seed, wall_ms=campaign_ms, dropped_rounds=dropped,
+                             retransmitted_bytes=out.retransmitted_bytes,
+                             straggled={str(k): v for k, v in slow.items()}),
+            "max_abs_err": worst}
+
+
+
+def log_allocated(torch) -> None:
+    """What the previous phases left allocated on the card."""
+    log(f"device memory allocated at the start of the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def release(torch) -> None:
+    """Free what the last phase held: collect its reference cycles first,
+    then return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -887,16 +1174,24 @@ def main() -> None:
     # each kernel's launches are read from the serving run whose path it is on
     launches = {}
     with phase("serve tinyllama-1.1b"):
+        log_allocated(torch)
         run = serve(torch, np, "tinyllama-1.1b", LOGIT_TOL, LOGIT_TOL)
         launches.update(flash_attention=run["flash_attention"], swiglu_matmul=run["swiglu_matmul"])
-    torch.cuda.empty_cache()
+    release(torch)
     with phase("serve mamba2-370m"):
+        log_allocated(torch)
         run = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
         launches["ssd_scan"] = run["ssd_scan"]
-    torch.cuda.empty_cache()
+    release(torch)
     with phase(f"cnn inception-{CNN_HW}"):
-        cnn = cnn_phase(torch)
+        log_allocated(torch)
+        cnn, shared = cnn_phase(torch)
         log("cnn: " + json.dumps(cnn))
+    with phase(f"faults inception-{CNN_HW}"):
+        log_allocated(torch)
+        report = faults_phase(torch, shared)
+        log("faults: " + json.dumps(report))
+    del shared
 
     with phase("report"):
         # each variant's row: the path shape it serves (f32 for the CUDA-core

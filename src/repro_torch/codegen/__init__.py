@@ -1,6 +1,6 @@
 """The paper's code-generation step, ported: plans (copied from the
-reference), their validation and pseudo-C rendering, and their execution
-on m CUDA streams of one card."""
+reference), their validation, happens-before analysis and pseudo-C
+rendering, and their execution on m CUDA streams of one card."""
 from repro_torch.codegen.plan import (
     CommRound,
     ExecutionPlan,
@@ -19,6 +19,7 @@ from repro_torch.codegen.plan import (
     wcet_certificate,
 )
 from repro_torch.codegen.validate import PlanValidationError, validate_plan
+from repro_torch.codegen.analyze import AnalysisReport, PlanHazardError, analyze_plan
 from repro_torch.codegen.executor import (
     MPMDExecutor,
     build_mpmd_executor,
@@ -46,6 +47,9 @@ __all__ = [
     "wcet_certificate",
     "PlanValidationError",
     "validate_plan",
+    "AnalysisReport",
+    "PlanHazardError",
+    "analyze_plan",
     "MPMDExecutor",
     "interpret_plan",
     "build_mpmd_executor",

@@ -33,11 +33,15 @@ a register dict of its own tensors:
 
 On the CPU (``device="cpu"``) the same program runs eagerly, in order, with
 no streams.  The segmented executor (``segmented=True`` in the reference)
-comes with a later slice.
+comes with a later slice; its host tables (``plan_tables``,
+``plan_access_walk``, ``segment_access_tables``: numpy only) are copied here
+verbatim, because the happens-before analyzer (``codegen/analyze.py``)
+proves its hazards on them.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -47,7 +51,9 @@ from repro_torch.codegen.plan import (
     ExecutionPlan,
     Transfer,
     _permutation_rounds,
+    build_segments,
     coalesce_transfer_steps,
+    pack_registers,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.cnn import CNNModel, Params, apply_layer
@@ -58,6 +64,12 @@ __all__ = [
     "plan_liveness",
     "executed_comm_bytes",
     "MPMDExecutor",
+    "PlanTables",
+    "SegmentAccess",
+    "AccessTables",
+    "plan_tables",
+    "plan_access_walk",
+    "segment_access_tables",
 ]
 
 
@@ -179,6 +191,18 @@ class _Workers:
     def wait(self, w: int, flag: Optional[torch.cuda.Event]) -> None:
         if self.cuda:
             self.streams[w].wait_event(flag)
+
+    def barrier(self) -> None:
+        """Join every stream: each waits for all work issued so far on the
+        calling stream and on every other worker's stream (the calling
+        stream waits for them all too)."""
+        if not self.cuda:
+            return
+        caller = torch.cuda.current_stream(self.streams[0].device)
+        for s in self.streams:
+            caller.wait_stream(s)
+        for s in self.streams:
+            s.wait_stream(caller)
 
     def hand_over(self, t: torch.Tensor, w: int) -> None:
         """``t`` was made on another stream and is read on ``w``'s: the
@@ -509,3 +533,362 @@ def executed_comm_bytes(
                 for perm in _permutation_rounds([(t.src, t.dst) for t in ts]):
                     total += e * len(perm)
     return float(total) * batch * dtype_bytes
+
+
+# --------------------------------------------------------------------------- #
+# host tables of the segmented executor (numpy only), shared with the analyzer
+# --------------------------------------------------------------------------- #
+def _waterfill(loads: np.ndarray, lo: int, hi: int, n: int) -> np.ndarray:
+    """Split ``n`` units across slots ``loads[lo:hi+1]`` minimizing the
+    resulting per-slot maximum (the counts are returned, ``loads`` is not
+    mutated).  Used to flatten retire bursts over their safe scheduling
+    windows: the scan body pads every tick to the widest per-tick retire
+    table, so the cost of retirement is the *max* load, not the sum."""
+    win = np.asarray(loads[lo:hi + 1], np.int64)
+    level_lo, level_hi = int(win.min()), int(win.max()) + n
+    while level_lo < level_hi:
+        mid = (level_lo + level_hi) // 2
+        if int(np.maximum(0, mid - win).sum()) >= n:
+            level_hi = mid
+        else:
+            level_lo = mid + 1
+    add = np.maximum(0, level_lo - win)
+    excess = int(add.sum()) - n
+    for i in range(len(add)):
+        if excess <= 0:
+            break
+        take = min(excess, int(add[i]))
+        add[i] -= take
+        excess -= take
+    return add
+
+
+@dataclasses.dataclass
+class PlanTables:
+    """Plan-side canonicalization shared by the segmented executor build
+    and the static analyzer (:mod:`repro_torch.codegen.analyze`): packed register
+    layout, sentinel regions, segment schema and per-node raw gather rows —
+    all derived with numpy only.  One derivation serves both, so the
+    executor and the happens-before analysis can never disagree about
+    where a value lives."""
+    offsets: Dict[str, int]
+    total: int
+    zero_base: int
+    neginf_base: int
+    dump_col: int
+    reg_shapes: Dict[str, Tuple[int, ...]]
+    reg_sizes: Dict[str, int]
+    birth: Dict[str, int]
+    death: Dict[str, int]
+    segments: List
+    raw_rows: Dict[str, List[np.ndarray]]
+
+    @property
+    def zrun(self) -> int:
+        return self.neginf_base - self.total
+
+    @property
+    def nrun(self) -> int:
+        return self.dump_col - self.neginf_base
+
+
+@dataclasses.dataclass
+class SegmentAccess:
+    """Build-time access metadata for one segment: every gather the
+    kernels will issue (statically redirected through the schedule walk's
+    per-worker ``home`` map), the water-filled retire copy tables, and the
+    checkpoint materialization pairs.  This is the executor's exact
+    memory-access schedule, exposed so the analyzer can verify the tables
+    the runtime actually compiles rather than a parallel reconstruction."""
+    gin_red: Dict[Tuple[int, int], List[np.ndarray]]  # (tick, worker)
+    ret_src: Optional[np.ndarray]   # (n_ticks, m, k) int32, dump-padded
+    ret_dst: Optional[np.ndarray]
+    retire_elems: int
+    mat: Optional[Tuple[np.ndarray, np.ndarray]]  # (m, k) src/dst pairs
+
+
+@dataclasses.dataclass
+class AccessTables:
+    """A plan's full access schedule at one ``buffer_depth``."""
+    tables: PlanTables
+    access: List[SegmentAccess]
+    buffer_depth: int
+    checkpoint: bool
+
+
+def plan_tables(
+    plan: ExecutionPlan,
+    model: CNNModel,
+    liveness: bool = True,
+    buffer_depth: int = 1,
+    cohort_rounds: bool = True,
+    offsets: Optional[Dict[str, int]] = None,
+) -> PlanTables:
+    """Derive the packed layout, sentinel regions, raw gather rows and
+    segment schema for a plan (numpy only — no tracing).  ``offsets``
+    overrides the packed layout (the analyzer's mutation oracle uses this
+    to alias registers without re-deriving everything else)."""
+    from repro_torch.codegen.segment import max_sentinel_runs, node_gather_rows
+
+    reg_shapes = {l.name: tuple(l.out_shape) for l in model.layers}
+    reg_sizes = {
+        n: (int(np.prod(s)) if s else 1) for n, s in reg_shapes.items()
+    }
+    birth, death, _sets = plan_liveness(plan, model)
+    if offsets is None:
+        live = (birth, death) if liveness else None
+        offsets, total = pack_registers(plan, reg_sizes, liveness=live)
+    else:
+        total = max(offsets[n] + reg_sizes[n] for n in offsets)
+
+    # raw gather rows once per node; the longest sentinel *runs* size the
+    # sentinel regions so every halo-pad run can resolve to a contiguous
+    # ascending range and join a span (see segment.resolve_rows)
+    raw_rows: Dict[str, List[np.ndarray]] = {}
+    zrun = nrun = 1
+    for step in plan.steps:
+        for seg_nodes in step.compute:
+            for node in seg_nodes:
+                if node in raw_rows:
+                    continue
+                rws = node_gather_rows(model, node, offsets)
+                raw_rows[node] = rws
+                for r in rws:
+                    z, nf = max_sentinel_runs(r)
+                    zrun, nrun = max(zrun, z), max(nrun, nf)
+    # pristine sentinel regions follow the registers: ``[total, total+zrun)``
+    # holds 0.0 (virtualized conv/avgpool halo pads), the next ``nrun``
+    # columns hold -inf (maxpool halo pads), and the final column is the
+    # dump column comm padding gathers from and scatters into — so every
+    # index is in bounds and padding can never touch a real register
+    zero_base = total
+    neginf_base = total + zrun
+    dump_col = total + zrun + nrun
+    segments = build_segments(
+        plan, reg_shapes, offsets, pad_index=dump_col,
+        buffer_depth=buffer_depth,
+        **({} if cohort_rounds else {"cohort_ratio": None}),
+    )
+    return PlanTables(
+        offsets=offsets, total=total, zero_base=zero_base,
+        neginf_base=neginf_base, dump_col=dump_col,
+        reg_shapes=reg_shapes, reg_sizes=reg_sizes,
+        birth=birth, death=death, segments=segments, raw_rows=raw_rows,
+    )
+
+
+def plan_access_walk(
+    plan: ExecutionPlan,
+    pt: PlanTables,
+    buffer_depth: int = 1,
+    checkpoint: bool = False,
+) -> List[SegmentAccess]:
+    """Replay the tick schedule and emit each segment's access metadata.
+
+    The walk mirrors the runtime tick order exactly — compute first, then
+    the retire copies of a reused frame's surviving occupants, then the
+    comm rounds' landings — while maintaining the per-worker ``home`` map:
+    where each packed register column's current value actually lives (its
+    own column, or a staging strip column when the value arrived via a
+    comm round and has not been recomputed since).  Every gather table is
+    redirected through the home state its tick will observe.
+
+    Rotating frames (``buffer_depth >= 2``) additionally track per-frame
+    occupancy: when a shipping tick reuses a frame, every delivery record
+    still current in ``home`` is retired — copied back to its packed
+    register columns just before the landing DUS clobbers the frame.
+    Retiring is always semantics-preserving (the packed column is reserved
+    until the value's death, and the runner materializes deliveries there
+    anyway), so no liveness analysis is needed: over-retiring a dead value
+    writes a column nothing will read again.  Retire bursts are
+    water-filled backward across their safe windows (delivery + 1 ..
+    eviction) so the uniform scan table pays the mean, not the burst max.
+    """
+    m = plan.n_workers
+    total, dump_col = pt.total, pt.dump_col
+    ident = np.arange(total, dtype=np.int32)
+    home = np.tile(ident, (m, 1))
+    owner = np.full((m, total), -1, np.int64)    # node id of last delivery
+    pos2node = np.full(total, -1, np.int64)      # current producer per col
+    node_ids: Dict[str, int] = {}
+
+    def nid_of(node: str) -> int:
+        i = node_ids.get(node)
+        if i is None:
+            i = node_ids[node] = len(node_ids)
+        return i
+
+    def redirect(w: int, rws: List[np.ndarray]) -> List[np.ndarray]:
+        out = []
+        for rr in rws:
+            a = np.asarray(rr, np.int32).copy()
+            msk = a >= 0
+            a[msk] = home[w, a[msk]]
+            out.append(a)
+        return out
+
+    # rotating-frame occupancy: per frame, the (worker, packed cols, strip
+    # cols, delivery segment, delivery tick) records currently living there
+    frame_occ: List[List[Tuple[int, np.ndarray, np.ndarray, int, int]]] = [
+        [] for _ in range(buffer_depth)
+    ]
+    out: List[SegmentAccess] = []
+    for seg_i, seg in enumerate(pt.segments):
+        n_ticks = len(seg.ticks)
+        act_np = seg.stage.act
+        soff = seg.stage.soff
+        round_rows = [np.asarray(r.rows) for r in seg.rounds]
+        round_slots = [np.asarray(r.slot) for r in seg.rounds]
+        # (worker, strip cols, packed cols, window lo, window hi): retire
+        # chunks with the tick range each copy may legally run in
+        ret_chunks: List[
+            Tuple[int, np.ndarray, np.ndarray, int, int]
+        ] = []
+        gin_red: Dict[Tuple[int, int], List[np.ndarray]] = {}
+        for t, row in enumerate(seg.ticks):
+            for w, node in enumerate(row):
+                if node is None:
+                    continue
+                gin_red[(t, w)] = redirect(w, pt.raw_rows[node])
+                off_n, sz_n = pt.offsets[node], pt.reg_sizes[node]
+                home[w, off_n:off_n + sz_n] = ident[off_n:off_n + sz_n]
+                pos2node[off_n:off_n + sz_n] = nid_of(node)
+            if buffer_depth > 1 and seg.stage.payloads[t]:
+                # this shipping tick reuses rotating frame ``fr``: retire
+                # its still-current occupants to their packed columns
+                # (compute at this tick already resolved its gathers
+                # against the strips — the runtime retire copy runs
+                # after the kernel write, before the landing DUS)
+                fr = int(seg.stage.frame_of[t])
+                for (w, pcs, scs, d_seg, d_t) in frame_occ[fr]:
+                    valid = home[w, pcs] == scs
+                    if valid.any():
+                        # a pair still current now was current ever since
+                        # its delivery (``home`` entries are only touched
+                        # by delivery, compute reuse, and retirement), so
+                        # the copy may run at any tick after the strip
+                        # landed and no later than this one
+                        lo = d_t + 1 if d_seg == seg_i else 0
+                        ret_chunks.append(
+                            (w, scs[valid], pcs[valid], min(lo, t), t)
+                        )
+                        home[w, pcs[valid]] = pcs[valid]
+                frame_occ[fr] = []
+            for r_i, r in enumerate(seg.rounds):
+                if not act_np[t, r_i]:
+                    continue
+                strip = soff[t, r_i]
+                for w in range(m):
+                    rw = round_rows[r_i][round_slots[r_i][t, w]]
+                    real = np.nonzero(rw != dump_col)[0]
+                    if not real.size:
+                        continue
+                    cols = rw[real]
+                    s = (w - r.delta) % m
+                    if not (home[s, cols] == cols).all():
+                        raise NotImplementedError(
+                            "staged comm: sender would forward a value it "
+                            "received rather than produced"
+                        )
+                    strips = strip + real.astype(np.int32)
+                    home[w, cols] = strips
+                    owner[w, cols] = pos2node[cols]
+                    if buffer_depth > 1:
+                        frame_occ[int(seg.stage.frame_of[t])].append(
+                            (w, np.asarray(cols, np.int32), strips, seg_i, t)
+                        )
+        # per-tick retire tables (rotating frames only): dst-sorted
+        # (strip, packed) column pairs per worker, dump-padded to the
+        # segment max — one gather + one sorted scatter per tick moves a
+        # reused frame's surviving occupants home.  The scan body pads
+        # every tick to the segment's widest retire, so eviction bursts
+        # are first water-filled backward across their safe windows
+        # (delivery + 1 .. eviction), flattening the per-tick maximum
+        # toward the mean instead of the burst size.
+        ret_by_tw: Dict[Tuple[int, int], List[Tuple[np.ndarray, np.ndarray]]]
+        ret_by_tw = {}
+        if ret_chunks:
+            loads = np.zeros((n_ticks, m), np.int64)
+            for (w, scs, pcs, lo, hi) in ret_chunks:
+                counts = _waterfill(loads[:, w], lo, hi, len(scs))
+                off = 0
+                for t_r, c in zip(range(lo, hi + 1), counts):
+                    c = int(c)
+                    if not c:
+                        continue
+                    ret_by_tw.setdefault((t_r, w), []).append(
+                        (scs[off:off + c], pcs[off:off + c])
+                    )
+                    loads[t_r, w] += c
+                    off += c
+        retire_elems = 0
+        ret_k = max(
+            [0] + [
+                sum(len(s) for (s, _d) in chunks)
+                for chunks in ret_by_tw.values()
+            ]
+        )
+        ret_src = ret_dst = None
+        if ret_k:
+            ret_src = np.full((n_ticks, m, ret_k), dump_col, np.int32)
+            ret_dst = np.full((n_ticks, m, ret_k), dump_col, np.int32)
+            for (t, w), chunks in ret_by_tw.items():
+                scs = np.concatenate([s for (s, _d) in chunks])
+                pcs = np.concatenate([d for (_s, d) in chunks])
+                order = np.argsort(pcs, kind="stable")
+                ret_src[t, w, : len(scs)] = scs[order]
+                ret_dst[t, w, : len(pcs)] = pcs[order]
+                retire_elems += len(pcs)
+        # barrier materialization (checkpoint runs only): copy every
+        # staged delivery back to its packed column, so snapshots stay
+        # bit-equivalent to the reference runner's barrier state (which
+        # writes deliveries straight into the register file, live or not)
+        # and fault-time replan/resume (migrate_registers) sees a
+        # canonical register file
+        mat = None
+        if checkpoint:
+            pairs = []
+            for w in range(m):
+                moved = np.nonzero(home[w] != ident)[0]
+                keep = sorted(p for p in moved if owner[w, p] >= 0)
+                pairs.append([(home[w, p], p) for p in keep])
+            k_max = max(len(p) for p in pairs)
+            if k_max:
+                src = np.full((m, k_max), dump_col, np.int32)
+                dst = np.full((m, k_max), dump_col, np.int32)
+                for w, pr in enumerate(pairs):
+                    for j, (s_c, d_c) in enumerate(pr):
+                        src[w, j] = s_c
+                        dst[w, j] = d_c
+                mat = (src, dst)
+        out.append(SegmentAccess(
+            gin_red=gin_red, ret_src=ret_src, ret_dst=ret_dst,
+            retire_elems=retire_elems, mat=mat,
+        ))
+    return out
+
+
+def segment_access_tables(
+    plan: ExecutionPlan,
+    model: CNNModel,
+    *,
+    liveness: bool = True,
+    buffer_depth: int = 1,
+    cohort_rounds: bool = True,
+    checkpoint: bool = True,
+    offsets: Optional[Dict[str, int]] = None,
+) -> AccessTables:
+    """The executor's access metadata for one plan at one ``buffer_depth``
+    — the single entry point the happens-before analyzer consumes."""
+    pt = plan_tables(
+        plan, model, liveness=liveness, buffer_depth=buffer_depth,
+        cohort_rounds=cohort_rounds, offsets=offsets,
+    )
+    access = plan_access_walk(
+        plan, pt, buffer_depth=buffer_depth, checkpoint=checkpoint,
+    )
+    return AccessTables(
+        tables=pt, access=access, buffer_depth=buffer_depth,
+        checkpoint=checkpoint,
+    )
+

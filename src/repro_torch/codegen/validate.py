@@ -21,7 +21,7 @@ invariants every executor in the repo relies on:
   producer's output shape;
 * **register layout** (given a model) — packed offsets place concurrently
   live registers in disjoint slots inside the buffer
-  (:func:`~repro.codegen.plan.pack_registers` soundness);
+  (:func:`~repro_torch.codegen.plan.pack_registers` soundness);
 * **segment schema** (given a model) — segments partition the supersteps in
   order, ticks are uniform (at most one node per worker per tick, ordered
   as the superstep's segments), and every ring-round index row points only
@@ -44,9 +44,9 @@ Failure messages carry structured coordinates — ``[superstep 12, segment
 plan names the exact access to look at.
 
 ``deep=True`` escalates from structural invariants to the happens-before
-hazard analysis of :mod:`repro.codegen.analyze` (race freedom, sync
+hazard analysis of :mod:`repro_torch.codegen.analyze` (race freedom, sync
 sufficiency, donation safety, determinism), raising
-:class:`~repro.codegen.analyze.PlanHazardError` (a subclass of
+:class:`~repro_torch.codegen.analyze.PlanHazardError` (a subclass of
 :class:`PlanValidationError`) on any hazard.  Repeat validations of an
 identical (plan, dag, model) are memoized by content fingerprint, so
 wrapping every ``build_plan`` in the test suite stays flat-cost.
@@ -473,7 +473,7 @@ def _check_spans(plan: ExecutionPlan, model, layout: RegisterLayout) -> None:
 
     For every node the plan computes, resolve its gather rows the way the
     segmented executor does (sentinel runs become ascending ranges in
-    pristine regions) and, wherever :func:`~repro.codegen.segment.
+    pristine regions) and, wherever :func:`~repro_torch.codegen.segment.
     coalesce_spans` elects the memcpy fast path, re-expand the static piece
     structure and require it to reproduce the resolved rows exactly."""
     from repro_torch.codegen.segment import (
@@ -565,7 +565,7 @@ def validate_plan(
 ) -> Dict[str, int]:
     """Enforce the plan invariants; raise :class:`PlanValidationError`.
 
-    With ``model`` (a :class:`~repro.models.cnn.CNNModel`), additionally
+    With ``model`` (a :class:`~repro_torch.models.cnn.CNNModel`), additionally
     checks transfer boxes against producer output shapes, packed-register
     sizing/overlap, and the segmented executor's tick/ring-round schema —
     the full contract the segmented ``lax.scan`` path compiles against —
@@ -573,19 +573,14 @@ def validate_plan(
     (any ``buffer_depth >= 1``).
 
     ``deep=True`` additionally runs the happens-before hazard analysis
-    (:func:`repro.codegen.analyze.analyze_plan`): superstep-level race /
+    (:func:`repro_torch.codegen.analyze.analyze_plan`): superstep-level race /
     sync-sufficiency / determinism checks always, plus the cell-level
     access replay over ``staging_depths`` when ``model`` is given.  Any
-    hazard raises :class:`~repro.codegen.analyze.PlanHazardError`.
+    hazard raises :class:`~repro_torch.codegen.analyze.PlanHazardError`.
 
     Results are memoized by (plan, dag, model) content fingerprint
     (``cache=False`` forces a re-run).  Returns summary statistics.
     """
-    if deep:
-        raise NotImplementedError(
-            "deep=True runs the happens-before analyzer (codegen/analyze.py), "
-            "which the port does not have yet"
-        )
     key = None
     if cache:
         key = (
@@ -611,6 +606,17 @@ def validate_plan(
         _check_segments(plan, layout, staging_depths)
         _check_spans(plan, model, layout)
         stats["packed_elements"] = layout.total
+    if deep:
+        from repro_torch.codegen.analyze import analyze_plan
+
+        report = analyze_plan(
+            plan, dag, model, depths=tuple(staging_depths),
+            liveness=liveness, raise_on_hazard=True,
+        )
+        stats["hazards"] = 0
+        stats["analyzed_events"] = (
+            report.stats["plan_events"] + report.stats["cell_events"]
+        )
     if cache and key is not None:
         if len(_MEMO) >= _MEMO_LIMIT:
             _MEMO.clear()

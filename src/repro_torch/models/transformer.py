@@ -42,16 +42,16 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for configs outside this slice."""
     todo = (
         (cfg.hybrid is not None,
-         "hybrid SSM/attention models (ROADMAP Queue 1, item 2: MoE/MLA serving, "
-         "with the super segment)"),
-        (cfg.moe is not None, "MoE models (ROADMAP Queue 1, item 2: MoE/MLA serving)"),
-        (cfg.mla is not None, "MLA attention (ROADMAP Queue 1, item 2: MoE/MLA serving)"),
+         "hybrid SSM/attention models (with the super segment) are not ported yet"),
+        (cfg.moe is not None, "MoE models are not ported yet"),
+        (cfg.mla is not None, "MLA attention is not ported yet"),
         (cfg.frontend is not None or not cfg.causal,
-         "audio/vision frontends and encoder-only models (ROADMAP Queue 1, item 2)"),
+         "audio/vision frontends and encoder-only models are not ported yet"),
     )
     for hit, what in todo:
         if hit:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet")
+            raise NotImplementedError(
+                f"{cfg.name}: {what} (ROADMAP Queue 1, item 8: MoE, MLA and frontend serving)")
 
 
 def _param(shape, device, dtype) -> nn.Parameter:

@@ -1,5 +1,6 @@
 """Cases shared by the CNN-pipeline parity tests (``test_torch_cnn.py``,
-``test_torch_plan.py``, ``test_torch_executor.py``): the four model builders
+``test_torch_plan.py``, ``test_torch_executor.py``, ``test_torch_analyze.py``,
+``test_torch_faults.py``): the four model builders
 at small sizes, the slicings they are held in, and weights and inputs drawn
 with numpy from a seed, which cross to both packages as numpy arrays (the
 reference's own ``init_params`` folds in ``hash(name)``, salted per
@@ -47,9 +48,14 @@ def torch_model(builder: str, slicing: str = "whole"):
 def numpy_params(builder: str, seed: int = 0):
     """``{layer: {"w", "b"}}`` at the reference's scales, with small nonzero
     biases so that bias slicing shows."""
+    return numpy_params_of(BUILDERS[builder](jax_cnn), seed)
+
+
+def numpy_params_of(model, seed: int = 0):
+    """``numpy_params`` for any (unsliced) model of either package."""
     rng = np.random.default_rng(seed)
     params = {}
-    for l in BUILDERS[builder](jax_cnn).layers:
+    for l in model.layers:
         a = l.attrs
         if l.op == "conv":
             cin = a["in_shape"][2]

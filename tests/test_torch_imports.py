@@ -1,7 +1,9 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its copies of the reference's configs stay equal to the originals."""
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+copies of the reference's configs stay equal to the originals, and the
+modules it copies verbatim stay verbatim."""
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -9,8 +11,12 @@ from pathlib import Path
 
 import pytest
 
+import repro.codegen.executor as jax_executor
 import repro.configs as jax_configs
+import repro.runtime.faults as jax_faults
+import repro_torch.codegen.executor as executor
 import repro_torch.configs as configs
+import repro_torch.runtime.faults as faults
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -39,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.serve.engine, repro_torch.convert, repro_torch.kernels\n"
         "import repro_torch.core, repro_torch.models.cnn, repro_torch.models.slicing\n"
-        "import repro_torch.codegen\n"
+        "import repro_torch.codegen, repro_torch.codegen.analyze, repro_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -62,3 +68,33 @@ def test_config_copies_equal_reference(arch):
     assert dataclasses.asdict(ours.reduced()) == dataclasses.asdict(ref.reduced())
     assert ours.param_count() == ref.param_count()
     assert configs.runnable_cells(ours) == jax_configs.runnable_cells(ref)
+
+
+# modules of the port that are the reference's text with ``repro`` renamed
+VERBATIM = ["codegen/analyze.py", "codegen/validate.py", "codegen/plan.py", "runtime/elastic.py"]
+# the segmented executor's host tables, copied into the port's executor
+HOST_TABLES = ["_waterfill", "PlanTables", "plan_tables", "SegmentAccess", "AccessTables",
+               "plan_access_walk", "segment_access_tables"]
+# what the port's fault runner copies (its run_with_faults is a port)
+FAULT_COPIES = ["FaultEvent", "FaultPlan", "RunOutcome", "_step_compute_times", "_round_bytes",
+                "resume_plan", "_plan_layout", "kill_and_resume_drill"]
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_modules_stay_verbatim(rel):
+    port = (REPO / "src" / "repro_torch" / rel).read_text()
+    ref = (REPO / "src" / "repro" / rel).read_text()
+    assert port.replace("repro_torch", "repro") == ref
+
+
+@pytest.mark.parametrize("name", HOST_TABLES)
+def test_host_tables_stay_verbatim(name):
+    port = inspect.getsource(getattr(executor, name))
+    assert port.replace("repro_torch", "repro") == inspect.getsource(getattr(jax_executor, name))
+
+
+@pytest.mark.parametrize("name", FAULT_COPIES)
+def test_fault_runner_copies_stay_verbatim(name):
+    port = inspect.getsource(getattr(faults, name))
+    assert port.replace("repro_torch", "repro") == inspect.getsource(getattr(jax_faults, name))
+    assert faults.FAULT_KINDS == jax_faults.FAULT_KINDS

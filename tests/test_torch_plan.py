@@ -83,8 +83,8 @@ def test_schedules_and_plans_equal(builder, sl, m):
 
 
 def test_validate_plan_rejects_what_the_reference_rejects():
-    """A plan with a transfer dropped fails both validators, with the same
-    message."""
+    """A plan with a transfer dropped fails both validators, shallow and
+    deep, with the same message."""
     jm, tm = jax_model("inception", "grid"), torch_model("inception", "grid")
     jdag = jm.to_dag(jax_costmodel.KEYSTONE_CPU, time_unit=1e-6)
     tdag = tm.to_dag(costmodel.KEYSTONE_CPU, time_unit=1e-6)
@@ -101,8 +101,12 @@ def test_validate_plan_rejects_what_the_reference_rejects():
     with pytest.raises(codegen.PlanValidationError) as terr:
         codegen.validate_plan(plans[1], tdag, tm, cache=False)
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="analyzer"):
-        codegen.validate_plan(plans[1], tdag, deep=True)
+    # deep=True (the happens-before analyzer) refuses it too, with the same message
+    with pytest.raises(jax_codegen.PlanValidationError) as jerr:
+        jax_codegen.validate_plan(plans[0], jdag, jm, deep=True, cache=False)
+    with pytest.raises(codegen.PlanValidationError) as terr:
+        codegen.validate_plan(plans[1], tdag, tm, deep=True, cache=False)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_cost_models_equal():

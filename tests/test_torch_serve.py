@@ -245,6 +245,14 @@ class TestDevices:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(get_config(arch).reduced(), torch.Generator(), device="cpu")
 
+    @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
+    def test_check_supported_names_the_roadmap_item(self, arch):
+        from repro_torch.models.transformer import check_supported
+
+        with pytest.raises(NotImplementedError, match="item 8") as ei:
+            check_supported(get_config(arch))
+        assert "MoE, MLA and frontend serving" in str(ei.value)
+
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_follows_param_defs(arch):
