@@ -45,11 +45,26 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              stragglers and dropped rounds.  Streams are counted from the
              profiler's device events; outputs are held to the float64 run;
              none of the three kernels may launch here.
-7. report  — one JSON line of numbers per kernel variant, then the device line.
+7. segmented — the segmented executor on the same sliced model, weights,
+             input and reference (DSH m=8) on 8 streams: buffer depths 1, 2
+             and 4, with and without checkpoints, and the span, cohort and
+             parameter knobs, each eager and captured, held to the float64
+             run and bit for bit to each other (snapshot registers too); a
+             second input between two calls; the last snapshot against the
+             fault runner's final barrier; walls beside the unrolled
+             executor's, streams, bytes shipped and real, memory.
+8. frontend — the serving frontend with the executor attached: 32
+             fault-free requests at full width on the sliced
+             inception_net(224) (every tick on the executor, every output
+             held to the float64 run), then the reference's headline chaos
+             drill (1000 requests, grid-sliced inception_net(64), m=8, a kill
+             and a straggler; zero loss).  None of the three kernels may
+             launch in phases 7 and 8.
+9. report  — one JSON line of numbers per kernel variant, then the device line.
 
-Device memory still allocated is printed at the start of each serving, cnn
-and faults phase; the cyclic collector runs before the cache is emptied
-between phases.
+Device memory still allocated is printed at the start of each serving, cnn,
+faults, segmented and frontend phase; the cyclic collector runs before the
+cache is emptied between phases.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1119,6 +1134,324 @@ def faults_phase(torch, shared: dict) -> dict:
             "max_abs_err": worst}
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the segmented executor on the sliced plan
+# --------------------------------------------------------------------------- #
+SEG_M, SEG_DEPTHS = 8, (1, 2, 4)
+
+
+def work_streams(torch, fn) -> tuple:
+    """Run ``fn`` once under the profiler; return its result, the streams
+    (the profiler's ids) that ran PyTorch's own device work (copies, fills,
+    index and elementwise kernels), the count of device events per stream
+    and name, and ``busy`` of all its device events.  An executor's workers
+    issue all of that on their own streams (the calling stream only waits);
+    cuDNN may run part of a convolution on a stream of its own, which is
+    reported beside them."""
+    from collections import Counter, defaultdict
+
+    out, evs = device_events(torch, fn)
+    events = defaultdict(Counter)
+    for e in evs:
+        events[getattr(e, "device_resource_id", e.thread)][e.name] += 1
+    own = {s for s, names in events.items() if any(
+        n.startswith(("Memcpy", "Memset")) or "at::native" in n for n in names)}
+    return out, own, events, busy(evs)
+
+
+def segmented_phase(torch, shared: dict, unrolled_ms: dict) -> dict:
+    """The segmented executor (``build_mpmd_executor(segmented=True)``) on
+    the cnn phase's grid-sliced inception_net(224), weights, batch-8 input
+    and float64 reference, DSH m=8: buffer depths 1, 2 and 4 with and
+    without checkpoints, and the span, cohort and parameter knobs at depth
+    1, each eager and captured, held to the reference and to each other
+    bit for bit (snapshots' register regions too); the depth-2 and depth-4
+    executors called with a second input between two calls with the first;
+    the last snapshot of an unpacked checkpointed executor against the
+    fault runner's final barrier; walls beside the unrolled executor's,
+    streams, bytes and memory.  None of the three kernels may launch."""
+    from repro_torch.codegen import build_mpmd_executor, build_plan, coalesce_transfer_steps
+    from repro_torch.codegen import executed_comm_bytes
+    from repro_torch.codegen.plan import RegisterLayout
+    from repro_torch.core import dsh
+    from repro_torch.core.costmodel import KEYSTONE_CPU
+    from repro_torch.kernels import LIBRARIES
+    from repro_torch.runtime.faults import run_with_faults
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for lib in LIBRARIES:
+        lib.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sliced, params, x, ref, tol = (shared[k] for k in ("sliced", "params", "x", "ref", "tol"))
+    # a second input: the batch reversed, whose reference is known
+    x_b, ref_b = x.flip(0).contiguous(), ref.flip(0)
+    dag = sliced.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+    plan = build_plan(dsh(dag, SEG_M), dag)
+    worst = {}
+
+    def hold(what, out, want=ref):
+        if tuple(out.shape) != tuple(want.shape) or out.dtype != torch.float32:
+            raise AssertionError(f"{what}: {tuple(out.shape)} {out.dtype}")
+        err = float((out.cpu().double() - want).abs().max())
+        if not err <= tol:  # NaN fails too
+            raise AssertionError(f"{what}: max abs error {err:.3g} > {tol:.3g}")
+        worst[what] = err
+
+    configs = [(f"depth {d}{', checkpoint' if ck else ''}", dict(buffer_depth=d, checkpoint=ck))
+               for ck in (False, True) for d in SEG_DEPTHS]
+    configs += [("depth 1, span_coalesce off", dict(span_coalesce=False)),
+                ("depth 1, cohort_rounds off", dict(cohort_rounds=False)),
+                ("depth 1, bake_params on", dict(bake_params=True))]
+
+    # cuDNN stays unpinned: every kernel input is a fresh contiguous tensor,
+    # so its algorithm choice is the same in every configuration
+    report, base, base_snaps = {}, None, None
+    for name, kw in configs:
+        ck = kw.get("checkpoint", False)
+        t0 = time.perf_counter()
+        f = build_mpmd_executor(plan, sliced, params, device="cuda", batch=CNN_BATCH,
+                                segmented=True, **kw)
+        build_ms = (time.perf_counter() - t0) * 1e3
+
+        def out(r):
+            return r[0] if ck else r
+
+        eager = out(f.eager(x))
+        torch.cuda.synchronize()
+        hold(f"segmented eager, {name}", eager)
+        t0 = time.perf_counter()
+        captured = out(f(x))
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        hold(f"segmented captured, {name}", captured)
+        if base is None:
+            base = eager
+        for what, y in (("eager", eager), ("captured", captured)):
+            if not torch.equal(y, base):
+                raise AssertionError(f"{name}, {what}: not bit-identical to depth 1 "
+                                     f"(max diff {float((y - base).abs().max()):.3g})")
+        if ck:
+            regs = f.snaps[:, :, :, :f.layout.total]
+            if base_snaps is None:
+                base_snaps = regs.clone()
+            elif not torch.equal(regs, base_snaps):
+                raise AssertionError(f"{name}: snapshot registers not bit-identical to depth 1")
+        if kw.get("buffer_depth", 1) >= 2:
+            # the carry persists across calls: a second input between
+            # two calls with the first, captured and eager
+            hold(f"segmented captured, {name}, second input", out(f(x_b)), ref_b)
+            if not torch.equal(out(f(x)), captured):
+                raise AssertionError(f"{name}: a call after the second input differs")
+            hold(f"segmented eager, {name}, second input", out(f.eager(x_b)), ref_b)
+        want_real = executed_comm_bytes(plan, sliced, batch=CNN_BATCH, segmented=True,
+                                        buffer_depth=kw.get("buffer_depth", 1),
+                                        cohort_rounds=kw.get("cohort_rounds", True))
+        shipped = sum(s["comm_shipped_elems"] for s in f.segment_stats) * CNN_BATCH * 4
+        if f.comm_real_bytes != want_real or f.comm_bytes != shipped:
+            raise AssertionError(f"{name}: real {f.comm_real_bytes} (want {want_real}), "
+                                 f"shipped {f.comm_bytes} (want {shipped}) bytes")
+        handles = {s.cuda_stream for s in f.streams}
+        if len(handles) != SEG_M or f.streams_used != handles:
+            raise AssertionError(f"{name}: work went to {len(f.streams_used)} of "
+                                 f"{len(handles)} streams, {SEG_M} workers")
+        st = f.segment_stats
+        r = dict(build_ms=build_ms, capture_ms=capture_ms,
+                 captured_ms=wall_ms(torch, lambda: f(x)), width=f.width,
+                 total=f.layout.total, segments=len(st), ticks=sum(s["ticks"] for s in st),
+                 rounds=sum(s["rounds"] for s in st),
+                 round_fires=sum(s["round_fires"] for s in st),
+                 retire_elems=sum(s["retire_elems"] for s in st),
+                 span_coverage=[round(s["span_coverage"], 4) for s in st],
+                 shipped_bytes=f.comm_bytes, real_bytes=f.comm_real_bytes,
+                 carry_bytes=f.carry_bytes,
+                 checkpoint_bytes=f.snaps.numel() * 4 if ck else 0)
+        if name == "depth 1":
+            r["eager_ms"] = wall_ms(torch, lambda: f.eager(x))
+            busy_ms, total_ms, n_events = device_busy_ms(torch, lambda: f.eager(x))
+            _y, own, events, _b = work_streams(torch, lambda: f.eager(x))
+            if len(own) != SEG_M:
+                raise AssertionError(f"{name}: PyTorch's device work on {len(own)} streams, "
+                                     f"not {SEG_M}: {dict(events)}")
+            r.update(busy_ms=busy_ms, kernel_sum_ms=total_ms, device_events=n_events,
+                     busy_share=busy_ms / r["eager_ms"], worker_streams=len(own),
+                     other_streams={str(s): dict(events[s].most_common(3))
+                                    for s in events if s not in own})
+        report[name] = r
+        log(f"segmented {name}: built in {build_ms:.0f} ms, first capture {capture_ms:.0f} ms; "
+            f"width {f.width} ({f.layout.total} register columns), {r['segments']} segments, "
+            f"{r['ticks']} ticks, {r['rounds']} rounds, {r['round_fires']} fires, "
+            f"{r['retire_elems']} retired columns; bytes shipped {f.comm_bytes}, real "
+            f"{f.comm_real_bytes} (= executed_comm_bytes); carries {f.carry_bytes}, "
+            f"checkpoint {r['checkpoint_bytes']} bytes; captured {r['captured_ms']:.3f} ms")
+        del f
+        torch.cuda.empty_cache()
+
+    # the last snapshot against the fault runner's final barrier, unpacked
+    # (liveness off: with packing, slots of dead registers hold whichever
+    # dead value each side wrote last, in the reference too)
+    cplan = coalesce_transfer_steps(plan)
+    f = build_mpmd_executor(plan, sliced, params, device="cuda", batch=CNN_BATCH,
+                            segmented=True, checkpoint=True, liveness=False)
+    y, snaps = f(x)
+    hold("segmented captured, checkpoint, liveness off", y)
+    layout = RegisterLayout.of(cplan, {l.name: tuple(l.out_shape) for l in sliced.layers},
+                               liveness=None)
+    if dict(layout.offsets) != dict(f.layout.offsets):
+        raise AssertionError("the runner's unpacked layout differs from the executor's")
+    barrier = run_with_faults(cplan, sliced, params, x, layout).snapshots[len(cplan.steps)]
+    got = snaps[-1, :, :, :layout.total].cpu()
+    want = torch.stack([torch.from_numpy(b) for b in barrier])
+    snap_err = float((got - want).abs().max())
+    snap_tol = CNN_TOL * max(1.0, float(want.abs().max()))
+    if not snap_err <= snap_tol:
+        raise AssertionError(f"last snapshot against the runner's final barrier: {snap_err:.3g} "
+                             f"> {snap_tol:.3g}")
+    log(f"last snapshot (liveness off, {f.checkpoint_steps[-1]} supersteps) against the fault "
+        f"runner's final barrier: max abs error {snap_err:.3g} (tolerance {snap_tol:.3g}), "
+        f"bit-identical: {bool(torch.equal(got, want))}")
+    del f, snaps, got, want, barrier
+    torch.cuda.empty_cache()
+
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
+    if any(n for counts in launches.values() for n in counts.values()):
+        raise AssertionError(f"the segmented executor launched a Hopper kernel: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    d1 = report["depth 1"]
+    log(f"all {len(worst)} outputs within tolerance {tol:.3g}; largest error "
+        f"{max(worst.values()):.3g} ({max(worst, key=worst.get)}); every configuration "
+        f"bit-identical to depth 1, cuDNN unpinned")
+    log(f"median wall of one call at batch {CNN_BATCH} ({CNN_REPS} calls, CUDA events): "
+        f"segmented eager {d1['eager_ms']:.3f} ms, captured {d1['captured_ms']:.3f} ms; unrolled "
+        f"eager {unrolled_ms['executor eager sliced m=8']:.3f} ms, captured "
+        f"{unrolled_ms['executor captured sliced m=8']:.3f} ms (this run's cnn phase); one eager "
+        f"call: {d1['device_events']} device events, busy {d1['busy_ms']:.3f} ms "
+        f"({100 * d1['busy_share']:.1f}% of its wall); PyTorch's work on {d1['worker_streams']} "
+        f"streams, other streams {d1['other_streams']}")
+    log(f"peak device memory in the phase {peak / 2**30:.2f} GiB; launches of the port's "
+        f"kernels: {launches}")
+    return {"configs": report, "snapshot_vs_runner_err": snap_err,
+            "peak_bytes": peak, "max_abs_err": worst}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the serving frontend on the executor
+# --------------------------------------------------------------------------- #
+FE_BUCKETS, FE_REQUESTS = (1, 2, 4, 8), 32
+# the reference's headline chaos drill (benchmarks/serve_chaos.py): grid-sliced
+# inception_net(64) at m=8, 1000 requests; its CPU run (runner only,
+# BENCH_sched.json) completed 840 and shed 160
+CHAOS_SEED, CHAOS_HW, CHAOS_M, CHAOS_REQUESTS = 1234, 64, 8, 1000
+REF_COMPLETED, REF_SHED = 840, 160
+
+
+def frontend_phase(torch, shared: dict) -> dict:
+    """The serving frontend (``serve/frontend.py``) with its executor fast
+    path on 8 streams: (a) at full width, the cnn phase's sliced
+    inception_net(224) and weights, the executor attached at buckets 1, 2,
+    4 and 8, 32 fault-free requests of 1-2 rows drawn from the cnn phase's
+    input, every output held to the float64 run; (b) the reference's
+    headline drill, 1000 requests on grid-sliced inception_net(64) at m=8
+    under a kill and a straggler, zero loss required.  None of the three
+    kernels may launch."""
+    from repro_torch.core.costmodel import KEYSTONE_CPU
+    from repro_torch.kernels import LIBRARIES
+    from repro_torch.models.cnn import inception_net, run_sequential
+    from repro_torch.models.slicing import slice_model, uniform_factors
+    from repro_torch.serve import ChaosCampaign, Frontend, input_pool, poisson_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for lib in LIBRARIES:
+        lib.reset()
+
+    # (a) full width, fault-free, every tick on the executor
+    torch.cuda.reset_peak_memory_stats()
+    sliced, params, x, ref, tol = (shared[k] for k in ("sliced", "params", "x", "ref", "tol"))
+    dag = sliced.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+    t0 = time.perf_counter()
+    fe = Frontend(sliced, params, dag, m=SEG_M, hw=KEYSTONE_CPU, validate=False)
+    fe.attach_executor(buckets=FE_BUCKETS)
+    init_s = time.perf_counter() - t0
+    trace = poisson_trace(FE_REQUESTS, seed=0, rate=2.0 / fe.est_service,
+                          service=fe.est_service)
+    t0 = time.perf_counter()
+    summary = fe.run_trace(trace, x.cpu().numpy())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    audit = fe.audit(ref_pool=ref.numpy(), atol=tol)
+    if not (audit["zero_loss"] and fe.exec_runs == fe.runs > 0
+            and summary["completed"] + summary["shed"] == FE_REQUESTS and summary["completed"]):
+        raise AssertionError(f"full width: {summary}, exec_runs {fe.exec_runs} of {fe.runs} "
+                             f"ticks, audit {audit}")
+    executors = {str(k[0]): dict(carry_bytes=f.carry_bytes, checkpoint_bytes=f.snaps.numel() * 4)
+                 for k, f in fe._exec_cache.items()}
+    full = dict(summary=summary, runs=fe.runs, exec_runs=fe.exec_runs, wall_s=wall_s,
+                init_s=init_s, max_err=audit["max_err"], executors=executors,
+                peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"full width: {summary['completed']} of {FE_REQUESTS} requests completed, "
+        f"{summary['shed']} shed, in {fe.runs} ticks, every one on the executor "
+        f"({wall_s:.2f} s of host, executors built and captured included; frontend ready in "
+        f"{init_s:.2f} s); outputs within {audit['max_err']:.3g} of the float64 run; executors "
+        f"by bucket {executors}; peak device memory {full['peak_bytes'] / 2**30:.2f} GiB")
+    fe._exec_cache.clear()
+    del fe
+    release(torch)
+
+    # (b) the reference's headline drill: kill, straggler, zero loss
+    model = inception_net(CHAOS_HW)
+    base = uniform_factors(model, CHAOS_M, spatial=True)
+    grid = {k: ((2, CHAOS_M // 2) if v == (1, CHAOS_M) else v) for k, v in base.items()}
+    sliced = slice_model(model, grid)
+    params = model.init_params(0, device="cuda")
+    dag = sliced.to_dag(KEYSTONE_CPU, time_unit=1e-6)
+    pool = input_pool(model.layers[0].out_shape, 8, seed=CHAOS_SEED + 1)
+    refs = run_sequential(sliced, {k: {n: t.cpu().double() for n, t in d.items()}
+                                   for k, d in params.items()},
+                          torch.from_numpy(pool).double()).numpy()
+    t0 = time.perf_counter()
+    fe = Frontend(sliced, params, dag, m=CHAOS_M, hw=KEYSTONE_CPU)
+    fe.attach_executor()
+    init_s = time.perf_counter() - t0
+    trace = poisson_trace(CHAOS_REQUESTS, seed=CHAOS_SEED, rate=3.0 / fe.est_service,
+                          rows=(1, 2), pool_size=len(pool), deadline=(6.0, 18.0),
+                          service=fe.est_service)
+    chaos = ChaosCampaign.kill_and_straggle(CHAOS_REQUESTS, CHAOS_M, seed=CHAOS_SEED)
+    kill_w, strag_w = (e.fault.worker for e in chaos.events)
+    t0 = time.perf_counter()
+    summary = fe.run_trace(trace, pool, chaos=chaos)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    audit = fe.audit(ref_pool=refs)
+    actions = [r["action"] for r in fe.recoveries]
+    if not (audit["zero_loss"] and "remesh" in actions and kill_w not in fe.fleet
+            and strag_w not in fe.fleet and 0 < fe.exec_runs < fe.runs
+            and summary["completed"] + summary["shed"] == CHAOS_REQUESTS):
+        raise AssertionError(f"drill: {summary}, recoveries {fe.recoveries}, fleet {fe.fleet}, "
+                             f"exec_runs {fe.exec_runs} of {fe.runs}, audit {audit}")
+    recoveries = [{k: r[k] for k in ("action", "replan_ms", "workers", "at_completed")}
+                  for r in fe.recoveries]
+    drill = dict(summary=summary, runs=fe.runs, exec_runs=fe.exec_runs, wall_s=wall_s,
+                 init_s=init_s, max_err=audit["max_err"], kill_worker=kill_w,
+                 straggle_worker=strag_w, fleet=list(fe.fleet), recoveries=recoveries,
+                 reference_completed=REF_COMPLETED, reference_shed=REF_SHED)
+    log(f"drill: {summary['completed']} completed, {summary['shed']} shed "
+        f"{summary['shed_by_reason']} (the reference's CPU drill: {REF_COMPLETED} and "
+        f"{REF_SHED}), {summary['retried']} retries, {summary['deadline_misses']} deadline "
+        f"misses, p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms (simulated); "
+        f"{fe.exec_runs} of {fe.runs} ticks on the executor; worker {kill_w} killed, {strag_w} "
+        f"straggling, final fleet {list(fe.fleet)}; recoveries {recoveries}; zero loss, outputs "
+        f"within {audit['max_err']:.3g} of the float64 run; {wall_s:.2f} s of host for the "
+        f"trace (frontend ready, its plan deep-validated, in {init_s:.2f} s)")
+    fe._exec_cache.clear()
+    del fe
+
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
+    if any(n for counts in launches.values() for n in counts.values()):
+        raise AssertionError(f"the frontend launched a Hopper kernel: {launches}")
+    log(f"launches of the port's kernels: {launches}")
+    return {"full_width": full, "drill": drill}
+
 
 def log_allocated(torch) -> None:
     """What the previous phases left allocated on the card."""
@@ -1191,7 +1524,18 @@ def main() -> None:
         log_allocated(torch)
         report = faults_phase(torch, shared)
         log("faults: " + json.dumps(report))
+    release(torch)
+    with phase(f"segmented inception-{CNN_HW}"):
+        log_allocated(torch)
+        report = segmented_phase(torch, shared, cnn["times_ms"])
+        log("segmented: " + json.dumps(report))
+    release(torch)
+    with phase("frontend"):
+        log_allocated(torch)
+        report = frontend_phase(torch, shared)
+        log("frontend: " + json.dumps(report))
     del shared
+    release(torch)
 
     with phase("report"):
         # each variant's row: the path shape it serves (f32 for the CUDA-core

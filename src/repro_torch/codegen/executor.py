@@ -1,22 +1,25 @@
 """Plan execution: a Python interpreter (the logic oracle) and the MPMD
-executor, m workers as m CUDA streams on one card.
+executors, m workers as m CUDA streams on one card.
 
-Port of the unrolled half of ``repro/codegen/executor.py``.  The reference
-lowers a plan to one ``shard_map`` over a mesh axis of m devices: each
-superstep runs every worker's compute segment as a branch of a
-``lax.switch`` and then its comm round as ``lax.ppermute`` collectives.
-Here the m workers are m ``torch.cuda.Stream``\\ s of one card, each owning
-a register dict of its own tensors:
+Port of ``repro/codegen/executor.py``.  The reference lowers a plan to one
+``shard_map`` over a mesh axis of m devices: each superstep runs every
+worker's compute segment as a branch of a ``lax.switch`` and then its comm
+round as ``lax.ppermute`` collectives.  Here the m workers are m
+``torch.cuda.Stream``\\ s of one card, and CUDA events play ACETONE's
+Writing/Reading flags.  Two executors share that frame.
+
+The **unrolled** executor (:class:`MPMDExecutor`) gives each worker a
+register dict of its own tensors:
 
 * **supersteps** — each worker's compute segment is issued on its own
   stream (cuDNN convolutions, cuBLAS products), then the comm round;
-* **transfers** — ACETONE's Writing/Reading protocol: the source stream
-  packs what it sends into a fresh payload (Writing), records an event
-  (the flag), and the destination stream waits on that event and copies
-  the payload into its own registers (Reading).  A destination never holds
-  an alias of a source tensor, and no stream reads a register of another.
-  A windowed transfer writes only its box into a register that was born
-  zero, so a box-inference bug shows numerically, as in the reference;
+* **transfers** — the source stream packs what it sends into a fresh
+  payload (Writing), records an event (the flag), and the destination
+  stream waits on that event and copies the payload into its own registers
+  (Reading).  A destination never holds an alias of a source tensor, and no
+  stream reads a register of another.  A windowed transfer writes only its
+  box into a register that was born zero, so a box-inference bug shows
+  numerically, as in the reference;
 * **fused or per-node comm** — ``fuse_transfers=True`` ships one flat
   payload per ``(src, dst)`` pair of each permutation round, padded to the
   round's largest pair as ``ppermute`` pads it, and unpacks it on arrival;
@@ -25,22 +28,31 @@ a register dict of its own tensors:
   :func:`executed_comm_bytes`;
 * **liveness** — registers are dropped on every worker after the reference's
   death superstep (:func:`plan_liveness`); a register is materialized on a
-  worker when that worker first writes it;
-* **capture** — on the card the executor captures the whole static plan,
-  at its first call, into one CUDA graph spanning the m streams and replays
-  it after that: the counterpart of ``jax.jit`` over the unrolled loop.
-  ``.eager(x)`` runs the same program uncaptured.
+  worker when that worker first writes it.
 
-On the CPU (``device="cpu"``) the same program runs eagerly, in order, with
-no streams.  The segmented executor (``segmented=True`` in the reference)
-comes with a later slice; its host tables (``plan_tables``,
-``plan_access_walk``, ``segment_access_tables``: numpy only) are copied here
-verbatim, because the happens-before analyzer (``codegen/analyze.py``)
-proves its hazards on them.
+The **segmented** executor (:class:`SegmentedExecutor`,
+``segmented=True``) runs the reference's segmented schema on the same
+streams: each worker's registers are one packed carry tensor ``[batch,
+width]`` (``pack_registers``), every gather row, span, ring-round row,
+retire and checkpoint table is built on the device once, and the host,
+which knows every (tick, worker)'s kernel and every tick's active rounds,
+issues exactly those — no ``lax.switch``, idle branch, pattern switch or
+self-restoring tail, which exist only to make a ``lax.scan`` uniform.  Its
+host tables (``plan_tables``, ``plan_access_walk``,
+``segment_access_tables``: numpy only) are the reference's, verbatim,
+because the happens-before analyzer (``codegen/analyze.py``) proves its
+hazards on them.
+
+On the card both executors capture the whole static plan, at their first
+call, into one CUDA graph spanning the m streams and replay it after that:
+the counterpart of ``jax.jit``.  ``.eager(x)`` runs the same program
+uncaptured.  On the CPU (``device="cpu"``) the same program runs eagerly,
+in order, with no streams.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import dataclasses
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -49,6 +61,7 @@ import torch
 
 from repro_torch.codegen.plan import (
     ExecutionPlan,
+    RegisterLayout,
     Transfer,
     _permutation_rounds,
     build_segments,
@@ -64,6 +77,7 @@ __all__ = [
     "plan_liveness",
     "executed_comm_bytes",
     "MPMDExecutor",
+    "SegmentedExecutor",
     "PlanTables",
     "SegmentAccess",
     "AccessTables",
@@ -448,7 +462,13 @@ def build_mpmd_executor(
     liveness: bool = True,
     fuse_transfers: bool = True,
     coalesce: bool = True,
-) -> MPMDExecutor:
+    segmented: bool = False,
+    checkpoint: bool = False,
+    span_coalesce: bool = True,
+    cohort_rounds: bool = True,
+    bake_params: bool = False,
+    buffer_depth: int = 1,
+):
     """The plan as ``f(x) -> y`` on ``plan.n_workers`` CUDA streams.
 
     ``params`` must live on ``device`` and the input's leading dimension
@@ -460,15 +480,49 @@ def build_mpmd_executor(
     supersteps into one comm round first.  The output is the sink register
     of ``plan.sink_worker``, in f32 (every compute output is cast to f32).
 
+    ``segmented=True`` returns the segmented executor
+    (:class:`SegmentedExecutor`; ``fuse_transfers`` does not apply):
+    registers live in one packed carry per worker (``liveness`` controls
+    slot reuse), and comm is the segments' ring rounds.  ``span_coalesce``
+    / ``cohort_rounds`` / ``bake_params`` are the reference's ablation
+    knobs, and ``buffer_depth`` 2 or 4 its streaming mode (rotating staging
+    frames, retire copies, a carry that persists across calls); outputs,
+    and the register region of checkpoint snapshots, are bit-identical
+    across all of them.  ``checkpoint=True`` makes the executor return
+    ``(y, snaps)`` with the packed carries at every segment boundary.
+
     f32 parity with the reference needs TF32 off where cuDNN and cuBLAS
     would use it (``torch.backends.cudnn.allow_tf32 = False``,
     ``torch.backends.cuda.matmul.allow_tf32 = False``); the caller sets it.
     """
+    if checkpoint and not segmented:
+        raise ValueError(
+            "checkpoint=True requires segmented=True: only the segmented "
+            "executor carries the packed register buffer that superstep "
+            "snapshots are defined over"
+        )
+    if not (isinstance(buffer_depth, int) and buffer_depth >= 1):
+        raise ValueError(
+            f"buffer_depth must be a positive int (1 = write-once staging, "
+            f"2/4 = double/quad-buffered streaming), got {buffer_depth!r}"
+        )
+    if buffer_depth != 1 and not segmented:
+        raise ValueError(
+            "buffer_depth >= 2 requires segmented=True: only the segmented "
+            "executor stages comm payloads in the packed carry that the "
+            "rotating frames double/quad-buffer"
+        )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if coalesce:
         plan = coalesce_transfer_steps(plan)
+    if segmented:
+        return SegmentedExecutor(
+            plan, model, params, dev, batch, liveness, checkpoint=checkpoint,
+            span_coalesce=span_coalesce, cohort_rounds=cohort_rounds,
+            bake_params=bake_params, buffer_depth=buffer_depth,
+        )
     return MPMDExecutor(plan, model, params, dev, batch, liveness, fuse_transfers)
 
 
@@ -491,8 +545,12 @@ def executed_comm_bytes(
     fuse_transfers: bool = True,
     coalesce: bool = True,
     dtype_bytes: int = 4,
+    segmented: bool = False,
+    liveness: bool = True,
+    cohort_rounds: bool = True,
+    buffer_depth: int = 1,
 ) -> float:
-    """Exact payload bytes the executor's destinations copy.
+    """Exact payload bytes the executors' collectives ship.
 
     Mirrors the comm lowering analytically: the per-node path ships one
     payload of the transfer's window per (node, window) group pair, so its
@@ -500,10 +558,43 @@ def executed_comm_bytes(
     producer-bytes — the byte-parity property the per-node window fix is
     tested against.  The fused path pads each round's payload to the
     round's largest pair, so it is an upper bound on the accounting.
+
+    ``segmented=True`` counts the segmented executor's cohort-sized ring
+    rounds instead (``fuse_transfers`` does not apply): only the *real*
+    (non-padding) entries of each active ``(tick, dst)`` index row — pad
+    entries gather from and scatter into the dump column, shipping no
+    register data — so the total is exactly ``plan.comm_bytes`` scaled by
+    ``batch * dtype_bytes`` / producer-bytes, whatever the cohort shapes.
+    ``buffer_depth`` only relocates where a payload *lands* (write-once
+    strip vs rotating frame): every delivery is counted exactly once here
+    whatever the depth — the streaming executor's extra retire copies are
+    local buffer moves, not shipped bytes — so the byte parity with
+    ``plan.comm_bytes`` holds at every depth.
     """
     if coalesce:
         plan = coalesce_transfer_steps(plan)
     sizes = {l.name: int(np.prod(l.out_shape)) for l in model.layers}
+    if segmented:
+        reg_shapes = {l.name: tuple(l.out_shape) for l in model.layers}
+        live = None
+        if liveness:
+            birth, death, _sets = plan_liveness(plan, model)
+            live = (birth, death)
+        offsets, total = pack_registers(
+            plan, {n: max(s, 1) for n, s in sizes.items()}, liveness=live
+        )
+        pad = total  # stand-in dump column; positions are in [0, total)
+        segments = build_segments(
+            plan, reg_shapes, offsets, pad_index=pad,
+            buffer_depth=buffer_depth,
+            **({} if cohort_rounds else {"cohort_ratio": None}),
+        )
+        real = 0
+        for seg in segments:
+            for r in seg.rounds:
+                per_row = (np.asarray(r.rows) != pad).sum(axis=1)
+                real += int(per_row[np.asarray(r.slot)].sum())
+        return float(real) * batch * dtype_bytes
 
     def t_elems(t: Transfer) -> int:
         if t.box is None:
@@ -892,3 +983,419 @@ def segment_access_tables(
         checkpoint=checkpoint,
     )
 
+
+
+# --------------------------------------------------------------------------- #
+# segmented executor: one packed carry per worker, on m streams
+# --------------------------------------------------------------------------- #
+class SegmentedExecutor:
+    """``f(x) -> y``, or ``(y, snaps)`` with ``checkpoint=True``: the plan's
+    segments (``build_segments``) on m workers, each worker's registers one
+    packed carry tensor ``[batch, width]`` on its own stream.
+
+    Built by :func:`build_mpmd_executor` with ``segmented=True``.  Every
+    table (gather rows, span remainders, ring-round rows, retire and
+    checkpoint pairs) is a device tensor made once, here; span starts,
+    output offsets and parameter blocks are fixed per (tick, worker), so the
+    host issues them as offsets and tensors.  Each tick, in the order
+    ``codegen/analyze.py`` proves free of hazards:
+
+    1. each worker's kernel on its stream: the slots gathered from its
+       carry, the kernel (:func:`~repro_torch.codegen.segment.make_kernel`),
+       the output written into the carry;
+    2. the retire copies of a reused staging frame (``buffer_depth >= 2``);
+    3. each sender's gather of its destination's ring row, on the sender's
+       stream, then an event on that stream (its Writing flag);
+    4. each landing, on the destination's stream after it waits on the
+       sender's flag, into the tick's staging strip.
+
+    No stream reads another worker's carry: a payload is a fresh tensor
+    handed over with ``record_stream``.  There is no per-tick barrier.  At
+    a segment boundary, with ``checkpoint``, each worker copies its staged
+    deliveries back to their packed columns (the access walk's ``mat``
+    pairs) and snapshots its carry, on its own stream.
+
+    ``snaps`` is one static ``[n_segments, m, batch, width]`` tensor owned
+    by the executor: the next call (eager or a replay) overwrites it, so a
+    caller that keeps a snapshot past that copies it.  ``y`` is a fresh
+    tensor.  At ``buffer_depth >= 2`` the carries persist across calls and
+    each call re-initializes only the register and zero-sentinel prefix and
+    the -inf block (staging columns keep their bytes: every strip is
+    written before it is read); at depth 1 each call starts from zeros, as
+    the reference's fresh carry does.
+
+    ``.layout``, ``.width``, ``.segment_spans``, ``.checkpoint_steps`` and
+    ``.segment_stats`` are the reference's.  After each issue,
+    ``comm_bytes`` holds the bytes the landings copied (the padded ring
+    payloads, ``comm_shipped_elems`` × batch × 4) and ``streams_used`` the
+    streams that received work; ``comm_real_bytes`` (the payloads' real
+    entries) equals ``executed_comm_bytes(segmented=True)``.
+    """
+
+    def __init__(self, plan: ExecutionPlan, model: CNNModel, params: Params,
+                 device: torch.device, batch: int, liveness: bool, *,
+                 checkpoint: bool = False, span_coalesce: bool = True,
+                 cohort_rounds: bool = True, bake_params: bool = False,
+                 buffer_depth: int = 1):
+        from repro_torch.codegen.segment import (
+            SpanTable,
+            coalesce_spans,
+            make_kernel,
+            node_signature,
+            param_operands,
+            resolve_rows,
+        )
+
+        m = plan.n_workers
+        self.plan, self.device, self.batch = plan, device, batch
+        self.checkpoint, self.buffer_depth = checkpoint, buffer_depth
+        self._workers = _Workers(m, device)
+        self.streams = self._workers.streams
+        # plan-side canonicalization + the build-time schedule walk (shared
+        # with codegen/analyze.py, which verifies these exact tables)
+        pt = plan_tables(
+            plan, model, liveness=liveness, buffer_depth=buffer_depth,
+            cohort_rounds=cohort_rounds,
+        )
+        offsets, total = pt.offsets, pt.total
+        reg_shapes, reg_sizes = pt.reg_shapes, pt.reg_sizes
+        zero_base, neginf_base = pt.zero_base, pt.neginf_base
+        dump_col, nrun = pt.dump_col, pt.nrun
+        segments = pt.segments
+        access = plan_access_walk(
+            plan, pt, buffer_depth=buffer_depth, checkpoint=checkpoint,
+        )
+        # the reference's carry width: it leaves room for a uniform-width
+        # output write past every register, which the port does not need
+        # but keeps, so that snapshots have the reference's shape
+        wmax = max(
+            [1] + [
+                reg_sizes[n]
+                for seg in segments for row in seg.ticks for n in row if n
+            ]
+        )
+        stage_end = segments[0].stage.stage_end if segments else dump_col + 1
+        width = max(stage_end, total + wmax)
+        self.width, self._neginf, self._nrun = width, neginf_base, nrun
+
+        def dev_index(a) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+        kernels: Dict = {}
+        pcache: Dict = {}
+        self._ticks: List[List[Tuple]] = []   # per segment: per tick (compute, retire, sends)
+        self._mat: List[List[Tuple[int, torch.Tensor, torch.Tensor]]] = []
+        seg_stats = []
+        for seg_i, seg in enumerate(segments):
+            n_ticks = len(seg.ticks)
+            act_np = seg.stage.act
+            acc = access[seg_i]
+            # active-round patterns: only their count is a statistic here
+            patterns = {
+                tuple(np.nonzero(act_np[t])[0].tolist()) for t in range(n_ticks)
+            }
+            sig_list: List = []
+            sig_index: Dict = {}
+            occs: List[Dict] = []
+            sig_tab = np.zeros((n_ticks, m), np.int32)
+            cells: Dict[Tuple[int, int], Tuple[int, int, str]] = {}
+            for t, row in enumerate(seg.ticks):
+                for w, node in enumerate(row):
+                    if node is None:
+                        continue
+                    sig, pkey = node_signature(model, node)
+                    key = (sig, pkey) if bake_params else sig
+                    sid = sig_index.get(key)
+                    if sid is None:
+                        sid = sig_index[key] = len(sig_list)
+                        sig_list.append(sig)
+                        occs.append({"gin": [], "pkey": []})
+                    o = occs[sid]
+                    o["gin"].append(acc.gin_red[(t, w)])
+                    o["pkey"].append(pkey)
+                    sig_tab[t, w] = sid + 1  # 0 is the reference's idle branch
+                    cells[(t, w)] = (sid, len(o["gin"]) - 1, node)
+            # per signature and slot: the stacked, sentinel-resolved gather
+            # rows of its occurrences, as spans or whole-slot rows
+            slot_specs: List[List] = []   # [sid][slot] -> per-occurrence _Slot
+            span_elems = gather_elems = 0
+            for sig, o in zip(sig_list, occs):
+                per_slot = []
+                for j in range(len(sig[1])):
+                    rows = resolve_rows(
+                        np.stack([r[j] for r in o["gin"]]),
+                        zero_base, neginf_base,
+                    )
+                    span = None
+                    if rows.shape[1]:
+                        if span_coalesce:
+                            span = coalesce_spans(rows)
+                        else:
+                            # pre-span fast path: only whole-slot-contiguous
+                            # rows become a (single-span) slice
+                            runs = rows[:, :1] + np.arange(
+                                rows.shape[1], dtype=np.int32
+                            )
+                            if (rows == runs).all():
+                                span = SpanTable(
+                                    lens=(rows.shape[1],), kinds=("span",),
+                                    starts=rows[:, :1].copy(),
+                                    rem=np.zeros((rows.shape[0], 0), np.int32),
+                                    coverage=1.0,
+                                )
+                    gather_elems += rows.size
+                    if span is None:
+                        tab = dev_index(rows)
+                        per_slot.append([("rows", tab[oc]) for oc in range(len(rows))])
+                        continue
+                    span_elems += int(round(span.coverage * rows.size))
+                    rem = dev_index(span.rem) if span.rem.size else None
+                    occ_slots = []
+                    for oc in range(len(rows)):
+                        pieces, si, ri = [], 0, 0
+                        for ln, k in zip(span.lens, span.kinds):
+                            if k == "span":
+                                pieces.append(("span", int(span.starts[oc, si]), ln))
+                                si += 1
+                            else:
+                                pieces.append(("rem", ri, ln))
+                                ri += ln
+                        occ_slots.append(("spans", tuple(pieces),
+                                          None if rem is None else rem[oc]))
+                    per_slot.append(occ_slots)
+                slot_specs.append(per_slot)
+            single = len(sig_list) == 1 and bool((sig_tab != 0).all())
+            # the tick program: (compute, retire, sends) per tick
+            rows_dev = [dev_index(r.rows) for r in seg.rounds]
+            rsrc = rdst = None
+            if acc.ret_src is not None:
+                rsrc, rdst = dev_index(acc.ret_src), dev_index(acc.ret_dst)
+            ticks = []
+            for t in range(n_ticks):
+                compute = []
+                for w in range(m):
+                    cell = cells.get((t, w))
+                    if cell is None:
+                        continue
+                    sid, oc, node = cell
+                    sig = sig_list[sid]
+                    if sig not in kernels:
+                        kernels[sig] = make_kernel(sig)
+                    pkey = occs[sid]["pkey"][oc]
+                    if pkey not in pcache:
+                        pcache[pkey] = param_operands(params, pkey)
+                    slots = tuple(
+                        (spec[oc], shape)
+                        for spec, shape in zip(slot_specs[sid], sig[1])
+                    )
+                    compute.append((w, kernels[sig], slots, pcache[pkey],
+                                    offsets[node], reg_sizes[node]))
+                retire = []
+                if rsrc is not None:
+                    # dump-padded after the real pairs: issue the real ones only
+                    for w in range(m):
+                        n = int((acc.ret_dst[t, w] != dump_col).sum())
+                        if n:
+                            retire.append((w, rsrc[t, w, :n], rdst[t, w, :n]))
+                sends = []
+                for r_i, r in enumerate(seg.rounds):
+                    if act_np[t, r_i]:
+                        strip = int(seg.stage.soff[t, r_i])
+                        for d in range(m):
+                            row = rows_dev[r_i][int(r.slot[t, d])]
+                            sends.append(((d - r.delta) % m, d, row, strip, r.length))
+                ticks.append((compute, retire, sends))
+            self._ticks.append(ticks)
+            mat = []
+            if acc.mat is not None:
+                src, dst = acc.mat
+                for w in range(m):
+                    n = int((dst[w] != dump_col).sum())
+                    if n:
+                        mat.append((w, dev_index(src[w, :n]), dev_index(dst[w, :n])))
+            self._mat.append(mat)
+            retire_elems = acc.retire_elems
+            real_elems = shipped_elems = 0
+            for r_i, r in enumerate(seg.rounds):
+                per_row = (np.asarray(r.rows) != dump_col).sum(axis=1)
+                real_elems += int(per_row[np.asarray(r.slot)].sum())
+                shipped_elems += int(act_np[:, r_i].sum()) * r.length * m
+            seg_stats.append({
+                "steps": (seg.start, seg.stop),
+                "ticks": n_ticks,
+                "sigs": len(sig_list),
+                "single_structure": single,
+                "rounds": len(seg.rounds),
+                "round_lengths": [r.length for r in seg.rounds],
+                "round_fires": int(act_np.sum()),
+                "comm_patterns": len(patterns),
+                "comm_real_elems": real_elems,
+                "comm_shipped_elems": shipped_elems,
+                "stage_elems": int(sum(
+                    int(act_np[:, r_i].sum()) * r.length
+                    for r_i, r in enumerate(seg.rounds)
+                )),
+                # resident staging footprint (global, counted once — NOT per
+                # fire): write-once strips for depth 1, depth * frame for the
+                # rotating layout; plus the retire traffic rotation adds
+                "buffer_depth": buffer_depth,
+                "peak_staging_elems": int(stage_end - (dump_col + 1)),
+                "retire_elems": retire_elems,
+                "span_elems": span_elems,
+                "gather_elems": gather_elems,
+                "span_coverage": (
+                    span_elems / gather_elems if gather_elems else 1.0
+                ),
+            })
+        self.layout = RegisterLayout(
+            offsets=offsets, total=total,
+            shapes={n: reg_shapes[n] for n in offsets},
+        )
+        self.segment_spans = tuple((s.start, s.stop) for s in segments)
+        # superstep each checkpoint snapshot is the entering barrier of:
+        # snaps[k] == the runner's barrier entering superstep checkpoint_steps[k]
+        self.checkpoint_steps = tuple(s.stop for s in segments)
+        self.segment_stats = seg_stats
+        self.comm_real_bytes = sum(st["comm_real_elems"] for st in seg_stats) * batch * 4
+        self.in_shape = (batch, *reg_shapes[model.layers[0].name])
+        self._sink = (plan.sink_worker, offsets[plan.sink], reg_sizes[plan.sink],
+                      reg_shapes[plan.sink])
+        self._bufs = [torch.zeros((batch, width), dtype=torch.float32, device=device)
+                      for _ in range(m)]
+        self.snaps = (
+            torch.zeros((len(segments), m, batch, width), dtype=torch.float32, device=device)
+            if checkpoint else None
+        )
+        self.carry_bytes = m * batch * width * 4
+        self.comm_bytes = 0
+        self.streams_used: Set[int] = set()
+        self._graph = None
+        self._static_x = self._static_y = None
+
+    # -- one issue of the program -------------------------------------------- #
+    def _assemble(self, buf: torch.Tensor, slot) -> torch.Tensor:
+        """One input slot of a kernel, gathered from the carry: always a
+        fresh contiguous tensor, so a kernel sees the same memory layout
+        whichever way (rows, spans, depth) its values were found.
+
+        ``slot`` is ``(spec, shape)``: ``("rows", index)`` gathers the whole
+        slot; ``("spans", pieces, rem_index)`` concatenates ``(kind, start,
+        length)`` pieces in row order, a ``"span"`` piece being the carry's
+        columns ``[start, start + length)`` and a ``"rem"`` piece those
+        columns of one gather of ``rem_index``."""
+        (spec, shape) = slot
+        if spec[0] == "rows":
+            flat = buf.index_select(1, spec[1])
+        else:
+            _tag, pieces, rem_idx = spec
+            rem = None if rem_idx is None else buf.index_select(1, rem_idx)
+            parts = [buf[:, a:a + ln] if k == "span" else rem[:, a:a + ln]
+                     for (k, a, ln) in pieces]
+            flat = parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, 1)
+        return flat.view(self.batch, *shape)
+
+    def _gather_payload(self, s: int, row: torch.Tensor) -> torch.Tensor:
+        """Writing: the sender's columns its destination receives, as a
+        fresh tensor (pad entries gather the dump column)."""
+        return self._bufs[s].index_select(1, row)
+
+    def _issue(self, x: torch.Tensor) -> torch.Tensor:
+        """Issue the whole program once; returns the sink register as a
+        fresh tensor.  On the card the calling stream waits on every worker
+        at the end."""
+        W, bufs, batch = self._workers, self._bufs, self.batch
+        m = len(bufs)
+        caller = torch.cuda.current_stream(self.device) if W.cuda else None
+        if W.cuda:
+            for st in W.streams:
+                st.wait_stream(caller)
+        for w, buf in enumerate(bufs):
+            with W.on(w):
+                if self.buffer_depth == 1:
+                    buf.zero_()
+                else:
+                    buf[:, :self._neginf].zero_()
+                buf[:, self._neginf:self._neginf + self._nrun].fill_(-math.inf)
+        copied, used = 0, set(range(m))
+        for k, seg_ticks in enumerate(self._ticks):
+            for compute, retire, sends in seg_ticks:
+                for (w, kern, slots, pops, off, size) in compute:
+                    buf = bufs[w]
+                    with W.on(w):
+                        ins = [self._assemble(buf, sl) for sl in slots]
+                        y = kern(x, ins, pops)
+                        buf[:, off:off + size].copy_(y.reshape(batch, size))
+                for (w, src, dst) in retire:
+                    buf = bufs[w]
+                    with W.on(w):
+                        buf.index_copy_(1, dst, buf.index_select(1, src))
+                if not sends:
+                    continue
+                payloads, flags = [], {}
+                for (s, d, row, strip, ln) in sends:
+                    with W.on(s):
+                        payloads.append(self._gather_payload(s, row))
+                for s in {s for (s, *_rest) in sends}:
+                    flags[s] = W.flag(s)
+                for (s, d, _row, strip, ln), p in zip(sends, payloads):
+                    with W.on(d):
+                        W.wait(d, flags[s])
+                        W.hand_over(p, d)
+                        bufs[d][:, strip:strip + ln].copy_(p)
+                    copied += p.numel() * p.element_size()
+            if self.checkpoint:
+                for (w, src, dst) in self._mat[k]:
+                    with W.on(w):
+                        bufs[w].index_copy_(1, dst, bufs[w].index_select(1, src))
+                for w, buf in enumerate(bufs):
+                    with W.on(w):
+                        self.snaps[k, w].copy_(buf)
+        sink_w, off, size, shape = self._sink
+        with W.on(sink_w):
+            out = bufs[sink_w][:, off:off + size].reshape(batch, *shape).clone()
+        if W.cuda:
+            for st in W.streams:
+                caller.wait_stream(st)
+            out.record_stream(caller)
+        self.comm_bytes = copied
+        self.streams_used = ({W.streams[w].cuda_stream for w in used} if W.cuda else set())
+        return out
+
+    # -- entry points ------------------------------------------------------ #
+    def _check(self, x: torch.Tensor) -> None:
+        _check_batch(x, self.batch)
+        if tuple(x.shape) != self.in_shape:
+            raise ValueError(f"input shape {tuple(x.shape)} != {self.in_shape}")
+        if x.device != self.device:
+            raise ValueError(f"input on {x.device}, executor built for {self.device}")
+
+    def _result(self, y: torch.Tensor):
+        return (y, self.snaps) if self.checkpoint else y
+
+    def eager(self, x: torch.Tensor):
+        """The program issued op by op on the workers' streams, uncaptured."""
+        self._check(x)
+        return self._result(self._issue(x))
+
+    def _capture(self, x: torch.Tensor) -> None:
+        """Capture the program into one CUDA graph over the m streams, with
+        a static copy of ``x`` as its input.  One eager issue on the same
+        streams runs first, so that the libraries' per-stream handles and
+        workspaces exist before capture.  Raises if capture fails."""
+        self._static_x = x.clone()
+        self._issue(self._static_x)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._static_y = self._issue(self._static_x)
+        self._graph = graph
+
+    def __call__(self, x: torch.Tensor):
+        self._check(x)
+        if not self._workers.cuda:
+            return self._result(self._issue(x))
+        if self._graph is None:
+            self._capture(x)
+        self._static_x.copy_(x)
+        self._graph.replay()
+        return self._result(self._static_y.clone())

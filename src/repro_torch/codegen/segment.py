@@ -28,24 +28,42 @@ distinguishes them travels as data:
 ``conv`` and a ``conv_slice`` tile with the same geometry collapse onto the
 same kernel), ``pkey`` names the parameter slice the kernel needs.
 
-This module holds the host-side tables only (signatures, gather rows,
-parameter slices, span coalescing), copied from the reference so that
-``validate_plan`` checks the same segment schema; the branch bodies
-(``make_kernel``) come with the segmented executor.
+The host-side tables (signatures, gather rows, parameter slices, span
+coalescing) are copied from the reference, so that ``validate_plan`` and
+the analyzer check the same segment schema the executor runs.
+:func:`make_kernel` builds the kernel for a signature — a mirror of the
+port's own ``apply_layer`` arm (NHWC via permute, cuDNN convolutions and
+pooling, cuBLAS products) with static attrs baked from the signature and
+params taken as operands (:func:`param_operands`, the torch counterpart of
+:func:`param_slices`).  Row pads arrive gathered from the sentinel columns,
+so a kernel pads only W.  The reference's im2col branch for table-indexed
+weights (a workaround for XLA:CPU's dynamic-filter convolution) has no
+counterpart here: every weight is a tensor either way.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Tuple
+import math
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.models.cnn import CNNModel, _row_window, _same_pads
+from repro_torch.models.cnn import (
+    CNNModel,
+    _affine,
+    _conv_relu,
+    _pool_window,
+    _row_window,
+    _same_pads,
+)
 
 __all__ = [
     "node_signature",
     "node_gather_rows",
     "param_slices",
+    "param_operands",
+    "make_kernel",
     "SpanTable",
     "coalesce_spans",
     "resolve_rows",
@@ -265,7 +283,7 @@ def node_signature(model: CNNModel, name: str) -> Tuple[Sig, PKey]:
     """Structural signature + parameter-slice key of one plan node.
 
     Two nodes with equal signatures produce byte-identical traces through
-    the segmented executor's kernel for that signature; everything else about them (which buffer elements
+    :func:`make_kernel`; everything else about them (which buffer elements
     they read, where they write, which parameter block they apply) is
     operand data."""
     sig, pkey, _blocks = _node_lowering(model, name, None)
@@ -302,6 +320,83 @@ def param_slices(
         p = params[origin]
         return (np.asarray(p["w"])[:, lo:hi], np.asarray(p["b"])[lo:hi])
     raise ValueError(pkey)
+
+
+def param_operands(
+    params: Mapping, pkey: PKey
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`param_slices` on the port's tensors: the same blocks, sliced
+    on the parameters' device and made contiguous (so that every occurrence
+    of one block hands its kernel the same memory layout)."""
+    if pkey is None:
+        return ()
+    kind = pkey[0]
+    if kind == "full":
+        p = params[pkey[1]]
+        w, b = p["w"], p["b"]
+    elif kind == "wcols":
+        _k, origin, lo, hi = pkey
+        p = params[origin]
+        w, b = p["w"][..., lo:hi], p["b"][lo:hi]
+    elif kind == "dcols":
+        _k, origin, lo, hi = pkey
+        p = params[origin]
+        w, b = p["w"][:, lo:hi], p["b"][lo:hi]
+    else:
+        raise ValueError(pkey)
+    return (w.contiguous(), b.contiguous())
+
+
+def make_kernel(sig: Sig) -> Callable:
+    """Kernel for one signature: ``kernel(x, ins, pops) -> out``.
+
+    ``ins`` are the gathered input blocks (already shaped per ``sig[1]``,
+    batched), ``pops`` the parameter operands from :func:`param_operands`.
+    The math mirrors the matching ``apply_layer`` arm of the port, with
+    every static input window, and the row pads, already folded into the
+    gather rows: a convolution or pooling kernel pads W only."""
+    op_sig, _slot_shapes = sig
+    kind = op_sig[0]
+
+    if kind == "input":
+        return lambda x, ins, pops: x
+    if kind == "identity":
+        return lambda x, ins, pops: ins[0]
+    if kind == "add":
+        return lambda x, ins, pops: ins[0] + ins[1]
+    if kind == "conv":
+        _k, s, wpads, _wsh = op_sig
+
+        def kern(x, ins, pops):
+            w_, b_ = pops
+            return _conv_relu(ins[0], w_, b_, s, (0, 0), wpads)
+        return kern
+    if kind == "pool":
+        _k, pool, k, s, wpads = op_sig
+        return lambda x, ins, pops: _pool_window(ins[0], pool, k, s, (0, 0), wpads)
+    if kind == "dense":
+        _k, relu, _wsh = op_sig
+
+        def kern(x, ins, pops):
+            w_, b_ = pops
+            return _affine(ins[0], w_, b_, relu)
+        return kern
+    if kind == "attn":
+        _k, hd, nh = op_sig
+
+        def kern(x, ins, pops):
+            q, k_, v = ins
+            b_, s_ = q.shape[0], q.shape[1]
+
+            def heads(t: torch.Tensor) -> torch.Tensor:
+                return t.reshape(b_, s_, nh, hd)
+
+            scores = torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k_)) / math.sqrt(hd)
+            probs = torch.softmax(scores, dim=-1)
+            o = torch.einsum("bhqk,bkhd->bqhd", probs, heads(v))
+            return o.reshape(b_, s_, nh * hd)
+        return kern
+    raise ValueError(kind)
 
 
 # --------------------------------------------------------------------------- #

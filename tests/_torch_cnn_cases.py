@@ -1,11 +1,13 @@
 """Cases shared by the CNN-pipeline parity tests (``test_torch_cnn.py``,
 ``test_torch_plan.py``, ``test_torch_executor.py``, ``test_torch_analyze.py``,
-``test_torch_faults.py``): the four model builders
+``test_torch_faults.py``, ``test_torch_segmented.py``): the four model builders
 at small sizes, the slicings they are held in, and weights and inputs drawn
 with numpy from a seed, which cross to both packages as numpy arrays (the
 reference's own ``init_params`` folds in ``hash(name)``, salted per
 process)."""
 import numpy as np
+import pytest
+import torch
 
 import repro.core.costmodel as jax_costmodel
 import repro.models.cnn as jax_cnn
@@ -24,6 +26,19 @@ BUILDERS = {
 # whole; 4 channel tiles; 4 row tiles; the cost model's (cout x rows) grids;
 # 4 channel tiles reassembled through tile_concat glue (direct=False)
 SLICINGS = ("whole", "channel", "rows", "grid", "concat")
+# plans the executors run: (builder, slicing, scheduler, m) — whole and
+# sliced, with windowed (grid, rows) and whole-register transfers,
+# multicasts and glue
+CASES = [
+    ("lenet5_branchy", "whole", "dsh", 2),
+    ("inception", "whole", "dsh", 4),
+    ("inception", "grid", "dsh", 8),
+    ("inception", "rows", "ish", 4),
+    ("lenet5", "grid", "dsh", 4),
+    ("transformer", "channel", "dsh", 4),
+    ("lenet5_branchy", "concat", "ish", 8),
+]
+CASE_IDS = ["-".join(map(str, c)) for c in CASES]
 
 
 def _build(cnn, slicing_mod, costmodel, builder: str, slicing: str):
@@ -74,3 +89,15 @@ def numpy_params_of(model, seed: int = 0):
 def numpy_input(builder: str, seed: int = 1, batch: int = BATCH):
     shape = BUILDERS[builder](jax_cnn).layers[0].out_shape
     return np.random.default_rng(seed).standard_normal((batch, *shape)).astype(np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """These tests' tensors are small: one intra-op thread runs them as fast
+    as many, and keeps the suite's parallel workers from oversubscribing the
+    cores.  A test module that imports this fixture runs with one thread;
+    the count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

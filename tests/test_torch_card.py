@@ -337,3 +337,79 @@ def test_mpmd_executor_replays_new_inputs(f32_card):
     assert torch.equal(b, f.eager(x2))
     with pytest.raises(ValueError, match="batch=2"):
         f(x2[:1])
+
+
+# --------------------------------------------------------------------------- #
+# the segmented executor: packed carries on m CUDA streams
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("checkpoint", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("m", [2, 4])
+def test_segmented_executor_on_streams(f32_card, m, depth, checkpoint):
+    """Eager and captured, the segmented executor on m streams gives the
+    float64 sequential result, bit for bit the same at every depth and in
+    both modes, on a second input too (the carry persists at depth >= 2),
+    with its real comm bytes equal to executed_comm_bytes."""
+    from repro_torch.codegen import build_mpmd_executor, executed_comm_bytes
+    from repro_torch.kernels import LIBRARIES
+
+    model, plan, params, x, ref = _cnn_case(True, m)
+    dparams = {k: {n: t.to(f32_card) for n, t in d.items()} for k, d in params.items()}
+    xd, x2 = x.to(f32_card), x.flip(0).to(f32_card)
+    before = [dict(lib.counts) for lib in LIBRARIES]
+    outs = {}
+    for d in sorted({1, depth}):
+        f = build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2, segmented=True,
+                                buffer_depth=d, checkpoint=checkpoint)
+        def out(r):
+            return r[0] if checkpoint else r
+
+        eager = out(f.eager(xd))
+        torch.cuda.synchronize()
+        assert f.streams_used == {s.cuda_stream for s in f.streams} and len(f.streams_used) == m
+        assert f.comm_real_bytes == executed_comm_bytes(plan, model, batch=2, segmented=True,
+                                                        buffer_depth=d)
+        first, second, other = out(f(xd)), out(f(x2)), out(f(xd))
+        torch.cuda.synchronize()
+        _cnn_close(first, ref)
+        _cnn_close(second, ref.flip(0))
+        assert torch.equal(first, eager) and torch.equal(first, other)
+        outs[d] = first
+    assert torch.equal(outs[1], outs[depth])
+    assert [dict(lib.counts) for lib in LIBRARIES] == before  # no Hopper kernel on this path
+
+
+def test_segmented_landing_waits_for_its_sender(f32_card):
+    """Planted fault: sender 0 is held back ~10 ms before each gather.  With
+    its landings waiting on the sender's flag the result is right; with the
+    wait dropped the landing copies the payload before the gather wrote
+    it, and the result is wrong — the events, not issue order, keep a
+    landing after its sender's gather."""
+    from repro_torch.codegen import build_mpmd_executor
+
+    model, plan, params, x, _ref = _cnn_case(True, 4)
+    dparams = {k: {n: t.to(f32_card) for n, t in d.items()} for k, d in params.items()}
+    xd = (x * 0.5 + 1.0).to(f32_card)
+
+    def slowed(f):
+        gather = f._gather_payload
+
+        def delayed(s, row):
+            if s == 0:
+                torch.cuda._sleep(20_000_000)
+            return gather(s, row)
+        f._gather_payload = delayed
+        return f
+
+    planted = slowed(build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2,
+                                         segmented=True))
+    planted._workers.wait = lambda w, flag: None
+    wrong = planted.eager(xd)
+    torch.cuda.synchronize()
+    right = slowed(build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2,
+                                       segmented=True)).eager(xd)
+    torch.cuda.synchronize()
+    plain = build_mpmd_executor(plan, model, dparams, device=f32_card, batch=2,
+                                segmented=True).eager(xd)
+    assert torch.equal(right, plain)
+    assert not torch.equal(wrong, plain)

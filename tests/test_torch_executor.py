@@ -20,22 +20,14 @@ import repro.models.cnn as jax_cnn
 import repro_torch.codegen as codegen
 import repro_torch.core as core
 import repro_torch.core.costmodel as costmodel
-from _torch_cnn_cases import BATCH, jax_model, numpy_input, numpy_params, torch_model
+from _torch_cnn_cases import (  # one_intra_op_thread: an autouse fixture
+    BATCH, CASE_IDS, CASES, jax_model, numpy_input, numpy_params, one_intra_op_thread,
+    torch_model,
+)
 from repro_torch.convert import cnn_params_from_numpy
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-# (builder, slicing, scheduler, m): whole and sliced plans with windowed
-# (grid, rows) and whole-register transfers, multicasts and glue
-CASES = [
-    ("lenet5_branchy", "whole", "dsh", 2),
-    ("inception", "whole", "dsh", 4),
-    ("inception", "grid", "dsh", 8),
-    ("inception", "rows", "ish", 4),
-    ("lenet5", "grid", "dsh", 4),
-    ("transformer", "channel", "dsh", 4),
-    ("lenet5_branchy", "concat", "ish", 8),
-]
-IDS = ["-".join(map(str, c)) for c in CASES]
+IDS = CASE_IDS
 
 
 @functools.lru_cache(maxsize=None)
