@@ -198,19 +198,24 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_work(BH, Sq, Sk, D, causal, elem):
-    """Bytes (q, k, v read once, o written once) and operations (QK^T and
-    PV, 2 each per multiply-add) of the unmasked (query, key) pairs."""
+def flash_work(BH, Sq, Sk, D, causal, elem, Dv=None):
+    """Bytes (q, k, v read once, o written once) and operations (QK^T over
+    D and PV over Dv, 2 each per multiply-add) of the unmasked (query, key)
+    pairs; Dv defaults to D."""
+    Dv = D if Dv is None else Dv
     if causal:
         off = Sk - Sq
         pairs = sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
     else:
         pairs = Sq * Sk
-    return (2 * BH * Sq * D + 2 * BH * Sk * D) * elem, 4.0 * BH * pairs * D
+    nbytes = (BH * Sq * D + BH * Sk * D + BH * Sk * Dv + BH * Sq * Dv) * elem
+    return nbytes, 2.0 * BH * pairs * (D + Dv)
 
 
-def swiglu_work(M, D, F, elem):
-    return (M * D + 2 * D * F + M * F) * elem, 4.0 * M * D * F
+def swiglu_work(M, D, F, elem, E=1):
+    """Bytes (x and both weights read once, the output written once) and
+    operations of E products of M rows (E = 1: one product)."""
+    return E * (M * D + 2 * D * F + M * F) * elem, 4.0 * E * M * D * F
 
 
 def ssd_work(heads, groups, S, P, N, elem, chunk):
@@ -268,16 +273,42 @@ def sdpa_call(torch, backend, q, k, v):
     return call
 
 
+def sdpa_value_dim_call(torch, q, k, v):
+    """The yardstick for attention with a value head dim Dv != D: SDPA under
+    the first named fused backend that takes Dv != D (flash, cuDNN,
+    memory-efficient, in that order), or, if none does, under the flash
+    backend with v zero-padded to D (its output sliced back to Dv).  Returns
+    (call, name)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    for backend, name in ((SDPBackend.FLASH_ATTENTION, "sdpa[flash]"),
+                          (SDPBackend.CUDNN_ATTENTION, "sdpa[cudnn]"),
+                          (SDPBackend.EFFICIENT_ATTENTION, "sdpa[efficient]")):
+        call = sdpa_call(torch, backend, q, k, v)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:  # the backend refuses these shapes: try the next
+            continue
+        return call, name
+    padded = sdpa_call(torch, SDPBackend.FLASH_ATTENTION, q, k,
+                       F.pad(v, (0, q.shape[-1] - v.shape[-1])))
+    return (lambda: padded()[..., :v.shape[-1]]), "sdpa[flash], v padded to D"
+
+
 def check_kernels(torch, timer):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels import (
         FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_mixer, ssd_scan,
-        swiglu_matmul,
+        swiglu_experts, swiglu_matmul,
     )
     from repro_torch.kernels._build import stream_handle
-    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
+    from repro_torch.kernels.ref import (
+        flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
+    )
     from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -304,8 +335,24 @@ def check_kernels(torch, timer):
                 if not within(o, r, tol):
                     raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D)} {dtype} "
                                          f"causal={causal}: max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"flash_attention: {len(flash_cases) * 4} sweep cases within tolerance "
-        f"(variants {sorted(hit[FLASH_LIBRARY.name])})")
+    # a value head dim Dv != D (MLA's prefill: 192 / 128), ragged and Sq != Sk,
+    # on the mma tiles (192/128, 64/64) and, off the multiples of 16, the CUDA cores
+    flash_dv_cases = [(2, 100, 100, 192, 128), (2, 130, 100, 192, 128), (2, 100, 130, 192, 128),
+                      (1, 200, 200, 64, 32), (2, 96, 96, 40, 24)]
+    for (BH, Sq, Sk, D, Dv) in flash_dv_cases:
+        for dtype in (f32, bf16):
+            for causal in (True, False):
+                q, k = (randn(BH, s, D, dtype=dtype) for s in (Sq, Sk))
+                v = randn(BH, Sk, Dv, dtype=dtype)
+                o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
+                hit[FLASH_LIBRARY.name].add(variant)
+                r = flash_attention_ref(q, k, v, causal=causal)
+                tol = FLASH_TOL[str(dtype)]
+                if o.shape != r.shape or not within(o, r, tol):
+                    raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D, Dv)} {dtype} "
+                                         f"causal={causal}: max err {max_err(o, r):.3g} > tol {tol}")
+    log(f"flash_attention: {(len(flash_cases) + len(flash_dv_cases)) * 4} sweep cases within "
+        f"tolerance (variants {sorted(hit[FLASH_LIBRARY.name])})")
     # the serving path's prefill shapes (32 heads, head dim 64): the bf16
     # tensor-core kernel, and the CUDA-core kernel on the same shapes in f32
     # (its route); the yardstick is SDPA on 4-D views, forced onto a named
@@ -329,6 +376,26 @@ def check_kernels(torch, timer):
             plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
             library=lib_name, library_ms=timer.ms(sdpa_call(torch, backend, q, k, v)),
             bound_ms=b_ms, bound_by=b_by)
+    # DeepSeek-V2-Lite's MLA prefill: 16 heads, q/k 192 (128 nope + 64 rope), v 128
+    BH, S, D, Dv = 16, 1024, 192, 128
+    q, k = (randn(BH, S, D, dtype=bf16) for _ in range(2))
+    v = randn(BH, S, Dv, dtype=bf16)
+    o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=True))
+    r = flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[str(bf16)]
+    if not within(o, r, tol):
+        raise AssertionError(f"flash_attention[{variant}] MLA path: max err {max_err(o, r):.3g}")
+    lib_call, lib_name = sdpa_value_dim_call(torch, q, k, v)
+    lib_out = lib_call()[0]
+    if not within(lib_out, r, tol):
+        raise AssertionError(f"{lib_name} does not compute the same function: "
+                             f"max err {max_err(lib_out, r):.3g}")
+    b_ms, b_by = bound(*flash_work(BH, S, S, D, True, 2, Dv=Dv), bf16)
+    rows[("flash_attention", variant, "mla")] = dict(
+        shape=f"BH={BH} S={S} D={D} Dv={Dv} bf16 causal", max_abs_err=max_err(o, r),
+        tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
+        library=lib_name, library_ms=timer.ms(lib_call), bound_ms=b_ms, bound_by=b_by)
 
     # (M, D, F): the CPU tests' sweep, then a K tail (D = 2056) with F not a
     # multiple of the column tiles at both ends of the bf16 row range; bf16
@@ -348,8 +415,25 @@ def check_kernels(torch, timer):
             if not within(o, r, tol):
                 raise AssertionError(f"swiglu_matmul[{variant}] {(M, D, Fd)} {dtype}: "
                                      f"max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases within tolerance "
-        f"(variants {sorted(hit[SWIGLU_LIBRARY.name])})")
+    # (E, M, D, F): the expert entries, M rows an expert: both sides of 64
+    # rows, ragged M (a tile past an expert's rows), a K tail, one row, E = 1,
+    # unaligned D and F (the CUDA cores in bf16)
+    expert_cases = [(3, 64, 256, 96), (5, 79, 2056, 200), (3, 63, 256, 96), (4, 1, 256, 96),
+                    (1, 200, 256, 96), (1, 8, 256, 96), (3, 7, 100, 70), (3, 24, 256, 96)]
+    for (E, M, D, Fd) in expert_cases:
+        for dtype in (f32, bf16):
+            x = randn(E, M, D, dtype=dtype)
+            wg = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
+            wu = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
+            o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_experts(x, wg, wu))
+            hit[SWIGLU_LIBRARY.name].add(variant)
+            r = swiglu_experts_ref(x, wg, wu)
+            tol = SWIGLU_TOL[str(dtype)]
+            if o.shape != r.shape or not within(o, r, tol):
+                raise AssertionError(f"swiglu_experts[{variant}] {(E, M, D, Fd)} {dtype}: "
+                                     f"max err {max_err(o, r):.3g} > tol {tol}")
+    log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases and {len(expert_cases) * 2} expert "
+        f"cases within tolerance (variants {sorted(hit[SWIGLU_LIBRARY.name])})")
     for lib in (FLASH_LIBRARY, SWIGLU_LIBRARY):
         if hit[lib.name] != set(lib.variants):
             raise AssertionError(f"{lib.name}: the sweep reached {sorted(hit[lib.name])}, "
@@ -375,6 +459,62 @@ def check_kernels(torch, timer):
             plain_ms=timer.ms(lambda: swiglu_ref(x, wg, wu)),
             library="F.silu(x@wg)*(x@wu)", library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
             bound_ms=b_ms, bound_by=b_by)
+    # DeepSeek-V2-Lite's dense products (D 2048): the lead layer's FFN (F
+    # 10944) and the shared experts (F 2816), at a prefill's rows (wgmma)
+    # and a tick's (decode)
+    for M, Fd in ((1024, 10944), (1024, 2816), (8, 10944), (8, 2816)):
+        D = 2048
+        x = randn(M, D, dtype=bf16)
+        wg = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+        wu = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
+        r = swiglu_ref(x, wg, wu)
+        tol = SWIGLU_TOL[str(bf16)]
+        if variant != ("wgmma" if M >= 64 else "decode") or not within(o, r, tol):
+            raise AssertionError(f"swiglu_matmul[{variant}] DeepSeek path M={M} F={Fd}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        log(f"swiglu_matmul[{variant}] DeepSeek path M={M} D={D} F={Fd}: max err "
+            f"{max_err(o, r):.3g}")
+    # the routed experts at a prefill's other capacities: 24 and 48 rows
+    # (the decode kernel's 2- and 4-tile forms), 63 (its last) and 64 (the
+    # first that goes to wgmma)
+    for M in (24, 48, 63, 64):
+        E, D, Fd = 64, 2048, 1408
+        x = randn(E, M, D, dtype=bf16)
+        wg = randn(E, D, Fd, dtype=bf16, scale=D ** -0.5)
+        wu = randn(E, D, Fd, dtype=bf16, scale=D ** -0.5)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_experts(x, wg, wu))
+        r = swiglu_experts_ref(x, wg, wu)
+        tol = SWIGLU_TOL[str(bf16)]
+        if variant != ("experts_wgmma" if M >= 64 else "experts_decode") or not within(o, r, tol):
+            raise AssertionError(f"swiglu_experts[{variant}] path M={M}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        log(f"swiglu_experts[{variant}] path E={E} M={M} D={D} F={Fd}: max err "
+            f"{max_err(o, r):.3g}")
+        del x, wg, wu
+    # DeepSeek-V2-Lite's routed experts (64 experts, D 2048, F 1408): a
+    # prefill's capacity of 120 rows an expert (n = 1024) and a decode tick's
+    # 8 slots of one row, bf16; the CUDA cores on 120 rows in f32 (their route)
+    for M, dtype in ((120, bf16), (8, bf16), (120, f32)):
+        E, D, Fd = 64, 2048, 1408
+        x = randn(E, M, D, dtype=dtype)
+        wg = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
+        wu = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_experts(x, wg, wu))
+        r = swiglu_experts_ref(x, wg, wu)
+        tol = SWIGLU_TOL[str(dtype)]
+        if not within(o, r, tol):
+            raise AssertionError(f"swiglu_experts[{variant}] path M={M} {dtype}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        b_ms, b_by = bound(*swiglu_work(M, D, Fd, x.element_size(), E=E), dtype)
+        rows[("swiglu_matmul", variant, M)] = dict(
+            shape=f"E={E} M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
+            tol=list(tol), ms=timer.ms(lambda: swiglu_experts(x, wg, wu)),
+            plain_ms=timer.ms(lambda: swiglu_experts_ref(x, wg, wu)),
+            library="F.silu(bmm(x,wg))*bmm(x,wu)",
+            library_ms=timer.ms(lambda: F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)),
+            bound_ms=b_ms, bound_by=b_by)
+        del x, wg, wu
 
     def ssd_inputs(BH, S, P, N, dtype, dt_shift=0.0):
         """dt = softplus(normal - dt_shift): at 0 a chunk of 64 decays by
@@ -533,69 +673,115 @@ def check_kernels(torch, timer):
 # phase 4: serving
 # --------------------------------------------------------------------------- #
 def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dict:
-    """Launches of each kernel variant on a serving run: one per layer and
-    step of the kernels the model's layers call, through the variant each
-    wrapper's selector picks for that step's shapes (bf16; the MLP's rows
-    padded as ``ops.fused_swiglu`` pads them), and none of the others."""
+    """Launches of each kernel variant on a serving run, from the config's
+    layers (``layer_plan``): per prefill of n tokens, flash attention in
+    every attention layer (MLA: q/k nope + rope wide, v v_head_dim), the
+    SwiGLU kernel once for every dense FFN, shared-expert MLP and dense
+    residual (rows padded as ``ops.fused_swiglu`` pads them), and the
+    expert kernel once in every MoE layer (rows an expert: the groups times
+    their capacity, G = ceil(n / router_chunk) groups of min(router_chunk,
+    n) tokens); per decode tick the same SwiGLU and expert kernels over the
+    slots (each slot its own group of one token), and no attention kernel.
+    Each through the variant its selector picks (bf16), and none of the
+    others.  An SSM: the SSD scan in every prefill mixer; decode is plain."""
     from repro_torch.kernels import (
-        LIBRARIES, select_flash_variant, select_ssd_variant, select_swiglu_variant,
+        LIBRARIES, select_experts_variant, select_flash_variant, select_ssd_variant,
+        select_swiglu_variant,
     )
+    from repro_torch.models import layer_plan
+    from repro_torch.models.layers import moe_capacity
 
-    L = cfg.n_layers
     bf16 = torch.bfloat16
+    plan = layer_plan(cfg)
     expect = {lib.name: {v: 0 for v in lib.variants} for lib in LIBRARIES}
-    if cfg.family == "ssm":  # the SSD scan in every prefill mixer; decode is plain
+    if cfg.family == "ssm":
         variant = select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state, bf16)
-        expect["ssd_scan"][variant] = L * len(prompt_lens)
+        expect["ssd_scan"][variant] = len(plan) * len(prompt_lens)
         return expect
+    if cfg.mla is not None:
+        dq, dv = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
+    else:
+        dq = dv = cfg.head_dim
+    mlps = {"dense": [cfg.d_ff], "moe": []}
+    if cfg.moe is not None:
+        mlps["moe"] = ([cfg.moe.n_shared * cfg.moe.d_ff_expert] if cfg.moe.n_shared else []) + (
+            [cfg.d_ff] if cfg.moe.dense_residual else [])
+
+    def step(rows: int, groups: int, group_tokens: int, prefill: bool):
+        for slot in plan:
+            if prefill:
+                expect["flash_attention"][select_flash_variant(dq, dv, bf16)] += 1
+            for f in mlps[slot.ffn]:
+                expect["swiglu_matmul"][select_swiglu_variant(rows, cfg.d_model, f, bf16)] += 1
+            if slot.ffn == "moe":
+                m = groups * moe_capacity(cfg.moe, group_tokens)
+                expect["swiglu_matmul"][select_experts_variant(
+                    m, cfg.d_model, cfg.moe.d_ff_expert, bf16)] += 1
+
+    chunk = cfg.moe.router_chunk if cfg.moe is not None else 1
     for n in prompt_lens:
-        expect["flash_attention"][select_flash_variant(cfg.head_dim, bf16)] += L
-        m = -(-n // min(256, n)) * min(256, n)
-        expect["swiglu_matmul"][select_swiglu_variant(m, cfg.d_model, cfg.d_ff, bf16)] += L
-    expect["swiglu_matmul"][select_swiglu_variant(slots, cfg.d_model, cfg.d_ff, bf16)] += (
-        L * n_decode)
+        step(-(-n // min(256, n)) * min(256, n), -(-n // chunk), min(chunk, n), True)
+    for _ in range(n_decode):
+        step(slots, slots, 1, False)
     return expect
 
 
-def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
-    """Serve the traffic with ``arch``; hold two requests' logits to a
-    teacher-forced forward: every step within ``logit_tol``, the first
-    decode step (after prefill's cache) within ``handoff_tol``."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import LIBRARIES
-    from repro_torch.models import forward, init_params
-    from repro_torch.serve import Engine, ServeConfig
+def init_model(torch, cfg):
+    """Random bf16 weights from a seeded generator, with attention rescaled
+    so that its scores are of order one (below); prints the size and the
+    init time."""
+    from repro_torch.models import init_params
 
-    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    if cfg.family != "ssm":
-        # init_params draws at the reference's ParamDef.default_scale, which
-        # takes shape[-2] as the fan-in: for wq/wk/wv [d, H, Dh] that is the
-        # head count, not d_model, and attention scores come out with a std
-        # of ~180.  Softmax is then a hard argmax that any rounding
-        # difference flips, and a deep random model is chaotic: the
-        # reference's own engine and teacher-forced decoding disagree from 8
-        # layers on (f32, CPU).  Scaling q/k/v to the fan-in d_model makes
-        # the teacher-forced check below meaningful.
-        with torch.no_grad():
-            for block in model.layers:
-                for name in ("wq", "wk", "wv"):
+    # init_params draws at the reference's ParamDef.default_scale, which takes
+    # shape[-2] as the fan-in: for wq/wk/wv [d, H, Dh] (and MLA's wq [d, H,
+    # 192], w_uk/w_uv [512, H, 128]) that is the head count, not the input
+    # width, and attention scores come out with a std of ~180 (MLA: ~60).
+    # Softmax is then a hard argmax that any rounding difference flips, and a
+    # deep random model is chaotic: the reference's own engine and
+    # teacher-forced decoding disagree from 8 layers on (f32, CPU).  Scaling
+    # them to their real fan-in (d_model; MLA's latent: kv_lora_rank) makes
+    # the teacher-forced checks meaningful.
+    with torch.no_grad():
+        for block in model.layers:
+            if not hasattr(block, "attn"):
+                continue
+            for name in ("wq", "wk", "wv"):
+                if name in block.attn:
                     w = block.attn[name]
                     w.mul_((w.shape[1] / cfg.d_model) ** 0.5)
+            for name in ("w_uk", "w_uv"):
+                if name in block.attn:
+                    w = block.attn[name]
+                    w.mul_((w.shape[1] / w.shape[0]) ** 0.5)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
-        f"(bf16), init {time.perf_counter() - t0:.1f} s")
+        f"(bf16), init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return model
 
+
+def traffic(np, cfg):
+    """The serving runs' prompts: 16, lengths uniform in 64-1024."""
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 1025, size=N_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lens]
-    engine = Engine(cfg, model, ServeConfig(max_seq=MAX_SEQ, slots=SLOTS), device="cuda")
-    reqs = [engine.submit(p, max_new=MAX_NEW) for p in prompts]
+    return [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lens]
 
-    # record the logits the engine decides on for two requests, and time its steps
-    watched = {0: [], 1: []}
+
+def run_engine(torch, cfg, model, prompts, scfg, watched=(0, 1), count=False):
+    """Serve ``prompts`` to the end; return the requests, the logits the
+    engine decided on for the ``watched`` requests (prefill, then each
+    decode step), and the host wall of each synchronised prefill and tick.
+    With ``count``, every kernel count is set to 0 just before the run and
+    read just after it, and the peak memory is the run's."""
+    from repro_torch.kernels import LIBRARIES
+    from repro_torch.serve import Engine
+
+    engine = Engine(cfg, model, scfg, device="cuda")
+    reqs = [engine.submit(p, max_new=MAX_NEW) for p in prompts]
+    logits = {rid: [] for rid in watched}
     prefill_ms, decode_ms = [], []
     prefill, decode = engine._prefill1, engine._decode
 
@@ -606,60 +792,96 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
         last, cache = prefill(params, cache, inputs)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
-        if rid in watched:
-            watched[rid].append(last[0].float())
+        if rid in logits:
+            logits[rid].append(last[0].float())
         return last, cache
 
     def timed_decode(params, cache, tokens):
         live = {s: r.rid for s, r in enumerate(engine.slot_req) if r is not None}
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, cache = decode(params, cache, tokens)
+        out, cache = decode(params, cache, tokens)
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
         for s, rid in live.items():
-            if rid in watched:
-                watched[rid].append(logits[s].float())
-        return logits, cache
+            if rid in logits:
+                logits[rid].append(out[s].float())
+        return out, cache
 
     engine._prefill1, engine._decode = timed_prefill, timed_decode
-    torch.cuda.reset_peak_memory_stats()
-    for lib in LIBRARIES:
-        lib.reset()
+    if count:
+        torch.cuda.reset_peak_memory_stats()
+        for lib in LIBRARIES:
+            lib.reset()
     t0 = time.perf_counter()
     engine.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES}
-
-    for r in reqs:
-        if not (r.done and len(r.out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.out)):
-            raise AssertionError(f"request {r.rid}: done={r.done}, {len(r.out)} tokens")
-    n_tok = sum(len(r.out) for r in reqs)
-    log(f"served {len(reqs)} requests (prompts {int(lens.min())}-{int(lens.max())} tokens, "
-        f"{MAX_NEW} new each) in {wall:.3f} s: {n_tok / wall:.1f} tokens/s, "
-        f"{len(prefill_ms)} prefills mean {np.mean(prefill_ms):.2f} ms, "
-        f"{len(decode_ms)} decode ticks mean {np.mean(decode_ms):.2f} ms, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if len(prefill_ms) != len(reqs):
-        raise AssertionError(f"{len(prefill_ms)} prefills for {len(reqs)} requests")
-    expect = expected_launches(torch, cfg, [len(p) for p in prompts], len(decode_ms), SLOTS)
-    log(f"launches on the serving path: {launches} (expected {expect})")
-    if launches != expect:
-        raise AssertionError(f"kernel launches {launches} != expected {expect}")
-    if any(launches[lib]["cuda_core"] for lib in launches):
-        raise AssertionError("a serving launch went through a CUDA-core kernel")
-
+    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES} if count else None
     # the timing closures read the engine and are stored on it: put the
     # engine's own steps back, so that the engine and its weights are freed
     # with the last reference to them, not at the next cyclic collection
     engine._prefill1, engine._decode = prefill, decode
-    profile_steps(torch, engine, prompts[int(np.argmax(lens))])
+    for r in reqs:
+        if not (r.done and len(r.out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.out)):
+            raise AssertionError(f"request {r.rid}: done={r.done}, {len(r.out)} tokens")
+    if len(prefill_ms) != len(reqs):
+        raise AssertionError(f"{len(prefill_ms)} prefills for {len(reqs)} requests")
+    return dict(engine=engine, reqs=reqs, logits=logits, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, wall=wall, launches=launches)
 
-    # teacher-forced check: a train-mode forward over prompt + generated tokens
-    failures, worst, agree, decided = [], 0.0, 0, 0
-    for rid, rows in watched.items():
-        r = reqs[rid]
+
+def report_run(torch, np, cfg, prompts, run) -> dict:
+    """Print the counted run's throughput, step times and memory; check its
+    launches against ``expected_launches`` (no CUDA-core kernel); profile
+    one prefill of the longest prompt and one decode tick."""
+    reqs, wall = run["reqs"], run["wall"]
+    lens = [len(p) for p in prompts]
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"served {len(reqs)} requests (prompts {min(lens)}-{max(lens)} tokens, "
+        f"{MAX_NEW} new each) in {wall:.3f} s: {n_tok / wall:.1f} tokens/s, "
+        f"{len(run['prefill_ms'])} prefills mean {np.mean(run['prefill_ms']):.2f} ms, "
+        f"{len(run['decode_ms'])} decode ticks mean {np.mean(run['decode_ms']):.2f} ms, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = run["launches"]
+    expect = expected_launches(torch, cfg, lens, len(run["decode_ms"]), SLOTS)
+    log(f"launches on the serving path: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    if any(n for lib in launches.values() for v, n in lib.items() if v.endswith("cuda_core")):
+        raise AssertionError("a serving launch went through a CUDA-core kernel")
+    profile_steps(torch, run["engine"], prompts[int(np.argmax(lens))])
+    return launches
+
+
+def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
+    """Serve the traffic with ``arch``; hold two requests' logits to a
+    teacher-forced forward: every step within ``logit_tol``, the first
+    decode step (after prefill's cache) within ``handoff_tol``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config(arch)
+    model = init_model(torch, cfg)
+    prompts = traffic(np, cfg)
+    run = run_engine(torch, cfg, model, prompts, ServeConfig(max_seq=MAX_SEQ, slots=SLOTS),
+                     count=True)
+    launches = report_run(torch, np, cfg, prompts, run)
+    worst = teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol)
+    log(f"teacher-forced: max logit error {worst:.4f} (tol {logit_tol}; first decode step tol "
+        f"{handoff_tol})")
+    return launches
+
+
+def teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol, fail=True):
+    """Hold the watched requests' engine logits to a train-mode forward over
+    prompt + generated tokens: every step within ``logit_tol``, the first
+    decode step within ``handoff_tol``; return the largest error (with
+    ``fail=False``, only return it)."""
+    failures, worst, agree, decided, steps = [], 0.0, 0, 0, 0
+    for rid, rows in run["logits"].items():
+        r = run["reqs"][rid]
         toks = torch.tensor(r.prompt + r.out[:-1], device="cuda")[None]
         tf = forward(model, cfg, {"tokens": toks})[0, len(r.prompt) - 1:].float()
         eng = torch.stack(rows)
@@ -667,6 +889,8 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
             raise AssertionError(f"request {rid}: engine logits {tuple(eng.shape)} vs {tuple(tf.shape)}")
         step_err = (eng - tf).abs().amax(dim=-1)
         worst = max(worst, float(step_err.max()))
+        if not fail:
+            continue
         top2 = tf.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).tolist()
         tf_tok = tf.argmax(-1).tolist()
@@ -674,6 +898,7 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
             f"logit| {[round(e, 3) for e in step_err.tolist()]}, max |logit| "
             f"{float(tf.abs().max()):.2f}")
         for i, t in enumerate(r.out):
+            steps += 1
             agree += int(t == tf_tok[i])
             # no logit moved by more than step_err[i]: a top-2 margin above
             # twice that decides the engine's token
@@ -687,12 +912,257 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
         if float(step_err[1]) > handoff_tol:
             failures.append(f"request {rid}: first decode step's logits differ by "
                             f"{float(step_err[1]):.4f} > {handoff_tol}")
-    log(f"teacher-forced: {agree}/{2 * MAX_NEW} tokens equal, {decided} decided (top-2 margin "
-        f"above twice the step's logit error); max logit error {worst:.4f} (tol {logit_tol}; "
-        f"first decode step tol {handoff_tol})")
+    if fail:
+        log(f"teacher-forced: {agree}/{steps} tokens equal, {decided} decided (top-2 margin above "
+            f"twice the step's logit error)")
     if failures:
         raise AssertionError("; ".join(failures))
+    return worst
+
+
+# DeepSeek-V2-Lite: (a) each prefill's last logits against a train-mode
+# forward of its prompt (the same chunks, so the same capacity drops); (b)
+# the two watched requests served again with moe.router_chunk = 1 (every
+# token its own group of capacity 1: nothing dropped in prefill, decode or
+# the forward) against a teacher-forced forward of that config.  bf16 end to
+# end, logits of ~4.5.  Sized on the H100 (PERF.md, §6) by planted
+# faults that each check must catch: (a) the same kernels on the same
+# shapes, errors 0.0 in every request; a forward without the shared
+# experts reads >= 1.17.  (b) engine against forward <= 0.076 (decode's
+# absorbed MLA against flash, GEMMs of other shapes; ~1.5% of the (token,
+# layer) top-6 sets flip near ties, each moving a logit a little); a
+# forward whose top-6 weights are not renormalised reads 0.44.  Both held
+# to 0.25, TinyLlama's tolerance.
+MOE_PREFILL_TOL = 0.25
+MOE_LOGIT_TOL, MOE_HANDOFF_TOL = 0.25, 0.25
+# (c) one full-width MoE layer, routed with the config's own chunks and
+# capacity, against ``plain_moe``: relative to the largest output
+# magnitude, bf16 as tests/test_torch_serve.py sets it.  On the H100
+# (PERF.md, §6): 0.0045 under both dispatches, 7,077 of 13,200 choices
+# dropped; the plain layer with no capacity reads 0.54.
+MOE_DROP_TOL = 5e-2
+
+
+def plain_moe(torch, np, cfg, p, x, capacity=True):
+    """A MoE layer's output for x [B, S, D] in f32, written apart from
+    ``layers``: the sequence is cut into chunks of ``router_chunk`` tokens;
+    in each, the tokens' top-k experts (softmax of the f32 router logits,
+    the same product on the same padded tensor as the port's, so the sets
+    agree exactly) take their experts' C = ceil(top_k·chunk/E·capacity
+    factor) slots in token-major order, given out by a host loop; a choice
+    past its expert's C slots is dropped (none with ``capacity=False``);
+    each kept (token, expert) pair goes through that expert's SwiGLU in
+    f32, weighted by the renormalised gate; the shared experts are added in
+    f32.  Returns (output, dropped choices)."""
+    import torch.nn.functional as F
+
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    chunk = min(m.router_chunk, S)
+    n_ch = -(-S // chunk)
+    C = max(1, math.ceil(K * chunk / E * m.capacity_factor))
+    xp = F.pad(x, (0, 0, 0, n_ch * chunk - S)).reshape(B * n_ch, chunk, D)
+    gates = torch.softmax(torch.einsum("gsd,de->gse", xp.float(), p["router"].float()), dim=-1)
+    gate_k, idx_k = torch.topk(gates, K, dim=-1)
+    gate_k = (gate_k / gate_k.sum(-1, keepdim=True)).cpu().numpy()
+    idx_k = idx_k.cpu().numpy()
+    weight = np.zeros((B * n_ch, chunk, E), np.float32)  # kept choices' gates
+    keep = np.zeros((B * n_ch, chunk, E), bool)
+    dropped = 0
+    for g in range(B * n_ch):
+        taken = np.zeros(E, np.int64)
+        real = min(chunk, S - (g % n_ch) * chunk)  # padding sits last and is not a token
+        for s in range(real):
+            for k in range(K):
+                e = idx_k[g, s, k]
+                if capacity and taken[e] >= C:
+                    dropped += 1
+                else:
+                    keep[g, s, e], weight[g, s, e] = True, gate_k[g, s, k]
+                taken[e] += 1
+    keep, weight = torch.from_numpy(keep).to(x.device), torch.from_numpy(weight).to(x.device)
+    xf = xp.float()
+    y = torch.zeros_like(xf)
+    for e in range(E):
+        sel = keep[..., e]
+        if bool(sel.any()):
+            xe = xf[sel]
+            h = F.silu(xe @ p["wg"][e].float()) * (xe @ p["wu"][e].float())
+            y[sel] += weight[..., e][sel][:, None] * (h @ p["wd"][e].float())
+    y = y.reshape(B, n_ch * chunk, D)[:, :S]
+    xf, sh = x.float(), p["shared"]
+    y = y + (F.silu(xf @ sh["wg"].float()) * (xf @ sh["wu"].float())) @ sh["wd"].float()
+    return y, dropped
+
+
+def moe_drop_check(torch, np, cfg, model) -> None:
+    """(c) The first MoE layer at full width, both dispatches, against
+    ``plain_moe``: two sequences of router_chunk + 76 tokens (a full chunk
+    and a padded one each), bf16 inputs with x[..., 0] = 4 and the router's
+    row 0 set to 0.5 for experts 0-7 (their logits +2), so that those eight
+    take most of the top-k choices and overflow their slots.  The planted fault is the plain
+    layer with no capacity (nothing dropped): it must read above the
+    tolerance."""
+    from repro_torch.models import layers
+
+    p = next(b.moe for b in model.layers if hasattr(b, "moe"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, cfg.moe.router_chunk + 76, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    x[..., 0] = 4.0
+    saved = p["router"].detach().clone()
+    try:
+        with torch.no_grad():
+            p["router"][0, :8] = 0.5
+            ref, dropped = plain_moe(torch, np, cfg, p, x)
+            nodrop, _ = plain_moe(torch, np, cfg, p, x, capacity=False)
+            scale = float(ref.abs().max())
+            errs = {impl: float((layers.moe_layer(p, cfg, x, impl=impl).float() - ref).abs().max())
+                    / scale for impl in ("einsum", "scatter")}
+            fault = float((nodrop - ref).abs().max()) / scale
+    finally:
+        with torch.no_grad():
+            p["router"].copy_(saved)
+    n_choices = x.shape[0] * x.shape[1] * cfg.moe.top_k
+    log(f"(c) MoE layer with drops vs plain: {dropped} of {n_choices} top-{cfg.moe.top_k} "
+        f"choices dropped; max error / max |out| {errs} (tol {MOE_DROP_TOL}); planted fault "
+        f"(no capacity): {fault:.4f}")
+    if dropped == 0 or max(errs.values()) > MOE_DROP_TOL or fault <= MOE_DROP_TOL:
+        raise AssertionError(f"(c) MoE drop check: dropped {dropped}, errors {errs}, fault "
+                             f"{fault:.4f}, tol {MOE_DROP_TOL}")
+
+
+class RouteLog:
+    """Records the top-k expert sets ``layers.moe_route`` returns, each call
+    tagged with the step that made it, while installed (``with``)."""
+
+    def __init__(self, layers):
+        self.layers, self.calls, self.tag = layers, [], None
+
+    def __enter__(self):
+        route = self.orig = self.layers.moe_route
+
+        def recorded(p, m, xc):
+            gate_k, idx_k = route(p, m, xc)
+            self.calls.append((self.tag, idx_k.sort(dim=-1).values))
+            return gate_k, idx_k
+        self.layers.moe_route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.orig
+
+
+def serve_deepseek(torch, np):
+    """Serve the traffic with full-width DeepSeek-V2-Lite, counted and timed
+    with the config's own router chunks; checks (a), (b) and (c) above,
+    each against its planted fault; count router top-6 sets that differ
+    between engine and forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, layers
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = init_model(torch, cfg)
+    log(f"the config's param_count (no norm scales): {cfg.param_count()[0] / 1e9:.3f} B total, "
+        f"{cfg.param_count()[1] / 1e9:.3f} B active a token")
+    prompts = traffic(np, cfg)
+    scfg = ServeConfig(max_seq=MAX_SEQ, slots=SLOTS)
+    run = run_engine(torch, cfg, model, prompts, scfg, watched=range(N_REQUESTS), count=True)
+    launches = report_run(torch, np, cfg, prompts, run)
+
+    # (a) every prefill's last logits against a train-mode forward of its
+    # prompt; the planted fault drops the shared experts (their wd zeroed,
+    # then restored)
+    def prefill_err():
+        errs = []
+        for rid, p in enumerate(prompts):
+            tf = forward(model, cfg, {"tokens": torch.tensor(p, device="cuda")[None]})[0, -1]
+            errs.append(float((run["logits"][rid][0] - tf.float()).abs().max()))
+        return errs
+
+    errs = prefill_err()
+    shared = [b.moe.shared["wd"] for b in model.layers if hasattr(b, "moe")]
+    saved = [w.clone() for w in shared]
+    with torch.no_grad():
+        for w in shared:
+            w.zero_()
+    fault = prefill_err()
+    with torch.no_grad():
+        for w, v in zip(shared, saved):
+            w.copy_(v)
+    del saved
+    log(f"(a) prefill vs train forward, last logits, max error per request "
+        f"{[round(e, 4) for e in errs]} (tol {MOE_PREFILL_TOL}); planted fault (no shared "
+        f"experts): min {min(fault):.3f}")
+    if max(errs) > MOE_PREFILL_TOL or min(fault) <= MOE_PREFILL_TOL:
+        raise AssertionError(f"(a) prefill check: errors {max(errs):.4f}, fault {min(fault):.4f}, "
+                             f"tol {MOE_PREFILL_TOL}")
+    run.clear()  # the timed run's engine, its cache and logits
+    moe_drop_check(torch, np, cfg, model)
+
+    # (b) the two watched requests again with router_chunk = 1, the same
+    # weights (the router chunk has no parameters), routes recorded
+    cfg1 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_chunk=1))
+    with RouteLog(layers) as routes:
+        routes.tag = "engine"
+        run1 = run_engine(torch, cfg1, model, prompts[:2], scfg)
+        routes.tag = None
+        worst = teacher_forced(torch, cfg1, model, run1, forward, MOE_LOGIT_TOL, MOE_HANDOFF_TOL)
+        # the routes of the same tokens: the engine's prefills and ticks,
+        # then a teacher-forced forward per request
+        flips = routed_differences(torch, cfg1, model, run1, routes, forward)
+
+    def unnormalised(p, m, xc):  # the planted fault: top-6 weights not renormalised
+        gates = torch.softmax(torch.einsum("gsd,de->gse", xc.float(), p["router"].float()), -1)
+        return torch.topk(gates, m.top_k, dim=-1)
+    orig, layers.moe_route = layers.moe_route, unnormalised
+    try:
+        fault = teacher_forced(torch, cfg1, model, run1, forward, 0, 0, fail=False)
+    finally:
+        layers.moe_route = orig
+    log(f"(b) router_chunk = 1: engine vs teacher-forced max logit error {worst:.4f} (tol "
+        f"{MOE_LOGIT_TOL}, first decode step {MOE_HANDOFF_TOL}); planted fault (combine weights "
+        f"not renormalised): {fault:.3f}; router top-{cfg.moe.top_k} sets that differ between "
+        f"engine and forward: {flips[0]} of {flips[1]} (token, layer) pairs")
+    if fault <= MOE_LOGIT_TOL:
+        raise AssertionError(f"(b) the planted fault reads {fault:.4f} <= tol {MOE_LOGIT_TOL}")
     return launches
+
+
+def routed_differences(torch, cfg, model, run, routes, forward):
+    """(differing, compared) (token, layer) top-k sets between the engine's
+    steps and a teacher-forced forward over the same tokens.  The engine's
+    calls come in order: each request's prefill (its prompt's tokens), then
+    the ticks (one row a slot; every watched request holds its slot from
+    admission to its last token)."""
+    n_moe = sum(1 for b in model.layers if hasattr(b, "moe"))
+    calls = [idx[:, 0] for tag, idx in routes.calls if tag == "engine"]
+    reqs = run["reqs"]
+    per_req = {}
+    i = 0
+    for r in reqs:  # prefills, in submission order
+        per_req[r.rid] = [calls[i + l] for l in range(n_moe)]
+        i += n_moe
+    ticks = (len(calls) - i) // n_moe
+    slot = {r.rid: s for s, r in enumerate(reqs)}  # admitted into slots 0, 1, ...
+    differing = compared = 0
+    for r in reqs:
+        eng = [torch.cat([per_req[r.rid][l]] + [calls[i + t * n_moe + l][slot[r.rid]][None]
+                                                for t in range(min(ticks, MAX_NEW - 1))])
+               for l in range(n_moe)]
+        routes.tag = ("forward", r.rid)
+        toks = torch.tensor(r.prompt + r.out[:-1], device="cuda")[None]
+        forward(model, cfg, {"tokens": toks})
+        fwd = [idx[:, 0] for tag, idx in routes.calls if tag == ("forward", r.rid)]
+        for e, f in zip(eng, fwd):
+            n = min(len(e), len(f))
+            differing += int((e[:n] != f[:n]).any(dim=-1).sum())
+            compared += n
+    return differing, compared
 
 
 def profile_steps(torch, engine, prompt) -> None:
@@ -1508,13 +1978,15 @@ def main() -> None:
     launches = {}
     with phase("serve tinyllama-1.1b"):
         log_allocated(torch)
-        run = serve(torch, np, "tinyllama-1.1b", LOGIT_TOL, LOGIT_TOL)
-        launches.update(flash_attention=run["flash_attention"], swiglu_matmul=run["swiglu_matmul"])
+        launches["tinyllama"] = serve(torch, np, "tinyllama-1.1b", LOGIT_TOL, LOGIT_TOL)
     release(torch)
     with phase("serve mamba2-370m"):
         log_allocated(torch)
-        run = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
-        launches["ssd_scan"] = run["ssd_scan"]
+        launches["mamba2"] = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
+    release(torch)
+    with phase("serve deepseek-v2-lite-16b"):
+        log_allocated(torch)
+        launches["deepseek"] = serve_deepseek(torch, np)
     release(torch)
     with phase(f"cnn inception-{CNN_HW}"):
         log_allocated(torch)
@@ -1539,33 +2011,44 @@ def main() -> None:
 
     with phase("report"):
         # each variant's row: the path shape it serves (f32 for the CUDA-core
-        # kernels, whose route that is)
-        picks = {("flash_attention", "mma"): 1024, ("flash_attention", "cuda_core"): 1024,
-                 ("swiglu_matmul", "wgmma"): 512, ("swiglu_matmul", "decode"): 8,
-                 ("swiglu_matmul", "cuda_core"): 512, ("ssd_scan", "wgmma"): 1024,
-                 ("ssd_scan", "cuda_core"): 1024}
+        # kernels, whose route that is), its launches from that path's run;
+        # flash mma has a second row at MLA's head dims
+        picks = [("flash_attention", "mma", 1024, "tinyllama", ""),
+                 ("flash_attention", "mma", "mla", "deepseek", " D=192 Dv=128"),
+                 ("flash_attention", "cuda_core", 1024, "tinyllama", ""),
+                 ("swiglu_matmul", "wgmma", 512, "tinyllama", ""),
+                 ("swiglu_matmul", "decode", 8, "tinyllama", ""),
+                 ("swiglu_matmul", "cuda_core", 512, "tinyllama", ""),
+                 ("swiglu_matmul", "experts_wgmma", 120, "deepseek", ""),
+                 ("swiglu_matmul", "experts_decode", 8, "deepseek", ""),
+                 ("swiglu_matmul", "experts_cuda_core", 120, "deepseek", ""),
+                 ("ssd_scan", "wgmma", 1024, "mamba2", ""),
+                 ("ssd_scan", "cuda_core", 1024, "mamba2", "")]
+        if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
+                                               for v in lib.variants}:
+            raise AssertionError("the report misses a kernel variant")
         replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:81",
                     "swiglu_matmul": "src/repro/kernels/swiglu_matmul.py:50",
                     "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
+        sources = {lib.name: lib.source for lib in LIBRARIES}
         kernels = []
-        for lib in LIBRARIES:
-            for variant in lib.variants:
-                r = rows[(lib.name, variant, picks[(lib.name, variant)])]
-                kernels.append({
-                    "name": lib.name if len(lib.variants) == 1 else f"{lib.name}[{variant}]",
-                    "route": "cuda", "source": os.path.relpath(lib.source, ROOT),
-                    "replaces": replaces[lib.name], "launches": launches[lib.name][variant],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
-                })
+        for name, variant, pick, path, suffix in picks:
+            r = rows[(name, variant, pick)]
+            kernels.append({
+                "name": f"{name}[{variant}]{suffix}",
+                "route": "cuda", "source": os.path.relpath(sources[name], ROOT),
+                "replaces": replaces[name], "launches": launches[path][name][variant],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
+            })
         if any(not math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError("a kernel number is not finite")
         # the CUDA-core kernels serve f32 (and shapes the tensor-core ones do
         # not take), which no serving run here uses: every other variant
         # must have been launched on its path
         idle = [k["name"] for k in kernels if k["launches"] <= 0
-                and not k["name"].endswith("[cuda_core]")]
+                and not k["name"].endswith("cuda_core]")]
         if idle:
             raise AssertionError(f"not launched on their serving paths: {idle} ({launches})")
 

@@ -2,9 +2,12 @@
 
 ``params_from_numpy(cfg, jax.tree.map(np.asarray, params))`` gives the port's
 model with exactly the reference's weights, so that tests can run both
-packages on the same numbers.  The reference stacks every layer's parameters
-with a leading ``[L]`` dim under ``segments/<name>/p0`` (``dense`` or
-``ssm``); they are unstacked here into the port's per-layer blocks.
+packages on the same numbers.  The reference stacks each position j of a
+segment's pattern with a leading ``[repeat]`` dim under
+``segments/<name>/p<j>`` (``dense``, ``ssm``, or ``lead`` and ``moe``); they
+are unstacked here into the port's per-layer blocks: layer i of a segment
+with a pattern of length P is ``p<j>[k]`` with i = the segment's offset +
+k·P + j (``Transformer.plan``).
 
 ``cnn_params_from_numpy`` does the same for a ``CNNModel``'s weights
 (``{layer: {"w", "b"}}``, HWIO conv and ``[in, out]`` dense weights, kept in
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import Transformer, segment_name
+from repro_torch.models.transformer import Transformer
 
 __all__ = ["cnn_params_from_numpy", "params_from_numpy", "tensor_from_numpy"]
 
@@ -40,18 +43,18 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     """Build the port's model from the reference's parameter tree (numpy
     leaves).  The model's dtype is the embedding's; every leaf must be
     present with the shape and dtype the port expects (the SSM's f32 leaves
-    stay f32 in a bf16 model)."""
+    and the MoE router stay f32 in a bf16 model)."""
     dev = resolve_device(device)
     embed = tensor_from_numpy(tree["embed"])
     model = Transformer(cfg, device=dev, dtype=embed.dtype)
-    stacked = tree["segments"][segment_name(cfg)]["p0"]
     for name, prm in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            layer, node = int(parts[1]), stacked
+            slot = model.plan[int(parts[1])]
+            node = tree["segments"][slot.segment][f"p{slot.j}"]
             for key in parts[2:]:
                 node = node[key]
-            value = tensor_from_numpy(np.asarray(node)[layer])
+            value = tensor_from_numpy(np.asarray(node)[slot.k])
         else:
             node = tree
             for key in parts:

@@ -4,8 +4,22 @@
 // (body `_kernel`): out = silu(x @ wg) * (x @ wu) for x [M, D] and wg, wu
 // [D, F], two f32 accumulators, the epilogue g / (1 + exp(-g)) * u fused and
 // cast once to the input type, so the [M, F] gate and up products never reach
-// device memory.  Three kernels, one C entry point each; the wrapper
-// (kernels/swiglu_matmul.py::select_variant) picks one from (M, D, F, dtype).
+// device memory.  Three kernels, each with two C entry points: one product,
+// and E products at once for a mixture of experts (x [E, M, D], wg and wu [E,
+// D, F], out [E, M, F]: out[e] = silu(x[e] @ wg[e]) * (x[e] @ wu[e]), the
+// reference's `gecd,edf->gecf` pair with the groups folded into M).  The
+// wrapper (kernels/swiglu_matmul.py::select_variant) picks one from (M, D,
+// F, dtype); E does not enter the choice.
+//
+// Experts (DeepSeek-V2-Lite: E = 64, D = 2048, F = 1408; M = the capacity of
+// a prefill's one group, 8 to 120 rows, or 8 slots of one row on a decode
+// tick): every expert's weights are read once whatever M is, 0.74 GB a layer,
+// so up to M ~ 300 the product is bound by those bytes, not by operations
+// (H100: wgmma at M = 120 and decode at M = 8 run at 79% and 86% of the byte
+// bound, ahead of two cuBLAS bmm; PERF.md).
+// Each kernel takes the expert as one more coordinate of its own work
+// (below); rows past an expert's M are zero-filled or never loaded, and
+// their stores are masked, so no tile reads or writes another expert's rows.
 //
 // 1. `swiglu_wgmma_kernel` (entry swiglu_matmul_wgmma_fwd): bf16, M >= 64,
 //    D and F multiples of 8 (TMA needs 16-byte row strides).  Prefill is
@@ -46,12 +60,26 @@
 //    computes one [BM, BN] tile of both products from one shared x tile;
 //    16 x 32 tiles for M <= 16, 64 x 64 otherwise; any M, D, F.
 //
+// The expert entries (swiglu_experts_{wgmma,decode,}fwd):
+// - wgmma: the expert is the outermost coordinate of the persistent walk
+//   (m fastest, then n, then e: the CTAs at work share an expert's weight
+//   tiles in L2, and an expert's x tile stays there across its n tiles).
+//   The maps are 4-D ({D, M, E, 1} for x, {F, D, E, 1} for the weights), so
+//   TMA zero-fills rows past M and K past D inside the expert.  Tiles are
+//   128 x 128 on two consumers: at M <= 128 rows an expert the 192 x 64
+//   shape only doubles the tiles.
+// - decode: the expert is the grid's z axis; K is split across a cluster
+//   only as far as the card has SMs for E x column slabs (E = 64, F = 1408:
+//   704 slabs, no split).
+// - cuda_core: the expert is the grid's z axis.
+//
 // -Xptxas -v (sm_90a, nvcc 12.8), no spills anywhere: swiglu_wgmma_kernel
-// 168 registers at launch (2 consumers; 3 consumers: 128) before setmaxnreg
-// (producer 40 and consumers 232; 24 and 160), 197,696 and 164,928 bytes of
-// dynamic shared memory; swiglu_decode_kernel 62 / 80 / 122 registers for
-// 16 / 32 / 64 rows of x, 87,040 to 102,400 bytes of dynamic shared memory;
-// swiglu_kernel 32 to 64 registers, 10-12 KB of static shared memory.
+// 168 registers at launch (2 consumers, one product or experts; 3 consumers:
+// 128) before setmaxnreg (producer 40 and consumers 232; 24 and 160),
+// 197,696 and 164,928 bytes of dynamic shared memory; swiglu_decode_kernel
+// 48 / 96 / 121 registers for 16 / 32 / 64 rows of x, 87,040 to 102,400
+// bytes of dynamic shared memory; swiglu_kernel 32 to 64 registers, 10-12 KB
+// of static shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,7 +95,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+// EXPERTS: E products, the expert on the grid's z axis
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool EXPERTS>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN)) swiglu_kernel(
     const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
     T* __restrict__ out, int M, int D, int F) {
@@ -82,6 +111,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) swiglu_kernel(
   const int tx = tid % NTX, ty = tid / NTX;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  if constexpr (EXPERTS) {
+    const long long e = blockIdx.z;
+    x += e * M * D;
+    wg += e * D * F;
+    wu += e * D * F;
+    out += e * M * F;
+  }
 
   float accg[TM][TN], accu[TM][TN];
 #pragma unroll
@@ -139,21 +175,21 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) swiglu_kernel(
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch(const void* x, const void* wg, const void* wu, void* out, int M, int D, int F,
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool EXPERTS>
+int launch(const void* x, const void* wg, const void* wu, void* out, int E, int M, int D, int F,
            cudaStream_t stream) {
-  const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
-  swiglu_kernel<T, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+  const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM, E);
+  swiglu_kernel<T, BM, BN, BK, TM, TN, EXPERTS><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
       static_cast<T*>(out), M, D, F);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_m(const void* x, const void* wg, const void* wu, void* out, int M, int D, int F,
-               cudaStream_t stream) {
-  if (M <= 16) return launch<T, 16, 32, 32, 2, 1>(x, wg, wu, out, M, D, F, stream);
-  return launch<T, 64, 64, 16, 4, 4>(x, wg, wu, out, M, D, F, stream);
+template <typename T, bool EXPERTS>
+int dispatch_m(const void* x, const void* wg, const void* wu, void* out, int E, int M, int D,
+               int F, cudaStream_t stream) {
+  if (M <= 16) return launch<T, 16, 32, 32, 2, 1, EXPERTS>(x, wg, wu, out, E, M, D, F, stream);
+  return launch<T, 64, 64, 16, 4, 4, EXPERTS>(x, wg, wu, out, E, M, D, F, stream);
 }
 
 // ------------------------------------------------------------------------- //
@@ -193,10 +229,12 @@ __device__ __forceinline__ void mma_tile(float (&acc)[BN], uint64_t da, uint64_t
   }
 }
 
-template <int CONS, int BN>
+// EXPERTS: E products, 4-D maps with the expert as their third coordinate
+template <int CONS, int BN, bool EXPERTS>
 __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
-    const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out, int M, int D, int F) {
+    const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out, int E, int M, int D,
+    int F) {
   using C = Cfg<CONS, BN>;
   constexpr int NA = C::NA;
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -207,12 +245,13 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
   uint64_t* empty = full + STAGES;
 
   // persistent: CTA b takes tiles b, b + gridDim.x, ...; tile t is
-  // (m tile t % mtiles, n tile t / mtiles), M fastest, so the CTAs at work at
-  // one time share weight tiles in L2.  The ring's stage and phase run on
-  // across tiles, so the producer fills the next tile's first stages while
-  // the consumers run this tile's epilogue.
+  // (m tile t % mtiles, n tile t / mtiles % ncols, expert t / (mtiles ncols)),
+  // M fastest, so the CTAs at work at one time share weight tiles in L2.  The
+  // ring's stage and phase run on across tiles, so the producer fills the
+  // next tile's first stages while the consumers run this tile's epilogue.
   const int mtiles = (M + C::BM - 1) / C::BM;
-  const int ntiles = mtiles * ((F + BN - 1) / BN);
+  const int ncols = (F + BN - 1) / BN;
+  const int ntiles = E * mtiles * ncols;
   const int kblocks = (D + BK - 1) / BK;
   const int group = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -230,18 +269,29 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     if (threadIdx.x == CONS * 128) {
       int it = 0;  // stage uses so far
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles) * BN;
+        const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles % ncols) * BN;
+        const int e = t / (mtiles * ncols);
         for (int kb = 0; kb < kblocks; ++kb, ++it) {
           const int s = it % STAGES;
           hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           hopper::mbar_expect_tx(&full[s], C::STAGE_BYTES);
           const int k0 = kb * BK;
-          hopper::tma_load_2d(sa + s * C::A_ELEMS, &xmap, &full[s], k0, m0);
           bf16* b = sb + s * C::B_ELEMS;
+          if constexpr (EXPERTS) {
+            hopper::tma_load_4d(sa + s * C::A_ELEMS, &xmap, &full[s], k0, m0, e, 0);
 #pragma unroll
-          for (int a = 0; a < NA; ++a) {
-            hopper::tma_load_2d(b + a * BK * ATOM, &gmap, &full[s], n0 + a * ATOM, k0);
-            hopper::tma_load_2d(b + (NA + a) * BK * ATOM, &umap, &full[s], n0 + a * ATOM, k0);
+            for (int a = 0; a < NA; ++a) {
+              hopper::tma_load_4d(b + a * BK * ATOM, &gmap, &full[s], n0 + a * ATOM, k0, e, 0);
+              hopper::tma_load_4d(b + (NA + a) * BK * ATOM, &umap, &full[s], n0 + a * ATOM, k0,
+                                  e, 0);
+            }
+          } else {
+            hopper::tma_load_2d(sa + s * C::A_ELEMS, &xmap, &full[s], k0, m0);
+#pragma unroll
+            for (int a = 0; a < NA; ++a) {
+              hopper::tma_load_2d(b + a * BK * ATOM, &gmap, &full[s], n0 + a * ATOM, k0);
+              hopper::tma_load_2d(b + (NA + a) * BK * ATOM, &umap, &full[s], n0 + a * ATOM, k0);
+            }
           }
         }
       }
@@ -252,7 +302,8 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     int it = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles) * BN;
+      const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles % ncols) * BN;
+      bf16* oe = out + (long long)(t / (mtiles * ncols)) * M * F;  // this tile's expert
       float acc[BN];  // 64 x 2 BN f32 over 128 threads: gate in [0, BN/2), up in [BN/2, BN)
 #pragma unroll
       for (int i = 0; i < BN; ++i) acc[i] = 0.f;
@@ -288,7 +339,7 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
         if (r < M && c < F) {  // F is a multiple of 8, so c + 1 < F too
           const float g0 = acc[i], g1 = acc[i + 1];
           const float u0 = acc[i + BN / 2], u1 = acc[i + 1 + BN / 2];
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * F + c) = __floats2bfloat162_rn(
+          *reinterpret_cast<__nv_bfloat162*>(oe + (long long)r * F + c) = __floats2bfloat162_rn(
               g0 / (1.f + __expf(-g0)) * u0, g1 / (1.f + __expf(-g1)) * u1);
         }
       }
@@ -296,23 +347,34 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
   }
 }
 
-template <int CONS, int BN>
-int launch(const void* x, const void* wgt, const void* wup, void* out, int M, int D, int F,
-           cudaStream_t stream) {
+template <int CONS, int BN, bool EXPERTS>
+int launch(const void* x, const void* wgt, const void* wup, void* out, int E, int M, int D,
+           int F, cudaStream_t stream) {
   using C = Cfg<CONS, BN>;
   CUtensorMap xm, gm, um;
-  if (!hopper::make_map_bf16(&xm, x, M, D, C::BM, BK) ||
-      !hopper::make_map_bf16(&gm, wgt, D, F, BK, ATOM) ||
-      !hopper::make_map_bf16(&um, wup, D, F, BK, ATOM))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(swiglu_wgmma_kernel<CONS, BN>,
+  if constexpr (EXPERTS) {
+    const long long xd[4] = {D, M, E, 1}, wd[4] = {F, D, E, 1};
+    const long long xs[3] = {2LL * D, 2LL * M * D, 2LL * E * M * D};
+    const long long ws[3] = {2LL * F, 2LL * D * F, 2LL * E * D * F};
+    const int xbox[4] = {BK, C::BM, 1, 1}, wbox[4] = {ATOM, BK, 1, 1};
+    if (!hopper::make_map_bf16_4d(&xm, x, xd, xs, xbox) ||
+        !hopper::make_map_bf16_4d(&gm, wgt, wd, ws, wbox) ||
+        !hopper::make_map_bf16_4d(&um, wup, wd, ws, wbox))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    if (!hopper::make_map_bf16(&xm, x, M, D, C::BM, BK) ||
+        !hopper::make_map_bf16(&gm, wgt, D, F, BK, ATOM) ||
+        !hopper::make_map_bf16(&um, wup, D, F, BK, ATOM))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(swiglu_wgmma_kernel<CONS, BN, EXPERTS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (M + C::BM - 1) / C::BM * ((F + BN - 1) / BN);
-  const int grid = tiles < hopper::num_sms() ? tiles : hopper::num_sms();  // one CTA per SM
-  swiglu_wgmma_kernel<CONS, BN><<<grid, C::NT, C::BYTES, stream>>>(
-      xm, gm, um, static_cast<bf16*>(out), M, D, F);
+  const long long tiles = (long long)E * ((M + C::BM - 1) / C::BM) * ((F + BN - 1) / BN);
+  const int grid = tiles < hopper::num_sms() ? (int)tiles : hopper::num_sms();  // one CTA per SM
+  swiglu_wgmma_kernel<CONS, BN, EXPERTS><<<grid, C::NT, C::BYTES, stream>>>(
+      xm, gm, um, static_cast<bf16*>(out), E, M, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -327,8 +389,14 @@ int dispatch(const void* x, const void* wgt, const void* wup, void* out, int M, 
     const long long tiles = (long long)((M + bm - 1) / bm) * ((F + bn - 1) / bn);
     return (tiles + sms - 1) / sms * bm * bn;
   };
-  if (cost(192, 64) < cost(128, 128)) return launch<3, 64>(x, wgt, wup, out, M, D, F, stream);
-  return launch<2, 128>(x, wgt, wup, out, M, D, F, stream);
+  if (cost(192, 64) < cost(128, 128))
+    return launch<3, 64, false>(x, wgt, wup, out, 1, M, D, F, stream);
+  return launch<2, 128, false>(x, wgt, wup, out, 1, M, D, F, stream);
+}
+
+int dispatch_experts(const void* x, const void* wgt, const void* wup, void* out, int E, int M,
+                     int D, int F, cudaStream_t stream) {
+  return launch<2, 128, true>(x, wgt, wup, out, E, M, D, F, stream);
 }
 }  // namespace prefill
 
@@ -362,6 +430,11 @@ __global__ void __launch_bounds__(NT) swiglu_decode_kernel(
   using L = Layout<MT>;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const long long e = blockIdx.z;  // the expert (0 for one product)
+  x += e * M * D;
+  wgt += e * D * F;
+  wup += e * D * F;
+  out += e * M * F;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.block_rank();  // the cluster spans gridDim.y
   const int n0 = blockIdx.x * BN;
@@ -466,18 +539,19 @@ __global__ void __launch_bounds__(NT) swiglu_decode_kernel(
 }
 
 template <int MT>
-int launch(const void* x, const void* wgt, const void* wup, void* out, int M, int D, int F,
-           cudaStream_t stream) {
+int launch(const void* x, const void* wgt, const void* wup, void* out, int E, int M, int D,
+           int F, cudaStream_t stream) {
   const size_t smem = Layout<MT>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(swiglu_decode_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int ncol = (F + BN - 1) / BN, nk = (D + BK - 1) / BK;
-  int split = (hopper::num_sms() + ncol / 2) / ncol;
+  const long long slabs = (long long)E * ncol;  // column slabs of all experts
+  int split = (int)((hopper::num_sms() + slabs / 2) / slabs);
   split = split < 1 ? 1 : (split > MAX_SPLIT ? MAX_SPLIT : split);
   split = split > nk ? nk : split;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ncol, split, 1);
+  cfg.gridDim = dim3(ncol, split, E);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -495,11 +569,11 @@ int launch(const void* x, const void* wgt, const void* wup, void* out, int M, in
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* x, const void* wgt, const void* wup, void* out, int M, int D, int F,
-             cudaStream_t stream) {
-  if (M <= 16) return launch<1>(x, wgt, wup, out, M, D, F, stream);
-  if (M <= 32) return launch<2>(x, wgt, wup, out, M, D, F, stream);
-  return launch<4>(x, wgt, wup, out, M, D, F, stream);
+int dispatch(const void* x, const void* wgt, const void* wup, void* out, int E, int M, int D,
+             int F, cudaStream_t stream) {
+  if (M <= 16) return launch<1>(x, wgt, wup, out, E, M, D, F, stream);
+  if (M <= 32) return launch<2>(x, wgt, wup, out, E, M, D, F, stream);
+  return launch<4>(x, wgt, wup, out, E, M, D, F, stream);
 }
 }  // namespace decode
 
@@ -511,8 +585,8 @@ extern "C" int swiglu_matmul_fwd(const void* x, const void* wg, const void* wu, 
                                  int M, int D, int F, int dtype, void* stream) {
   if (M <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_m<float>(x, wg, wu, out, M, D, F, s);
-  if (dtype == 1) return dispatch_m<__nv_bfloat16>(x, wg, wu, out, M, D, F, s);
+  if (dtype == 0) return dispatch_m<float, false>(x, wg, wu, out, 1, M, D, F, s);
+  if (dtype == 1) return dispatch_m<__nv_bfloat16, false>(x, wg, wu, out, 1, M, D, F, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -527,7 +601,31 @@ extern "C" int swiglu_matmul_wgmma_fwd(const void* x, const void* wg, const void
 extern "C" int swiglu_matmul_decode_fwd(const void* x, const void* wg, const void* wu, void* out,
                                         int M, int D, int F, void* stream) {
   if (M <= 0 || M > 64 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
-  return decode::dispatch(x, wg, wu, out, M, D, F, static_cast<cudaStream_t>(stream));
+  return decode::dispatch(x, wg, wu, out, 1, M, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// The expert entries: x [E, M, D]; wg, wu [E, D, F]; out [E, M, F]; contiguous;
+// the same kinds and limits as the entries above, E products in one launch.
+extern "C" int swiglu_experts_fwd(const void* x, const void* wg, const void* wu, void* out, int E,
+                                  int M, int D, int F, int dtype, void* stream) {
+  if (E <= 0 || E > 65535 || M <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_m<float, true>(x, wg, wu, out, E, M, D, F, s);
+  if (dtype == 1) return dispatch_m<__nv_bfloat16, true>(x, wg, wu, out, E, M, D, F, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int swiglu_experts_wgmma_fwd(const void* x, const void* wg, const void* wu, void* out,
+                                        int E, int M, int D, int F, void* stream) {
+  if (E <= 0 || M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
+  return prefill::dispatch_experts(x, wg, wu, out, E, M, D, F, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int swiglu_experts_decode_fwd(const void* x, const void* wg, const void* wu, void* out,
+                                         int E, int M, int D, int F, void* stream) {
+  if (E <= 0 || E > 65535 || M <= 0 || M > 64 || D <= 0 || F <= 0 || D % 8 || F % 8)
+    return (int)cudaErrorInvalidValue;
+  return decode::dispatch(x, wg, wu, out, E, M, D, F, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* swiglu_matmul_error_string(int code) {

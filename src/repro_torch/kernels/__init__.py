@@ -3,7 +3,9 @@ from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_
 from repro_torch.kernels.flash_attention import select_variant as select_flash_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
 from repro_torch.kernels.ssd_scan import select_variant as select_ssd_variant
-from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_matmul
+from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_experts
+from repro_torch.kernels.swiglu_matmul import swiglu_matmul
+from repro_torch.kernels.swiglu_matmul import select_experts_variant
 from repro_torch.kernels.swiglu_matmul import select_variant as select_swiglu_variant
 from repro_torch.kernels import ref
 
@@ -17,6 +19,8 @@ __all__ = [
     "flash_attention",
     "ssd_scan",
     "swiglu_matmul",
+    "swiglu_experts",
+    "select_experts_variant",
     "select_flash_variant",
     "select_swiglu_variant",
     "select_ssd_variant",

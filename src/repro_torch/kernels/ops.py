@@ -4,20 +4,24 @@ Port of ``repro/kernels/ops.py``: they adapt model-layout tensors (GQA head
 grouping, ``[B, S, H, D]``) to the attention kernel's flat ``[BH, S, D]``
 layout and pad attention and SwiGLU operands as the reference does; the SSM
 mixer's ``ssd_mixer`` lives with its kernel (``kernels/ssd_scan.py``),
-which reads the model's own layout.  The same call sites work on the CPU
+which reads the model's own layout, and the MoE layer's expert products go
+to ``swiglu_experts`` as they are (``[E, M, D]``: the reference computes
+them with einsums, not a blocked kernel, so nothing is padded).  The same call sites work on the CPU
 (plain versions) and on the card (the CUDA kernels).  There is no switch
 and no fallback: the device of the tensors decides.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_mixer
-from repro_torch.kernels.swiglu_matmul import swiglu_matmul
+from repro_torch.kernels.swiglu_matmul import swiglu_experts, swiglu_matmul
 
-__all__ = ["gqa_flash_attention", "ssd_mixer", "fused_swiglu"]
+__all__ = ["gqa_flash_attention", "ssd_mixer", "fused_swiglu", "swiglu_experts"]
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -31,14 +35,16 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
 def gqa_flash_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,  # [B, S, KV, D]
-    v: torch.Tensor,  # [B, S, KV, D]
+    v: torch.Tensor,  # [B, S, KV, Dv]
     causal: bool = True,
     block_q: int = 256,
     block_k: int = 256,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """GQA wrapper: repeats KV per query group, flattens heads into batch."""
+    """GQA wrapper: repeats KV per query group, flattens heads into batch.
+    Returns [B, S, H, Dv]; ``scale`` defaults to D^-0.5."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    KV, Dv = k.shape[2], v.shape[-1]
     G = H // KV
     if G != 1:
         k = k.repeat_interleave(G, dim=2)
@@ -47,11 +53,11 @@ def gqa_flash_attention(
     bk = min(block_k, max(8, S))
     qf = _pad_to(q.movedim(2, 1).reshape(B * H, S, D), 1, bq).contiguous()
     kf = _pad_to(k.movedim(2, 1).reshape(B * H, S, D), 1, bk).contiguous()
-    vf = _pad_to(v.movedim(2, 1).reshape(B * H, S, D), 1, bk).contiguous()
+    vf = _pad_to(v.movedim(2, 1).reshape(B * H, S, Dv), 1, bk).contiguous()
     # padded KV rows are masked out by causality (they sit beyond every q
     # row); as in the reference, the call is causal whatever ``causal`` says
-    o = flash_attention(qf, kf, vf, causal=True if not causal else causal)
-    o = o[:, :S].reshape(B, H, S, D)
+    o = flash_attention(qf, kf, vf, causal=True if not causal else causal, scale=scale)
+    o = o[:, :S].reshape(B, H, S, Dv)
     return o.movedim(1, 2)
 
 

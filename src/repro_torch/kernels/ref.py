@@ -20,10 +20,11 @@ NEG_INF = -1e30  # finite: a fully masked row stays finite, as in the reference
 def flash_attention_ref(
     q: torch.Tensor,  # [BH, Sq, D]
     k: torch.Tensor,  # [BH, Sk, D]
-    v: torch.Tensor,  # [BH, Sk, D]
+    v: torch.Tensor,  # [BH, Sk, Dv]
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v in f32: [BH, Sq, Dv] in q's dtype."""
     sc = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q.to(F32), k.to(F32)) * sc
     if causal:
@@ -148,4 +149,12 @@ def swiglu_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Ten
     """silu(x @ wg) * (x @ wu), f32 accumulation."""
     g = torch.einsum("md,df->mf", x.to(F32), wg.to(F32))
     u = torch.einsum("md,df->mf", x.to(F32), wu.to(F32))
+    return (F.silu(g) * u).to(x.dtype)
+
+
+def swiglu_experts_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """out[e] = silu(x[e] @ wg[e]) * (x[e] @ wu[e]) for x [E, M, D] and wg,
+    wu [E, D, F], f32 accumulation."""
+    g = torch.einsum("emd,edf->emf", x.to(F32), wg.to(F32))
+    u = torch.einsum("emd,edf->emf", x.to(F32), wu.to(F32))
     return (F.silu(g) * u).to(x.dtype)

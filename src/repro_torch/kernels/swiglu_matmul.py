@@ -15,9 +15,17 @@ shapes and the dtype alone:
 - ``cuda_core``: f32, and bf16 whose D or F is not a multiple of 8 (TMA and
   16-byte copies need 16-byte row strides); any M, D, F.
 
+:func:`swiglu_experts` computes ``out[e] = silu(x[e] @ wg[e]) * (x[e] @
+wu[e])`` for ``x [E, M, D]`` and ``wg, wu [E, D, F]`` in one launch: the
+routed experts of a MoE layer.  Each of the three kernels has an expert
+entry with its own launch count (``experts_wgmma``, ``experts_decode``,
+``experts_cuda_core``), picked by :func:`select_experts_variant` from the
+rows an expert (M), D, F and the dtype, as for one product.
+
 This is a dispatch by shape between hand-written kernels: nothing catches a
 failed build or launch and tries another.  CPU tensors take the plain
-version, :func:`ref.swiglu_ref`; CUDA tensors launch a kernel or raise.
+versions, :func:`ref.swiglu_ref` and :func:`ref.swiglu_experts_ref`; CUDA
+tensors launch a kernel or raise.
 """
 from __future__ import annotations
 
@@ -28,18 +36,24 @@ import torch
 from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
-from repro_torch.kernels.ref import swiglu_ref
+from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
 
-__all__ = ["swiglu_matmul", "select_variant", "LIBRARY", "PREFILL_MIN_M"]
+__all__ = ["swiglu_matmul", "swiglu_experts", "select_variant", "select_experts_variant",
+           "LIBRARY", "PREFILL_MIN_M"]
 
 PREFILL_MIN_M = 64  # rows from which the bf16 product is bound by operations
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P]  # x, wg, wu, out, M, D, F, stream
+_EXPERT_TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]  # x, wg, wu, out, E, M, D, F, stream
 LIBRARY = KernelLibrary("swiglu_matmul", {
     "wgmma": ("swiglu_matmul_wgmma_fwd", _TC_ARGS),
     "decode": ("swiglu_matmul_decode_fwd", _TC_ARGS),
     # x, wg, wu, out, M, D, F, dtype, stream
     "cuda_core": ("swiglu_matmul_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "experts_wgmma": ("swiglu_experts_wgmma_fwd", _EXPERT_TC_ARGS),
+    "experts_decode": ("swiglu_experts_decode_fwd", _EXPERT_TC_ARGS),
+    # x, wg, wu, out, E, M, D, F, dtype, stream
+    "experts_cuda_core": ("swiglu_experts_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 })
 
 
@@ -48,6 +62,13 @@ def select_variant(M: int, D: int, F: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
         return "wgmma" if M >= PREFILL_MIN_M else "decode"
     return "cuda_core"
+
+
+def select_experts_variant(M: int, D: int, F: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of :func:`swiglu_experts` with ``M`` rows an
+    expert launches: the expert entry of the kernel one product of that
+    shape takes."""
+    return "experts_" + select_variant(M, D, F, dtype)
 
 
 def swiglu_matmul(
@@ -71,4 +92,29 @@ def swiglu_matmul(
     else:
         check_aligned("swiglu_matmul", (x, wg, wu))
         LIBRARY.launch(variant, *ptrs, M, D, F, stream_handle(x))
+    return out
+
+
+def swiglu_experts(
+    x: torch.Tensor,   # [E, M, D]
+    wg: torch.Tensor,  # [E, D, F]
+    wu: torch.Tensor,  # [E, D, F]
+) -> torch.Tensor:
+    """``silu(x[e] @ wg[e]) * (x[e] @ wu[e])`` for every expert e: [E, M, F]."""
+    E, M, D = x.shape
+    F = wg.shape[-1]
+    if wg.shape != (E, D, F) or wu.shape != (E, D, F):
+        raise ValueError(f"shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
+    if x.device.type == "cpu":
+        return swiglu_experts_ref(x, wg, wu)
+    dtype = check_cuda_operands("swiglu_experts", (x, wg, wu),
+                                (torch.float32, torch.bfloat16))
+    out = torch.empty((E, M, F), dtype=x.dtype, device=x.device)
+    variant = select_experts_variant(M, D, F, x.dtype)
+    ptrs = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr())
+    if variant == "experts_cuda_core":
+        LIBRARY.launch(variant, *ptrs, E, M, D, F, dtype, stream_handle(x))
+    else:
+        check_aligned("swiglu_experts", (x, wg, wu))
+        LIBRARY.launch(variant, *ptrs, E, M, D, F, stream_handle(x))
     return out

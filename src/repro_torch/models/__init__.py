@@ -1,11 +1,14 @@
 from repro_torch.models.transformer import (
     Block,
+    LayerSlot,
     SSMBlock,
     Transformer,
     decode_step,
     forward,
     init_cache,
     init_params,
+    layer_plan,
+    segments,
 )
 from repro_torch.models.slicing import (
     SLICEABLE_OPS,
@@ -20,7 +23,7 @@ from repro_torch.models.slicing import (
     uniform_factors,
 )
 
-__all__ = ["Block", "SSMBlock", "Transformer", "decode_step", "forward", "init_cache",
-           "init_params", "SLICEABLE_OPS", "Tiling", "choose_slice_factors", "model_tilings",
+__all__ = ["Block", "LayerSlot", "SSMBlock", "Transformer", "decode_step", "forward",
+           "init_cache", "init_params", "layer_plan", "segments", "SLICEABLE_OPS", "Tiling", "choose_slice_factors", "model_tilings",
            "search_slice_factors", "slice_model", "slicing_summary", "tile_bounds",
            "tiling_leaves", "uniform_factors"]

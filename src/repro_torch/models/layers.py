@@ -1,26 +1,30 @@
-"""Building blocks of the dense LM: norms, rope, GQA attention, SwiGLU.
+"""Building blocks of the LMs: norms, rope, GQA and MLA attention, SwiGLU, MoE.
 
-Port of the dense-path part of ``repro/models/layers.py``.  Functions take a
-parameter mapping ``p`` (an ``nn.ParameterDict`` of the model, or any dict
-of tensors) and tensors in the reference's layouts (``[B, S, H, D]``), so
-the parity tests compare like with like.  Where the reference computes
-attention with ``chunked_attention`` over the whole sequence (train and
-prefill), the port calls the CUDA flash-attention kernel through
-``ops.gqa_flash_attention``; the MLP goes through the fused SwiGLU kernel.
-Decode attention stays the plain ``chunked_attention``, as in the
-reference.
+Port of ``repro/models/layers.py``.  Functions take a parameter mapping
+``p`` (an ``nn.ParameterDict`` of the model, or any dict of tensors) and
+tensors in the reference's layouts (``[B, S, H, D]``), so the parity tests
+compare like with like.  Where the reference computes attention with
+``chunked_attention`` over the whole sequence (train and prefill, GQA and
+MLA), the port calls the CUDA flash-attention kernel through
+``ops.gqa_flash_attention``; every SwiGLU MLP (dense, shared experts, dense
+residual) goes through the fused SwiGLU kernel, and the routed experts'
+gate/up products through its expert-batched form.  Decode attention stays
+plain torch, as in the reference: ``chunked_attention`` for GQA, the
+absorbed latent products for MLA.  ``constrain`` (mesh hints) has no
+counterpart on one card.
 
 Cache writes happen in place: the cache tensors passed in are updated and
 returned, where the reference returns new arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention
+from repro_torch.configs.base import ArchConfig, MoESpec
+from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, swiglu_experts
 
 F32 = torch.float32
 NEG_INF = -1e30  # finite, as in the reference: a fully masked row stays finite
@@ -210,9 +214,208 @@ def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# MLA attention (DeepSeek-V2): latent-compressed KV
+# --------------------------------------------------------------------------- #
+def mla_defs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Shapes of the MLA leaves (``mla_defs`` of the reference)."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    dq = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq": (d, H, dq),                                  # full-rank queries (V2-Lite)
+        "w_dkv": (d, m.kv_lora_rank + m.rope_head_dim),    # latent + decoupled rope key
+        "kv_norm": (m.kv_lora_rank,),
+        "w_uk": (m.kv_lora_rank, H, m.nope_head_dim),      # up-projections from the latent
+        "w_uv": (m.kv_lora_rank, H, m.v_head_dim),
+        "wo": (H, m.v_head_dim, d),
+    }
+
+
+def _mla_latent(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    m = cfg.mla
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c_kv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta or 1e4)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_queries(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta or 1e4)
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim) ** -0.5
+
+
+def _mla_attend(p: Params, cfg: ArchConfig, x: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor) -> torch.Tensor:
+    """Per-head K/V expanded from the latent, the rope key broadcast to every
+    head as the reference concatenates it: q/k [B, S, H, nope + rope], v [B,
+    S, H, v_head_dim], through the flash kernel at scale (nope + rope)^-0.5."""
+    q_nope, q_rope = _mla_queries(p, cfg, x, _prompt_positions(x))
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    vv = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], k_rope.shape[-1])],
+                  dim=-1)
+    o = gqa_flash_attention(q, k, vv, causal=cfg.causal, scale=_mla_scale(cfg))
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def mla_attention_full(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Train/prefill MLA over the whole sequence (no cache returned)."""
+    c_kv, k_rope = _mla_latent(p, cfg, x, _prompt_positions(x))
+    return _mla_attend(p, cfg, x, c_kv, k_rope)
+
+
+def mla_attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                          cache: Dict[str, torch.Tensor]):
+    """Prefill: attention as :func:`mla_attention_full`; the latent and the
+    rope key written into the cache (in its dtype) at positions [0, S).  The
+    reference computes the latent twice (once here, once in its full
+    attention); the values are the same, so the port computes it once."""
+    S = x.shape[1]
+    c_kv, k_rope = _mla_latent(p, cfg, x, _prompt_positions(x))
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+    return _mla_attend(p, cfg, x, c_kv, k_rope), cache
+
+
+def mla_attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                         cache: Dict[str, torch.Tensor], pos: Pos):
+    """Absorbed-matmul decode against the [B, Smax, r] latent and [B, Smax,
+    rope] key caches, updated in place: q_c = q_nope·W_ukᵀ, scores over the
+    latent plus the rope key, o_c = probs·c_kv, out = o_c·W_uv·W_o.  The
+    products the reference runs through ``mxu_einsum`` accumulate in f32
+    here (:func:`f32_einsum`); the probabilities are rounded to the cache's
+    dtype, as there.  ``pos``: scalar or per-slot [B]."""
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = _decode_positions(pos, x.shape[0])
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    c_all = cache_write(cache["c_kv"], c_new, pos)
+    kr_all = cache_write(cache["k_rope"], kr_new, pos)
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])  # absorb W_uk
+    s = (f32_einsum("bshr,btr->bhst", q_c, c_all)
+         + f32_einsum("bshk,btk->bhst", q_rope, kr_all)) * _mla_scale(cfg)
+    kpos = torch.arange(c_all.shape[1], device=x.device)
+    limit = pos if pos.ndim == 0 else pos[:, None, None, None]
+    s = torch.where(kpos[None, None, None, :] <= limit, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(c_all.dtype)
+    o_c = f32_einsum("bhst,btr->bshr", prob, c_all).to(x.dtype)
+    o = torch.einsum("bshr,rhk->bshk", o_c, p["w_uv"])
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------- #
 # SwiGLU MLP
 # --------------------------------------------------------------------------- #
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``silu(x @ wg) * (x @ wu) @ wd``: the gate/up products and the
     epilogue in the fused kernel, the down projection a plain matmul."""
     return fused_swiglu(x, p["wg"], p["wu"]) @ p["wd"]
+
+
+# --------------------------------------------------------------------------- #
+# Mixture of Experts
+# --------------------------------------------------------------------------- #
+MOE_F32_LEAVES = {"router"}  # f32 whatever the model's dtype, as in the reference
+
+
+def moe_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Shapes of the MoE leaves (``moe_defs`` of the reference): the router,
+    the stacked expert weights, and the shared experts' and the dense
+    residual's MLPs where the config has them."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    out: Dict[str, Any] = {"router": (d, E), "wg": (E, d, f), "wu": (E, d, f), "wd": (E, f, d)}
+    if m.n_shared:
+        out["shared"] = {"wg": (d, m.n_shared * f), "wu": (d, m.n_shared * f),
+                         "wd": (m.n_shared * f, d)}
+    if m.dense_residual:
+        out["residual"] = {"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)}
+    return out
+
+
+def moe_capacity(m: MoESpec, s: int) -> int:
+    """Slots an expert has in a group of ``s`` tokens:
+    ceil(top_k·s/E·capacity_factor), at least 1."""
+    return max(1, int(m.top_k * s / m.n_experts * m.capacity_factor + 0.999))
+
+
+def moe_route(p: Params, m: MoESpec, xc: torch.Tensor):
+    """Top-k routing of xc [G, s, D]: the renormalised gate weights and
+    expert indices [G, s, K] (softmax over the f32 router logits)."""
+    gates = torch.softmax(torch.einsum("gsd,de->gse", xc.to(F32), p["router"].to(F32)), dim=-1)
+    gate_k, idx_k = torch.topk(gates, m.top_k, dim=-1)
+    return gate_k / gate_k.sum(-1, keepdim=True).clamp_min(1e-9), idx_k
+
+
+def expert_arrivals(chosen: torch.Tensor) -> torch.Tensor:
+    """chosen [G, s, E] (1 where token s picked expert e): how many tokens up
+    to and including s picked e.  A token picks an expert at most once, so
+    this is the reference's running count over the (s, k) choices in
+    token-major order.  Scanned along the innermost dim (E rows of s): a
+    scan along dim 1 of [G, s·K, E] ran PyTorch's outer-dim scan kernel, ~1
+    ms a layer at s = 1024 on the H100 (PERF.md)."""
+    return torch.cumsum(chosen.transpose(1, 2).contiguous(), dim=-1).transpose(1, 2)
+
+
+def expert_products(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their inputs xe [E, M, D]: gate/up through
+    the expert-batched kernel, the down projection a batched matmul."""
+    return torch.bmm(swiglu_experts(xe, p["wg"], p["wu"]), p["wd"])
+
+
+def _moe_chunk_einsum(p: Params, m: MoESpec, xc: torch.Tensor) -> torch.Tensor:
+    """GShard per-group one-hot dispatch: xc [G, s, D] -> [G, s, D].
+
+    Capacity C = ceil(top_k·s/E·capacity_factor) per group; a token's k-th
+    choice takes the next free slot of its expert in token-major order, and
+    overflow is dropped (combine weight zero), as in the reference.  A token
+    picks an expert at most once, so the reference's [G, s, K, E, C] one-hot
+    summed over K is built here directly as [G, s, E, C].  The experts see
+    [E, G·C, D]: the groups fold into each expert's rows."""
+    G, s, D = xc.shape
+    E, C = m.n_experts, moe_capacity(m, s)
+    gate_k, idx_k = moe_route(p, m, xc)
+    onehot = F.one_hot(idx_k, E).to(F32)                              # [G, s, K, E]
+    chosen = onehot.sum(2)                                            # [G, s, E]: 0 or 1
+    pos = expert_arrivals(chosen) * chosen - 1.0                      # [G, s, E]; -1: not chosen
+    gate = (onehot * gate_k[..., None]).sum(2)                        # [G, s, E]
+    disp = (pos[..., None] == torch.arange(C, device=xc.device, dtype=F32))  # [G, s, E, C]
+    comb = disp * gate[..., None]
+    xe = torch.einsum("gsec,gsd->egcd", disp.to(xc.dtype), xc).reshape(E, G * C, D).contiguous()
+    ye = expert_products(p, xe).reshape(E, G, C, D)
+    return torch.einsum("gsec,egcd->gsd", comb.to(xc.dtype), ye)
+
+
+def moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, impl: str = "einsum") -> torch.Tensor:
+    """Routed experts over chunks of ``router_chunk`` tokens, plus the shared
+    experts and the dense residual where the config has them.
+
+    The reference scans the chunks with no carry; here every chunk of every
+    sequence is one group of a single call (G = B·n_chunks), which gives the
+    same values.  Padding sits last in the last chunk, so it never takes a
+    slot before a real token."""
+    m = cfg.moe
+    B, S, D = x.shape
+    chunk = min(m.router_chunk, S)
+    pad = (-S) % chunk
+    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    if impl == "einsum":
+        fn = _moe_chunk_einsum
+    elif impl == "scatter":
+        from repro_torch.models.moe_scatter import moe_chunk_scatter as fn
+    else:
+        raise ValueError(f"unknown moe impl {impl!r}")
+    y = fn(p, m, xp.reshape(-1, chunk, D)).reshape(B, S + pad, D)[:, :S]
+    if m.n_shared:
+        y = y + mlp(p["shared"], x)
+    if m.dense_residual:
+        y = y + mlp(p["residual"], x)
+    return y

@@ -1,25 +1,33 @@
-"""Decoder-only LMs (dense and SSM): parameters, cache and the three entry points.
+"""Decoder-only LMs (dense, MoE/MLA and SSM): parameters, cache and the three entry points.
 
-Port of the ``dense`` and ``ssm`` segments of ``repro/models/transformer.py``.
-The reference stacks the layers' parameters under ``segments/<name>/p0`` and
-runs them with ``lax.scan``; here each layer is a :class:`Block` (attention
-and SwiGLU) or an :class:`SSMBlock` (a mamba2 mixer, no FFN) in an
-``nn.ModuleList``, and the scan is a Python loop.  The cache keeps the
-reference's tree and layer-stacked layouts (``[L, B, Smax, KV, D]`` k/v;
-``[L, B, w-1, CH]`` conv window and ``[L, B, H, P, N]`` state), and is
-updated in place.  ``constrain`` (mesh sharding hints) has no counterpart on
-one card.
+Port of ``repro/models/transformer.py`` but its ``super`` segment (hybrid
+SSM/attention) and frontends.  :func:`segments` is the reference's
+structural plan, copied verbatim: a list of segments, each ``repeat`` times
+a pattern of (mixer, ffn) positions.  The reference stacks each position's
+parameters under ``segments/<name>/p<j>`` with a leading ``[repeat]`` dim
+and runs them with ``lax.scan``; here each layer is a :class:`Block`
+(attention, GQA or MLA, then a SwiGLU or MoE FFN) or an :class:`SSMBlock`
+(a mamba2 mixer, no FFN) in an ``nn.ModuleList`` in layer order, and the
+scan is a Python loop (``Transformer.plan`` maps layer i to its segment,
+position j and repeat k: i = segment offset + k·P + j).  The cache keeps
+the reference's tree and stacked layouts (``[repeat, B, Smax, KV, D]``
+k/v; ``[repeat, B, Smax, r]`` MLA latent and ``[repeat, B, Smax, rope]``
+key; ``[repeat, B, w-1, CH]`` conv window and ``[repeat, B, H, P, N]``
+state), and is updated in place.  ``constrain`` (mesh sharding hints) has
+no counterpart on one card.
 
 Three entry points share parameters:
 
 * ``forward(..., mode="train")``   — full-sequence logits.
 * ``forward(..., mode="prefill")`` — logits + populated cache.
 * ``decode_step``                   — one token against the cache.
+
+Both take ``moe_impl`` (``"einsum"`` or ``"scatter"``), as the reference.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -29,29 +37,61 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
-__all__ = ["Transformer", "Block", "SSMBlock", "segment_name", "init_params", "init_cache",
-           "forward", "decode_step"]
+__all__ = ["Transformer", "Block", "SSMBlock", "LayerSlot", "segments", "layer_plan",
+           "init_params", "init_cache", "forward", "decode_step"]
 
 # parameter leaves by initializer (``ParamDef.init`` in the reference)
-_ONES = {"scale", "q_norm", "k_norm", "Dskip", "norm"}
+_ONES = {"scale", "q_norm", "k_norm", "kv_norm", "Dskip", "norm"}
 _ZEROS = {"bq", "bk", "bv", "dt_bias", "A_log", "conv_b"}
 _EMBED_SCALE = 0.02
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside this slice."""
+    """Raise ``NotImplementedError`` for configs outside the ported slices."""
     todo = (
         (cfg.hybrid is not None,
          "hybrid SSM/attention models (with the super segment) are not ported yet"),
-        (cfg.moe is not None, "MoE models are not ported yet"),
-        (cfg.mla is not None, "MLA attention is not ported yet"),
         (cfg.frontend is not None or not cfg.causal,
          "audio/vision frontends and encoder-only models are not ported yet"),
     )
     for hit, what in todo:
         if hit:
             raise NotImplementedError(
-                f"{cfg.name}: {what} (ROADMAP Queue 1, item 8: MoE, MLA and frontend serving)")
+                f"{cfg.name}: {what} (ROADMAP Queue 1, item 8b: the super segment and "
+                f"frontend serving)")
+
+
+def segments(cfg: ArchConfig) -> List[Dict[str, Any]]:
+    """Structural plan: list of segments, each a stacked scan of one block
+    pattern.  A segment's ``pattern`` is a list of (mixer, ffn) applied
+    positionally (unrolled) inside each scan step."""
+    if cfg.family == "ssm":
+        return [{"name": "ssm", "repeat": cfg.n_layers, "pattern": [("ssm", "none")]}]
+    if cfg.hybrid is not None:
+        period = cfg.hybrid.attn_period
+        assert cfg.n_layers % period == 0
+        pat = []
+        for j in range(period):
+            mixer = "attn" if j == cfg.hybrid.attn_offset else "ssm"
+            ffn = "moe" if cfg.is_moe_layer(j) else "dense"
+            pat.append((mixer, ffn))
+        return [{"name": "super", "repeat": cfg.n_layers // period, "pattern": pat}]
+    if cfg.moe is not None:
+        segs = []
+        fd = cfg.moe.first_dense
+        if fd:
+            segs.append({"name": "lead", "repeat": fd, "pattern": [("attn", "dense")]})
+        rest = cfg.n_layers - fd
+        if cfg.moe.every == 1:
+            segs.append({"name": "moe", "repeat": rest, "pattern": [("attn", "moe")]})
+        else:
+            per = cfg.moe.every
+            assert rest % per == 0
+            pat = [("attn", "moe" if cfg.is_moe_layer(fd + j) else "dense")
+                   for j in range(per)]
+            segs.append({"name": "moe", "repeat": rest // per, "pattern": pat})
+        return segs
+    return [{"name": "dense", "repeat": cfg.n_layers, "pattern": [("attn", "dense")]}]
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -62,33 +102,67 @@ def _pdict(shapes: Dict[str, Tuple[int, ...]], device, dtype) -> nn.ParameterDic
     return nn.ParameterDict({n: _param(s, device, dtype) for n, s in shapes.items()})
 
 
-class Block(nn.Module):
-    """One pre-norm decoder layer: rmsnorm → GQA attention → rmsnorm → SwiGLU."""
+class MoEParams(nn.Module):
+    """A MoE layer's leaves, addressed as the reference's tree is
+    (``p["router"]``, ``p["shared"]["wg"]``): the router in f32 whatever the
+    model's dtype, the stacked expert weights, and the shared experts'
+    and the dense residual's MLPs where the config has them."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
+        for name, shape in L.moe_defs(cfg).items():
+            if isinstance(shape, dict):
+                setattr(self, name, _pdict(shape, device, dtype))
+            else:
+                dt = torch.float32 if name in L.MOE_F32_LEAVES else dtype
+                self.register_parameter(name, _param(shape, device, dt))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: rmsnorm → attention (GQA, or MLA where the
+    config has it) → rmsnorm → FFN (``ffn``: a SwiGLU ``"dense"`` or a
+    ``"moe"`` layer)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16, ffn: str = "dense"):
+        super().__init__()
         d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        attn = {"wq": (d, H, Dh), "wk": (d, KV, Dh), "wv": (d, KV, Dh), "wo": (H, Dh, d)}
-        if cfg.qkv_bias:
-            attn.update(bq=(H, Dh), bk=(KV, Dh), bv=(KV, Dh))
-        if cfg.qk_norm:
-            attn.update(q_norm=(Dh,), k_norm=(Dh,))
+        if cfg.mla is not None:
+            attn = L.mla_defs(cfg)
+        else:
+            attn = {"wq": (d, H, Dh), "wk": (d, KV, Dh), "wv": (d, KV, Dh), "wo": (H, Dh, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=(H, Dh), bk=(KV, Dh), bv=(KV, Dh))
+            if cfg.qk_norm:
+                attn.update(q_norm=(Dh,), k_norm=(Dh,))
         self.ln1 = _pdict({"scale": (d,)}, device, dtype)
         self.attn = _pdict(attn, device, dtype)
         self.ln2 = _pdict({"scale": (d,)}, device, dtype)
-        self.mlp = _pdict({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)},
-                          device, dtype)
-
-    def forward(self, cfg: ArchConfig, x, cache, pos, mode: str):
-        h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
-        if mode == "decode":
-            o, _ = L.attention_decode(self.attn, cfg, h, cache, pos)
-        elif mode == "prefill":
-            o, _ = L.attention_prefill(self.attn, cfg, h, cache)
+        if ffn == "moe":
+            self.moe = MoEParams(cfg, device, dtype)
+        elif ffn == "dense":
+            self.mlp = _pdict({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)},
+                              device, dtype)
         else:
-            o = L.attention_full(self.attn, cfg, h)
+            raise ValueError(f"unknown ffn {ffn!r}")
+
+    def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
+        h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
+        mla = cfg.mla is not None
+        if mode == "decode":
+            attend = L.mla_attention_decode if mla else L.attention_decode
+            o, _ = attend(self.attn, cfg, h, cache, pos)
+        elif mode == "prefill":
+            attend = L.mla_attention_prefill if mla else L.attention_prefill
+            o, _ = attend(self.attn, cfg, h, cache)
+        else:
+            o = (L.mla_attention_full if mla else L.attention_full)(self.attn, cfg, h)
         x = x + o
         h = L.rmsnorm(self.ln2, x, cfg.norm_eps)
+        if hasattr(self, "moe"):
+            return x + L.moe_layer(self.moe, cfg, h, impl=moe_impl)
         return x + L.mlp(self.mlp, h)
 
 
@@ -104,19 +178,31 @@ class SSMBlock(nn.Module):
             n: _param(shape, device, torch.float32 if n in S.F32_LEAVES else dtype)
             for n, shape in S.ssm_defs(cfg).items()})
 
-    def forward(self, cfg: ArchConfig, x, cache, pos, mode: str):
+    def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
         o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos, mode)
         return x + o
 
 
-def segment_name(cfg: ArchConfig) -> str:
-    """The reference's one segment for this config: its layers' parameters
-    and cache sit under ``segments/<name>/p0``."""
-    return "ssm" if cfg.family == "ssm" else "dense"
+class LayerSlot(NamedTuple):
+    """Where layer i sits in the reference's tree: segment, position j of
+    its pattern, repeat k (i = the segment's offset + k·P + j)."""
+    segment: str
+    j: int
+    k: int
+    mixer: str
+    ffn: str
+
+
+def layer_plan(cfg: ArchConfig) -> List[LayerSlot]:
+    """Every layer's slot, in layer order (the reference's scan order)."""
+    return [LayerSlot(seg["name"], j, k, mixer, ffn)
+            for seg in segments(cfg) for k in range(seg["repeat"])
+            for j, (mixer, ffn) in enumerate(seg["pattern"])]
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense or SSM LM (``model_defs`` of the reference) on one device."""
+    """Parameters of a dense, MoE/MLA or SSM LM (``model_defs`` of the
+    reference) on one device, one module a layer, in layer order."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -126,8 +212,10 @@ class Transformer(nn.Module):
         self.embed = _param((V, d), device, dtype)
         self.final_norm = _pdict({"scale": (d,)}, device, dtype)
         self.lm_head = None if cfg.tie_embeddings else _param((d, V), device, dtype)
-        block = SSMBlock if segment_name(cfg) == "ssm" else Block
-        self.layers = nn.ModuleList(block(cfg, device, dtype) for _ in range(cfg.n_layers))
+        self.plan = layer_plan(cfg)
+        self.layers = nn.ModuleList(
+            SSMBlock(cfg, device, dtype) if slot.mixer == "ssm"
+            else Block(cfg, device, dtype, ffn=slot.ffn) for slot in self.plan)
 
 
 def _default_scale(shape: Tuple[int, ...]) -> float:
@@ -141,7 +229,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda", dtype=torch.bfloat16) -> Transformer:
     """Random weights drawn as the reference's ``ParamDef`` does: normals at
     ``default_scale`` (``embed`` at 0.02, ``conv_w`` at 1/conv_width), norm
-    scales and ``Dskip`` at one, biases, ``dt_bias`` and ``A_log`` at zero.
+    scales, ``kv_norm`` and ``Dskip`` at one, biases, ``dt_bias`` and
+    ``A_log`` at zero.  ``default_scale`` takes ``shape[-2]`` as the fan-in,
+    which for MLA's ``wq [d, H, nope+rope]`` and ``w_uk``/``w_uv [r, H, *]``
+    is the head count, as in the reference.  The router and the SSM's f32
+    leaves stay f32.
     The normals come from ``generator`` (drawn in f32 on its device, then cast),
     so they differ from ``jax.random``'s; tests that compare the two packages
     convert the reference's weights with ``params_from_numpy`` instead."""
@@ -164,23 +256,35 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return model
 
 
+def _cache_defs(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
+                dtype) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """One layer's cache leaves (``cache_defs_for`` of the reference)."""
+    if mixer == "ssm":
+        return S.ssm_cache_defs(cfg, batch, dtype)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": ((batch, max_seq, m.kv_lora_rank), dtype),
+                "k_rope": ((batch, max_seq, m.rope_head_dim), dtype)}
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: DeviceLike = "cuda", dtype=torch.bfloat16):
-    """Zeroed cache in the reference's tree, with a scalar ``pos``: k/v in
-    ``dtype`` (bf16, ``ParamDef``'s default, whatever the params are), or the
-    SSM's conv window in ``dtype`` and its state in f32.  ``max_seq`` is
-    unused by an SSM."""
+    """Zeroed cache in the reference's tree (``segments/<name>/p<j>``, each
+    leaf stacked over the segment's repeats), with a scalar ``pos``: k/v or
+    MLA's latent and rope key in ``dtype`` (bf16, ``ParamDef``'s default,
+    whatever the params are), or the SSM's conv window in ``dtype`` and its
+    state in f32.  ``max_seq`` is unused by an SSM."""
     dev = resolve_device(device)
-    seg = segment_name(cfg)
-    if seg == "ssm":
-        p0 = {n: torch.zeros((cfg.n_layers, *shape), dtype=dt, device=dev)
-              for n, (shape, dt) in S.ssm_cache_defs(cfg, batch, dtype).items()}
-    else:
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        p0 = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-              "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    return {"segments": {seg: {"p0": p0}},
-            "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    segs = {}
+    for seg in segments(cfg):
+        segs[seg["name"]] = {
+            f"p{j}": {n: torch.zeros((seg["repeat"], *shape), dtype=dt, device=dev)
+                      for n, (shape, dt) in _cache_defs(cfg, mixer, batch, max_seq,
+                                                        dtype).items()}
+            for j, (mixer, _ffn) in enumerate(seg["pattern"])}
+    return {"segments": segs, "pos": torch.zeros((), dtype=torch.int64, device=dev)}
 
 
 def _unembed(params: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -190,25 +294,29 @@ def _unembed(params: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Ten
     return torch.einsum("bsd,dv->bsv", x, params.lm_head)
 
 
-def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str):
-    leaves = cache["segments"][segment_name(cfg)]["p0"] if cache is not None else None
-    for i, block in enumerate(params.layers):
-        layer_cache = {n: t[i] for n, t in leaves.items()} if leaves is not None else None
-        x = block(cfg, x, layer_cache, pos, mode)
+def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str,
+                moe_impl: str):
+    for slot, block in zip(params.plan, params.layers):
+        layer_cache = None
+        if cache is not None:
+            leaves = cache["segments"][slot.segment][f"p{slot.j}"]
+            layer_cache = {n: t[slot.k] for n, t in leaves.items()}
+        x = block(cfg, x, layer_cache, pos, mode, moe_impl)
     return x
 
 
 def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
-            mode: str = "train", cache=None):
+            mode: str = "train", cache=None, moe_impl: str = "einsum"):
     """inputs: {tokens: [B,S] int} (``embeds`` come with the frontend slice).
 
     mode="train": returns logits.  mode="prefill": returns (logits, cache);
     ``cache`` must be a fresh ``init_cache`` tree, and is filled in place.
+    ``moe_impl``: the MoE layers' dispatch, ``"einsum"`` or ``"scatter"``.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     x = params.embed[inputs["tokens"]]
-    x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode)
+    x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode, moe_impl)
     logits = _unembed(params, cfg, x)
     if mode == "prefill":
         cache["pos"] = torch.tensor(x.shape[1], dtype=torch.int64, device=x.device)
@@ -216,11 +324,12 @@ def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor
     return logits
 
 
-def decode_step(params: Transformer, cfg: ArchConfig, cache, tokens: torch.Tensor):
+def decode_step(params: Transformer, cfg: ArchConfig, cache, tokens: torch.Tensor,
+                moe_impl: str = "einsum"):
     """One decode step: tokens [B,1] -> (logits [B,1,V], cache updated in place)."""
     x = params.embed[tokens]
     pos = cache["pos"]
-    x = _run_layers(params, cfg, x, cache, pos, "decode")
+    x = _run_layers(params, cfg, x, cache, pos, "decode", moe_impl)
     logits = _unembed(params, cfg, x)
     cache["pos"] = pos + 1
     return logits, cache

@@ -8,9 +8,10 @@ slots at once (idle slots too), with a per-slot position vector so that
 ragged slots stay exact.  Decoding is greedy (``argmax``).
 
 The steps run eagerly on the engine's device (CUDA unless the caller passes
-``device="cpu"``); prefill attention and every MLP of a dense model, and the
-SSD scan of every mamba2 prefill, go through the port's CUDA kernels there.
-The cache (k/v, or an SSM's conv window and state) is updated in place.  The
+``device="cpu"``); prefill attention (GQA or MLA), every SwiGLU MLP, the
+routed experts' products and the SSD scan of every mamba2 prefill go through
+the port's CUDA kernels there.  The cache (k/v, MLA's latent and rope key,
+or an SSM's conv window and state) is updated in place.  The
 reference's steps return an SSM's conv window in the activations' dtype and
 its engine keeps what they return, so here the window takes that dtype before
 a step writes it (see :func:`_conv_in`).
@@ -41,13 +42,15 @@ __all__ = ["ServeConfig", "Request", "Engine", "make_prefill_step", "make_decode
 class ServeConfig:
     max_seq: int = 32768
     slots: int = 8              # concurrent sequences (decode batch)
+    moe_impl: str = "einsum"    # MoE dispatch of both steps: "einsum" or "scatter"
 
 
 def make_prefill_step(cfg: ArchConfig, scfg: ServeConfig) -> Callable:
     """(params, cache, inputs) -> (last_logits [B,V], cache)."""
 
     def step(params, cache, inputs):
-        logits, cache = T.forward(params, cfg, inputs, mode="prefill", cache=cache)
+        logits, cache = T.forward(params, cfg, inputs, mode="prefill", cache=cache,
+                                  moe_impl=scfg.moe_impl)
         return logits[:, -1], cache
 
     return step
@@ -57,7 +60,7 @@ def make_decode_step(cfg: ArchConfig, scfg: ServeConfig) -> Callable:
     """(params, cache, tokens [B,1]) -> (logits [B,V], cache)."""
 
     def step(params, cache, tokens):
-        logits, cache = T.decode_step(params, cfg, cache, tokens)
+        logits, cache = T.decode_step(params, cfg, cache, tokens, moe_impl=scfg.moe_impl)
         return logits[:, 0], cache
 
     return step

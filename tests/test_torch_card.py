@@ -22,10 +22,12 @@ import torch
 
 from repro_torch.kernels import (
     FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, select_flash_variant, select_ssd_variant, select_swiglu_variant,
-    ssd_mixer, ssd_scan, swiglu_matmul,
+    gqa_flash_attention, select_experts_variant, select_flash_variant, select_ssd_variant,
+    select_swiglu_variant, ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul,
 )
-from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref, swiglu_ref
+from repro_torch.kernels.ref import (
+    flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
+)
 
 
 @pytest.fixture
@@ -96,13 +98,150 @@ def test_swiglu_tensor_core_variants(card, M, D, F):
 def test_flash_tensor_core_variant(card, causal, Sq, Sk, D):
     """bf16 through the mma.sync kernel: ragged S, Sq != Sk both ways, head
     dims 16 to 128 (padded in shared memory), causal and not."""
-    assert select_flash_variant(D, torch.bfloat16) == "mma"
+    assert select_flash_variant(D, D, torch.bfloat16) == "mma"
     q, k, v = _inputs(card, 8, [(2, Sq, D), (2, Sk, D), (2, Sk, D)], torch.bfloat16)
     before = FLASH_LIBRARY.counts["mma"]
     out = flash_attention(q, k, v, causal=causal)
     assert FLASH_LIBRARY.counts["mma"] == before + 1
     ref = flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", [(100, 100, 192, 128), (1024, 1024, 192, 128),
+                                        (100, 130, 192, 128), (130, 100, 192, 128),
+                                        (200, 200, 64, 32), (77, 77, 32, 128),
+                                        (150, 150, 176, 48), (96, 96, 40, 24)])
+def test_flash_value_head_dim(card, dtype, causal, Sq, Sk, D, Dv):
+    """v [BH, Sk, Dv] with Dv != D through the variant the selector picks
+    (MLA's 192/128 on the 192/128 mma tile, other pairs on smaller tiles,
+    40/24 and f32 on the CUDA cores): ragged S, Sq != Sk both ways, causal
+    and not; MLA's scale (192^-0.5 here as the default)."""
+    variant = select_flash_variant(D, Dv, dtype)
+    q, k, v = _inputs(card, 11, [(3, Sq, D), (3, Sk, D), (3, Sk, Dv)], dtype)
+    before = dict(FLASH_LIBRARY.counts)
+    out = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.counts[variant] == before[variant] + 1
+    assert FLASH_LIBRARY.launches == sum(before.values()) + 1
+    assert out.shape == (3, Sq, Dv) and out.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype, 2e-5, 3e-2), rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,D,F", [(64, 120, 2048, 1408), (64, 8, 2048, 1408),
+                                     (5, 64, 256, 96), (5, 79, 2056, 200), (3, 63, 256, 96),
+                                     (4, 1, 256, 96), (1, 200, 256, 96), (1, 8, 256, 96),
+                                     (3, 7, 100, 70), (3, 24, 256, 96), (64, 48, 2048, 1408)])
+def test_swiglu_experts_kernel(card, dtype, E, M, D, F):
+    """x [E, M, D], wg, wu [E, D, F] through the expert entry the selector
+    picks (bf16: decode below 64 rows an expert, in 1, 2 or 4 row tiles of
+    16, wgmma from 64; f32 and unaligned D/F: the CUDA cores):
+    DeepSeek-V2-Lite's path shapes (120, 48 and 8 rows),
+    ragged M (79 and 63 rows do not fill a tile; a tile past an expert's rows
+    must not read or write the next expert's), a K tail (D = 2056), F not a
+    multiple of the column tiles, one row, and E = 1."""
+    variant = select_experts_variant(M, D, F, dtype)
+    x, wg, wu = _inputs(card, 12, [(E, M, D), (E, D, F), (E, D, F)], dtype,
+                        scales=[1.0, D ** -0.5, D ** -0.5])
+    before = dict(SWIGLU_LIBRARY.counts)
+    out = swiglu_experts(x, wg, wu)
+    assert SWIGLU_LIBRARY.counts[variant] == before[variant] + 1
+    assert SWIGLU_LIBRARY.launches == sum(before.values()) + 1
+    assert out.shape == (E, M, F) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), swiglu_experts_ref(x, wg, wu).float(),
+                               atol=_tol(dtype, 1e-4, 5e-2), rtol=2e-2)
+    if E > 1:  # each expert equals the one-product kernel on its own slice
+        one = swiglu_matmul(x[1].contiguous(), wg[1].contiguous(), wu[1].contiguous())
+        torch.testing.assert_close(out[1].float(), one.float(), atol=_tol(dtype, 1e-4, 5e-2),
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+def test_moe_mla_model_on_card(card, impl):
+    """A narrow DeepSeek-shaped model (MLA at the real head dims 128 + 64 and
+    128, 8 experts with a shared expert, a dense lead layer) in bf16:
+    prefill and a decode tick with per-slot positions on the card, through
+    flash ``mma`` at 192/128 and the expert kernels, against the same model
+    on the CPU (the plain versions); logits within 5e-2 of their largest
+    magnitude (the bf16 tolerance of ``tests/test_torch_serve.py``).  Every
+    token takes all 8 experts (top_k = E, capacity 1.25 tokens a slot: no
+    drops), so the output is continuous in the router's logits: with top-2,
+    a near tie that bf16 rounding resolves one way on the card and the other
+    way on the CPU moved 4 of 153,600 logits past the tolerance (one token;
+    H100)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLASpec
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    base = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(
+        base, n_layers=3, d_model=256, n_heads=2, vocab=512,
+        mla=MLASpec(kv_lora_rank=64, rope_head_dim=64, nope_head_dim=128, v_head_dim=128),
+        moe=dataclasses.replace(base.moe, n_experts=8, top_k=8, d_ff_expert=96, n_shared=1,
+                                router_chunk=64))
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():  # scores of order one (see chip_smoke.py)
+        for block in model.layers:
+            block.attn["wq"].mul_((cfg.n_heads / cfg.d_model) ** 0.5)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 150)))
+    step = toks[:, :1]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev)
+        cache = init_cache(cfg, 2, 160, device=dev)
+        logits, cache = forward(m, cfg, {"tokens": toks.to(dev)}, mode="prefill", cache=cache,
+                                moe_impl=impl)
+        cache["pos"] = torch.tensor([150, 97], device=dev)
+        tick, _ = decode_step(m, cfg, cache, step.to(dev), moe_impl=impl)
+        outs[dev] = (logits.float().cpu(), tick.float().cpu())
+        if dev == "cuda":
+            assert FLASH_LIBRARY.counts["mma"] > 0 and SWIGLU_LIBRARY.counts["experts_wgmma"] > 0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+def test_moe_layer_drops_on_card(card, impl, dtype):
+    """One MoE layer routed top-2 of 8 experts (a shared expert beside them)
+    over chunks of 64 tokens, S = 100 (a full chunk and a padded one), on
+    the card through the expert kernels against the same layer on the CPU
+    (the plain versions; ``tests/test_torch_moe.py`` holds those to the
+    reference), output within 1e-4 (f32) / 5e-2 (bf16) of its largest
+    magnitude.  x[..., 0] = 4 and a router biased toward expert 0 make
+    every token pick it with a margin far above rounding, so its 20 slots
+    overflow and the later tokens are dropped (asserted); the second choice
+    is the router's own."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, layers
+
+    base = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(
+        base, n_layers=2, d_model=256, vocab=512,
+        moe=dataclasses.replace(base.moe, n_experts=8, top_k=2, d_ff_expert=96, n_shared=1,
+                                router_chunk=64))
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+    p = model.layers[1].moe
+    with torch.no_grad():
+        p["router"][0, 0] = 10.0
+    (x,) = _inputs("cpu", 13, [(2, 100, cfg.d_model)], dtype)
+    x[..., 0] = 4.0
+    _, idx = layers.moe_route(p, cfg.moe, x[:, :64])
+    C = layers.moe_capacity(cfg.moe, 64)
+    assert ((idx == 0).sum(dim=(1, 2)) > C).all()  # drops in each sequence's first chunk
+    want = layers.moe_layer(p, cfg, x, impl=impl).float()
+    before = dict(SWIGLU_LIBRARY.counts)
+    got = layers.moe_layer(p.to(card), cfg, x.to(card), impl=impl).float().cpu()
+    experts = select_experts_variant(4 * C, cfg.d_model, cfg.moe.d_ff_expert, dtype)  # G = 4
+    assert SWIGLU_LIBRARY.counts[experts] == before[experts] + 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=_tol(dtype, 1e-4, 5e-2) * float(want.abs().max()))
 
 
 def _ssd_inputs(card, seed, BH, S, P, N, dtype, dt_shift=0.0):

@@ -1,8 +1,9 @@
 """Which hand-written kernel a CUDA call of the port launches.
 
-``swiglu_matmul``, ``flash_attention`` and ``ssd_scan`` each hold several
-CUDA kernels; their wrappers pick one by a pure function of the shapes and
-the dtype (``select_variant``), which these tests hold on the CPU: the
+``swiglu_matmul`` (with its expert-batched entries), ``flash_attention``
+and ``ssd_scan`` each hold several CUDA kernels; their wrappers pick one by a
+pure function of the shapes and the dtype (``select_variant``,
+``select_experts_variant``), which these tests hold on the CPU: the
 serving path's bf16 shapes go to the tensor-core kernels, f32 and bf16
 shapes the tensor cores cannot take go to the CUDA-core kernels.  They also check that every
 variant's entry point exists in its CUDA source, and that a CPU tensor
@@ -17,8 +18,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
     FLASH_LIBRARY, LIBRARIES, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, select_flash_variant, select_ssd_variant, select_swiglu_variant,
-    ssd_mixer, ssd_scan, swiglu_matmul,
+    gqa_flash_attention, select_experts_variant, select_flash_variant, select_ssd_variant,
+    select_swiglu_variant, ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul,
 )
 from repro_torch.kernels.swiglu_matmul import PREFILL_MIN_M
 
@@ -56,18 +57,68 @@ def test_swiglu_other_shapes_take_cuda_cores(M, D, F, dtype):
 @pytest.mark.parametrize("S", [128, 996, 1024])
 def test_flash_serving_shapes_take_tensor_cores(S):
     """Prefill attention of every prompt length: head dim 64, bf16."""
-    assert select_flash_variant(HEAD_DIM, BF16) == "mma"
+    assert select_flash_variant(HEAD_DIM, HEAD_DIM, BF16) == "mma"
 
 
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_flash_head_dims_on_tensor_cores(D):
-    assert select_flash_variant(D, BF16) == "mma"
+    assert select_flash_variant(D, D, BF16) == "mma"
 
 
 @pytest.mark.parametrize("D,dtype", [(64, F32), (128, F32), (8, BF16), (40, BF16), (72, BF16),
                                      (100, BF16), (144, BF16)])
 def test_flash_other_head_dims_take_cuda_cores(D, dtype):
-    assert select_flash_variant(D, dtype) == "cuda_core"
+    assert select_flash_variant(D, D, dtype) == "cuda_core"
+
+
+@pytest.mark.parametrize("D,Dv", [(192, 128), (144, 128), (192, 64), (64, 32), (32, 128),
+                                  (176, 16)])
+def test_flash_value_head_dims_on_tensor_cores(D, Dv):
+    """MLA's prefill (D = 192 = 128 nope + 64 rope, Dv = 128) and other
+    pairs: D a multiple of 16 up to 192, Dv one up to 128."""
+    assert select_flash_variant(D, Dv, BF16) == "mma"
+
+
+@pytest.mark.parametrize("D,Dv,dtype", [(192, 128, F32), (208, 128, BF16), (192, 144, BF16),
+                                        (192, 136, BF16), (200, 128, BF16), (24, 16, BF16)])
+def test_flash_other_value_head_dims_take_cuda_cores(D, Dv, dtype):
+    """f32 at MLA's dims, and bf16 past the mma tiles (D > 192, Dv > 128)
+    or off the multiples of 16 (the reduced MLA config: D 24, Dv 16)."""
+    assert select_flash_variant(D, Dv, dtype) == "cuda_core"
+
+
+@pytest.mark.parametrize("M,variant", [(8, "experts_decode"), (63, "experts_decode"),
+                                       (64, "experts_wgmma"), (120, "experts_wgmma")])
+def test_experts_serving_shapes_take_tensor_cores(M, variant):
+    """DeepSeek-V2-Lite's routed experts (D 2048, F 1408), M rows an
+    expert: a decode tick's 8 slots of capacity 1, a prefill's capacity of
+    8 to 63 rows (n < 538 tokens) to the decode kernel, 64 to 120 (n >= 538)
+    to wgmma."""
+    assert select_experts_variant(M, 2048, 1408, BF16) == variant
+
+
+@pytest.mark.parametrize("n,M", [(64, 8), (537, 63), (538, 64), (1024, 120)])
+def test_experts_rows_of_a_prefill(n, M):
+    """The capacity of a prefill of n tokens (one group), which sets the
+    expert kernel's rows: ceil(6 n / 64 · 1.25)."""
+    from repro_torch.models.layers import moe_capacity
+    moe = get_config("deepseek-v2-lite-16b").moe
+    assert moe_capacity(moe, n) == M
+    assert select_experts_variant(M, 2048, 1408, BF16) == (
+        "experts_wgmma" if n >= 538 else "experts_decode")
+
+
+@pytest.mark.parametrize("M,D,F,dtype", [(8, 2048, 1408, F32), (120, 2048, 1408, F32),
+                                         (8, 100, 70, BF16), (120, 2048, 1404, BF16)])
+def test_experts_other_shapes_take_cuda_cores(M, D, F, dtype):
+    assert select_experts_variant(M, D, F, dtype) == "experts_cuda_core"
+
+
+@pytest.mark.parametrize("M,D,F,dtype", [(8, 2048, 1408, BF16), (120, 2048, 1408, BF16),
+                                         (5, 100, 70, F32), (64, 256, 96, BF16)])
+def test_experts_selector_follows_the_dense_one(M, D, F, dtype):
+    assert select_experts_variant(M, D, F, dtype) == "experts_" + select_swiglu_variant(
+        M, D, F, dtype)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
@@ -112,7 +163,8 @@ def test_every_variant_has_its_entry_point(lib):
 
 
 def test_variant_names():
-    assert set(SWIGLU_LIBRARY.variants) == {"wgmma", "decode", "cuda_core"}
+    assert set(SWIGLU_LIBRARY.variants) == {"wgmma", "decode", "cuda_core", "experts_wgmma",
+                                            "experts_decode", "experts_cuda_core"}
     assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core"}
     assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core"}
 
@@ -128,6 +180,10 @@ def test_cpu_tensors_launch_nothing(dtype, M):
     w = (torch.randn(64, 96, generator=g) / 8).to(dtype)
     swiglu_matmul(x, w, w)
     fused_swiglu(x[None], w, w)
+    swiglu_experts(x[None].expand(3, M, 64), w[None].expand(3, 64, 96), w[None].expand(3, 64, 96))
+    flash_attention(torch.randn(2, M, 192, generator=g).to(dtype),
+                    torch.randn(2, M, 192, generator=g).to(dtype),
+                    torch.randn(2, M, 128, generator=g).to(dtype), causal=True)
     q = torch.randn(2, M, 64, generator=g).to(dtype)
     flash_attention(q, q, q, causal=True)
     gqa_flash_attention(q.reshape(1, 2, M, 64).movedim(1, 2), q[:1, :, None].expand(1, M, 1, 64),

@@ -15,11 +15,13 @@ import pytest
 import repro.codegen.executor as jax_executor
 import repro.codegen.segment as jax_segment
 import repro.configs as jax_configs
+import repro.models.transformer as jax_transformer
 import repro.runtime.faults as jax_faults
 import repro.serve.frontend as jax_frontend
 import repro_torch.codegen.executor as executor
 import repro_torch.codegen.segment as segment
 import repro_torch.configs as configs
+import repro_torch.models.transformer as transformer
 import repro_torch.runtime.faults as faults
 import repro_torch.serve.frontend as frontend
 
@@ -52,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core, repro_torch.models.cnn, repro_torch.models.slicing\n"
         "import repro_torch.codegen, repro_torch.codegen.analyze, repro_torch.runtime\n"
         "import repro_torch.serve.frontend, repro_torch.serve.trace\n"
+        "import repro_torch.models.moe_scatter, repro_torch.core.expert_placement\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -78,7 +81,7 @@ def test_config_copies_equal_reference(arch):
 
 # modules of the port that are the reference's text with ``repro`` renamed
 VERBATIM = ["codegen/analyze.py", "codegen/validate.py", "codegen/plan.py", "runtime/elastic.py",
-            "serve/trace.py"]
+            "serve/trace.py", "core/expert_placement.py"]
 # the segmented executor's host tables, copied into the port's executor
 HOST_TABLES = ["_waterfill", "PlanTables", "plan_tables", "SegmentAccess", "AccessTables",
                "plan_access_walk", "segment_access_tables"]
@@ -104,6 +107,13 @@ def test_verbatim_modules_stay_verbatim(rel):
     port = (REPO / "src" / "repro_torch" / rel).read_text()
     ref = (REPO / "src" / "repro" / rel).read_text()
     assert port.replace("repro_torch", "repro") == ref
+
+
+def test_segments_stays_verbatim():
+    """The LM's structural plan (``lead``/``moe``/``super``/``dense``/``ssm``
+    segments) is the reference's text."""
+    port = inspect.getsource(transformer.segments)
+    assert port.replace("repro_torch", "repro") == inspect.getsource(jax_transformer.segments)
 
 
 @pytest.mark.parametrize("name", EXECUTOR_COPIES)

@@ -239,19 +239,18 @@ class TestDevices:
         with pytest.raises(ValueError, match="params are on"):
             Engine(cfg, _port(cfg, params), device="meta")
 
-    @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",
-                                      "arctic-480b", "hubert-xlarge", "llava-next-mistral-7b"])
+    @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "hubert-xlarge", "llava-next-mistral-7b"])
     def test_configs_outside_the_slice_raise(self, arch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(get_config(arch).reduced(), torch.Generator(), device="cpu")
 
-    @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
+    @pytest.mark.parametrize("arch", ["hubert-xlarge", "jamba-v0.1-52b"])
     def test_check_supported_names_the_roadmap_item(self, arch):
         from repro_torch.models.transformer import check_supported
 
-        with pytest.raises(NotImplementedError, match="item 8") as ei:
+        with pytest.raises(NotImplementedError, match="item 8b") as ei:
             check_supported(get_config(arch))
-        assert "MoE, MLA and frontend serving" in str(ei.value)
+        assert "the super segment and frontend serving" in str(ei.value)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
