@@ -18,16 +18,26 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              variant, plain version and one PyTorch call that computes the
              same function (a yardstick the port never calls: SDPA on 4-D
              views under a forced, named fused backend; cuBLAS for SwiGLU).
-4. serve   — two serving runs, each with the same traffic (16 requests):
-             a full-width TinyLlama-1.1B ``Engine`` (bf16, random weights
-             from a seeded generator, 22 layers; flash attention and fused
-             SwiGLU), then a full-width Mamba2-370M one (48 layers; the SSD
-             scan's wgmma variant).  Launch counters, per kernel variant and zeroed just
-             before each run, prove that run went through its kernels, each
-             through the variant its selector picks for the step's shapes
-             (TinyLlama: tensor-core variants only), and no other; two
-             requests of each are checked against a teacher-forced forward,
-             and one prefill and one decode tick are profiled.
+4. serve   — the LM paths, each at full width, random weights from a
+             seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
+             attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
+             scan's wgmma variant) through the ``Engine`` with the same
+             traffic (16 requests); DeepSeek-V2-Lite (27 layers; MLA, routed
+             and shared experts); Jamba-v0.1 at 16 of 32 layers (the hybrid
+             ``super`` segment: mamba2 mixers, attention, MoE and dense
+             FFNs); HuBERT-XLarge (48 layers; a non-causal encoder over 8
+             clips of 1500 frames, a train forward and a prefill);
+             LLaVA-NeXT-Mistral-7B (32 layers; 8 requests of one image's 576
+             embedding rows and 576 text tokens, one batched prefill, 32
+             decode ticks); Arctic at 2 of 35 layers (128 experts beside a
+             dense residual).  Launch counters, per kernel variant and zeroed
+             just before each run, prove that run went through its kernels,
+             each through the variant its selector picks for the step's
+             shapes (tensor-core variants only), and no other, as
+             ``expected_launches`` counts them from the config's layers; each
+             run is checked against a teacher-forced forward or a plain
+             computation, each check against planted faults; one prefill (or
+             forward) and one decode tick are profiled.
 5. cnn     — the paper's pipeline: inception_net(224) at batch 8 (random
              weights from a seeded generator), DSH plans on the whole model
              (m=4) and on the grid-sliced one (m=8), validated; run_sequential,
@@ -63,11 +73,16 @@ Phases, each of which exits non-zero (and prints no result) on failure:
 9. report  — one JSON line of numbers per kernel variant, then the device line.
 
 Device memory still allocated is printed at the start of each serving, cnn,
-faults, segmented and frontend phase; the cyclic collector runs before the
-cache is emptied between phases.
+faults, segmented and frontend phase (a serving phase fails if 1 GiB or more
+is left); the cyclic collector runs before the cache is emptied between
+phases.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+For development, ``--only kernels,jamba`` runs the build and the named
+phases alone (the kernels phase and the serving paths), then exits 2 with no
+result.
 """
 from __future__ import annotations
 
@@ -257,7 +272,7 @@ def launched(lib, fn):
     return out, moved[0]
 
 
-def sdpa_call(torch, backend, q, k, v):
+def sdpa_call(torch, backend, q, k, v, causal=True):
     """PyTorch's fused attention on 4-D views ``[1, BH, S, D]`` of the
     kernel's ``[BH, S, D]`` operands, forced onto ``backend``: the call fails
     rather than silently taking another backend (a 3-D call takes the math
@@ -269,7 +284,7 @@ def sdpa_call(torch, backend, q, k, v):
 
     def call():
         with sdpa_kernel(backend):
-            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     return call
 
 
@@ -297,6 +312,121 @@ def sdpa_value_dim_call(torch, q, k, v):
     return (lambda: padded()[..., :v.shape[-1]]), "sdpa[flash], v padded to D"
 
 
+def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
+    """Every kernel shape of the hybrid, encoder, VLM and Arctic paths, held
+    against its plain version; the new ones timed into ``rows`` with their
+    bound and a library call: flash ``mma`` at HuBERT's head dim 80,
+    non-causal; the dense SwiGLU at D 4096 F 14336 (Jamba, LLaVA), D 1280 F
+    5120 (HuBERT) and D 7168 F 4864 (Arctic's residual); the expert entries
+    at E 16, D 4096, F 14336 (Jamba) and E 128, D 7168, F 4864 (Arctic); the
+    SSD scan on Jamba's mixer layout (H 128, N 16, rows of 8224)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels import (
+        FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_mixer, swiglu_experts,
+        swiglu_matmul,
+    )
+    from repro_torch.kernels.ref import (
+        flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
+    )
+    from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
+
+    bf16 = torch.bfloat16
+    tol = FLASH_TOL[str(bf16)]
+    # (BH, S, D, causal, timed): HuBERT's encoder (8 clips x 16 heads, 1500
+    # frames), Jamba's and Arctic's prefill of one 1024-token prompt (32 and
+    # 56 heads), LLaVA's batch of 8 x 1152 positions (256 heads)
+    for BH, S, D, causal, timed in ((128, 1500, 80, False, True), (32, 1024, 128, True, False),
+                                    (56, 1024, 128, True, False),
+                                    (256, 1152, 128, True, False)):
+        q, k, v = (randn(BH, S, D, dtype=bf16) for _ in range(3))
+        o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
+        r = flash_attention_ref(q, k, v, causal=causal)
+        if variant != "mma" or not within(o, r, tol):
+            raise AssertionError(f"flash_attention[{variant}] path BH={BH} S={S} D={D} "
+                                 f"causal={causal}: max err {max_err(o, r):.3g} > {tol}")
+        log(f"flash_attention[{variant}] path BH={BH} S={S} D={D} causal={causal}: max err "
+            f"{max_err(o, r):.3g}")
+        if timed:
+            lib = sdpa_call(torch, SDPBackend.FLASH_ATTENTION, q, k, v, causal=causal)
+            b_ms, b_by = bound(*flash_work(BH, S, S, D, causal, 2), bf16)
+            rows[("flash_attention", variant, "hubert")] = dict(
+                shape=f"BH={BH} S={S} D={D} bf16 non-causal", max_abs_err=max_err(o, r),
+                tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)),
+                plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
+                library="sdpa[flash]", library_ms=timer.ms(lib), bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, o, r
+    # the dense SwiGLU: (M, D, F, key or None when only held)
+    tol = SWIGLU_TOL[str(bf16)]
+    for M, D, Fd, key in ((1024, 4096, 14336, "d4096"), (8, 4096, 14336, "d4096"),
+                          (8 * 1152, 4096, 14336, None), (12000, 1280, 5120, "hubert"),
+                          (1024, 7168, 4864, "d7168"), (8, 7168, 4864, "d7168")):
+        x = randn(M, D, dtype=bf16)
+        wg = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+        wu = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
+        r = swiglu_ref(x, wg, wu)
+        if variant != ("wgmma" if M >= 64 else "decode") or not within(o, r, tol):
+            raise AssertionError(f"swiglu_matmul[{variant}] path M={M} D={D} F={Fd}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        log(f"swiglu_matmul[{variant}] path M={M} D={D} F={Fd}: max err {max_err(o, r):.3g}")
+        if key is not None:
+            b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2), bf16)
+            rows[("swiglu_matmul", variant, key)] = dict(
+                shape=f"M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
+                ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
+                plain_ms=timer.ms(lambda: swiglu_ref(x, wg, wu)),
+                library="F.silu(x@wg)*(x@wu)",
+                library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)), bound_ms=b_ms,
+                bound_by=b_by)
+        del x, wg, wu, o, r
+    # the routed experts: Jamba's 16 (a prefill's capacity of 160 rows, a
+    # tick's 8) and Arctic's 128 (20 rows, 8); (E, M, D, F, key)
+    for E, M, D, Fd, key in ((16, 160, 4096, 14336, "jamba"), (16, 8, 4096, 14336, "jamba"),
+                             (128, 20, 7168, 4864, "arctic"), (128, 8, 7168, 4864, "arctic")):
+        x = randn(E, M, D, dtype=bf16)
+        wg = randn(E, D, Fd, dtype=bf16, scale=D ** -0.5)
+        wu = randn(E, D, Fd, dtype=bf16, scale=D ** -0.5)
+        o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_experts(x, wg, wu))
+        r = swiglu_experts_ref(x, wg, wu)
+        if variant != ("experts_wgmma" if M >= 64 else "experts_decode") or not within(o, r, tol):
+            raise AssertionError(f"swiglu_experts[{variant}] path E={E} M={M} D={D} F={Fd}: "
+                                 f"max err {max_err(o, r):.3g} > {tol}")
+        b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2, E=E), bf16)
+        rows[("swiglu_matmul", variant, f"{key}{M}")] = dict(
+            shape=f"E={E} M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
+            ms=timer.ms(lambda: swiglu_experts(x, wg, wu)),
+            plain_ms=timer.ms(lambda: swiglu_experts_ref(x, wg, wu)),
+            library="F.silu(bmm(x,wg))*bmm(x,wu)",
+            library_ms=timer.ms(lambda: F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)),
+            bound_ms=b_ms, bound_by=b_by)
+        del x, wg, wu, o, r
+        torch.cuda.empty_cache()
+    # Jamba's mixer layout: x, B and C views of the conv output [1, S, 8192 +
+    # 2·16] (row stride 8224, C from element 8208), 128 heads of 64, one group
+    S, H, G, P, N = 1024, 128, 1, 64, 16
+    args = conv_views(1, S, H, G, P, N)
+    assert args[0].stride()[1] == H * P + 2 * G * N == 8224 and (
+        args[4].data_ptr() - args[0].data_ptr()) // 2 == 8208
+    flat = (args[0][0].movedim(1, 0).contiguous(), args[1][0].T.contiguous(), args[2],
+            args[3][0, :, 0][None].expand(H, S, N).contiguous(),
+            args[4][0, :, 0][None].expand(H, S, N).contiguous())
+    out, variant = launched(SSD_LIBRARY, lambda: ssd_mixer(*args, return_state=True))
+    if variant != "wgmma":
+        raise AssertionError(f"ssd_mixer on Jamba's layout took {variant}, not wgmma")
+    ref = ssd_scan_ref(*flat, return_state=True)
+    err, ytol = ssd_hold(f"[{variant}] Jamba's layout S={S}",
+                         (out[0][0].movedim(1, 0), out[1][0]), ref, bf16)
+    b_ms, b_by = bound(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    rows[("ssd_scan", variant, "jamba")] = dict(
+        shape=f"B=1 S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
+        tol=list(ytol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
+        plain_ms=timer.ms(lambda: ssd_scan_ref(*flat, return_state=True), reps=5),
+        library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"ssd_scan[{variant}] Jamba's layout S={S} H={H} N={N}: max err {err:.3g}")
+
+
 def check_kernels(torch, timer):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -314,15 +444,17 @@ def check_kernels(torch, timer):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+        return torch.randn(shape, generator=gen, device="cuda").mul_(scale).to(dtype)
 
     rows = {}
     f32, bf16 = torch.float32, torch.bfloat16
     # (BH, Sq, Sk, D): the CPU tests' sweep, ragged ends, Sq != Sk both ways,
-    # a head dim that is not a multiple of 16 (bf16 on the CUDA cores); f32
+    # a head dim that is not a multiple of 16 (bf16 on the CUDA cores),
+    # HuBERT's 80 (the mma tile of 128, masked past 80) ragged; f32
     # goes to the CUDA-core kernel, bf16 with D % 16 == 0 to the tensor cores
     flash_cases = [(2, 128, 128, 64), (3, 256, 256, 128), (1, 64, 64, 32), (2, 96, 96, 64),
-                   (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40)]
+                   (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40),
+                   (2, 100, 100, 80), (2, 77, 130, 80), (2, 130, 77, 80)]
     hit = {FLASH_LIBRARY.name: set(), SWIGLU_LIBRARY.name: set(), SSD_LIBRARY.name: set()}
     for (BH, Sq, Sk, D) in flash_cases:
         for dtype in (f32, bf16):
@@ -659,6 +791,8 @@ def check_kernels(torch, timer):
     log(f"ssd_scan: largest error over its tolerance, element by element, in the sweep and at "
         f"the path shapes: y {worst['y']:.3g}, final state {worst['state']:.3g}")
 
+    slice_paths(torch, timer, rows, randn, conv_views, ssd_hold)
+
     log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
         f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
     for (name, variant, _), r in rows.items():
@@ -672,18 +806,20 @@ def check_kernels(torch, timer):
 # --------------------------------------------------------------------------- #
 # phase 4: serving
 # --------------------------------------------------------------------------- #
-def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dict:
+def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int, batch: int = 1) -> dict:
     """Launches of each kernel variant on a serving run, from the config's
-    layers (``layer_plan``): per prefill of n tokens, flash attention in
-    every attention layer (MLA: q/k nope + rope wide, v v_head_dim), the
-    SwiGLU kernel once for every dense FFN, shared-expert MLP and dense
-    residual (rows padded as ``ops.fused_swiglu`` pads them), and the
-    expert kernel once in every MoE layer (rows an expert: the groups times
-    their capacity, G = ceil(n / router_chunk) groups of min(router_chunk,
-    n) tokens); per decode tick the same SwiGLU and expert kernels over the
-    slots (each slot its own group of one token), and no attention kernel.
-    Each through the variant its selector picks (bf16), and none of the
-    others.  An SSM: the SSD scan in every prefill mixer; decode is plain."""
+    layers (``layer_plan``): per prefill (or train forward) of ``batch``
+    sequences of n positions, flash attention in every attention slot (MLA:
+    q/k nope + rope wide, v v_head_dim), the SSD scan in every mamba2 slot,
+    the SwiGLU kernel once for every dense FFN, shared-expert MLP and dense
+    residual (batch·n rows, padded as ``ops.fused_swiglu`` pads them), and
+    the expert kernel once in every MoE layer (rows an expert: the groups
+    times their capacity, G = batch·ceil(n / router_chunk) groups of
+    min(router_chunk, n) tokens); per decode tick the same SwiGLU and expert
+    kernels over the slots (each slot its own group of one token), and no
+    attention or scan kernel (decode is plain).  An encoder has no tick
+    (``n_decode`` 0).  Each through the variant its selector picks (bf16),
+    and none of the others."""
     from repro_torch.kernels import (
         LIBRARIES, select_experts_variant, select_flash_variant, select_ssd_variant,
         select_swiglu_variant,
@@ -694,23 +830,22 @@ def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dic
     bf16 = torch.bfloat16
     plan = layer_plan(cfg)
     expect = {lib.name: {v: 0 for v in lib.variants} for lib in LIBRARIES}
-    if cfg.family == "ssm":
-        variant = select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state, bf16)
-        expect["ssd_scan"][variant] = len(plan) * len(prompt_lens)
-        return expect
     if cfg.mla is not None:
         dq, dv = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
     else:
         dq = dv = cfg.head_dim
-    mlps = {"dense": [cfg.d_ff], "moe": []}
+    mlps = {"dense": [cfg.d_ff], "moe": [], "none": []}
     if cfg.moe is not None:
         mlps["moe"] = ([cfg.moe.n_shared * cfg.moe.d_ff_expert] if cfg.moe.n_shared else []) + (
             [cfg.d_ff] if cfg.moe.dense_residual else [])
 
     def step(rows: int, groups: int, group_tokens: int, prefill: bool):
         for slot in plan:
-            if prefill:
+            if prefill and slot.mixer == "attn":
                 expect["flash_attention"][select_flash_variant(dq, dv, bf16)] += 1
+            if prefill and slot.mixer == "ssm":
+                expect["ssd_scan"][select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state,
+                                                      bf16)] += 1
             for f in mlps[slot.ffn]:
                 expect["swiglu_matmul"][select_swiglu_variant(rows, cfg.d_model, f, bf16)] += 1
             if slot.ffn == "moe":
@@ -720,7 +855,8 @@ def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int) -> dic
 
     chunk = cfg.moe.router_chunk if cfg.moe is not None else 1
     for n in prompt_lens:
-        step(-(-n // min(256, n)) * min(256, n), -(-n // chunk), min(chunk, n), True)
+        m = batch * n
+        step(-(-m // min(256, m)) * min(256, m), batch * -(-n // chunk), min(chunk, n), True)
     for _ in range(n_decode):
         step(slots, slots, 1, False)
     return expect
@@ -770,13 +906,47 @@ def traffic(np, cfg):
     return [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lens]
 
 
+def reset_counts(torch) -> None:
+    """Zero every kernel count and the peak memory, the device idle."""
+    from repro_torch.kernels import LIBRARIES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for lib in LIBRARIES:
+        lib.reset()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import LIBRARIES
+
+    return {lib.name: dict(lib.counts) for lib in LIBRARIES}
+
+
+def check_launches(launches: dict, expect: dict) -> None:
+    """A run's launches must be ``expected_launches``' and none may be a
+    CUDA-core kernel's."""
+    log(f"launches on the path: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    if any(n for lib in launches.values() for v, n in lib.items() if v.endswith("cuda_core")):
+        raise AssertionError("a launch on the path went through a CUDA-core kernel")
+
+
+def synced_ms(torch, fn):
+    """(result, host ms) of ``fn`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def run_engine(torch, cfg, model, prompts, scfg, watched=(0, 1), count=False):
     """Serve ``prompts`` to the end; return the requests, the logits the
     engine decided on for the ``watched`` requests (prefill, then each
     decode step), and the host wall of each synchronised prefill and tick.
     With ``count``, every kernel count is set to 0 just before the run and
     read just after it, and the peak memory is the run's."""
-    from repro_torch.kernels import LIBRARIES
     from repro_torch.serve import Engine
 
     engine = Engine(cfg, model, scfg, device="cuda")
@@ -787,22 +957,16 @@ def run_engine(torch, cfg, model, prompts, scfg, watched=(0, 1), count=False):
 
     def timed_prefill(params, cache, inputs):
         rid = len(prefill_ms)  # requests are prefilled in submission order
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        last, cache = prefill(params, cache, inputs)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        (last, cache), ms = synced_ms(torch, lambda: prefill(params, cache, inputs))
+        prefill_ms.append(ms)
         if rid in logits:
             logits[rid].append(last[0].float())
         return last, cache
 
     def timed_decode(params, cache, tokens):
         live = {s: r.rid for s, r in enumerate(engine.slot_req) if r is not None}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out, cache = decode(params, cache, tokens)
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - t) * 1e3)
+        (out, cache), ms = synced_ms(torch, lambda: decode(params, cache, tokens))
+        decode_ms.append(ms)
         for s, rid in live.items():
             if rid in logits:
                 logits[rid].append(out[s].float())
@@ -810,14 +974,12 @@ def run_engine(torch, cfg, model, prompts, scfg, watched=(0, 1), count=False):
 
     engine._prefill1, engine._decode = timed_prefill, timed_decode
     if count:
-        torch.cuda.reset_peak_memory_stats()
-        for lib in LIBRARIES:
-            lib.reset()
+        reset_counts(torch)
     t0 = time.perf_counter()
     engine.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {lib.name: dict(lib.counts) for lib in LIBRARIES} if count else None
+    launches = read_counts() if count else None
     # the timing closures read the engine and are stored on it: put the
     # engine's own steps back, so that the engine and its weights are freed
     # with the last reference to them, not at the next cyclic collection
@@ -844,13 +1006,8 @@ def report_run(torch, np, cfg, prompts, run) -> dict:
         f"{len(run['decode_ms'])} decode ticks mean {np.mean(run['decode_ms']):.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = run["launches"]
-    expect = expected_launches(torch, cfg, lens, len(run["decode_ms"]), SLOTS)
-    log(f"launches on the serving path: {launches} (expected {expect})")
-    if launches != expect:
-        raise AssertionError(f"kernel launches {launches} != expected {expect}")
-    if any(n for lib in launches.values() for v, n in lib.items() if v.endswith("cuda_core")):
-        raise AssertionError("a serving launch went through a CUDA-core kernel")
-    profile_steps(torch, run["engine"], prompts[int(np.argmax(lens))])
+    check_launches(launches, expected_launches(torch, cfg, lens, len(run["decode_ms"]), SLOTS))
+    profile_steps(torch, engine_steps(torch, run["engine"], prompts[int(np.argmax(lens))]))
     return launches
 
 
@@ -868,18 +1025,21 @@ def serve(torch, np, arch: str, logit_tol: float, handoff_tol: float):
     run = run_engine(torch, cfg, model, prompts, ServeConfig(max_seq=MAX_SEQ, slots=SLOTS),
                      count=True)
     launches = report_run(torch, np, cfg, prompts, run)
-    worst = teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol)
+    worst, _, _ = teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol)
     log(f"teacher-forced: max logit error {worst:.4f} (tol {logit_tol}; first decode step tol "
         f"{handoff_tol})")
     return launches
 
 
-def teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol, fail=True):
+def teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol, fail=True,
+                   median_tol=None):
     """Hold the watched requests' engine logits to a train-mode forward over
     prompt + generated tokens: every step within ``logit_tol``, the first
-    decode step within ``handoff_tol``; return the largest error (with
-    ``fail=False``, only return it)."""
-    failures, worst, agree, decided, steps = [], 0.0, 0, 0, 0
+    decode step within ``handoff_tol`` and, with ``median_tol``, the median
+    over the decode steps within it; return the largest error over every
+    step, over the first decode steps and over the requests' medians (with
+    ``fail=False``, only return them)."""
+    failures, worst, handoff, median, agree, decided, steps = [], 0.0, 0.0, 0.0, 0, 0, 0
     for rid, rows in run["logits"].items():
         r = run["reqs"][rid]
         toks = torch.tensor(r.prompt + r.out[:-1], device="cuda")[None]
@@ -889,6 +1049,9 @@ def teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol, fail
             raise AssertionError(f"request {rid}: engine logits {tuple(eng.shape)} vs {tuple(tf.shape)}")
         step_err = (eng - tf).abs().amax(dim=-1)
         worst = max(worst, float(step_err.max()))
+        handoff = max(handoff, float(step_err[1]))
+        med = float(step_err[1:].median())
+        median = max(median, med)
         if not fail:
             continue
         top2 = tf.topk(2, dim=-1).values
@@ -912,12 +1075,15 @@ def teacher_forced(torch, cfg, model, run, forward, logit_tol, handoff_tol, fail
         if float(step_err[1]) > handoff_tol:
             failures.append(f"request {rid}: first decode step's logits differ by "
                             f"{float(step_err[1]):.4f} > {handoff_tol}")
+        if median_tol is not None and med > median_tol:
+            failures.append(f"request {rid}: the decode steps' median error {med:.4f} > "
+                            f"{median_tol}")
     if fail:
         log(f"teacher-forced: {agree}/{steps} tokens equal, {decided} decided (top-2 margin above "
             f"twice the step's logit error)")
     if failures:
         raise AssertionError("; ".join(failures))
-    return worst
+    return worst, handoff, median
 
 
 # DeepSeek-V2-Lite: (a) each prefill's last logits against a train-mode
@@ -1054,18 +1220,61 @@ class RouteLog:
         self.layers.moe_route = self.orig
 
 
-def serve_deepseek(torch, np):
-    """Serve the traffic with full-width DeepSeek-V2-Lite, counted and timed
-    with the config's own router chunks; checks (a), (b) and (c) above,
-    each against its planted fault; count router top-6 sets that differ
-    between engine and forward."""
+@contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` replaced by ``value`` while inside (a planted fault)."""
+    orig = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextmanager
+def zeroed(torch, tensors):
+    """The given weights zeroed while inside, then restored (a planted fault)."""
+    saved = [t.clone() for t in tensors]
+    with torch.no_grad():
+        for t in tensors:
+            t.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+
+
+def unnormalised_route(torch):
+    """A ``layers.moe_route`` whose top-k weights are not renormalised (a
+    planted fault)."""
+    def route(p, m, xc):
+        gates = torch.softmax(torch.einsum("gsd,de->gse", xc.float(), p["router"].float()), -1)
+        return torch.topk(gates, m.top_k, dim=-1)
+    return route
+
+
+def serve_checked(torch, np, cfg, prefill_fault, b_faults, b_tol, after_a=None):
+    """Serve the traffic with ``cfg`` (weights from ``init_model``), counted
+    and timed with the config's own router chunks; then (a) every prefill's
+    last logits against a train-mode forward of its prompt, with the planted
+    fault ``prefill_fault`` = (what, weights to zero) reading above the
+    tolerance; ``after_a(model)`` (DeepSeek's check (c)); and (b) the two
+    watched requests served again with ``moe.router_chunk = 1`` (no capacity
+    drops anywhere; the same weights) against a teacher-forced forward,
+    every step within ``b_tol[0]``, the first decode step within
+    ``b_tol[1]`` and, unless it is None, the decode steps' median within
+    ``b_tol[2]``, and router top-k sets that differ between engine and
+    forward counted.  Each of ``b_faults`` = (what, context, where) must
+    fail (b): ``where`` "forward" plants it in the teacher-forced forward,
+    "engine" in the engine's run.  Every number is printed before any check
+    fails.  Returns the counted run's launches."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.models import forward, layers
     from repro_torch.serve import ServeConfig
 
-    cfg = get_config("deepseek-v2-lite-16b")
     model = init_model(torch, cfg)
     log(f"the config's param_count (no norm scales): {cfg.param_count()[0] / 1e9:.3f} B total, "
         f"{cfg.param_count()[1] / 1e9:.3f} B active a token")
@@ -1074,9 +1283,6 @@ def serve_deepseek(torch, np):
     run = run_engine(torch, cfg, model, prompts, scfg, watched=range(N_REQUESTS), count=True)
     launches = report_run(torch, np, cfg, prompts, run)
 
-    # (a) every prefill's last logits against a train-mode forward of its
-    # prompt; the planted fault drops the shared experts (their wd zeroed,
-    # then restored)
     def prefill_err():
         errs = []
         for rid, p in enumerate(prompts):
@@ -1085,51 +1291,404 @@ def serve_deepseek(torch, np):
         return errs
 
     errs = prefill_err()
-    shared = [b.moe.shared["wd"] for b in model.layers if hasattr(b, "moe")]
-    saved = [w.clone() for w in shared]
-    with torch.no_grad():
-        for w in shared:
-            w.zero_()
-    fault = prefill_err()
-    with torch.no_grad():
-        for w, v in zip(shared, saved):
-            w.copy_(v)
-    del saved
+    what, leaves = prefill_fault
+    with zeroed(torch, leaves(model)):
+        fault = prefill_err()
     log(f"(a) prefill vs train forward, last logits, max error per request "
-        f"{[round(e, 4) for e in errs]} (tol {MOE_PREFILL_TOL}); planted fault (no shared "
-        f"experts): min {min(fault):.3f}")
+        f"{[round(e, 4) for e in errs]} (tol {MOE_PREFILL_TOL}); planted fault ({what}): "
+        f"min {min(fault):.3f}")
     if max(errs) > MOE_PREFILL_TOL or min(fault) <= MOE_PREFILL_TOL:
         raise AssertionError(f"(a) prefill check: errors {max(errs):.4f}, fault {min(fault):.4f}, "
                              f"tol {MOE_PREFILL_TOL}")
     run.clear()  # the timed run's engine, its cache and logits
-    moe_drop_check(torch, np, cfg, model)
+    if after_a is not None:
+        after_a(model)
 
-    # (b) the two watched requests again with router_chunk = 1, the same
-    # weights (the router chunk has no parameters), routes recorded
     cfg1 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_chunk=1))
+    logit_tol, handoff_tol, median_tol = b_tol
     with RouteLog(layers) as routes:
         routes.tag = "engine"
         run1 = run_engine(torch, cfg1, model, prompts[:2], scfg)
         routes.tag = None
-        worst = teacher_forced(torch, cfg1, model, run1, forward, MOE_LOGIT_TOL, MOE_HANDOFF_TOL)
+        worst, handoff, median = teacher_forced(torch, cfg1, model, run1, forward, logit_tol,
+                                                handoff_tol, fail=False)
         # the routes of the same tokens: the engine's prefills and ticks,
         # then a teacher-forced forward per request
         flips = routed_differences(torch, cfg1, model, run1, routes, forward)
+    faults = {}
+    for what, context, where in b_faults:
+        with context():
+            run_f = run_engine(torch, cfg1, model, prompts[:2], scfg) if where == "engine" else None
+            if where == "forward":
+                faults[what] = teacher_forced(torch, cfg1, model, run1, forward, 0, 0, fail=False)
+        if where == "engine":
+            faults[what] = teacher_forced(torch, cfg1, model, run_f, forward, 0, 0, fail=False)
+            run_f.clear()
+    tols = (logit_tol, handoff_tol, math.inf if median_tol is None else median_tol)
+    log(f"(b) router_chunk = 1: engine vs teacher-forced max logit error {worst:.4f}, first "
+        f"decode step {handoff:.4f}, median decode step {median:.4f} (tol {logit_tol}, first "
+        f"decode step {handoff_tol}, median {median_tol}); router top-{cfg.moe.top_k} sets that "
+        f"differ between engine and forward: {flips[0]} of {flips[1]} (token, layer) pairs")
+    for what, errs in faults.items():
+        log(f"(b) planted fault ({what}): max logit error {errs[0]:.4f}, first decode step "
+            f"{errs[1]:.4f}, median decode step {errs[2]:.4f}")
+    teacher_forced(torch, cfg1, model, run1, forward, logit_tol, handoff_tol,
+                   median_tol=median_tol)
+    missed = [w for w, errs in faults.items() if all(e <= t for e, t in zip(errs, tols))]
+    if missed:
+        raise AssertionError(f"(b) planted faults within the tolerances {b_tol}: {missed}")
+    return launches
 
-    def unnormalised(p, m, xc):  # the planted fault: top-6 weights not renormalised
-        gates = torch.softmax(torch.einsum("gsd,de->gse", xc.float(), p["router"].float()), -1)
-        return torch.topk(gates, m.top_k, dim=-1)
-    orig, layers.moe_route = layers.moe_route, unnormalised
-    try:
-        fault = teacher_forced(torch, cfg1, model, run1, forward, 0, 0, fail=False)
-    finally:
-        layers.moe_route = orig
-    log(f"(b) router_chunk = 1: engine vs teacher-forced max logit error {worst:.4f} (tol "
-        f"{MOE_LOGIT_TOL}, first decode step {MOE_HANDOFF_TOL}); planted fault (combine weights "
-        f"not renormalised): {fault:.3f}; router top-{cfg.moe.top_k} sets that differ between "
-        f"engine and forward: {flips[0]} of {flips[1]} (token, layer) pairs")
-    if fault <= MOE_LOGIT_TOL:
-        raise AssertionError(f"(b) the planted fault reads {fault:.4f} <= tol {MOE_LOGIT_TOL}")
+
+def serve_deepseek(torch, np):
+    """Full-width DeepSeek-V2-Lite: checks (a), (b) and (c) above; the
+    planted faults drop the shared experts (a) and leave the top-6 weights
+    unnormalised (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    return serve_checked(
+        torch, np, cfg,
+        ("no shared experts",
+         lambda m: [b.moe.shared["wd"] for b in m.layers if hasattr(b, "moe")]),
+        [("combine weights not renormalised",
+          lambda: patched(layers, "moe_route", unnormalised_route(torch)), "forward")],
+        (MOE_LOGIT_TOL, MOE_HANDOFF_TOL, None),
+        after_a=lambda model: moe_drop_check(torch, np, cfg, model))
+
+
+# --------------------------------------------------------------------------- #
+# the hybrid, encoder and VLM serving paths, and Arctic at reduced depth
+# --------------------------------------------------------------------------- #
+# Jamba-v0.1 at 16 of its 32 layers (2 of its 4 super-block repeats: 26.0 B
+# parameters, 48.4 GiB in bf16; 3 repeats would be 73.1 GiB and leave no room
+# for init_params' 3.5 GiB f32 draw and the serving temporaries).  (b) holds
+# the engine against a teacher-forced forward, bf16 end to end: decode runs
+# the SSD recurrence on the cached state and plain attention over the bf16
+# cache where the forward runs the scan and flash kernels.  With 16 experts
+# top-2, a near tie that bf16 rounding resolves one way in the engine and
+# the other in the forward swaps half of a layer's MoE output: 27 of 12,952
+# (token, layer) routes differ, and single steps jump (to 1.71 of logits of
+# ~5; H100, PERF.md §6) while the median decode step reads 0.160.  So
+# three bounds: the first decode step (which reads only what prefill
+# cached: 0.09) within 0.5, the median decode step within 0.3, every step
+# within 4.0.  Planted faults (max / first / median): an SSM state that does
+# not reach its slot 2.37 / 2.37 / 0.56, a conv window that does not roll
+# 8.0 / 0.09 / 5.84, prefill k/v that do not reach the slot 3.48 / 2.26 /
+# 2.66, decode k/v not written 2.26 / 0.09 / 0.39, top-2 weights not
+# renormalised 2.59 / 2.34 / 2.37: each reads above one bound.
+JAMBA_LAYERS = 16
+JAMBA_LOGIT_TOL, JAMBA_HANDOFF_TOL, JAMBA_MEDIAN_TOL = 4.0, 0.5, 0.3
+# Arctic at 2 of its 35 layers: 27.2 B parameters, 51.5 GiB in bf16 (~888
+# GiB in full).  Its checks are DeepSeek's (a) and (b), with the dense
+# residual zeroed as (a)'s planted fault.  As in Jamba, top-2 routes that
+# flip between engine and forward move single steps (1 of 3,238 (token,
+# layer) routes: 0.50; H100, PERF.md §6), so (b) bounds the first
+# decode step (0.031) and the median decode step (0.031) by DeepSeek's 0.25
+# and every step by 4.0; the planted fault (top-2 weights not
+# renormalised) reads 1.20 / 1.04 / 0.96.
+ARCTIC_LAYERS = 2
+ARCTIC_LOGIT_TOL = 4.0
+# HuBERT-XLarge at full depth: 8 clips of 1500 frames (30 s of audio at 50
+# frames/s), frame embeddings from synth_inputs.  (a) prefill's last logits
+# against train's (the same kernels on the same shapes); the planted fault
+# is the causal route the port took before (``gqa_flash_attention``, causal
+# whatever it is given) in the prefill.  (b) bidirectionality: a new last
+# frame must move the first frame's logits by more than HUBERT_REACH; the
+# causal route leaves them bit for bit unchanged.  (c) one full-width layer
+# against ``plain_encoder_layer``, relative to the largest output, attention
+# sublayer and whole layer apart, bf16 as tests/test_torch_serve.py sets it;
+# a causal plain layer must read above it.
+HUBERT_CLIPS, HUBERT_FRAMES = 8, 1500
+HUBERT_PREFILL_TOL, HUBERT_REACH, ENCODER_LAYER_TOL = 0.25, 1e-2, 5e-2
+# LLaVA-NeXT (Mistral-7B) at full depth: 8 requests, each one image (576
+# embedding rows) and 576 text tokens, prefilled as one batch, then 32
+# decode ticks; logits against a teacher-forced forward over image, text and
+# the generated tokens at TinyLlama's tolerance (bf16, 32 layers).  Planted
+# faults: the image rows left out of the forward, and decode positions
+# restarting at the text.
+LLAVA_BATCH, LLAVA_SEQ, LLAVA_TICKS = 8, 1152, 32
+
+
+def splice_without(engine_mod, left_out):
+    """An engine ``_splice_cache`` that leaves the leaves ``left_out`` out of
+    the slot (a planted fault: a prefill's SSM state, or its attention k/v,
+    that does not reach its slot)."""
+    splice = engine_mod._splice_cache
+
+    def spliced(cache, single, slot):
+        splice({"segments": {seg: {pj: {n: t for n, t in leaves.items() if n not in left_out}
+                                   for pj, leaves in ps.items()}
+                             for seg, ps in cache["segments"].items()}}, single, slot)
+        return cache
+    return spliced
+
+
+def stale_conv(ssm_mod):
+    """An SSM ``_causal_conv`` that hands back the window it was given (a
+    planted fault: a decode whose conv window does not roll)."""
+    conv = ssm_mod._causal_conv
+
+    def stale(p, xBC, carry=None):
+        out, new = conv(p, xBC, carry)
+        return out, (new if carry is None else carry.to(new.dtype))
+    return stale
+
+
+def serve_jamba(torch, np):
+    """Jamba's ``super`` segment at 16 layers and full width: the standard
+    traffic, checks (a) and (b); (a)'s planted fault silences every mamba2
+    mixer (their output projections zeroed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    return serve_checked(
+        torch, np, cfg,
+        ("mamba2 mixers silenced",
+         lambda m: [b.ssm["wo"] for b in m.layers if hasattr(b, "ssm")]),
+        [("SSM state not spliced into its slot",
+          lambda: patched(engine_mod, "_splice_cache", splice_without(engine_mod, {"ssd"})),
+          "engine"),
+         ("conv window not rolled", lambda: patched(ssm, "_causal_conv", stale_conv(ssm)),
+          "engine"),
+         ("attention k/v not spliced into its slot",
+          lambda: patched(engine_mod, "_splice_cache", splice_without(engine_mod, {"k", "v"})),
+          "engine"),
+         ("decode k/v not written to the cache",
+          lambda: patched(layers, "cache_write", lambda arr, val, pos: arr), "engine"),
+         ("combine weights not renormalised",
+          lambda: patched(layers, "moe_route", unnormalised_route(torch)), "forward")],
+        (JAMBA_LOGIT_TOL, JAMBA_HANDOFF_TOL, JAMBA_MEDIAN_TOL))
+
+
+def serve_arctic(torch, np):
+    """Arctic at 2 layers and full width (128 experts top-2 beside a dense
+    residual): the standard traffic, checks (a) and (b) as DeepSeek's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=ARCTIC_LAYERS)
+    return serve_checked(
+        torch, np, cfg,
+        ("no dense residual", lambda m: [b.moe.residual["wd"] for b in m.layers]),
+        [("combine weights not renormalised",
+          lambda: patched(layers, "moe_route", unnormalised_route(torch)), "forward")],
+        (ARCTIC_LOGIT_TOL, MOE_HANDOFF_TOL, MOE_HANDOFF_TOL))
+
+
+def plain_encoder_layer(torch, cfg, blk, x, causal: bool):
+    """An encoder layer's attention sublayer output and whole output for x
+    [B, S, d] in f32, written apart from ``layers``: f32 rmsnorms, q/k/v
+    and output projections as einsums, k/v heads repeated to the query
+    heads, ``flash_attention_ref`` per head (non-causal unless ``causal``),
+    and silu(h @ wg) * (h @ wu) @ wd."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    assert cfg.rope_theta is None and not cfg.qkv_bias and not cfg.qk_norm
+
+    def norm(t, scale):
+        t = t.float()
+        return t * torch.rsqrt((t * t).mean(-1, keepdim=True) + cfg.norm_eps) * scale.float()
+
+    a, m = blk.attn, blk.mlp
+    B, S, _ = x.shape
+    H, G = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    h = norm(x, blk.ln1["scale"])
+    q, k, v = (torch.einsum("bsd,dhk->bhsk", h, a[n].float()) for n in ("wq", "wk", "wv"))
+    k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    o = flash_attention_ref(*(t.reshape(B * H, S, -1) for t in (q, k, v)), causal=causal)
+    attn = torch.einsum("bhsk,hkd->bsd", o.reshape(B, H, S, -1), a["wo"].float())
+    x1 = x.float() + attn
+    h2 = norm(x1, blk.ln2["scale"])
+    return attn, x1 + (F.silu(h2 @ m["wg"].float()) * (h2 @ m["wu"].float())) @ m["wd"].float()
+
+
+def encoder_layer_check(torch, cfg, model) -> None:
+    """(c) HuBERT's first layer at full width on 2 clips of 1500 frames,
+    bf16, against ``plain_encoder_layer``: the attention sublayer and the
+    whole layer, each relative to its largest magnitude; the causal plain
+    layer is the planted fault."""
+    from repro_torch.models import layers
+
+    blk = model.layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, HUBERT_FRAMES, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    attn = layers.attention_full(blk.attn, cfg, layers.rmsnorm(blk.ln1, x, cfg.norm_eps))
+    out = blk(cfg, x, None, None, "train")
+    errs, faults = {}, {}
+    for causal, into in ((False, errs), (True, faults)):
+        ref_attn, ref_out = plain_encoder_layer(torch, cfg, blk, x, causal)
+        into["attention"] = float((attn.float() - ref_attn).abs().max() / ref_attn.abs().max())
+        into["layer"] = float((out.float() - ref_out).abs().max() / ref_out.abs().max())
+    log(f"(c) encoder layer vs plain, max error / max |out|: {errs} (tol {ENCODER_LAYER_TOL}); "
+        f"planted fault (causal plain layer): {faults}")
+    if max(errs.values()) > ENCODER_LAYER_TOL or min(faults.values()) <= ENCODER_LAYER_TOL:
+        raise AssertionError(f"(c) encoder layer check: errors {errs}, faults {faults}")
+
+
+def encode_hubert(torch, np):
+    """HuBERT-XLarge at full width and depth over 8 clips of 1500 frames: a
+    train forward and a prefill into ``init_cache(cfg, 8, 1500)``, counted
+    and timed; checks (a), (b) and (c) above, each against its planted
+    fault; the forward profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gqa_flash_attention
+    from repro_torch.models import forward, init_cache, layers, synth_inputs
+    from repro_torch.serve import ServeConfig, make_prefill_step
+
+    cfg = get_config("hubert-xlarge")
+    model = init_model(torch, cfg)
+    inputs = synth_inputs(cfg, HUBERT_CLIPS, HUBERT_FRAMES,
+                          torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    assert set(inputs) == {"embeds"}
+    prefill = make_prefill_step(cfg, ServeConfig(max_seq=HUBERT_FRAMES, slots=HUBERT_CLIPS))
+
+    def prefill_fresh(inp):
+        return prefill(model, init_cache(cfg, HUBERT_CLIPS, HUBERT_FRAMES, device="cuda"), inp)
+
+    forward(model, cfg, inputs)  # warm: cuBLAS and the allocator
+    reset_counts(torch)
+    logits, fwd_ms = synced_ms(torch, lambda: forward(model, cfg, inputs))
+    (last, cache), pre_ms = synced_ms(torch, lambda: prefill_fresh(inputs))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frames = HUBERT_CLIPS * HUBERT_FRAMES
+    log(f"encoded {HUBERT_CLIPS} clips of {HUBERT_FRAMES} frames: train forward {fwd_ms:.2f} ms "
+        f"({frames / fwd_ms * 1e3:.0f} frames/s), prefill {pre_ms:.2f} ms "
+        f"({frames / pre_ms * 1e3:.0f} frames/s), peak memory {peak:.2f} GiB")
+    check_launches(launches,
+                   expected_launches(torch, cfg, [HUBERT_FRAMES] * 2, 0, HUBERT_CLIPS,
+                                     batch=HUBERT_CLIPS))
+    if not (logits.shape == (HUBERT_CLIPS, HUBERT_FRAMES, cfg.vocab)
+            and bool(torch.isfinite(logits).all()) and int(cache["pos"]) == HUBERT_FRAMES):
+        raise AssertionError(f"encoder output {tuple(logits.shape)}, pos {int(cache['pos'])}")
+    del cache
+
+    def causal_route(q, k, v):  # the route the port took before: causal whatever it is given
+        return gqa_flash_attention(q, k, v, causal=cfg.causal)
+
+    # (a) prefill's last logits against train's
+    err = float((last.float() - logits[:, -1].float()).abs().max())
+    with patched(layers, "gqa_bidirectional_attention", causal_route):
+        fault_last, _ = prefill_fresh(inputs)
+    fault = float((fault_last.float() - logits[:, -1].float()).abs().max())
+    log(f"(a) prefill vs train forward, last logits: max error {err:.4f} (tol "
+        f"{HUBERT_PREFILL_TOL}); planted fault (causal attention): {fault:.4f}; max |logit| "
+        f"{float(logits.float().abs().max()):.2f}")
+    # (b) a new last frame must reach the first frame
+    bumped = dict(inputs, embeds=inputs["embeds"].clone())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bumped["embeds"][:, -1] = (torch.randn(bumped["embeds"][:, -1].shape, generator=gen,
+                                           device="cuda") * 0.02).to(torch.bfloat16)
+    moved = float((forward(model, cfg, bumped)[:, 0].float() - logits[:, 0].float()).abs().max())
+    with patched(layers, "gqa_bidirectional_attention", causal_route):
+        base = forward(model, cfg, inputs)[:, 0].float()
+        stuck = float((forward(model, cfg, bumped)[:, 0].float() - base).abs().max())
+    log(f"(b) a new last frame moves the first frame's logits by {moved:.4f} (must exceed "
+        f"{HUBERT_REACH}); planted fault (causal attention): {stuck:.4f}")
+    del logits, last, fault_last, base
+    encoder_layer_check(torch, cfg, model)
+    if err > HUBERT_PREFILL_TOL or fault <= HUBERT_PREFILL_TOL:
+        raise AssertionError(f"(a) encoder prefill check: error {err:.4f}, fault {fault:.4f}")
+    if moved <= HUBERT_REACH or stuck > HUBERT_REACH:
+        raise AssertionError(f"(b) bidirectionality: moved {moved:.4f}, fault {stuck:.4f}")
+    profile_steps(torch, {f"forward ({HUBERT_CLIPS} x {HUBERT_FRAMES} frames)":
+                          lambda: forward(model, cfg, inputs)})
+    return launches
+
+
+def serve_llava(torch, np):
+    """LLaVA-NeXT-Mistral-7B at full width and depth: 8 requests of one
+    image (576 embedding rows) and 576 text tokens, prefilled as one batch
+    through ``make_prefill_step``, then 32 ``make_decode_step`` ticks
+    (greedy), counted and timed; every request's logits against a
+    teacher-forced forward over image, text and generated tokens, with
+    planted faults; one prefill and one tick profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, frontend_token_split, init_cache, synth_inputs
+    from repro_torch.serve import ServeConfig, make_decode_step, make_prefill_step
+
+    cfg = get_config("llava-next-mistral-7b")
+    model = init_model(torch, cfg)
+    n_img, n_txt = frontend_token_split(cfg, LLAVA_SEQ)
+    inputs = synth_inputs(cfg, LLAVA_BATCH, LLAVA_SEQ,
+                          torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    assert inputs["embeds"].shape[1] == n_img and inputs["tokens"].shape[1] == n_txt
+    scfg = ServeConfig(max_seq=MAX_SEQ, slots=LLAVA_BATCH)
+    prefill, decode = make_prefill_step(cfg, scfg), make_decode_step(cfg, scfg)
+
+    def generate(text_pos=False):
+        """(tokens [B, 1 + ticks], logits [1 + ticks, B, V] f32, prefill ms,
+        tick ms); ``text_pos`` restarts the decode positions at the text (a
+        planted fault)."""
+        cache = init_cache(cfg, LLAVA_BATCH, scfg.max_seq, device="cuda")
+        (last, cache), pre_ms = synced_ms(torch, lambda: prefill(model, cache, inputs))
+        if text_pos:
+            cache["pos"] = torch.tensor(n_txt, device="cuda")
+        toks, rows, tick_ms = [last.argmax(-1)], [last.float()], []
+        for _ in range(LLAVA_TICKS):
+            (lg, cache), ms = synced_ms(torch, lambda: decode(model, cache, toks[-1][:, None]))
+            toks.append(lg.argmax(-1))
+            rows.append(lg.float())
+            tick_ms.append(ms)
+        return torch.stack(toks, 1), torch.stack(rows), pre_ms, tick_ms, cache
+
+    generate()  # warm
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    toks, rows, pre_ms, tick_ms, cache = generate()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"served {LLAVA_BATCH} requests (one image of {n_img} rows and {n_txt} text tokens each, "
+        f"{LLAVA_TICKS + 1} new tokens) in {wall:.3f} s: {toks.numel() / wall:.1f} tokens/s, "
+        f"prefill {pre_ms:.2f} ms, {LLAVA_TICKS} decode ticks mean {np.mean(tick_ms):.2f} ms, "
+        f"peak memory {peak:.2f} GiB")
+    check_launches(launches,
+                   expected_launches(torch, cfg, [LLAVA_SEQ], LLAVA_TICKS, LLAVA_BATCH,
+                                     batch=LLAVA_BATCH))
+    if int(cache["pos"]) != LLAVA_SEQ + LLAVA_TICKS or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"cache pos {int(cache['pos'])}, finite {torch.isfinite(rows).all()}")
+    last_cache = cache
+    del cache
+
+    def errors(rows, with_image=True):
+        """Per step, the largest |engine - teacher-forced| logit over the batch."""
+        text = torch.cat([inputs["tokens"].long(), toks[:, :-1]], dim=1)
+        inp = {"embeds": inputs["embeds"], "tokens": text} if with_image else {"tokens": text}
+        tf = forward(model, cfg, inp)[:, -(LLAVA_TICKS + 1):].float().movedim(1, 0)
+        return (rows - tf).abs().amax(dim=(1, 2)), float(tf.abs().max())
+
+    step_err, scale = errors(rows)
+    no_image, _ = errors(rows, with_image=False)
+    _, restarted, *_ = generate(text_pos=True)
+    restart, _ = errors(restarted)
+    log(f"teacher-forced over image + text + generated: per-step max logit error "
+        f"{[round(e, 3) for e in step_err.tolist()]} (tol {LOGIT_TOL}), max |logit| {scale:.2f}; "
+        f"planted faults: image rows left out {float(no_image.max()):.3f}, positions restarting "
+        f"at the text {float(restart.max()):.3f}")
+    if (float(step_err.max()) > LOGIT_TOL or float(no_image.max()) <= LOGIT_TOL
+            or float(restart.max()) <= LOGIT_TOL):
+        raise AssertionError(f"VLM check: error {float(step_err.max()):.4f}, faults "
+                             f"{float(no_image.max()):.4f} / {float(restart.max()):.4f}")
+    del rows, restarted
+    profile_steps(torch, {
+        f"prefill ({LLAVA_BATCH} x {LLAVA_SEQ} positions)":
+            lambda: prefill(model, init_cache(cfg, LLAVA_BATCH, scfg.max_seq, device="cuda"),
+                            inputs),
+        f"decode tick ({LLAVA_BATCH} requests)":
+            lambda: decode(model, last_cache, toks[:, -1:]),
+    })
     return launches
 
 
@@ -1165,23 +1724,27 @@ def routed_differences(torch, cfg, model, run, routes, forward):
     return differing, compared
 
 
-def profile_steps(torch, engine, prompt) -> None:
-    """Device time by kernel for one prefill of ``prompt`` and one decode
-    tick of the full slot pool (after the counted run).  Wall time is taken
-    without the profiler; the device's busy time with it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def engine_steps(torch, engine, prompt) -> dict:
+    """One prefill of ``prompt`` and one decode tick of the full slot pool
+    (after the counted run), as ``profile_steps`` takes them."""
     from repro_torch.models import init_cache
 
     toks = torch.tensor(prompt, device="cuda")[None]
     cfg, scfg = engine.cfg, engine.scfg
-    steps = {
+    return {
         f"prefill ({len(prompt)} tokens)": lambda: engine._prefill1(
-            engine.params, init_cache(cfg, 1, scfg.max_seq), {"tokens": toks}),
+            engine.params, init_cache(cfg, 1, scfg.max_seq, device="cuda"), {"tokens": toks}),
         f"decode tick ({scfg.slots} slots)": lambda: engine._decode(
             engine.params, engine.cache, engine.next_tok),
     }
+
+
+def profile_steps(torch, steps: dict) -> None:
+    """Device time by kernel for each of ``steps`` (name -> call).  Wall time
+    is taken without the profiler; the device's busy time with it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -1923,10 +2486,12 @@ def frontend_phase(torch, shared: dict) -> dict:
     return {"full_width": full, "drill": drill}
 
 
-def log_allocated(torch) -> None:
-    """What the previous phases left allocated on the card."""
-    log(f"device memory allocated at the start of the phase: "
-        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+def log_allocated(torch) -> float:
+    """Print and return what the previous phases left allocated on the card
+    (GiB)."""
+    gib = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory allocated at the start of the phase: {gib:.3f} GiB")
+    return gib
 
 
 def release(torch) -> None:
@@ -1937,7 +2502,17 @@ def release(torch) -> None:
 
 
 def main() -> None:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help="development: run the build and only these comma-separated "
+                             "phases (kernels, tinyllama, mamba2, deepseek, jamba, hubert, "
+                             "llava, arctic), then exit 2 with no result")
+    args = parser.parse_args()
+    only = {p for p in args.only.split(",") if p}
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1969,25 +2544,37 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     log(f"  {lib.name}: {line.strip()}")
 
-    with phase("kernels"):
-        timer = Timer(torch)
-        rows = check_kernels(torch, timer)
-        del timer
+    if not only or "kernels" in only:
+        with phase("kernels"):
+            timer = Timer(torch)
+            rows = check_kernels(torch, timer)
+            del timer
+        release(torch)
 
     # each kernel's launches are read from the serving run whose path it is on
     launches = {}
-    with phase("serve tinyllama-1.1b"):
-        log_allocated(torch)
-        launches["tinyllama"] = serve(torch, np, "tinyllama-1.1b", LOGIT_TOL, LOGIT_TOL)
-    release(torch)
-    with phase("serve mamba2-370m"):
-        log_allocated(torch)
-        launches["mamba2"] = serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)
-    release(torch)
-    with phase("serve deepseek-v2-lite-16b"):
-        log_allocated(torch)
-        launches["deepseek"] = serve_deepseek(torch, np)
-    release(torch)
+    serving = [("serve tinyllama-1.1b", "tinyllama",
+                lambda: serve(torch, np, "tinyllama-1.1b", LOGIT_TOL, LOGIT_TOL)),
+               ("serve mamba2-370m", "mamba2",
+                lambda: serve(torch, np, "mamba2-370m", MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL)),
+               ("serve deepseek-v2-lite-16b", "deepseek", lambda: serve_deepseek(torch, np)),
+               (f"serve jamba-v0.1-52b ({JAMBA_LAYERS} layers)", "jamba",
+                lambda: serve_jamba(torch, np)),
+               ("encode hubert-xlarge", "hubert", lambda: encode_hubert(torch, np)),
+               ("serve llava-next-mistral-7b", "llava", lambda: serve_llava(torch, np)),
+               (f"serve arctic-480b ({ARCTIC_LAYERS} layers)", "arctic",
+                lambda: serve_arctic(torch, np))]
+    for name, path, run in serving:
+        if only and path not in only:
+            continue
+        with phase(name):
+            if log_allocated(torch) >= 1.0:  # the last model must be gone before the next
+                raise AssertionError("a previous phase left 1 GiB or more allocated")
+            launches[path] = run()
+        release(torch)
+    if only:
+        log(f"partial run ({', '.join(sorted(only))}): no result")
+        sys.exit(2)
     with phase(f"cnn inception-{CNN_HW}"):
         log_allocated(torch)
         cnn, shared = cnn_phase(torch)
@@ -2023,7 +2610,20 @@ def main() -> None:
                  ("swiglu_matmul", "experts_decode", 8, "deepseek", ""),
                  ("swiglu_matmul", "experts_cuda_core", 120, "deepseek", ""),
                  ("ssd_scan", "wgmma", 1024, "mamba2", ""),
-                 ("ssd_scan", "cuda_core", 1024, "mamba2", "")]
+                 ("ssd_scan", "cuda_core", 1024, "mamba2", ""),
+                 # the hybrid, encoder, VLM and Arctic paths' shapes; each
+                 # row's launches are its variant's on the path named
+                 ("flash_attention", "mma", "hubert", "hubert", " D=80 non-causal"),
+                 ("swiglu_matmul", "wgmma", "d4096", "jamba", " D=4096 F=14336"),
+                 ("swiglu_matmul", "decode", "d4096", "jamba", " D=4096 F=14336"),
+                 ("swiglu_matmul", "wgmma", "hubert", "hubert", " D=1280 F=5120"),
+                 ("swiglu_matmul", "wgmma", "d7168", "arctic", " D=7168 F=4864"),
+                 ("swiglu_matmul", "decode", "d7168", "arctic", " D=7168 F=4864"),
+                 ("swiglu_matmul", "experts_wgmma", "jamba160", "jamba", " E=16 M=160"),
+                 ("swiglu_matmul", "experts_decode", "jamba8", "jamba", " E=16 M=8"),
+                 ("swiglu_matmul", "experts_decode", "arctic20", "arctic", " E=128 M=20"),
+                 ("swiglu_matmul", "experts_decode", "arctic8", "arctic", " E=128 M=8"),
+                 ("ssd_scan", "wgmma", "jamba", "jamba", " Jamba N=16")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")

@@ -1,4 +1,6 @@
-from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, ssd_mixer
+from repro_torch.kernels.ops import (
+    fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention, ssd_mixer,
+)
 from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_attention
 from repro_torch.kernels.flash_attention import select_variant as select_flash_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
@@ -14,6 +16,7 @@ LIBRARIES = (FLASH_LIBRARY, SWIGLU_LIBRARY, SSD_LIBRARY)
 
 __all__ = [
     "gqa_flash_attention",
+    "gqa_bidirectional_attention",
     "ssd_mixer",
     "fused_swiglu",
     "flash_attention",

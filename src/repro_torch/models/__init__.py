@@ -1,3 +1,9 @@
+from repro_torch.models.frontends import (
+    VLM_IMAGE_TOKENS,
+    frontend_token_split,
+    input_structs,
+    synth_inputs,
+)
 from repro_torch.models.transformer import (
     Block,
     LayerSlot,
@@ -24,6 +30,7 @@ from repro_torch.models.slicing import (
 )
 
 __all__ = ["Block", "LayerSlot", "SSMBlock", "Transformer", "decode_step", "forward",
-           "init_cache", "init_params", "layer_plan", "segments", "SLICEABLE_OPS", "Tiling", "choose_slice_factors", "model_tilings",
-           "search_slice_factors", "slice_model", "slicing_summary", "tile_bounds",
-           "tiling_leaves", "uniform_factors"]
+           "init_cache", "init_params", "layer_plan", "segments", "VLM_IMAGE_TOKENS",
+           "frontend_token_split", "input_structs", "synth_inputs", "SLICEABLE_OPS", "Tiling",
+           "choose_slice_factors", "model_tilings", "search_slice_factors", "slice_model",
+           "slicing_summary", "tile_bounds", "tiling_leaves", "uniform_factors"]

@@ -6,7 +6,8 @@ tensors in the reference's layouts (``[B, S, H, D]``), so the parity tests
 compare like with like.  Where the reference computes attention with
 ``chunked_attention`` over the whole sequence (train and prefill, GQA and
 MLA), the port calls the CUDA flash-attention kernel through
-``ops.gqa_flash_attention``; every SwiGLU MLP (dense, shared experts, dense
+``ops.gqa_flash_attention`` (causal) or ``ops.gqa_bidirectional_attention``
+(an encoder's); every SwiGLU MLP (dense, shared experts, dense
 residual) goes through the fused SwiGLU kernel, and the routed experts'
 gate/up products through its expert-batched form.  Decode attention stays
 plain torch, as in the reference: ``chunked_attention`` for GQA, the
@@ -24,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoESpec
-from repro_torch.kernels.ops import fused_swiglu, gqa_flash_attention, swiglu_experts
+from repro_torch.kernels.ops import (
+    fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention, swiglu_experts,
+)
 
 F32 = torch.float32
 NEG_INF = -1e30  # finite, as in the reference: a fully masked row stays finite
@@ -153,10 +156,20 @@ def _prompt_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
+def _attend(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Whole-sequence attention as the reference's ``chunked_attention(...,
+    causal=cfg.causal)``: a decoder's through ``gqa_flash_attention``, an
+    encoder's (HuBERT) through the non-causal entry (that wrapper is causal
+    whatever it is given, as the reference's wrapper is)."""
+    if cfg.causal:
+        return gqa_flash_attention(q, k, v, causal=True)
+    return gqa_bidirectional_attention(q, k, v)
+
+
 def attention_full(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Train/prefill attention over the whole sequence (no cache returned)."""
     q, k, v = attention_qkv(p, cfg, x, _prompt_positions(x))
-    return _out_proj(p, gqa_flash_attention(q, k, v, causal=cfg.causal))
+    return _out_proj(p, _attend(cfg, q, k, v))
 
 
 def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -167,7 +180,7 @@ def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
     q, k, v = attention_qkv(p, cfg, x, _prompt_positions(x))
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
-    return _out_proj(p, gqa_flash_attention(q, k, v, causal=cfg.causal)), cache
+    return _out_proj(p, _attend(cfg, q, k, v)), cache
 
 
 def cache_write(arr: torch.Tensor, val: torch.Tensor, pos: Pos) -> torch.Tensor:

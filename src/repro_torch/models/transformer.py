@@ -1,14 +1,15 @@
-"""Decoder-only LMs (dense, MoE/MLA and SSM): parameters, cache and the three entry points.
+"""Model assembly for every family of the registry (dense, MoE/MLA, SSM,
+hybrid, audio encoder and VLM): parameters, cache and the three entry points.
 
-Port of ``repro/models/transformer.py`` but its ``super`` segment (hybrid
-SSM/attention) and frontends.  :func:`segments` is the reference's
+Port of ``repro/models/transformer.py``.  :func:`segments` is the reference's
 structural plan, copied verbatim: a list of segments, each ``repeat`` times
 a pattern of (mixer, ffn) positions.  The reference stacks each position's
 parameters under ``segments/<name>/p<j>`` with a leading ``[repeat]`` dim
 and runs them with ``lax.scan``; here each layer is a :class:`Block`
 (attention, GQA or MLA, then a SwiGLU or MoE FFN) or an :class:`SSMBlock`
-(a mamba2 mixer, no FFN) in an ``nn.ModuleList`` in layer order, and the
-scan is a Python loop (``Transformer.plan`` maps layer i to its segment,
+(a mamba2 mixer, then no FFN in a pure SSM model, a SwiGLU or MoE FFN in
+Jamba's hybrid ``super`` segment) in an ``nn.ModuleList`` in layer order,
+and the scan is a Python loop (``Transformer.plan`` maps layer i to its segment,
 position j and repeat k: i = segment offset + k·P + j).  The cache keeps
 the reference's tree and stacked layouts (``[repeat, B, Smax, KV, D]``
 k/v; ``[repeat, B, Smax, r]`` MLA latent and ``[repeat, B, Smax, rope]``
@@ -44,21 +45,6 @@ __all__ = ["Transformer", "Block", "SSMBlock", "LayerSlot", "segments", "layer_p
 _ONES = {"scale", "q_norm", "k_norm", "kv_norm", "Dskip", "norm"}
 _ZEROS = {"bq", "bk", "bv", "dt_bias", "A_log", "conv_b"}
 _EMBED_SCALE = 0.02
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside the ported slices."""
-    todo = (
-        (cfg.hybrid is not None,
-         "hybrid SSM/attention models (with the super segment) are not ported yet"),
-        (cfg.frontend is not None or not cfg.causal,
-         "audio/vision frontends and encoder-only models are not ported yet"),
-    )
-    for hit, what in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} (ROADMAP Queue 1, item 8b: the super segment and "
-                f"frontend serving)")
 
 
 def segments(cfg: ArchConfig) -> List[Dict[str, Any]]:
@@ -121,10 +107,36 @@ class MoEParams(nn.Module):
         return getattr(self, key)
 
 
+def _add_ffn(block: nn.Module, cfg: ArchConfig, ffn: str, device, dtype) -> None:
+    """A layer's FFN leaves (``_ffn_defs`` of the reference): ``ln2`` and a
+    SwiGLU ``mlp`` (``"dense"``) or a ``moe`` layer; none for ``"none"``."""
+    if ffn == "none":
+        return
+    d = cfg.d_model
+    block.ln2 = _pdict({"scale": (d,)}, device, dtype)
+    if ffn == "moe":
+        block.moe = MoEParams(cfg, device, dtype)
+    elif ffn == "dense":
+        block.mlp = _pdict({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)},
+                           device, dtype)
+    else:
+        raise ValueError(f"unknown ffn {ffn!r}")
+
+
+def _apply_ffn(block: nn.Module, cfg: ArchConfig, x: torch.Tensor, moe_impl: str):
+    """``_apply_ffn`` of the reference: the residual FFN, if the layer has one."""
+    if hasattr(block, "moe"):
+        h = L.rmsnorm(block.ln2, x, cfg.norm_eps)
+        return x + L.moe_layer(block.moe, cfg, h, impl=moe_impl)
+    if hasattr(block, "mlp"):
+        return x + L.mlp(block.mlp, L.rmsnorm(block.ln2, x, cfg.norm_eps))
+    return x
+
+
 class Block(nn.Module):
-    """One pre-norm decoder layer: rmsnorm → attention (GQA, or MLA where the
-    config has it) → rmsnorm → FFN (``ffn``: a SwiGLU ``"dense"`` or a
-    ``"moe"`` layer)."""
+    """One pre-norm decoder (or encoder) layer: rmsnorm → attention (GQA, or
+    MLA where the config has it) → rmsnorm → FFN (``ffn``: a SwiGLU
+    ``"dense"`` or a ``"moe"`` layer)."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16, ffn: str = "dense"):
         super().__init__()
@@ -139,14 +151,7 @@ class Block(nn.Module):
                 attn.update(q_norm=(Dh,), k_norm=(Dh,))
         self.ln1 = _pdict({"scale": (d,)}, device, dtype)
         self.attn = _pdict(attn, device, dtype)
-        self.ln2 = _pdict({"scale": (d,)}, device, dtype)
-        if ffn == "moe":
-            self.moe = MoEParams(cfg, device, dtype)
-        elif ffn == "dense":
-            self.mlp = _pdict({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)},
-                              device, dtype)
-        else:
-            raise ValueError(f"unknown ffn {ffn!r}")
+        _add_ffn(self, cfg, ffn, device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
         h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
@@ -159,28 +164,27 @@ class Block(nn.Module):
             o, _ = attend(self.attn, cfg, h, cache)
         else:
             o = (L.mla_attention_full if mla else L.attention_full)(self.attn, cfg, h)
-        x = x + o
-        h = L.rmsnorm(self.ln2, x, cfg.norm_eps)
-        if hasattr(self, "moe"):
-            return x + L.moe_layer(self.moe, cfg, h, impl=moe_impl)
-        return x + L.mlp(self.mlp, h)
+        return _apply_ffn(self, cfg, x + o, moe_impl)
 
 
 class SSMBlock(nn.Module):
-    """One pre-norm mamba2 layer: rmsnorm → SSD mixer (no FFN).  ``dt_bias``,
-    ``A_log`` and ``Dskip`` stay f32 whatever the model's dtype, as in the
-    reference."""
+    """One pre-norm mamba2 layer: rmsnorm → SSD mixer, then the FFN a hybrid
+    pattern gives the position (``ffn``: ``"none"`` in a pure SSM model, a
+    SwiGLU ``"dense"`` or a ``"moe"`` layer in Jamba's ``super`` segment).
+    ``dt_bias``, ``A_log`` and ``Dskip`` stay f32 whatever the model's
+    dtype, as in the reference."""
 
-    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16, ffn: str = "none"):
         super().__init__()
         self.ln1 = _pdict({"scale": (cfg.d_model,)}, device, dtype)
         self.ssm = nn.ParameterDict({
             n: _param(shape, device, torch.float32 if n in S.F32_LEAVES else dtype)
             for n, shape in S.ssm_defs(cfg).items()})
+        _add_ffn(self, cfg, ffn, device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
         o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos, mode)
-        return x + o
+        return _apply_ffn(self, cfg, x + o, moe_impl)
 
 
 class LayerSlot(NamedTuple):
@@ -201,12 +205,13 @@ def layer_plan(cfg: ArchConfig) -> List[LayerSlot]:
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense, MoE/MLA or SSM LM (``model_defs`` of the
-    reference) on one device, one module a layer, in layer order."""
+    """Parameters of an LM of any family of the registry (``model_defs`` of
+    the reference) on one device, one module a layer, in layer order: each
+    slot's (mixer, ffn) of :func:`segments` makes a :class:`Block` or an
+    :class:`SSMBlock`."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab
         self.embed = _param((V, d), device, dtype)
@@ -214,8 +219,8 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else _param((d, V), device, dtype)
         self.plan = layer_plan(cfg)
         self.layers = nn.ModuleList(
-            SSMBlock(cfg, device, dtype) if slot.mixer == "ssm"
-            else Block(cfg, device, dtype, ffn=slot.ffn) for slot in self.plan)
+            (SSMBlock if slot.mixer == "ssm" else Block)(cfg, device, dtype, ffn=slot.ffn)
+            for slot in self.plan)
 
 
 def _default_scale(shape: Tuple[int, ...]) -> float:
@@ -234,9 +239,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     which for MLA's ``wq [d, H, nope+rope]`` and ``w_uk``/``w_uv [r, H, *]``
     is the head count, as in the reference.  The router and the SSM's f32
     leaves stay f32.
-    The normals come from ``generator`` (drawn in f32 on its device, then cast),
-    so they differ from ``jax.random``'s; tests that compare the two packages
-    convert the reference's weights with ``params_from_numpy`` instead."""
+    The normals come from ``generator`` (drawn in f32 on its device, scaled
+    in place, then cast: one f32 temporary of the largest leaf, 16.6 GiB for
+    Arctic's experts), so they differ from ``jax.random``'s; tests that
+    compare the two packages convert the reference's weights with
+    ``params_from_numpy`` instead."""
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
     for name, prm in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -251,8 +258,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 scale = 1.0 / cfg.ssm.conv_width
             else:
                 scale = _default_scale(tuple(prm.shape))
-            draw = torch.randn(prm.shape, generator=generator, device=generator.device)
-            prm.copy_(draw * scale)
+            # one f32 temporary, freed before the next leaf's draw
+            prm.copy_(torch.randn(prm.shape, generator=generator,
+                                  device=generator.device).mul_(scale))
     return model
 
 
@@ -287,6 +295,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return {"segments": segs, "pos": torch.zeros((), dtype=torch.int64, device=dev)}
 
 
+def _embed(params: Transformer, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The reference's ``_embed``: frontend ``embeds`` [B, S_e, d] (cast to
+    the embedding's dtype), then the ``tokens``' embeddings, concatenated
+    along the sequence; either may be absent."""
+    parts = []
+    if inputs.get("embeds") is not None:
+        parts.append(inputs["embeds"].to(params.embed.dtype))
+    if inputs.get("tokens") is not None:
+        parts.append(params.embed[inputs["tokens"]])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def _unembed(params: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -307,7 +327,8 @@ def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str,
 
 def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
             mode: str = "train", cache=None, moe_impl: str = "einsum"):
-    """inputs: {tokens: [B,S] int} (``embeds`` come with the frontend slice).
+    """inputs: {tokens: [B,S] int} and/or {embeds: [B,S,d]} (frontend
+    embeddings, which come first; ``models/frontends.py``).
 
     mode="train": returns logits.  mode="prefill": returns (logits, cache);
     ``cache`` must be a fresh ``init_cache`` tree, and is filled in place.
@@ -315,7 +336,7 @@ def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = params.embed[inputs["tokens"]]
+    x = _embed(params, inputs)
     x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode, moe_impl)
     logits = _unembed(params, cfg, x)
     if mode == "prefill":

@@ -11,7 +11,11 @@ The steps run eagerly on the engine's device (CUDA unless the caller passes
 ``device="cpu"``); prefill attention (GQA or MLA), every SwiGLU MLP, the
 routed experts' products and the SSD scan of every mamba2 prefill go through
 the port's CUDA kernels there.  The cache (k/v, MLA's latent and rope key,
-or an SSM's conv window and state) is updated in place.  The
+an SSM's conv window and state, or Jamba's mix of both in its ``super``
+segment) is updated in place.  The engine takes token prompts, as the
+reference's does; a VLM's image embeddings go through the pure steps
+(``make_prefill_step`` with ``{"embeds", "tokens"}``, then
+``make_decode_step``), which the dry run's prefill and decode cells lower.  The
 reference's steps return an SSM's conv window in the activations' dtype and
 its engine keeps what they return, so here the window takes that dtype before
 a step writes it (see :func:`_conv_in`).
@@ -46,7 +50,8 @@ class ServeConfig:
 
 
 def make_prefill_step(cfg: ArchConfig, scfg: ServeConfig) -> Callable:
-    """(params, cache, inputs) -> (last_logits [B,V], cache)."""
+    """(params, cache, inputs) -> (last_logits [B,V], cache); ``inputs``:
+    ``{"tokens"}``, ``{"embeds"}`` or both (``T.forward``)."""
 
     def step(params, cache, inputs):
         logits, cache = T.forward(params, cfg, inputs, mode="prefill", cache=cache,

@@ -394,6 +394,159 @@ def test_mixed_devices_raise(card):
 
 
 # --------------------------------------------------------------------------- #
+# the hybrid, encoder, VLM and Arctic paths' shapes
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sq,Sk", [(100, 100), (1500, 1500), (77, 130), (130, 77), (1, 100)])
+def test_flash_head_dim_80(card, causal, Sq, Sk):
+    """HuBERT's head dim 80 in bf16 through the mma kernel (its 128-wide
+    tile, loads masked past 80): ragged S, Sq != Sk both ways, one query,
+    non-causal (the encoder's) and causal."""
+    assert select_flash_variant(80, 80, torch.bfloat16) == "mma"
+    q, k, v = _inputs(card, 14, [(4, Sq, 80), (4, Sk, 80), (4, Sk, 80)], torch.bfloat16)
+    before = FLASH_LIBRARY.counts["mma"]
+    out = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.counts["mma"] == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [37, 300])
+def test_encoder_attention_on_card(card, dtype, S):
+    """A non-causal GQA layer (``layers.attention_full`` and
+    ``attention_prefill`` of a HuBERT-shaped config: 4 heads of 80 on 2 kv
+    heads, no rope) on the card through the non-causal entry, against the
+    same layer on the CPU (the plain version); the causal route differs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), d_model=256, n_heads=4,
+                              n_kv_heads=2, head_dim=80)
+    rng = np.random.default_rng(15)
+    p = {n: torch.from_numpy((rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)).to(dtype)
+         for n, s in (("wq", (256, 4, 80)), ("wk", (256, 2, 80)), ("wv", (256, 2, 80)),
+                      ("wo", (4, 80, 256)))}
+    (x,) = _inputs("cpu", 16, [(2, S, 256)], dtype)
+    want = layers.attention_full(p, cfg, x).float()
+    pc = {n: t.to(card) for n, t in p.items()}
+    before = FLASH_LIBRARY.launches
+    got = layers.attention_full(pc, cfg, x.to(card)).float().cpu()
+    cache = {n: torch.zeros((2, S + 3, 2, 80), dtype=torch.bfloat16, device=card)
+             for n in ("k", "v")}
+    pre, cache = layers.attention_prefill(pc, cfg, x.to(card), cache)
+    assert FLASH_LIBRARY.launches == before + 2
+    tol = _tol(dtype, 1e-4, 5e-2) * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(pre.float().cpu(), want, rtol=0, atol=tol)
+    assert not bool(cache["k"][:, S:].any())
+    causal = layers.attention_full(p, dataclasses.replace(cfg, causal=True), x).float()
+    assert float((causal - want).abs().max()) > 10 * tol
+
+
+def _card_randn(card, seed, shape, dtype, scale=1.0):
+    """Normals drawn on the card (the path's expert weights are too large to
+    draw on the host)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=card).mul_(scale).to(dtype)
+
+
+@pytest.mark.parametrize("E,M,D,F", [(16, 160, 4096, 14336), (16, 8, 4096, 14336),
+                                     (16, 100, 4096, 14336), (128, 20, 7168, 4864),
+                                     (128, 8, 7168, 4864)])
+def test_swiglu_experts_path_shapes(card, E, M, D, F):
+    """The expert entries at Jamba's experts (16 of D 4096, F 14336: a
+    prefill's capacity of 160 rows, a shorter prompt's 100, a tick's 8) and
+    Arctic's (128 of D 7168, F 4864: 20 rows, 8), bf16, against the plain
+    version on the card."""
+    variant = select_experts_variant(M, D, F, torch.bfloat16)
+    assert variant == ("experts_wgmma" if M >= 64 else "experts_decode")
+    x = _card_randn(card, 17, (E, M, D), torch.bfloat16)
+    wg = _card_randn(card, 18, (E, D, F), torch.bfloat16, D ** -0.5)
+    wu = _card_randn(card, 19, (E, D, F), torch.bfloat16, D ** -0.5)
+    before = dict(SWIGLU_LIBRARY.counts)
+    out = swiglu_experts(x, wg, wu)
+    assert SWIGLU_LIBRARY.counts[variant] == before[variant] + 1
+    torch.testing.assert_close(out.float(), swiglu_experts_ref(x, wg, wu).float(), atol=5e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("Bsz,S", [(1, 300), (2, 1000), (1, 1)])
+def test_ssd_mixer_jamba_layout(card, Bsz, S):
+    """The SSD scan on Jamba's mixer layout: x, B and C as views of one conv
+    output [B, S, 8192 + 2·16] (row stride 8224, C from element 8208), 128
+    heads of 64, state width 16, one group; one wgmma launch, equal to the
+    CPU mixer (the plain version)."""
+    H, G, P, N = 128, 1, 64, 16
+    rng = np.random.default_rng(20)
+    buf = torch.from_numpy((rng.standard_normal((Bsz, S, H * P + 2 * G * N)) * 0.5)
+                           .astype(np.float32)).to(card, torch.bfloat16)
+    x = buf[..., :H * P].reshape(Bsz, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    assert buf.stride(1) == 8224 and Cm.data_ptr() - x.data_ptr() == 2 * 8208
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((Bsz, S, H)) - 4.0)
+                          .astype(np.float32)).to(card)
+    A = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)).to(card)
+    before = dict(SSD_LIBRARY.counts)
+    y, h = ssd_mixer(x, dt, A, Bm, Cm, return_state=True)
+    assert SSD_LIBRARY.counts["wgmma"] == before["wgmma"] + 1
+    assert SSD_LIBRARY.launches == sum(before.values()) + 1
+    ry, rh = ssd_mixer(*(t.cpu() for t in (x, dt, A, Bm, Cm)), return_state=True)
+    _ssd_close(y.cpu(), ry)
+    _ssd_close(h.cpu(), rh)
+
+
+def test_hybrid_model_on_card(card):
+    """A narrow Jamba-shaped model (one super period of 4: mamba2 mixers at
+    the SSD kernel's shapes, head dim 64 and state 16, attention at position
+    1, 4 experts at the odd positions) in bf16: prefill and a decode tick
+    with per-slot positions on the card, through flash ``mma``, the SSD
+    ``wgmma`` scan, the dense and expert SwiGLU kernels, against the same
+    model on the CPU (the plain versions); logits within 5e-2 of their
+    largest magnitude.  Every token takes all 4 experts (top_k = E, no
+    drops), so the output is continuous in the router (see
+    ``test_moe_mla_model_on_card``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HybridSpec, SSMSpec
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    base = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(
+        base, n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=192, vocab=512,
+        hybrid=HybridSpec(attn_period=4, attn_offset=1),
+        ssm=SSMSpec(d_state=16, head_dim=64, expand=2, n_groups=1, conv_width=4, chunk=64),
+        moe=dataclasses.replace(base.moe, n_experts=4, top_k=4, d_ff_expert=96, router_chunk=64))
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():  # scores of order one (see chip_smoke.py)
+        for block in model.layers:
+            if hasattr(block, "attn"):
+                for n in ("wq", "wk", "wv"):
+                    block.attn[n].mul_((block.attn[n].shape[1] / cfg.d_model) ** 0.5)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 150)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev)
+        before = {lib.name: dict(lib.counts) for lib in (FLASH_LIBRARY, SSD_LIBRARY,
+                                                         SWIGLU_LIBRARY)}
+        cache = init_cache(cfg, 2, 160, device=dev)
+        logits, cache = forward(m, cfg, {"tokens": toks.to(dev)}, mode="prefill", cache=cache)
+        cache["pos"] = torch.tensor([150, 97], device=dev)
+        tick, _ = decode_step(m, cfg, cache, toks[:, :1].to(dev))
+        outs[dev] = (logits.float().cpu(), tick.float().cpu())
+        if dev == "cuda":
+            assert FLASH_LIBRARY.counts["mma"] == before["flash_attention"]["mma"] + 1
+            assert SSD_LIBRARY.counts["wgmma"] == before["ssd_scan"]["wgmma"] + 3
+            assert SWIGLU_LIBRARY.counts["experts_wgmma"] > before["swiglu_matmul"]["experts_wgmma"]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2 * float(want.abs().max()))
+
+
+# --------------------------------------------------------------------------- #
 # the CNN pipeline's MPMD executor: m workers as m CUDA streams
 # --------------------------------------------------------------------------- #
 @pytest.fixture

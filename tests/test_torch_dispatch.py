@@ -18,8 +18,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
     FLASH_LIBRARY, LIBRARIES, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_flash_attention, select_experts_variant, select_flash_variant, select_ssd_variant,
-    select_swiglu_variant, ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul,
+    gqa_bidirectional_attention, gqa_flash_attention, select_experts_variant,
+    select_flash_variant, select_ssd_variant, select_swiglu_variant, ssd_mixer, ssd_scan,
+    swiglu_experts, swiglu_matmul,
 )
 from repro_torch.kernels.swiglu_matmul import PREFILL_MIN_M
 
@@ -188,6 +189,9 @@ def test_cpu_tensors_launch_nothing(dtype, M):
     flash_attention(q, q, q, causal=True)
     gqa_flash_attention(q.reshape(1, 2, M, 64).movedim(1, 2), q[:1, :, None].expand(1, M, 1, 64),
                         q[:1, :, None].expand(1, M, 1, 64))
+    gqa_bidirectional_attention(q.reshape(1, 2, M, 64).movedim(1, 2),
+                                q[:1, :, None].expand(1, M, 1, 64),
+                                q[:1, :, None].expand(1, M, 1, 64))
     # the SSD scan at the wgmma variant's widths (head dim 64, state 128)
     dt = torch.rand(2, M, generator=g)
     B = torch.randn(2, M, 128, generator=g).to(dtype)

@@ -15,12 +15,14 @@ import pytest
 import repro.codegen.executor as jax_executor
 import repro.codegen.segment as jax_segment
 import repro.configs as jax_configs
+import repro.models.frontends as jax_frontends
 import repro.models.transformer as jax_transformer
 import repro.runtime.faults as jax_faults
 import repro.serve.frontend as jax_frontend
 import repro_torch.codegen.executor as executor
 import repro_torch.codegen.segment as segment
 import repro_torch.configs as configs
+import repro_torch.models.frontends as frontends
 import repro_torch.models.transformer as transformer
 import repro_torch.runtime.faults as faults
 import repro_torch.serve.frontend as frontend
@@ -55,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.codegen, repro_torch.codegen.analyze, repro_torch.runtime\n"
         "import repro_torch.serve.frontend, repro_torch.serve.trace\n"
         "import repro_torch.models.moe_scatter, repro_torch.core.expert_placement\n"
+        "import repro_torch.models.frontends\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -114,6 +117,14 @@ def test_segments_stays_verbatim():
     segments) is the reference's text."""
     port = inspect.getsource(transformer.segments)
     assert port.replace("repro_torch", "repro") == inspect.getsource(jax_transformer.segments)
+
+
+def test_frontend_split_stays_verbatim():
+    """``models/frontends.py`` copies the reference's split of a sequence into
+    embedding rows and text tokens, and its image-row constant."""
+    port = inspect.getsource(frontends.frontend_token_split)
+    assert port == inspect.getsource(jax_frontends.frontend_token_split)
+    assert frontends.VLM_IMAGE_TOKENS == jax_frontends.VLM_IMAGE_TOKENS == 576
 
 
 @pytest.mark.parametrize("name", EXECUTOR_COPIES)

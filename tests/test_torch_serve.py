@@ -25,12 +25,15 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_T
 from repro.serve import Engine as JaxEngine, ServeConfig as JaxServeConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, tensor_from_numpy
-from repro_torch.models import decode_step, forward, init_cache, init_params, layers
+from repro_torch.models import (
+    decode_step, forward, init_cache, init_params, layers, synth_inputs, transformer,
+)
 from repro_torch.serve import Engine, ServeConfig
 
 ARCHS = ["tinyllama-1.1b", "qwen2-0.5b", "qwen3-32b"]
@@ -233,24 +236,64 @@ class TestDevices:
             init_cache(cfg, 1, 8)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Engine(cfg, _port(cfg, params))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            synth_inputs(cfg, 1, 8, torch.Generator())
 
     def test_engine_refuses_params_on_another_device(self, weights):
         _, cfg, params = weights["tinyllama-1.1b", "bfloat16"]
         with pytest.raises(ValueError, match="params are on"):
             Engine(cfg, _port(cfg, params), device="meta")
 
-    @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "hubert-xlarge", "llava-next-mistral-7b"])
-    def test_configs_outside_the_slice_raise(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(get_config(arch).reduced(), torch.Generator(), device="cpu")
 
-    @pytest.mark.parametrize("arch", ["hubert-xlarge", "jamba-v0.1-52b"])
-    def test_check_supported_names_the_roadmap_item(self, arch):
-        from repro_torch.models.transformer import check_supported
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_every_registry_config_runs(arch):
+    """Every config of the registry builds on the CPU at its reduced size and
+    runs: one train forward over its frontend's inputs (frames, image rows
+    and text, or text), finite logits of the expected shape, and a prefill
+    whose logits equal the train forward's."""
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    inputs = synth_inputs(cfg, 2, 12, torch.Generator().manual_seed(1), device="cpu")
+    logits = forward(model, cfg, inputs)
+    assert logits.shape == (2, 12, cfg.vocab) and bool(torch.isfinite(logits).all())
+    pre, cache = forward(model, cfg, inputs, mode="prefill",
+                         cache=init_cache(cfg, 2, 16, device="cpu"))
+    torch.testing.assert_close(pre, logits, atol=1e-5, rtol=1e-5)
+    assert int(cache["pos"]) == 12
 
-        with pytest.raises(NotImplementedError, match="item 8b") as ei:
-            check_supported(get_config(arch))
-        assert "the super segment and frontend serving" in str(ei.value)
+
+def _init_params_scaling_out_of_place(cfg, generator):
+    """``init_params`` as it drew before it scaled in place:
+    ``prm.copy_(draw * scale)``, which holds a second f32 temporary."""
+    model = transformer.Transformer(cfg, device="cpu", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in transformer._ONES:
+                prm.fill_(1.0)
+            elif leaf in transformer._ZEROS:
+                prm.zero_()
+            else:
+                scale = (transformer._EMBED_SCALE if leaf == "embed" else
+                         1.0 / cfg.ssm.conv_width if leaf == "conv_w" else
+                         transformer._default_scale(tuple(prm.shape)))
+                draw = torch.randn(prm.shape, generator=generator, device=generator.device)
+                prm.copy_(draw * scale)
+    return model
+
+
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_init_params_in_place_scaling_draws_the_same_bits(arch):
+    """Scaling each drawn leaf in place gives bit for bit the weights that
+    scaling out of place gave, from one seed (so every earlier run's weights
+    stand)."""
+    cfg = get_config(arch).reduced()
+    new = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    old = _init_params_scaling_out_of_place(cfg, torch.Generator().manual_seed(7))
+    pairs = list(zip(new.named_parameters(), old.named_parameters()))
+    assert pairs and all(a == b for (a, _), (b, _) in pairs)
+    for (name, p), (_, q) in pairs:
+        assert p.dtype == q.dtype and torch.equal(p, q), name
 
 
 @pytest.mark.parametrize("arch", ARCHS)
