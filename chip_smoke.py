@@ -38,6 +38,19 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              run is checked against a teacher-forced forward or a plain
              computation, each check against planted faults; one prefill (or
              forward) and one decode tick are profiled.
+   train   — TinyLlama-1.1B trains at full width and depth (22 layers, bf16,
+             AdamW, 2 microbatches of 4 x 1024 tokens, remat): the flash and
+             SwiGLU kernels forward, their explicit VJPs (PyTorch) backward.
+             (a) every parameter gets a finite, non-zero gradient (planted
+             fault: the kernels' outputs detached); (b) each VJP at the path's
+             shape against autograd through its plain version (faults: no
+             causal mask, σ(g) for silu'(g)); (c) one step at 2 layers on the
+             card against the CPU in f32 (every fault of (a) and (b)); (d) one
+             batch as 1 or 2 microbatches; (e) 20 steps through
+             ``Trainer.run``, counted (88 flash ``mma`` and 88 SwiGLU
+             ``wgmma`` a step) and timed, the loss falling; (f) the
+             kill-and-resume drill at 2 layers with checkpoints in a temporary
+             directory, against an uninterrupted run.
 5. cnn     — the paper's pipeline: inception_net(224) at batch 8 (random
              weights from a seeded generator), DSH plans on the whole model
              (m=4) and on the grid-sliced one (m=8), validated; run_sequential,
@@ -81,8 +94,8 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 For development, ``--only kernels,jamba`` runs the build and the named
-phases alone (the kernels phase and the serving paths), then exits 2 with no
-result.
+phases alone (the kernels phase, the serving paths and ``train``), then exits
+2 with no result.
 """
 from __future__ import annotations
 
@@ -425,6 +438,53 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
         plain_ms=timer.ms(lambda: ssd_scan_ref(*flat, return_state=True), reps=5),
         library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     log(f"ssd_scan[{variant}] Jamba's layout S={S} H={H} N={N}: max err {err:.3g}")
+
+
+def train_paths(torch, timer, rows, randn) -> None:
+    """The train path's forward shapes, held against the plain versions and
+    timed into ``rows``: one microbatch of 4 x 1024 tokens, flash ``mma``
+    over 4 x 32 heads of 64 (causal) and the SwiGLU ``wgmma`` over 4096
+    rows at D 2048, F 5632."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels import FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, swiglu_matmul
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+
+    bf16 = torch.bfloat16
+    BH, S, D = 4 * 32, TRAIN_SEQ, 64
+    q, k, v = (randn(BH, S, D, dtype=bf16) for _ in range(3))
+    o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=True))
+    r = flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[str(bf16)]
+    if variant != "mma" or not within(o, r, tol):
+        raise AssertionError(f"flash_attention[{variant}] train path: max err {max_err(o, r):.3g}")
+    b_ms, b_by = bound(*flash_work(BH, S, S, D, True, 2), bf16)
+    rows[("flash_attention", variant, "train")] = dict(
+        shape=f"BH={BH} S={S} D={D} bf16 causal", max_abs_err=max_err(o, r), tol=list(tol),
+        ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
+        library="sdpa[flash]", library_ms=timer.ms(sdpa_call(torch, SDPBackend.FLASH_ATTENTION,
+                                                             q, k, v)),
+        bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, o, r
+    M, D, Fd = 4 * TRAIN_SEQ, 2048, 5632
+    x = randn(M, D, dtype=bf16)
+    wg = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+    wu = randn(D, Fd, dtype=bf16, scale=D ** -0.5)
+    o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
+    r = swiglu_ref(x, wg, wu)
+    tol = SWIGLU_TOL[str(bf16)]
+    if variant != "wgmma" or not within(o, r, tol):
+        raise AssertionError(f"swiglu_matmul[{variant}] train path: max err {max_err(o, r):.3g}")
+    b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2), bf16)
+    rows[("swiglu_matmul", variant, "train")] = dict(
+        shape=f"M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
+        ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
+        plain_ms=timer.ms(lambda: swiglu_ref(x, wg, wu)),
+        library="F.silu(x@wg)*(x@wu)", library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"train path: flash mma BH={BH} and swiglu wgmma M={M} within tolerance")
 
 
 def check_kernels(torch, timer):
@@ -792,6 +852,7 @@ def check_kernels(torch, timer):
         f"the path shapes: y {worst['y']:.3g}, final state {worst['state']:.3g}")
 
     slice_paths(torch, timer, rows, randn, conv_views, ssd_hold)
+    train_paths(torch, timer, rows, randn)
 
     log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
         f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
@@ -806,7 +867,8 @@ def check_kernels(torch, timer):
 # --------------------------------------------------------------------------- #
 # phase 4: serving
 # --------------------------------------------------------------------------- #
-def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int, batch: int = 1) -> dict:
+def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int = 0,
+                      batch: int = 1, train=None) -> dict:
     """Launches of each kernel variant on a serving run, from the config's
     layers (``layer_plan``): per prefill (or train forward) of ``batch``
     sequences of n positions, flash attention in every attention slot (MLA:
@@ -819,7 +881,17 @@ def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int, batch:
     kernels over the slots (each slot its own group of one token), and no
     attention or scan kernel (decode is plain).  An encoder has no tick
     (``n_decode`` 0).  Each through the variant its selector picks (bf16),
-    and none of the others."""
+    and none of the others.
+
+    The train form, ``train=(tcfg, global_batch, seq_len)``, counts one
+    train step instead: ``tcfg.microbatches`` forwards of global_batch /
+    microbatches sequences each, twice under remat (the forward, then its
+    recompute in the backward); the backward itself launches no kernel (the
+    VJPs are PyTorch)."""
+    if train is not None:
+        tcfg, global_batch, seq_len = train
+        prompt_lens = [seq_len] * tcfg.microbatches * (2 if tcfg.remat else 1)
+        batch = global_batch // tcfg.microbatches
     from repro_torch.kernels import (
         LIBRARIES, select_experts_variant, select_flash_variant, select_ssd_variant,
         select_swiglu_variant,
@@ -862,14 +934,8 @@ def expected_launches(torch, cfg, prompt_lens, n_decode: int, slots: int, batch:
     return expect
 
 
-def init_model(torch, cfg):
-    """Random bf16 weights from a seeded generator, with attention rescaled
-    so that its scores are of order one (below); prints the size and the
-    init time."""
-    from repro_torch.models import init_params
-
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+def rescale_attention(torch, cfg, model) -> None:
+    """Scale q/k/v (MLA: w_uk/w_uv) to their real fan-in, in place."""
     # init_params draws at the reference's ParamDef.default_scale, which takes
     # shape[-2] as the fan-in: for wq/wk/wv [d, H, Dh] (and MLA's wq [d, H,
     # 192], w_uk/w_uv [512, H, 128]) that is the head count, not the input
@@ -891,6 +957,17 @@ def init_model(torch, cfg):
                 if name in block.attn:
                     w = block.attn[name]
                     w.mul_((w.shape[1] / w.shape[0]) ** 0.5)
+
+
+def init_model(torch, cfg):
+    """Random bf16 weights from a seeded generator, with attention rescaled
+    so that its scores are of order one (``rescale_attention``); prints the
+    size and the init time."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rescale_attention(torch, cfg, model)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
@@ -1739,12 +1816,15 @@ def engine_steps(torch, engine, prompt) -> dict:
     }
 
 
-def profile_steps(torch, steps: dict) -> None:
-    """Device time by kernel for each of ``steps`` (name -> call).  Wall time
-    is taken without the profiler; the device's busy time with it."""
+def profile_steps(torch, steps: dict) -> dict:
+    """Device time by kernel for each of ``steps`` (name -> call), each
+    called three times: once to warm up, once timed on the host clock
+    without the profiler (the wall), once under it (the device's busy
+    time).  Returns {name: (wall ms, busy ms)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for name, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -1765,6 +1845,429 @@ def profile_steps(torch, steps: dict) -> None:
         ours = [e for e in events[8:] if any(k in e.key for k in PORT_KERNELS)]
         for e in events[:8] + ours:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        out[name] = (wall, busy)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase: training TinyLlama-1.1B at full width and depth
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 20, 1024, 8
+# (c) and (f) run at full width with 2 of the 22 layers: (c) holds one step
+# against the CPU, (f) writes checkpoints (2.2 GB each at 2 layers; the
+# 22-layer state is 10.4 GB, so the full-depth run writes none)
+TRAIN_SMALL_LAYERS = 2
+# (b): each VJP's gradients against autograd through its plain version at
+# the path's shapes, bf16, within this share of each gradient's largest
+# magnitude (tests/test_torch_card.py's bound).  Both round the gradients to
+# bf16; the VJPs read the kernels' bf16 outputs (flash: O in rowsum(dO ⊙ O))
+# and compute the SwiGLU's products in bf16.
+VJP_TOL = 3e-2
+# (d): one batch as 1 or 2 microbatches, the loss's relative difference
+# (the reference test's bound)
+MICROBATCH_TOL = 1e-4
+# (c): one step on the card (bf16) against the CPU (f32, the same weights):
+# relative differences of the loss and the gradient norm; each leaf's first
+# moment (0.1 of its clipped gradient) within this share of its largest
+# magnitude, which every planted fault of (a) and (b) breaks; the updated
+# weights within one bf16 ulp and 2·lr of the CPU's rounded to bf16
+CARD_CPU_TOL = dict(loss=1e-2, grad_norm=5e-2, moment=0.1, weights=1.05)
+
+
+def train_config(total_steps: int = TRAIN_STEPS):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(microbatches=2, remat=True,
+                       optim=AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=total_steps))
+
+
+def make_trainer(torch, cfg, ckpt=None, ckpt_every: int = 100, monitor=None):
+    """``Trainer`` on the card over the path's data, its attention rescaled
+    as ``init_model``'s (the trainer draws from ``init_params``, seed 0)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.train import Trainer
+
+    ds = SyntheticLMDataset(cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    tr = Trainer(cfg, train_config(), ds, ckpt_manager=ckpt, ckpt_every=ckpt_every,
+                 monitor=monitor, seed=0, device="cuda")
+    rescale_attention(torch, cfg, tr.params)
+    return tr
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def grads_err(got, want) -> float:
+    return max(rel_err(g, w) for g, w in zip(got, want))
+
+
+def sigma_fault_vjp(torch):
+    """``swiglu_vjp`` with σ(g) in place of silu'(g) (a planted fault)."""
+    def vjp(x, wg, wu, dout):
+        acc = torch.float32
+        g, u, d = torch.matmul(x, wg).to(acc), torch.matmul(x, wu).to(acc), dout.to(acc)
+        sig = torch.sigmoid(g)
+        du = (d * g * sig).to(x.dtype)
+        dg = (d * u * sig).to(x.dtype)
+        dx = torch.matmul(dg, wg.transpose(-1, -2)) + torch.matmul(du, wu.transpose(-1, -2))
+        xt = x.transpose(-1, -2)
+        return dx, torch.matmul(xt, dg), torch.matmul(xt, du)
+    return vjp
+
+
+def hold(name: str, err: float, tol: float, faults: dict) -> None:
+    """``err`` within ``tol`` and every planted fault's error beyond it."""
+    log(f"{name}: {err:.4g} (tol {tol}); planted faults "
+        + ", ".join(f"{k} {v:.4g}" for k, v in faults.items()))
+    if not err <= tol:
+        raise AssertionError(f"{name}: {err:.4g} > {tol}")
+    missed = [k for k, v in faults.items() if not v > tol]
+    if missed:
+        raise AssertionError(f"{name}: planted faults {missed} within {tol}")
+
+
+def vjp_checks(torch, timer) -> dict:
+    """(b) Each VJP at the train path's shape against autograd through the
+    plain version on the card, bf16; the planted faults; the backward's
+    times beside its bound and the library's forward + backward."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_vjp, swiglu_matmul, swiglu_vjp,
+    )
+    from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(scale).to(torch.bfloat16)
+
+    rows = {}
+    # flash: 4 sequences x 32 heads, S 1024, D 64, causal (one microbatch)
+    BH, S, D = 4 * 32, TRAIN_SEQ, 64
+    sc = D ** -0.5
+    q, k, v = (randn(BH, S, D).requires_grad_(True) for _ in range(3))
+    do = randn(BH, S, D)
+    o = flash_attention(q, k, v, causal=True)
+    if o.grad_fn is None:
+        raise AssertionError("flash_attention: a CUDA output with no gradient path")
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=True), (q, k, v), do)
+    qd, kd, vd, od = q.detach(), k.detach(), v.detach(), o.detach()
+    hold(f"(b) flash VJP BH={BH} S={S} D={D} causal, dq/dk/dv", grads_err(got, want), VJP_TOL,
+         {"no causal mask": grads_err(flash_attention_vjp(qd, kd, vd, od, do, False, sc), want)})
+    del got, want
+    nbytes = (3 + 2 + 3) * BH * S * D * 2  # q, k, v, o, dO read; dq, dk, dv written
+    _, fwd_ops = flash_work(BH, S, S, D, True, 2)
+    b_ms, b_by = bound(nbytes, 2.5 * fwd_ops, torch.bfloat16)  # 5 products to the forward's 2
+    q4, k4, v4 = (t.view(1, *t.shape) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return torch.autograd.grad(out, (q, k, v), do.view(1, *do.shape))
+
+    rows["flash"] = dict(
+        shape=f"BH={BH} S={S} D={D} bf16 causal",
+        vjp_ms=timer.ms(lambda: flash_attention_vjp(qd, kd, vd, od, do, True, sc), reps=10),
+        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do),
+                            reps=10),
+        plain_fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(
+            flash_attention_ref(q, k, v, causal=True), (q, k, v), do), reps=5),
+        library="sdpa[flash] forward + backward", library_ms=timer.ms(sdpa_fwd_bwd, reps=10),
+        bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, do, o, qd, kd, vd, od, q4, k4, v4
+    torch.cuda.empty_cache()
+    # SwiGLU: one microbatch's 4096 rows at D 2048, F 5632
+    M, D, Fd = 4 * TRAIN_SEQ, 2048, 5632
+    x = randn(M, D).requires_grad_(True)
+    wg, wu = (randn(D, Fd, scale=D ** -0.5).requires_grad_(True) for _ in range(2))
+    dout = randn(M, Fd)
+    out = swiglu_matmul(x, wg, wu)
+    if out.grad_fn is None:
+        raise AssertionError("swiglu_matmul: a CUDA output with no gradient path")
+    got = torch.autograd.grad(out, (x, wg, wu), dout)
+    want = torch.autograd.grad(swiglu_ref(x, wg, wu), (x, wg, wu), dout)
+    xd, wgd, wud = x.detach(), wg.detach(), wu.detach()
+    hold(f"(b) SwiGLU VJP M={M} D={D} F={Fd}, dx/dwg/dwu", grads_err(got, want), VJP_TOL,
+         {"sigma(g) for silu'(g)": grads_err(sigma_fault_vjp(torch)(xd, wgd, wud, dout), want)})
+    del got, want
+    nbytes = (M * D + 2 * D * Fd + M * Fd) * 2 * 2  # x, wg, wu, dout read; dx, dwg, dwu written
+    b_ms, b_by = bound(nbytes, 6 * 2.0 * M * D * Fd, torch.bfloat16)  # 6 products
+    rows["swiglu"] = dict(
+        shape=f"M={M} D={D} F={Fd} bf16",
+        vjp_ms=timer.ms(lambda: swiglu_vjp(xd, wgd, wud, dout), reps=10),
+        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(swiglu_matmul(x, wg, wu), (x, wg, wu),
+                                                        dout), reps=10),
+        plain_fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(swiglu_ref(x, wg, wu),
+                                                              (x, wg, wu), dout), reps=5),
+        library="cuBLAS F.silu(x@wg)*(x@wu) forward + backward",
+        library_ms=timer.ms(lambda: torch.autograd.grad(F.silu(x @ wg) * (x @ wu), (x, wg, wu),
+                                                        dout), reps=10),
+        bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+@contextmanager
+def detached_kernels():
+    """The kernel wrappers return their CUDA outputs with no gradient path,
+    as they did before their autograd Functions (a planted fault)."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    with patched(fa._FlashAttention, "apply", staticmethod(fa._launch)), \
+            patched(sw._SwiGLU, "apply", staticmethod(sw._launch)):
+        yield
+
+
+def unmasked_flash_vjp():
+    """The flash VJP without its causal mask (a planted fault)."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    vjp = fa.flash_attention_vjp
+    return patched(fa, "flash_attention_vjp",
+                   lambda q, k, v, o, do, causal, scale: vjp(q, k, v, o, do, False, scale))
+
+
+def sigma_swiglu_vjp(torch):
+    import importlib
+
+    return patched(importlib.import_module("repro_torch.kernels.swiglu_matmul"), "swiglu_vjp",
+                   sigma_fault_vjp(torch))
+
+
+def lacking_gradient(torch, model) -> list:
+    """Parameters whose gradient is missing, not finite, or zero."""
+    return [n for n, p in model.named_parameters()
+            if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+
+
+def card_against_cpu(torch, cfg) -> dict:
+    """(c) One ``make_train_step`` at full width and 2 layers on 2 x 256
+    tokens, on the card (bf16, the kernels and their VJPs) against the same
+    weights in f32 on the CPU (the plain versions): loss, gradient norm,
+    each leaf's first moment (0.1 of its clipped gradient) and the updated
+    weights; then each planted fault of (a) and (b) on the card."""
+    import copy
+
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rescale_attention(torch, cfg, model)
+    start = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    b = SyntheticLMDataset(cfg.vocab, seq_len=256, global_batch=2, seed=0).batch(0)
+    tcfg = TrainConfig(microbatches=1, remat=True,
+                       optim=AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS))
+    step = make_train_step(cfg, tcfg)
+
+    def run(m, dev):
+        feed = {"tokens": torch.as_tensor(b.inputs, device=dev),
+                "labels": torch.as_tensor(b.labels, device=dev)}
+        _, opt, metrics = step(m, adamw_init(dict(m.named_parameters()), tcfg.optim), feed)
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: t.float().cpu() for n, t in opt["m"].items()},
+                {n: p.detach().float().cpu() for n, p in m.named_parameters()})
+
+    t0 = time.perf_counter()
+    cpu = run(copy.deepcopy(model).to(device="cpu", dtype=torch.float32), "cpu")
+    log(f"(c) the CPU's f32 step: {time.perf_counter() - t0:.1f} s")
+
+    def card_run():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        return run(model, "cuda")
+
+    def compare(res):
+        (m1, mom1, p1), (m0, mom0, p0) = res, cpu
+        # a weight may differ from the CPU's rounded to bf16 by one bf16 ulp,
+        # and by 2·lr more where a gradient near 0 has the other sign (Adam's
+        # first step moves every weight by about lr): ``weights`` is the
+        # largest excess over the ulp, in units of 2·lr
+        excess = max(float(((p1[n] - p0[n].bfloat16().float()).abs()
+                            - 2.0 ** -7 * p0[n].abs()).max()) for n in p0)
+        return dict(loss=abs(m1["loss"] - m0["loss"]) / m0["loss"],
+                    grad_norm=abs(m1["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"],
+                    moment=max(rel_err(mom1[n], mom0[n]) for n in mom0),
+                    weights=excess / (2 * m0["lr"]))
+
+    ok = compare(card_run())
+    faults = {}
+    for name, ctx in (("detached outputs", detached_kernels()),
+                      ("flash VJP without causal mask", unmasked_flash_vjp()),
+                      ("sigma(g) for silu'(g)", sigma_swiglu_vjp(torch))):
+        with ctx:
+            faults[name] = compare(card_run())
+    log(f"(c) card against CPU: {json.dumps(ok)}; planted faults {json.dumps(faults)}")
+    for key, tol in CARD_CPU_TOL.items():
+        if not ok[key] <= tol:
+            raise AssertionError(f"(c) {key}: {ok[key]:.4g} > {tol}")
+    hold("(c) first moments, card against CPU", ok["moment"], CARD_CPU_TOL["moment"],
+         {k: f["moment"] for k, f in faults.items()})
+    del model
+    return dict(card_vs_cpu=ok, faults=faults, cpu_loss=cpu[0]["loss"],
+                cpu_grad_norm=cpu[0]["grad_norm"])
+
+
+def train_phase(torch, np) -> dict:
+    """Train TinyLlama-1.1B at full width and depth through the flash and
+    SwiGLU kernels and their VJPs; checks (a)-(f) (module docstring)."""
+    import dataclasses
+    import importlib
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import HealthMonitor, simulate_failure_recovery
+    from repro_torch.train import loss_fn
+
+    cfg = get_config(TRAIN_ARCH)
+    small = dataclasses.replace(cfg, n_layers=TRAIN_SMALL_LAYERS)
+    report = {}
+    # (c) one step, card against CPU, 2 layers
+    report["c"] = card_against_cpu(torch, small)
+    release(torch)
+    # (b) the VJPs at the path's shapes
+    timer = Timer(torch)
+    report["backward"] = vjp_checks(torch, timer)
+    del timer
+    release(torch)
+    log("backward: " + json.dumps(report["backward"]))
+
+    tr = make_trainer(torch, cfg, monitor=HealthMonitor(n_workers=1, window=TRAIN_STEPS))
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB with AdamW's state")
+    first = tr.dataset.batch(0)
+    tokens = torch.as_tensor(first.inputs, device="cuda")
+    labels = torch.as_tensor(first.labels, device="cuda")
+    half = TRAIN_BATCH // 2
+    # (a) every parameter gets a finite, non-zero gradient from one
+    # microbatch's backward; a kernel output detached leaves some without
+    def backward_lacking():
+        loss, _ = loss_fn(tr.params, cfg, tokens[:half], labels[:half], remat=True)
+        loss.backward()
+        bad = lacking_gradient(torch, tr.params)
+        for p in tr.params.parameters():
+            p.grad = None
+        return bad
+
+    lacking = backward_lacking()
+    with detached_kernels():
+        fault = backward_lacking()
+    n_leaves = len(list(tr.params.parameters()))
+    log(f"(a) parameters lacking a gradient: {len(lacking)} of {n_leaves}; with the kernels' "
+        f"outputs detached: {len(fault)} ({', '.join(fault[:6])}, ...)")
+    if lacking or not fault:
+        raise AssertionError(f"(a) lacking gradients {lacking}; planted fault lacking {fault[:6]}")
+    # (d) one batch as 1 and as 2 microbatches (the step's loss metric)
+    with torch.no_grad():
+        one = float(loss_fn(tr.params, cfg, tokens, labels)[0])
+        two = sum(float(loss_fn(tr.params, cfg, tokens[i * half:(i + 1) * half],
+                                labels[i * half:(i + 1) * half])[0]) for i in range(2)) / 2
+    d_rel = abs(one - two) / abs(one)
+    log(f"(d) loss over 8 sequences {one:.6f}, as 2 microbatches {two:.6f}: relative "
+        f"difference {d_rel:.3g} (tol {MICROBATCH_TOL})")
+    if not d_rel <= MICROBATCH_TOL:
+        raise AssertionError(f"(d) microbatch losses differ by {d_rel:.3g}")
+    report["d"] = dict(loss_1=one, loss_2=two, rel=d_rel)
+    del tokens, labels
+    # (e) 20 steps through Trainer.run, counted; the VJP calls counted too
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    vjp_calls = {"flash": 0, "swiglu": 0}
+
+    def counting(name, fn):
+        def call(*args):
+            vjp_calls[name] += 1
+            return fn(*args)
+        return call
+
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    with patched(fa, "flash_attention_vjp", counting("flash", fa.flash_attention_vjp)), \
+            patched(sw, "swiglu_vjp", counting("swiglu", sw.swiglu_vjp)):
+        tr.run(TRAIN_STEPS, log_every=5, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = expected_launches(torch, cfg, train=(tr.tcfg, TRAIN_BATCH, TRAIN_SEQ))
+    check_launches(launches, {lib: {v: n * TRAIN_STEPS for v, n in c.items()}
+                              for lib, c in per_step.items()})
+    log(f"launches a step: flash {per_step['flash_attention']}, "
+        f"swiglu {per_step['swiglu_matmul']}; VJP calls a step: "
+        f"{ {k: n / TRAIN_STEPS for k, n in vjp_calls.items()} }")
+    losses = [h["loss"] for h in tr.history]
+    step_ms = sorted(dt * 1e3 for _, dt in tr.monitor.workers[0].timings[2:])
+    median_ms = step_ms[len(step_ms) // 2]
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
+    log(f"(e) losses {[round(x, 4) for x in losses]}")
+    log(f"(e) {TRAIN_STEPS} steps in {wall:.2f} s; median step {median_ms:.2f} ms over steps "
+        f"3-{TRAIN_STEPS}, {tokens_s:.0f} tokens/s; peak {peak:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] - 0.3:
+        raise AssertionError(f"(e) losses {losses}: not finite, or the last not 0.3 below the first")
+    nxt = tr.dataset.batch(tr.step)
+    feed = {"tokens": torch.as_tensor(nxt.inputs, device="cuda"),
+            "labels": torch.as_tensor(nxt.labels, device="cuda")}
+
+    def one_step():
+        tr.params, tr.opt_state, _ = tr.step_fn(tr.params, tr.opt_state, feed)
+
+    prof = profile_steps(torch, {"train step": one_step})["train step"]
+    report["e"] = dict(losses=losses, median_step_ms=median_ms, tokens_per_s=tokens_s,
+                       peak_gib=peak, profiled_step=dict(wall_ms=prof[0], busy_ms=prof[1],
+                                                         busy_share=prof[1] / prof[0]),
+                       launches_per_step=per_step, vjp_calls_per_step={
+                           k: n / TRAIN_STEPS for k, n in vjp_calls.items()})
+    del tr, feed
+    release(torch)
+    # (f) kill and resume at 2 layers, against an uninterrupted run
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # listed in .gitignore
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+    log(f"(f) checkpoints under {root}: {shutil.disk_usage(root).free / 2**30:.1f} GiB free")
+    try:
+        t0 = time.perf_counter()
+        res = simulate_failure_recovery(
+            lambda: make_trainer(torch, small, ckpt=CheckpointManager(root, keep=2), ckpt_every=5),
+            fail_at_step=12, total_steps=TRAIN_STEPS, ckpt_every=5)
+        drill_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    whole = make_trainer(torch, small)
+    whole.run(TRAIN_STEPS, log_every=0)
+    ref = [h["loss"] for h in whole.history]
+    pre = [h["loss"] for h in res["pre_crash"]]
+    post = [h["loss"] for h in res["post_crash"]]
+    pre_diff = max(abs(a - b) for a, b in zip(pre, ref))
+    post_diff = max(abs(a - b) for a, b in zip(post, ref[res["resume_step"]:]))
+    log(f"(f) drill {drill_s:.1f} s: resumed at step {res['resume_step']}; largest loss "
+        f"difference from an uninterrupted run before the kill {pre_diff:.3g}, after the "
+        f"resume {post_diff:.3g}")
+    if not (res["resumed"] and res["resume_step"] == 10 and len(post) == TRAIN_STEPS - 10):
+        raise AssertionError(f"(f) resumed {res['resumed']} at {res['resume_step']}, "
+                             f"{len(post)} steps after")
+    # the steps are deterministic on the card (the first chip runs read 0.0
+    # both ways): the resumed run must be the uninterrupted one, bit for bit
+    if pre_diff != 0.0 or post_diff != 0.0:
+        raise AssertionError(f"(f) losses differ from an uninterrupted run by {pre_diff:.3g} "
+                             f"before the kill and {post_diff:.3g} after the resume")
+    report["f"] = dict(resume_step=res["resume_step"], pre_diff=pre_diff, post_diff=post_diff,
+                       drill_s=drill_s)
+    del whole, res
+    log("train: " + json.dumps(report))
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -2510,7 +3013,7 @@ def main() -> None:
     parser.add_argument("--only", default="",
                         help="development: run the build and only these comma-separated "
                              "phases (kernels, tinyllama, mamba2, deepseek, jamba, hubert, "
-                             "llava, arctic), then exit 2 with no result")
+                             "llava, arctic, train), then exit 2 with no result")
     args = parser.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -2563,7 +3066,8 @@ def main() -> None:
                ("encode hubert-xlarge", "hubert", lambda: encode_hubert(torch, np)),
                ("serve llava-next-mistral-7b", "llava", lambda: serve_llava(torch, np)),
                (f"serve arctic-480b ({ARCTIC_LAYERS} layers)", "arctic",
-                lambda: serve_arctic(torch, np))]
+                lambda: serve_arctic(torch, np)),
+               (f"train {TRAIN_ARCH}", "train", lambda: train_phase(torch, np))]
     for name, path, run in serving:
         if only and path not in only:
             continue
@@ -2623,7 +3127,11 @@ def main() -> None:
                  ("swiglu_matmul", "experts_decode", "jamba8", "jamba", " E=16 M=8"),
                  ("swiglu_matmul", "experts_decode", "arctic20", "arctic", " E=128 M=20"),
                  ("swiglu_matmul", "experts_decode", "arctic8", "arctic", " E=128 M=8"),
-                 ("ssd_scan", "wgmma", "jamba", "jamba", " Jamba N=16")]
+                 ("ssd_scan", "wgmma", "jamba", "jamba", " Jamba N=16"),
+                 # the train path: one microbatch's forward (the backward is
+                 # PyTorch); launches from the 20 counted steps
+                 ("flash_attention", "mma", "train", "train", " train BH=128"),
+                 ("swiglu_matmul", "wgmma", "train", "train", " train M=4096")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")

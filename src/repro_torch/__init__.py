@@ -7,7 +7,9 @@ plain PyTorch version that the CPU tests and ``chip_smoke.py`` hold it to.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: LM serving (``serve.Engine`` over ``models.transformer``)
-with the flash-attention, fused-SwiGLU and SSD-scan kernels, and the
-paper's pipeline up to the unrolled executor (``core``, ``models.cnn``,
-``models.slicing``, ``codegen``: plans run on m CUDA streams).
+with the flash-attention, fused-SwiGLU and SSD-scan kernels; LM training
+(``train``, ``optim``, ``data``, ``ckpt``: the flash and SwiGLU kernels
+forward, explicit VJPs in PyTorch backward; checkpoints in the reference's
+format); and the paper's pipeline (``core``, ``models.cnn``,
+``models.slicing``, ``codegen``, ``runtime``: plans run on m CUDA streams).
 """

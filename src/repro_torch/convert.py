@@ -9,22 +9,42 @@ are unstacked here into the port's per-layer blocks: layer i of a segment
 with a pattern of length P is ``p<j>[k]`` with i = the segment's offset +
 k·P + j (``Transformer.plan``).
 
+The way back, :func:`reference_tree`, turns the port's tensors keyed by
+parameter name (the weights, or AdamW's ``m``/``v``) into the reference's
+nested tree, each layer's leaf stacked over its segment's repeats again;
+:func:`named_from_tree` reads such a tree back by parameter name.  Both feed
+the checkpoint format, which is the reference's: a checkpoint written by
+either package restores in the other.
+
 ``cnn_params_from_numpy`` does the same for a ``CNNModel``'s weights
 (``{layer: {"w", "b"}}``, HWIO conv and ``[in, out]`` dense weights, kept in
 those layouts).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import LayerSlot, Transformer, layer_plan
 
-__all__ = ["cnn_params_from_numpy", "params_from_numpy", "tensor_from_numpy"]
+__all__ = ["cnn_params_from_numpy", "named_from_tree", "params_from_numpy", "reference_tree",
+           "tensor_from_numpy"]
+
+
+def _tree_path(plan: List[LayerSlot], name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """Where the port's parameter ``name`` sits in the reference's tree: the
+    path of keys and, for a layer's leaf, its index k in the stacked
+    ``[repeat]`` dim (``layers.<i>.attn.wq`` is
+    ``segments/<segment>/p<j>/attn/wq[k]``)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        slot = plan[int(parts[1])]
+        return ("segments", slot.segment, f"p{slot.j}", *parts[2:]), slot.k
+    return tuple(parts), None
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -48,23 +68,62 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
     embed = tensor_from_numpy(tree["embed"])
     model = Transformer(cfg, device=dev, dtype=embed.dtype)
     for name, prm in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            slot = model.plan[int(parts[1])]
-            node = tree["segments"][slot.segment][f"p{slot.j}"]
-            for key in parts[2:]:
-                node = node[key]
-            value = tensor_from_numpy(np.asarray(node)[slot.k])
-        else:
-            node = tree
-            for key in parts:
-                node = node[key]
-            value = tensor_from_numpy(node)
+        path, k = _tree_path(model.plan, name)
+        node = tree
+        for key in path:
+            node = node[key]
+        value = tensor_from_numpy(node if k is None else np.asarray(node)[k])
         if tuple(value.shape) != tuple(prm.shape) or value.dtype != prm.dtype:
             raise ValueError(f"{name}: reference {tuple(value.shape)} {value.dtype}, "
                              f"port {tuple(prm.shape)} {prm.dtype}")
         prm.copy_(value)
     return model
+
+
+def reference_tree(cfg: ArchConfig, named: Mapping[str, torch.Tensor],
+                   device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """The port's tensors keyed by parameter name (a model's
+    ``named_parameters()``, or AdamW's ``m``/``v`` over them) as the
+    reference's nested tree, on ``device`` (``"meta"`` gives the shapes
+    alone): ``embed``, ``final_norm/scale``, ``lm_head``, and
+    ``segments/<name>/p<j>/...`` with each layer's leaf stacked over the
+    segment's repeats (``[repeat, ...]``).  Leaves are detached; stacking
+    happens on ``device``, so a tree for the host costs no device memory."""
+    plan = layer_plan(cfg)
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+
+    def put(path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for name, t in named.items():
+        path, k = _tree_path(plan, name)
+        t = t.detach().to(device)
+        if k is None:
+            put(path, t)
+        else:
+            stacks.setdefault(path, {})[k] = t
+    for path, per_k in stacks.items():
+        put(path, torch.stack([per_k[k] for k in range(len(per_k))]))
+    return tree
+
+
+def named_from_tree(cfg: ArchConfig, tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's nested tree (tensors or numpy arrays) read back by the
+    port's parameter names: each layer's leaf is the view ``[k]`` of its
+    stacked leaf.  Every leaf the port's model has must be present."""
+    plan = layer_plan(cfg)
+    out = {}
+    for name, _ in Transformer(cfg, device="meta").named_parameters():
+        path, k = _tree_path(plan, name)
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = node if k is None else node[k]
+    return out
 
 
 def cnn_params_from_numpy(params: Mapping[str, Mapping[str, Any]],

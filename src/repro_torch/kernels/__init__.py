@@ -2,11 +2,12 @@ from repro_torch.kernels.ops import (
     fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention, ssd_mixer,
 )
 from repro_torch.kernels.flash_attention import LIBRARY as FLASH_LIBRARY, flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_vjp
 from repro_torch.kernels.flash_attention import select_variant as select_flash_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
 from repro_torch.kernels.ssd_scan import select_variant as select_ssd_variant
 from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_experts
-from repro_torch.kernels.swiglu_matmul import swiglu_matmul
+from repro_torch.kernels.swiglu_matmul import swiglu_matmul, swiglu_vjp
 from repro_torch.kernels.swiglu_matmul import select_experts_variant
 from repro_torch.kernels.swiglu_matmul import select_variant as select_swiglu_variant
 from repro_torch.kernels import ref
@@ -20,9 +21,11 @@ __all__ = [
     "ssd_mixer",
     "fused_swiglu",
     "flash_attention",
+    "flash_attention_vjp",
     "ssd_scan",
     "swiglu_matmul",
     "swiglu_experts",
+    "swiglu_vjp",
     "select_experts_variant",
     "select_flash_variant",
     "select_swiglu_variant",

@@ -17,8 +17,14 @@ its own entry point and launch count (``LIBRARY.counts``);
 ``mma`` (bf16, D a multiple of 16 up to 192 and Dv one up to 128: tensor
 cores) or ``cuda_core`` (f32, and bf16 with other head dims).
 Nothing catches a failed build or launch and tries another.  CPU tensors
-take the plain version, :func:`ref.flash_attention_ref`; CUDA tensors launch
-a kernel or raise.
+take the plain version, :func:`ref.flash_attention_ref`, and autograd runs
+through it; CUDA tensors launch a kernel or raise.
+
+On the card the launch sits in a ``torch.autograd.Function``, so the output
+has a gradient path whenever an input requires grad.  The reference's
+kernel has no custom VJP (its model trains through plain ``jnp``), so there
+is no backward kernel to port: the backward is :func:`flash_attention_vjp`,
+an explicit VJP in PyTorch that recomputes the probabilities in f32.
 """
 from __future__ import annotations
 
@@ -30,12 +36,14 @@ import torch
 from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
-__all__ = ["flash_attention", "select_variant", "LIBRARY"]
+__all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "LIBRARY"]
 
 MAX_HEAD_DIM = 192    # q and k
 MAX_V_HEAD_DIM = 128  # v and the output
+# f32 elements of one [BH chunk, Sq, Sk] intermediate of the VJP (64 MB)
+VJP_CHUNK_ELEMS = 1 << 24
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary("flash_attention", {
     # q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream
@@ -54,6 +62,88 @@ def select_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
     return "cuda_core"
 
 
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            sc: float) -> torch.Tensor:
+    """Launch the variant :func:`select_variant` picks: o [BH, Sq, Dv]."""
+    BH, Sq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    dtype = check_cuda_operands("flash_attention", (q, k, v),
+                                (torch.float32, torch.bfloat16))
+    if D > MAX_HEAD_DIM or Dv > MAX_V_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims {D}/{Dv} > {MAX_HEAD_DIM}/{MAX_V_HEAD_DIM}")
+    o = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+    variant = select_variant(D, Dv, q.dtype)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq, Sk, D, Dv, float(sc),
+            int(causal))
+    if variant == "cuda_core":
+        LIBRARY.launch(variant, *args, dtype, stream_handle(q))
+    else:
+        check_aligned("flash_attention", (q, k, v))
+        LIBRARY.launch(variant, *args, stream_handle(q))
+    return o
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, causal: bool, scale: float):
+    """(dq, dk, dv) of o = softmax(q kᵀ · scale) v at the output cotangent
+    ``do``, in the inputs' dtypes.  Computed in f32 (f64 for f64 inputs)
+    over chunks of BH, so that each ``[chunk, Sq, Sk]`` intermediate holds
+    at most ``VJP_CHUNK_ELEMS`` elements:
+
+        S = q kᵀ · scale, masked as the kernel masks it (when causal, key j
+        is seen by query i iff j <= i + Sk - Sq);  P = softmax(S);
+        dV = Pᵀ dO;  dP = dO Vᵀ;  dS = P ⊙ (dP - rowsum(dO ⊙ O));
+        dQ = dS K · scale;  dK = dSᵀ Q · scale.
+
+    ``o`` is the forward's output.  dS is zero under the mask, as autograd
+    through the plain version's ``where`` gives it (a row that sees no key
+    has a uniform P, which only dV reads)."""
+    BH, Sq, _ = q.shape
+    Sk = k.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    mask = None
+    if causal:
+        kpos = torch.arange(Sk, device=q.device)
+        qpos = torch.arange(Sq, device=q.device)
+        mask = kpos[None, :] <= (qpos[:, None] + (Sk - Sq))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    step = max(1, VJP_CHUNK_ELEMS // max(Sq * Sk, 1))
+    for b0 in range(0, BH, step):
+        sl = slice(b0, b0 + step)
+        qc, kc, vc, oc, doc = (t[sl].to(acc) for t in (q, k, v, o, do))
+        s = torch.bmm(qc, kc.transpose(1, 2)) * scale
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[sl] = torch.bmm(p.transpose(1, 2), doc)
+        dp = torch.bmm(doc, vc.transpose(1, 2))
+        ds = p * (dp - (doc * oc).sum(-1, keepdim=True))
+        del p, dp
+        if mask is not None:
+            ds = torch.where(mask, ds, 0.0)
+        dq[sl] = torch.bmm(ds, kc) * scale
+        dk[sl] = torch.bmm(ds.transpose(1, 2), qc) * scale
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's launch forward, :func:`flash_attention_vjp` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sc: float):
+        o = _launch(q, k, v, causal, sc)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.sc = causal, sc
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_vjp(q, k, v, o, do, ctx.causal, ctx.sc)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [BH, Sq, D]
     k: torch.Tensor,  # [BH, Sk, D]
@@ -70,17 +160,4 @@ def flash_attention(
     sc = scale if scale is not None else D ** -0.5
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=sc)
-    dtype = check_cuda_operands("flash_attention", (q, k, v),
-                                (torch.float32, torch.bfloat16))
-    if D > MAX_HEAD_DIM or Dv > MAX_V_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dims {D}/{Dv} > {MAX_HEAD_DIM}/{MAX_V_HEAD_DIM}")
-    o = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
-    variant = select_variant(D, Dv, q.dtype)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq, Sk, D, Dv, float(sc),
-            int(causal))
-    if variant == "cuda_core":
-        LIBRARY.launch(variant, *args, dtype, stream_handle(q))
-    else:
-        check_aligned("flash_attention", (q, k, v))
-        LIBRARY.launch(variant, *args, stream_handle(q))
-    return o
+    return _FlashAttention.apply(q, k, v, causal, sc)

@@ -22,7 +22,13 @@ Both mask a ragged end themselves, so they take any ``S``: the reference's
 ``S % block_s == 0`` is a property of the TPU grid, and nothing pads for it.
 Unlike the Pallas kernel they can also return the final state (f32), which a
 prefill needs for its cache.  CPU tensors take the plain version,
-:func:`ref.ssd_scan_ref`; CUDA tensors launch the selected variant or raise.
+:func:`ref.ssd_scan_ref`, and autograd runs through it; CUDA tensors launch
+the selected variant or raise.
+
+The kernels have no backward yet.  A CUDA call whose inputs require grad
+(with grad mode on) raises ``NotImplementedError`` rather than return an
+output with no gradient path: mamba2 and Jamba train on the card once the
+scan has a VJP (ROADMAP Queue 1, item 9b).
 """
 from __future__ import annotations
 
@@ -45,6 +51,14 @@ LIBRARY = KernelLibrary("ssd_scan", {
     # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
     "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 })
+
+
+def _no_grad_path(name: str, tensors) -> None:
+    """Raise if a CUDA call would need a gradient the kernels cannot give."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA SSD scan has no VJP yet, so it cannot train on the card "
+            "(ROADMAP Queue 1, item 9b); train on the CPU, or call it under torch.no_grad()")
 
 
 def select_variant(P: int, N: int, dtype: torch.dtype) -> str:
@@ -132,6 +146,7 @@ def ssd_scan(
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}")
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, return_state=return_state)
+    _no_grad_path("ssd_scan", (x, dt, A, B, C))
     dtype = check_cuda_operands("ssd_scan", (x, B, C), (torch.float32, torch.bfloat16))
     check_cuda_operands("ssd_scan", (dt, A), (torch.float32,))
     if dt.device != x.device:
@@ -174,6 +189,8 @@ def ssd_mixer(
             or Cm.shape != Bm.shape or H % G):
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
+    if x.device.type == "cuda":
+        _no_grad_path("ssd_mixer", (x, dt, A, Bm, Cm))
     dt, A = dt.to(torch.float32), A.to(torch.float32)
     if x.device.type == "cuda" and select_variant(P, N, x.dtype) == "wgmma":
         y, h = _launch_wgmma(x, dt, A[None].expand(Bsz, H), Bm, Cm, return_state)

@@ -24,8 +24,14 @@ rows an expert (M), D, F and the dtype, as for one product.
 
 This is a dispatch by shape between hand-written kernels: nothing catches a
 failed build or launch and tries another.  CPU tensors take the plain
-versions, :func:`ref.swiglu_ref` and :func:`ref.swiglu_experts_ref`; CUDA
-tensors launch a kernel or raise.
+versions, :func:`ref.swiglu_ref` and :func:`ref.swiglu_experts_ref`, and
+autograd runs through them; CUDA tensors launch a kernel or raise.
+
+On the card each launch sits in a ``torch.autograd.Function``, so the output
+has a gradient path whenever an input requires grad.  The reference's
+kernel has no custom VJP (its model trains through plain einsums), so there
+is no backward kernel to port: the backward of both entries is
+:func:`swiglu_vjp`, an explicit VJP in PyTorch.
 """
 from __future__ import annotations
 
@@ -38,8 +44,8 @@ from repro_torch.kernels._build import (
 )
 from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
 
-__all__ = ["swiglu_matmul", "swiglu_experts", "select_variant", "select_experts_variant",
-           "LIBRARY", "PREFILL_MIN_M"]
+__all__ = ["swiglu_matmul", "swiglu_experts", "swiglu_vjp", "select_variant",
+           "select_experts_variant", "LIBRARY", "PREFILL_MIN_M"]
 
 PREFILL_MIN_M = 64  # rows from which the bf16 product is bound by operations
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -71,6 +77,64 @@ def select_experts_variant(M: int, D: int, F: int, dtype: torch.dtype) -> str:
     return "experts_" + select_variant(M, D, F, dtype)
 
 
+def swiglu_vjp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
+    """(dx, dwg, dwu) of out = silu(x wg) ⊙ (x wu) at the cotangent ``dout``,
+    in the inputs' dtypes, for x [M, D] and wg, wu [D, F], or for a leading
+    expert dim (x [E, M, D], wg, wu [E, D, F]):
+
+        g = x wg, u = x wu (recomputed);  du = dout ⊙ silu(g);
+        dg = dout ⊙ u ⊙ σ(g)(1 + g(1 - σ(g)));
+        dx = dg wgᵀ + du wuᵀ;  dwg = xᵀ dg;  dwu = xᵀ du.
+
+    The products are ``torch.matmul`` in the operands' dtype (cuBLAS
+    accumulates bf16 in f32 and rounds the result to bf16, as the
+    reference's einsums do); the elementwise derivative is f32 (f64 for f64
+    inputs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    g = torch.matmul(x, wg).to(acc)
+    u = torch.matmul(x, wu).to(acc)
+    d = dout.to(acc)
+    sig = torch.sigmoid(g)
+    du = (d * g * sig).to(x.dtype)
+    dg = (d * u * sig * (1 + g * (1 - sig))).to(x.dtype)
+    del g, u, d, sig
+    dx = torch.matmul(dg, wg.transpose(-1, -2)) + torch.matmul(du, wu.transpose(-1, -2))
+    xt = x.transpose(-1, -2)
+    return dx.to(x.dtype), torch.matmul(xt, dg).to(wg.dtype), torch.matmul(xt, du).to(wu.dtype)
+
+
+def _launch(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """Launch the variant the selector picks: [M, F], or [E, M, F] for the
+    expert entry (x [E, M, D])."""
+    experts = x.dim() == 3
+    name = "swiglu_experts" if experts else "swiglu_matmul"
+    dtype = check_cuda_operands(name, (x, wg, wu), (torch.float32, torch.bfloat16))
+    *lead, M, D = x.shape
+    Fd = wg.shape[-1]
+    out = torch.empty((*lead, M, Fd), dtype=x.dtype, device=x.device)
+    variant = (select_experts_variant if experts else select_variant)(M, D, Fd, x.dtype)
+    args = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), *lead, M, D, Fd)
+    if variant.endswith("cuda_core"):
+        LIBRARY.launch(variant, *args, dtype, stream_handle(x))
+    else:
+        check_aligned(name, (x, wg, wu))
+        LIBRARY.launch(variant, *args, stream_handle(x))
+    return out
+
+
+class _SwiGLU(torch.autograd.Function):
+    """Either entry's launch forward, :func:`swiglu_vjp` backward."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu):
+        ctx.save_for_backward(x, wg, wu)
+        return _launch(x, wg, wu)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return swiglu_vjp(*ctx.saved_tensors, dout)
+
+
 def swiglu_matmul(
     x: torch.Tensor,   # [M, D]
     wg: torch.Tensor,  # [D, F]
@@ -82,17 +146,7 @@ def swiglu_matmul(
         raise ValueError(f"shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
     if x.device.type == "cpu":
         return swiglu_ref(x, wg, wu)
-    dtype = check_cuda_operands("swiglu_matmul", (x, wg, wu),
-                                (torch.float32, torch.bfloat16))
-    out = torch.empty((M, F), dtype=x.dtype, device=x.device)
-    variant = select_variant(M, D, F, x.dtype)
-    ptrs = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr())
-    if variant == "cuda_core":
-        LIBRARY.launch(variant, *ptrs, M, D, F, dtype, stream_handle(x))
-    else:
-        check_aligned("swiglu_matmul", (x, wg, wu))
-        LIBRARY.launch(variant, *ptrs, M, D, F, stream_handle(x))
-    return out
+    return _SwiGLU.apply(x, wg, wu)
 
 
 def swiglu_experts(
@@ -107,14 +161,4 @@ def swiglu_experts(
         raise ValueError(f"shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
     if x.device.type == "cpu":
         return swiglu_experts_ref(x, wg, wu)
-    dtype = check_cuda_operands("swiglu_experts", (x, wg, wu),
-                                (torch.float32, torch.bfloat16))
-    out = torch.empty((E, M, F), dtype=x.dtype, device=x.device)
-    variant = select_experts_variant(M, D, F, x.dtype)
-    ptrs = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr())
-    if variant == "experts_cuda_core":
-        LIBRARY.launch(variant, *ptrs, E, M, D, F, dtype, stream_handle(x))
-    else:
-        check_aligned("swiglu_experts", (x, wg, wu))
-        LIBRARY.launch(variant, *ptrs, E, M, D, F, stream_handle(x))
-    return out
+    return _SwiGLU.apply(x, wg, wu)

@@ -19,7 +19,10 @@ no counterpart on one card.
 
 Three entry points share parameters:
 
-* ``forward(..., mode="train")``   — full-sequence logits.
+* ``forward(..., mode="train")``   — full-sequence logits; ``remat=True``
+  recomputes each repeat of a segment's pattern in the backward
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` around its
+  scan step), so every kernel of a layer launches twice under training.
 * ``forward(..., mode="prefill")`` — logits + populated cache.
 * ``decode_step``                   — one token against the cache.
 
@@ -32,6 +35,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -315,8 +319,25 @@ def _unembed(params: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Ten
 
 
 def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str,
-                moe_impl: str):
-    for slot, block in zip(params.plan, params.layers):
+                moe_impl: str, remat: bool = False):
+    if remat:
+        # one checkpoint per repeat of a segment's pattern: the reference's
+        # jax.checkpoint around its scan step (its save policy changes no
+        # values); a repeat's layers are consecutive in layer order
+        groups: Dict[Tuple[str, int], List[int]] = {}
+        for i, slot in enumerate(params.plan):
+            groups.setdefault((slot.segment, slot.k), []).append(i)
+        for idx in groups.values():
+            x = checkpoint(_run_group, params, cfg, x, cache, pos, mode, moe_impl, idx,
+                           use_reentrant=False)
+        return x
+    return _run_group(params, cfg, x, cache, pos, mode, moe_impl, range(len(params.layers)))
+
+
+def _run_group(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str,
+               idx):
+    for i in idx:
+        slot, block = params.plan[i], params.layers[i]
         layer_cache = None
         if cache is not None:
             leaves = cache["segments"][slot.segment][f"p{slot.j}"]
@@ -326,18 +347,22 @@ def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str,
 
 
 def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
-            mode: str = "train", cache=None, moe_impl: str = "einsum"):
+            mode: str = "train", cache=None, moe_impl: str = "einsum", remat: bool = False):
     """inputs: {tokens: [B,S] int} and/or {embeds: [B,S,d]} (frontend
     embeddings, which come first; ``models/frontends.py``).
 
     mode="train": returns logits.  mode="prefill": returns (logits, cache);
     ``cache`` must be a fresh ``init_cache`` tree, and is filled in place.
     ``moe_impl``: the MoE layers' dispatch, ``"einsum"`` or ``"scatter"``.
+    ``remat``: recompute each repeat of a segment in the backward (train).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
+    if remat and mode != "train":
+        raise ValueError("remat applies to mode='train'")
     x = _embed(params, inputs)
-    x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode, moe_impl)
+    x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode, moe_impl,
+                    remat)
     logits = _unembed(params, cfg, x)
     if mode == "prefill":
         cache["pos"] = torch.tensor(x.shape[1], dtype=torch.int64, device=x.device)

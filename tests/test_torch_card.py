@@ -705,3 +705,231 @@ def test_segmented_landing_waits_for_its_sender(f32_card):
                                 segmented=True).eager(xd)
     assert torch.equal(right, plain)
     assert not torch.equal(wrong, plain)
+
+
+# --------------------------------------------------------------------------- #
+# training: the kernels' gradient paths (explicit VJPs in PyTorch)
+# --------------------------------------------------------------------------- #
+# Each kernel's VJP against autograd through its plain version.  The VJPs
+# run in f32 from the kernels' outputs (flash: bf16 o in rowsum(dO ⊙ O);
+# SwiGLU: g and u recomputed by bf16 products, dg and du rounded to bf16
+# before theirs), autograd through the plain versions in f32 throughout, and
+# both round the gradients to the inputs' dtype: bf16 gradients agree to
+# 3e-2 of their largest magnitude, f32 ones to 1e-4.  A VJP without its
+# causal mask, or with σ(g) in place of silu'(g), misses by O(1) of it
+# (test_vjp_planted_faults_break_the_bounds below, on the CPU).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype] * float(w.float().abs().max()))
+
+
+def _leaves(card, seed, shapes, dtype, scales=None):
+    return [t.requires_grad_(True) for t in _inputs(card, seed, shapes, dtype, scales)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", [(100, 100, 64, 64), (1024, 1024, 64, 64),
+                                        (130, 100, 64, 64), (100, 130, 80, 80),
+                                        (150, 150, 128, 128), (100, 100, 192, 128),
+                                        (256, 256, 192, 128)])
+def test_flash_vjp_on_card(card, dtype, causal, Sq, Sk, D, Dv):
+    """The kernel's output has a ``grad_fn`` and its gradients equal
+    autograd through the plain version: ragged S, Sq != Sk both ways, D 64,
+    80, 128 and MLA's 192/128, causal and not."""
+    q, k, v = _leaves(card, 21, [(4, Sq, D), (4, Sk, D), (4, Sk, Dv)], dtype)
+    (do,) = _inputs(card, 22, [(4, Sq, Dv)], dtype)
+    before = FLASH_LIBRARY.launches
+    o = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.launches == before + 1 and o.grad_fn is not None
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=causal), (q, k, v), do)
+    assert FLASH_LIBRARY.launches == before + 1  # the backward launches no kernel
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(8, 256, 96), (200, 256, 96), (5, 100, 70),
+                                   (4096, 2048, 512)])
+def test_swiglu_vjp_on_card(card, dtype, M, D, F):
+    """Through each variant (decode, wgmma, cuda_core; f32 all cuda_core)."""
+    x, wg, wu = _leaves(card, 23, [(M, D), (D, F), (D, F)], dtype,
+                        scales=[1.0, D ** -0.5, D ** -0.5])
+    (dout,) = _inputs(card, 24, [(M, F)], dtype)
+    out = swiglu_matmul(x, wg, wu)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (x, wg, wu), dout)
+    want = torch.autograd.grad(swiglu_ref(x, wg, wu), (x, wg, wu), dout)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,D,F", [(5, 64, 256, 96), (3, 24, 256, 96), (3, 7, 100, 70),
+                                     (4, 120, 2048, 1408)])
+def test_swiglu_experts_vjp_on_card(card, dtype, E, M, D, F):
+    x, wg, wu = _leaves(card, 25, [(E, M, D), (E, D, F), (E, D, F)], dtype,
+                        scales=[1.0, D ** -0.5, D ** -0.5])
+    (dout,) = _inputs(card, 26, [(E, M, F)], dtype)
+    out = swiglu_experts(x, wg, wu)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (x, wg, wu), dout)
+    want = torch.autograd.grad(swiglu_experts_ref(x, wg, wu), (x, wg, wu), dout)
+    _grads_close(got, want, dtype)
+
+
+def test_ssd_scan_raises_under_grad(card):
+    """No VJP for the SSD scan yet: a CUDA call that would need one raises;
+    under ``no_grad`` (serving) it runs."""
+    x, dt, A, B, C = _ssd_inputs(card, 27, 2, 64, 64, 16, torch.bfloat16)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="VJP"):
+        ssd_scan(xg, dt, A, B, C)
+    # the mixer's layout: B = 1, S = 64, H = 2 heads of 64, one group of 16
+    x4, dt4 = xg.reshape(1, 2, 64, 64).movedim(1, 2), dt.reshape(1, 2, 64).movedim(1, 2)
+    B4, C4 = (t.reshape(1, 2, 64, 16)[:, :1].movedim(1, 2) for t in (B, C))
+    with pytest.raises(NotImplementedError, match="VJP"):
+        ssd_mixer(x4, dt4, A[:2], B4, C4)
+    with torch.no_grad():
+        assert ssd_mixer(x4, dt4, A[:2], B4, C4).shape == x4.shape
+
+
+def _narrow(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    if arch == "tinyllama-1.1b":
+        return dataclasses.replace(base, n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                                   head_dim=64, d_ff=512, vocab=512)
+    return dataclasses.replace(  # MLA at its real head dims, 8 experts top-2, a shared one
+        base, n_layers=3, d_model=256, n_heads=2, vocab=512,
+        moe=dataclasses.replace(base.moe, n_experts=8, top_k=2, d_ff_expert=96, n_shared=1,
+                                router_chunk=64))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b"])
+def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
+    """A narrow dense and a narrow MoE model train one backward on the card
+    through the kernels (bf16: every parameter's gradient finite and not
+    zero), and in f32 their gradients equal the CPU's (the plain versions)
+    to 1e-3 of each leaf's largest magnitude (remat on).  Attention is
+    rescaled to its real fan-in first, as ``chip_smoke.py`` does: at the
+    reference's scale the scores are a hard argmax, whose near ties the
+    card and the CPU may break apart (ROADMAP Queue 3)."""
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_fn
+
+    cfg = _narrow(arch)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 129)))
+    for dtype in (torch.bfloat16, torch.float32):
+        model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+        with torch.no_grad():
+            for block in model.layers:
+                for n in ("wq", "wk", "wv", "w_uk", "w_uv"):
+                    if n in block.attn:
+                        w = block.attn[n]
+                        fan_in = cfg.d_model if n in ("wq", "wk", "wv") else w.shape[0]
+                        w.mul_((w.shape[1] / fan_in) ** 0.5)
+        grads = {}
+        for dev in (("cuda", "cpu") if dtype == torch.float32 else ("cuda",)):
+            m = model.to(dev).requires_grad_(True)
+            for p in m.parameters():
+                p.grad = None
+            before = FLASH_LIBRARY.launches
+            loss, _ = loss_fn(m, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev), remat=True)
+            loss.backward()
+            if dev == "cuda":  # every layer's flash launches twice: forward, recompute
+                assert FLASH_LIBRARY.launches == before + 2 * cfg.n_layers
+            grads[dev] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+        for name, g in grads["cuda"].items():
+            assert torch.isfinite(g).all() and g.abs().max() > 0, (dtype, name)
+            if "cpu" in grads:
+                want = grads["cpu"][name]
+                err = float((g - want).abs().max() / want.abs().max())
+                assert err <= 1e-3, (name, err)
+
+
+# --------------------------------------------------------------------------- #
+# the VJP functions themselves, on the CPU (no card needed)
+# --------------------------------------------------------------------------- #
+# Against autograd through the plain versions, with f64 inputs: the plain
+# versions compute in f32 inside, so the two agree to f32 rounding, 1e-5 of
+# each gradient's largest magnitude (measured: <= 3e-6).
+VJP_TOL = 1e-5
+
+
+def _f64(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s)).requires_grad_(True) for s in shapes]
+
+
+def _max_rel(got, want):
+    with torch.no_grad():
+        return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", [(17, 17, 8, 8), (9, 23, 8, 4), (23, 9, 12, 12),
+                                        (40, 40, 24, 16)])
+def test_flash_vjp_matches_autograd(monkeypatch, causal, Sq, Sk, D, Dv):
+    """Over several BH chunks (VJP_CHUNK_ELEMS shrunk), ragged Sq != Sk both
+    ways (rows that see no key when Sq > Sk), Dv != D."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa, "VJP_CHUNK_ELEMS", 2 * Sq * Sk)
+    q, k, v = _f64(30, [(5, Sq, D), (5, Sk, D), (5, Sk, Dv)])
+    o = flash_attention_ref(q, k, v, causal=causal, scale=0.3)
+    (do,) = _f64(31, [tuple(o.shape)])
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = fa.flash_attention_vjp(q.detach(), k.detach(), v.detach(), o.detach(), do.detach(),
+                                 causal, 0.3)
+    assert all(g.dtype == torch.float64 for g in got)
+    assert _max_rel(got, want) <= VJP_TOL
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_swiglu_vjp_matches_autograd(lead):
+    """One product and the expert-batched form (a leading expert dim)."""
+    from repro_torch.kernels import swiglu_vjp
+
+    x, wg, wu = _f64(32, [(*lead, 11, 16), (*lead, 16, 12), (*lead, 16, 12)])
+    fn = swiglu_experts_ref if lead else swiglu_ref
+    out = fn(x, wg, wu)
+    (dout,) = _f64(33, [tuple(out.shape)])
+    want = torch.autograd.grad(out, (x, wg, wu), dout)
+    got = swiglu_vjp(x.detach(), wg.detach(), wu.detach(), dout.detach())
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert _max_rel(got, want) <= VJP_TOL
+
+
+def test_vjp_planted_faults_break_the_bounds():
+    """The faults chip_smoke.py plants: the flash VJP without its causal
+    mask, and σ(g) in place of silu'(g) in the SwiGLU's, miss the autograd
+    gradients by far more than any tolerance here (f32's 1e-4, bf16's
+    3e-2)."""
+    from repro_torch.kernels import flash_attention_vjp
+
+    q, k, v = _f64(34, [(3, 20, 8), (3, 20, 8), (3, 20, 8)])
+    o = flash_attention_ref(q, k, v, causal=True)
+    (do,) = _f64(35, [tuple(o.shape)])
+    want = torch.autograd.grad(o, (q, k, v), do)
+    unmasked = flash_attention_vjp(q.detach(), k.detach(), v.detach(), o.detach(), do, False,
+                                   8 ** -0.5)
+    assert _max_rel(unmasked, want) > 0.3
+
+    x, wg, wu = _f64(36, [(11, 16), (16, 12), (16, 12)])
+    with torch.no_grad():  # weights at the model's scale, D^-0.5: g of order one
+        wg.mul_(0.25), wu.mul_(0.25)
+    g, u = x.detach() @ wg.detach(), x.detach() @ wu.detach()
+    out = swiglu_ref(x, wg, wu)
+    (dout,) = _f64(37, [tuple(out.shape)])
+    want_dwg = torch.autograd.grad(out, wg, dout)[0]
+    fault_dwg = x.detach().T @ (dout * u * torch.sigmoid(g))  # the fault: σ(g) for silu'(g)
+    assert float((fault_dwg - want_dwg).abs().max() / want_dwg.abs().max()) > 0.2

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-copies of the reference's configs stay equal to the originals, and the
-modules it copies verbatim stay verbatim."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``ml_dtypes``, which the card's machine does not have), its copies of the
+reference's configs stay equal to the originals, and the modules it copies
+verbatim stay verbatim."""
 import ast
 import dataclasses
 import inspect
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import pytest
 
+import repro.ckpt.checkpoint as jax_checkpoint
 import repro.codegen.executor as jax_executor
 import repro.codegen.segment as jax_segment
 import repro.configs as jax_configs
@@ -19,13 +21,18 @@ import repro.models.frontends as jax_frontends
 import repro.models.transformer as jax_transformer
 import repro.runtime.faults as jax_faults
 import repro.serve.frontend as jax_frontend
+import repro.optim as jax_optim
+import repro.train as jax_train
+import repro_torch.ckpt.checkpoint as checkpoint
 import repro_torch.codegen.executor as executor
 import repro_torch.codegen.segment as segment
 import repro_torch.configs as configs
 import repro_torch.models.frontends as frontends
 import repro_torch.models.transformer as transformer
 import repro_torch.runtime.faults as faults
+import repro_torch.optim as optim
 import repro_torch.serve.frontend as frontend
+import repro_torch.train as train
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -33,7 +40,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chi
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -58,7 +65,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serve.frontend, repro_torch.serve.trace\n"
         "import repro_torch.models.moe_scatter, repro_torch.core.expert_placement\n"
         "import repro_torch.models.frontends\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.ckpt\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -84,7 +93,11 @@ def test_config_copies_equal_reference(arch):
 
 # modules of the port that are the reference's text with ``repro`` renamed
 VERBATIM = ["codegen/analyze.py", "codegen/validate.py", "codegen/plan.py", "runtime/elastic.py",
-            "serve/trace.py", "core/expert_placement.py"]
+            "serve/trace.py", "core/expert_placement.py", "data/pipeline.py", "data/__init__.py"]
+# the checkpoint manager's methods that the port copies (its save, its
+# writer and its restore differ: bf16 leaves go through 2-byte integers)
+CHECKPOINT_METHODS = ["__init__", "_step_dir", "latest_step", "all_steps", "wait",
+                      "_raise_if_failed", "_gc"]
 # the segmented executor's host tables, copied into the port's executor
 HOST_TABLES = ["_waterfill", "PlanTables", "plan_tables", "SegmentAccess", "AccessTables",
                "plan_access_walk", "segment_access_tables"]
@@ -192,3 +205,23 @@ def test_frontend_step_differs_only_in_the_hand_over():
     theirs = "        x = np.concatenate([r.x for r in batch], axis=0)\n"
     assert ours in port
     assert port.replace(ours, theirs) == _member_source(jax_frontend.Frontend, "step")
+
+
+@pytest.mark.parametrize("name", CHECKPOINT_METHODS)
+def test_checkpoint_methods_stay_verbatim(name):
+    port = _member_source(checkpoint.CheckpointManager, name)
+    assert port == _member_source(jax_checkpoint.CheckpointManager, name)
+
+
+def _fields(cls):
+    return [(f.name, f.type, f.default if f.default is not dataclasses.MISSING
+             else f.default_factory()) for f in dataclasses.fields(cls)]
+
+
+def test_train_and_optim_configs_equal_reference():
+    assert _fields(optim.AdamWConfig) == _fields(jax_optim.AdamWConfig)
+    assert dataclasses.asdict(optim.AdamWConfig()) == dataclasses.asdict(jax_optim.AdamWConfig())
+    ours, ref = _fields(train.TrainConfig), _fields(jax_train.TrainConfig)
+    assert [f[:2] for f in ours] == [f[:2] for f in ref]
+    assert dataclasses.asdict(train.TrainConfig()) == dataclasses.asdict(jax_train.TrainConfig())
+    assert optim.AdamWConfig.__dataclass_params__.frozen and train.TrainConfig.__dataclass_params__.frozen
