@@ -51,6 +51,17 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              ``wgmma`` a step) and timed, the loss falling; (f) the
              kill-and-resume drill at 2 layers with checkpoints in a temporary
              directory, against an uninterrupted run.
+             Then mamba2-370m (48 layers, 0.420 B parameters) through the SSD
+             scan's ``wgmma`` kernel forward and its VJP (PyTorch) backward,
+             with the same data shape and checks: (a)'s fault the SSD
+             Function's backward returning None; (b) the VJP on the mixer's
+             strided views at B 4, S 1024, dt ~0.02 (faults: dh not carried
+             across chunks, exp(cs) dropped from dcs, dA left out); (c) with
+             dt_bias at -4 so the carried state counts; (e) 192 ``wgmma``
+             launches a step.  Then one Jamba-v0.1 period (8 layers, full
+             width, experts cut from 16 to 4, AdamW with bf16 moments): (a)
+             with every kernel's backward gone as the fault, 5 counted steps,
+             the loss falling.
 5. cnn     — the paper's pipeline: inception_net(224) at batch 8 (random
              weights from a seeded generator), DSH plans on the whole model
              (m=4) and on the grid-sliced one (m=8), validated; run_sequential,
@@ -94,8 +105,8 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 For development, ``--only kernels,jamba`` runs the build and the named
-phases alone (the kernels phase, the serving paths and ``train``), then exits
-2 with no result.
+phases alone (the kernels phase, the serving paths, ``train``,
+``train_mamba2`` and ``train_jamba``), then exits 2 with no result.
 """
 from __future__ import annotations
 
@@ -440,11 +451,12 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     log(f"ssd_scan[{variant}] Jamba's layout S={S} H={H} N={N}: max err {err:.3g}")
 
 
-def train_paths(torch, timer, rows, randn) -> None:
-    """The train path's forward shapes, held against the plain versions and
+def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
+    """The train paths' forward shapes, held against the plain versions and
     timed into ``rows``: one microbatch of 4 x 1024 tokens, flash ``mma``
     over 4 x 32 heads of 64 (causal) and the SwiGLU ``wgmma`` over 4096
-    rows at D 2048, F 5632."""
+    rows at D 2048, F 5632 (TinyLlama); the SSD scan's ``wgmma`` on
+    mamba2's mixer views at B 4 (the 4 sequences of a microbatch)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -485,6 +497,25 @@ def train_paths(torch, timer, rows, randn) -> None:
         library="F.silu(x@wg)*(x@wu)", library_ms=timer.ms(lambda: F.silu(x @ wg) * (x @ wu)),
         bound_ms=b_ms, bound_by=b_by)
     log(f"train path: flash mma BH={BH} and swiglu wgmma M={M} within tolerance")
+    del x, wg, wu, o, r
+    from repro_torch.kernels import SSD_LIBRARY, ssd_mixer
+    from repro_torch.kernels.ref import ssd_mixer_ref
+    from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
+
+    Bsz, S, H, G, P, N = 4, TRAIN_SEQ, 32, 1, 64, 128
+    args = conv_views(Bsz, S, H, G, P, N)
+    out, variant = launched(SSD_LIBRARY, lambda: ssd_mixer(*args, return_state=True))
+    if variant != "wgmma":
+        raise AssertionError(f"ssd_mixer on mamba2's train layout took {variant}, not wgmma")
+    ref = ssd_mixer_ref(*args, return_state=True)
+    err, tol = ssd_hold(f"[{variant}] mamba2's train layout B={Bsz}", out, ref, bf16)
+    b_ms, b_by = bound(*ssd_work(Bsz * H, Bsz * G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    rows[("ssd_scan", variant, "train")] = dict(
+        shape=f"B={Bsz} S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
+        tol=list(tol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
+        plain_ms=timer.ms(lambda: ssd_mixer_ref(*args, return_state=True), reps=5),
+        library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"train path: ssd_scan wgmma B={Bsz} S={S} H={H} N={N} within tolerance")
 
 
 def check_kernels(torch, timer):
@@ -852,7 +883,7 @@ def check_kernels(torch, timer):
         f"the path shapes: y {worst['y']:.3g}, final state {worst['state']:.3g}")
 
     slice_paths(torch, timer, rows, randn, conv_views, ssd_hold)
-    train_paths(torch, timer, rows, randn)
+    train_paths(torch, timer, rows, randn, conv_views, ssd_hold)
 
     log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
         f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
@@ -884,10 +915,11 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
     and none of the others.
 
     The train form, ``train=(tcfg, global_batch, seq_len)``, counts one
-    train step instead: ``tcfg.microbatches`` forwards of global_batch /
-    microbatches sequences each, twice under remat (the forward, then its
-    recompute in the backward); the backward itself launches no kernel (the
-    VJPs are PyTorch)."""
+    train step instead, for every family (the SSD scan in each mixer as
+    flash in each attention layer): ``tcfg.microbatches`` forwards of
+    global_batch / microbatches sequences each, twice under remat (the
+    forward, then its recompute in the backward); the backward itself
+    launches no kernel (the VJPs are PyTorch)."""
     if train is not None:
         tcfg, global_batch, seq_len = train
         prompt_lens = [seq_len] * tcfg.microbatches * (2 if tcfg.remat else 1)
@@ -1853,6 +1885,7 @@ def profile_steps(torch, steps: dict) -> dict:
 # phase: training TinyLlama-1.1B at full width and depth
 # --------------------------------------------------------------------------- #
 TRAIN_ARCH = "tinyllama-1.1b"
+SSM_TRAIN_ARCH = "mamba2-370m"  # the same steps, data shape and checks
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 20, 1024, 8
 # (c) and (f) run at full width with 2 of the 22 layers: (c) holds one step
 # against the CPU, (f) writes checkpoints (2.2 GB each at 2 layers; the
@@ -2049,12 +2082,129 @@ def lacking_gradient(torch, model) -> list:
             if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
 
 
-def card_against_cpu(torch, cfg) -> dict:
+# the SSD scan's gradient path and its planted faults
+def ssd_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.ssd_scan")
+
+
+def ssd_backward_none():
+    """The SSD scan's ``autograd.Function`` returning no gradient (a planted
+    fault: what a launch with no VJP gives)."""
+    ssd = ssd_module()
+    return patched(ssd._SSDScan, "backward",
+                   staticmethod(lambda ctx, dy, dh=None: (None,) * 7))
+
+
+def ssd_no_carry(torch):
+    """The SSD VJP with dh not carried across chunks (a planted fault): each
+    chunk ends with a zero cotangent but the last."""
+    def no_carry(decay, r, dh_final):
+        out = torch.zeros_like(r)
+        if dh_final is not None:
+            out[:, -1] = dh_final
+        return out
+    return patched(ssd_module(), "_chunk_end_grads", no_carry)
+
+
+def ssd_ecs_dropped(torch):
+    """The SSD VJP with the exp(cs) factor of the inter-chunk term dropped
+    from dcs (a planted fault)."""
+    return patched(ssd_module(), "_inter_chunk_dcs", lambda ecs, dy, h0C: (dy * h0C).sum(-1))
+
+
+def ssd_no_dA(torch):
+    """The SSD VJP with dA left out (a planted fault)."""
+    ssd = ssd_module()
+    vjp = ssd.ssd_scan_vjp
+
+    def without_dA(*args):
+        dx, ddt, dA, dB, dC = vjp(*args)
+        return dx, ddt, torch.zeros_like(dA), dB, dC
+    return patched(ssd, "ssd_scan_vjp", without_dA)
+
+
+SSD_VJP_FAULTS = {"dh not carried": ssd_no_carry, "exp(cs) dropped from dcs": ssd_ecs_dropped,
+                  "dA left out": ssd_no_dA}
+
+
+def ssd_vjp_checks(torch, timer) -> dict:
+    """(b) The SSD scan's VJP at the train path's shape (one microbatch of
+    mamba2-370m: B 4, S 1024, 32 heads of 64, state 128, one group) on the
+    mixer's strided views of one bf16 conv output, dt = softplus(N(0,1) - 4)
+    (dt ~0.02: a dropped carry shows), against autograd through the plain
+    version on the card; the planted faults; the backward's times beside
+    its bound (no library call computes an SSD scan)."""
+    from repro_torch.kernels import ssd_mixer
+    from repro_torch.kernels.ref import ssd_mixer_ref
+
+    ssd = ssd_module()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    Bsz, S, H, G, P, N = 4, TRAIN_SEQ, 32, 1, 64, 128
+    buf = torch.randn((Bsz, S, H * P + 2 * G * N), generator=gen, device="cuda").mul_(0.5).to(
+        torch.bfloat16).requires_grad_(True)
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, S, H), generator=gen, device="cuda")
+                                      - 4.0).requires_grad_(True)
+    A = (-torch.exp(torch.randn(H, generator=gen, device="cuda") * 0.5)).requires_grad_(True)
+    dy = torch.randn((Bsz, S, H, P), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def views():
+        return (buf[..., :H * P].reshape(Bsz, S, H, P),
+                buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N),
+                buf[..., H * P + G * N:].reshape(Bsz, S, G, N))
+
+    def fwd_bwd(fn):
+        x, Bm, Cm = views()
+        y, _ = fn(x, dt, A, Bm, Cm, return_state=True)  # the train path discards the state
+        return torch.autograd.grad(y, (buf, dt, A), dy)
+
+    got = fwd_bwd(ssd_mixer)
+    want = fwd_bwd(ssd_mixer_ref)
+    faults = {}
+    for name, fault in SSD_VJP_FAULTS.items():
+        with fault(torch):
+            faults[name] = grads_err(fwd_bwd(ssd_mixer), want)
+    hold(f"(b) SSD VJP B={Bsz} S={S} H={H} N={N}, d(conv output)/ddt/dA", grads_err(got, want),
+         VJP_TOL, faults)
+    del got, want
+    x, Bm, Cm = (t.detach() for t in views())
+    dtd, A2 = dt.detach(), A.detach()[None].expand(Bsz, H)
+    # bytes: x, dy read and dx written (bf16), B, C read and dB, dC written,
+    # dt read and ddt written (f32); operations: the VJP's products over
+    # chunks of 64 (per head 6 of Q·P·N and 2 of Q·Q·P, per group 3 of
+    # Q·Q·N), 2 per multiply-add
+    Q, nc = ssd.VJP_CHUNK, -(-S // ssd.VJP_CHUNK)
+    nbytes = 3 * Bsz * S * H * P * 2 + 4 * Bsz * S * G * N * 2 + 2 * Bsz * S * H * 4 + 2 * H * 4
+    ops = 2.0 * Bsz * nc * (H * (6 * Q * P * N + 2 * Q * Q * P) + G * 3 * Q * Q * N)
+    b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+    return {"ssd": dict(
+        shape=f"B={Bsz} S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out",
+        vjp_ms=timer.ms(lambda: ssd.ssd_scan_vjp(x, dtd, A2, Bm, Cm, dy, None), reps=10),
+        fwd_bwd_ms=timer.ms(lambda: fwd_bwd(ssd_mixer), reps=10),
+        plain_fwd_bwd_ms=timer.ms(lambda: fwd_bwd(ssd_mixer_ref), reps=2),
+        library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        faults=faults)}
+
+
+def shifted_dt_bias(torch, model) -> None:
+    """``dt_bias`` at -4 in every mixer (dt ~0.018, inside Mamba-2's own
+    dt initialisation range [0.001, 0.1]; the reference initialises it at
+    0, where dt ~0.7 and a chunk of 64 positions decays by ~e^-45): the state
+    carried across chunks, and so its gradient, then counts."""
+    with torch.no_grad():
+        for block in model.layers:
+            if hasattr(block, "ssm"):
+                block.ssm["dt_bias"].fill_(-4.0)
+
+
+def card_against_cpu(torch, cfg, faults, prepare=None) -> dict:
     """(c) One ``make_train_step`` at full width and 2 layers on 2 x 256
     tokens, on the card (bf16, the kernels and their VJPs) against the same
     weights in f32 on the CPU (the plain versions): loss, gradient norm,
     each leaf's first moment (0.1 of its clipped gradient) and the updated
-    weights; then each planted fault of (a) and (b) on the card."""
+    weights; then each planted fault of ``faults`` ({name: context}) on the
+    card.  ``prepare(model)`` adjusts the weights first."""
     import copy
 
     from repro_torch.data import SyntheticLMDataset
@@ -2064,6 +2214,8 @@ def card_against_cpu(torch, cfg) -> dict:
 
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rescale_attention(torch, cfg, model)
+    if prepare is not None:
+        prepare(torch, model)
     start = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
     b = SyntheticLMDataset(cfg.vocab, seq_len=256, global_batch=2, seed=0).batch(0)
     tcfg = TrainConfig(microbatches=1, remat=True,
@@ -2102,28 +2254,89 @@ def card_against_cpu(torch, cfg) -> dict:
                     weights=excess / (2 * m0["lr"]))
 
     ok = compare(card_run())
-    faults = {}
-    for name, ctx in (("detached outputs", detached_kernels()),
-                      ("flash VJP without causal mask", unmasked_flash_vjp()),
-                      ("sigma(g) for silu'(g)", sigma_swiglu_vjp(torch))):
+    planted = {}
+    for name, ctx in faults.items():
         with ctx:
-            faults[name] = compare(card_run())
-    log(f"(c) card against CPU: {json.dumps(ok)}; planted faults {json.dumps(faults)}")
+            planted[name] = compare(card_run())
+    log(f"(c) card against CPU: {json.dumps(ok)}; planted faults {json.dumps(planted)}")
     for key, tol in CARD_CPU_TOL.items():
         if not ok[key] <= tol:
             raise AssertionError(f"(c) {key}: {ok[key]:.4g} > {tol}")
     hold("(c) first moments, card against CPU", ok["moment"], CARD_CPU_TOL["moment"],
-         {k: f["moment"] for k, f in faults.items()})
+         {k: f["moment"] for k, f in planted.items()})
     del model
-    return dict(card_vs_cpu=ok, faults=faults, cpu_loss=cpu[0]["loss"],
+    return dict(card_vs_cpu=ok, faults=planted, cpu_loss=cpu[0]["loss"],
                 cpu_grad_norm=cpu[0]["grad_norm"])
 
 
-def train_phase(torch, np) -> dict:
-    """Train TinyLlama-1.1B at full width and depth through the flash and
-    SwiGLU kernels and their VJPs; checks (a)-(f) (module docstring)."""
-    import dataclasses
+def train_path(torch, arch: str) -> dict:
+    """What the train phase of ``arch`` checks beyond the common steps: (b)
+    its VJPs, (a)'s planted fault, (c)'s faults and weight adjustment, and
+    the VJPs it counts ({module: function})."""
+    if arch == TRAIN_ARCH:
+        return dict(vjps=vjp_checks, detach=detached_kernels,
+                    c_faults=lambda: {"detached outputs": detached_kernels(),
+                                      "flash VJP without causal mask": unmasked_flash_vjp(),
+                                      "sigma(g) for silu'(g)": sigma_swiglu_vjp(torch)},
+                    prepare=None,
+                    counted={"flash_attention": "flash_attention_vjp",
+                             "swiglu_matmul": "swiglu_vjp"})
+    return dict(vjps=ssd_vjp_checks, detach=ssd_backward_none,
+                c_faults=lambda: {"SSD backward returns None": ssd_backward_none(),
+                                  **{k: f(torch) for k, f in SSD_VJP_FAULTS.items()}},
+                prepare=shifted_dt_bias, counted={"ssd_scan": "ssd_scan_vjp"})
+
+
+@contextmanager
+def counting_vjps(counted: dict, calls: dict):
+    """Each VJP of ``counted`` ({module: function}) counts its calls into
+    ``calls`` while inside."""
     import importlib
+    from contextlib import ExitStack
+
+    def counting(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    with ExitStack() as stack:
+        for mod, fn in counted.items():
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            calls[fn] = 0
+            stack.enter_context(patched(m, fn, counting(fn, getattr(m, fn))))
+        yield
+
+
+def step_report(torch, tr, steps: int, batch: int, wall: float) -> dict:
+    """The counted run's losses, median step wall (steps 3 on), tokens/s and
+    peak, then one profiled step (wall and device busy)."""
+    losses = [h["loss"] for h in tr.history]
+    step_ms = sorted(dt * 1e3 for _, dt in tr.monitor.workers[0].timings[2:])
+    median_ms = step_ms[len(step_ms) // 2]
+    tokens_s = batch * TRAIN_SEQ / (median_ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"(e) losses {[round(x, 4) for x in losses]}")
+    log(f"(e) {steps} steps in {wall:.2f} s; median step {median_ms:.2f} ms over steps "
+        f"3-{steps}, {tokens_s:.0f} tokens/s; peak {peak:.2f} GiB")
+    nxt = tr.dataset.batch(tr.step)
+    feed = {"tokens": torch.as_tensor(nxt.inputs, device="cuda"),
+            "labels": torch.as_tensor(nxt.labels, device="cuda")}
+
+    def one_step():
+        tr.params, tr.opt_state, _ = tr.step_fn(tr.params, tr.opt_state, feed)
+
+    prof = profile_steps(torch, {"train step": one_step})["train step"]
+    return dict(losses=losses, median_step_ms=median_ms, tokens_per_s=tokens_s, peak_gib=peak,
+                profiled_step=dict(wall_ms=prof[0], busy_ms=prof[1],
+                                   busy_share=prof[1] / prof[0]))
+
+
+def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
+    """Train ``arch`` (TinyLlama-1.1B through the flash and SwiGLU kernels,
+    or mamba2-370m through the SSD scan) at full width and depth, each
+    kernel's VJP backward; checks (a)-(f) (module docstring)."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -2132,15 +2345,16 @@ def train_phase(torch, np) -> dict:
     from repro_torch.runtime import HealthMonitor, simulate_failure_recovery
     from repro_torch.train import loss_fn
 
-    cfg = get_config(TRAIN_ARCH)
+    path = train_path(torch, arch)
+    cfg = get_config(arch)
     small = dataclasses.replace(cfg, n_layers=TRAIN_SMALL_LAYERS)
     report = {}
     # (c) one step, card against CPU, 2 layers
-    report["c"] = card_against_cpu(torch, small)
+    report["c"] = card_against_cpu(torch, small, path["c_faults"](), path["prepare"])
     release(torch)
     # (b) the VJPs at the path's shapes
     timer = Timer(torch)
-    report["backward"] = vjp_checks(torch, timer)
+    report["backward"] = path["vjps"](torch, timer)
     del timer
     release(torch)
     log("backward: " + json.dumps(report["backward"]))
@@ -2154,23 +2368,9 @@ def train_phase(torch, np) -> dict:
     labels = torch.as_tensor(first.labels, device="cuda")
     half = TRAIN_BATCH // 2
     # (a) every parameter gets a finite, non-zero gradient from one
-    # microbatch's backward; a kernel output detached leaves some without
-    def backward_lacking():
-        loss, _ = loss_fn(tr.params, cfg, tokens[:half], labels[:half], remat=True)
-        loss.backward()
-        bad = lacking_gradient(torch, tr.params)
-        for p in tr.params.parameters():
-            p.grad = None
-        return bad
-
-    lacking = backward_lacking()
-    with detached_kernels():
-        fault = backward_lacking()
-    n_leaves = len(list(tr.params.parameters()))
-    log(f"(a) parameters lacking a gradient: {len(lacking)} of {n_leaves}; with the kernels' "
-        f"outputs detached: {len(fault)} ({', '.join(fault[:6])}, ...)")
-    if lacking or not fault:
-        raise AssertionError(f"(a) lacking gradients {lacking}; planted fault lacking {fault[:6]}")
+    # microbatch's backward; the planted fault leaves some without
+    report["a"] = every_gradient(torch, cfg, tr.params, tokens[:half], labels[:half],
+                                 path["detach"])
     # (d) one batch as 1 and as 2 microbatches (the step's loss metric)
     with torch.no_grad():
         one = float(loss_fn(tr.params, cfg, tokens, labels)[0])
@@ -2184,54 +2384,25 @@ def train_phase(torch, np) -> dict:
     report["d"] = dict(loss_1=one, loss_2=two, rel=d_rel)
     del tokens, labels
     # (e) 20 steps through Trainer.run, counted; the VJP calls counted too
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
-    vjp_calls = {"flash": 0, "swiglu": 0}
-
-    def counting(name, fn):
-        def call(*args):
-            vjp_calls[name] += 1
-            return fn(*args)
-        return call
-
+    vjp_calls = {}
     reset_counts(torch)
     t0 = time.perf_counter()
-    with patched(fa, "flash_attention_vjp", counting("flash", fa.flash_attention_vjp)), \
-            patched(sw, "swiglu_vjp", counting("swiglu", sw.swiglu_vjp)):
+    with counting_vjps(path["counted"], vjp_calls):
         tr.run(TRAIN_STEPS, log_every=5, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = expected_launches(torch, cfg, train=(tr.tcfg, TRAIN_BATCH, TRAIN_SEQ))
     check_launches(launches, {lib: {v: n * TRAIN_STEPS for v, n in c.items()}
                               for lib, c in per_step.items()})
-    log(f"launches a step: flash {per_step['flash_attention']}, "
-        f"swiglu {per_step['swiglu_matmul']}; VJP calls a step: "
-        f"{ {k: n / TRAIN_STEPS for k, n in vjp_calls.items()} }")
-    losses = [h["loss"] for h in tr.history]
-    step_ms = sorted(dt * 1e3 for _, dt in tr.monitor.workers[0].timings[2:])
-    median_ms = step_ms[len(step_ms) // 2]
-    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
-    log(f"(e) losses {[round(x, 4) for x in losses]}")
-    log(f"(e) {TRAIN_STEPS} steps in {wall:.2f} s; median step {median_ms:.2f} ms over steps "
-        f"3-{TRAIN_STEPS}, {tokens_s:.0f} tokens/s; peak {peak:.2f} GiB")
+    calls = {k: n / TRAIN_STEPS for k, n in vjp_calls.items()}
+    log(f"launches a step: {per_step}; VJP calls a step: {calls}")
+    report["e"] = dict(step_report(torch, tr, TRAIN_STEPS, TRAIN_BATCH, wall),
+                       launches_per_step=per_step, vjp_calls_per_step=calls)
+    losses = report["e"]["losses"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] - 0.3:
         raise AssertionError(f"(e) losses {losses}: not finite, or the last not 0.3 below the first")
-    nxt = tr.dataset.batch(tr.step)
-    feed = {"tokens": torch.as_tensor(nxt.inputs, device="cuda"),
-            "labels": torch.as_tensor(nxt.labels, device="cuda")}
-
-    def one_step():
-        tr.params, tr.opt_state, _ = tr.step_fn(tr.params, tr.opt_state, feed)
-
-    prof = profile_steps(torch, {"train step": one_step})["train step"]
-    report["e"] = dict(losses=losses, median_step_ms=median_ms, tokens_per_s=tokens_s,
-                       peak_gib=peak, profiled_step=dict(wall_ms=prof[0], busy_ms=prof[1],
-                                                         busy_share=prof[1] / prof[0]),
-                       launches_per_step=per_step, vjp_calls_per_step={
-                           k: n / TRAIN_STEPS for k, n in vjp_calls.items()})
-    del tr, feed
+    del tr
     release(torch)
     # (f) kill and resume at 2 layers, against an uninterrupted run
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # listed in .gitignore
@@ -2266,8 +2437,115 @@ def train_phase(torch, np) -> dict:
     report["f"] = dict(resume_step=res["resume_step"], pre_diff=pre_diff, post_diff=post_diff,
                        drill_s=drill_s)
     del whole, res
-    log("train: " + json.dumps(report))
+    log(f"train {arch}: " + json.dumps(report))
     return launches
+
+
+def every_gradient(torch, cfg, model, tokens, labels, fault) -> dict:
+    """(a) One microbatch's backward gives every parameter a finite,
+    non-zero gradient; under the planted ``fault`` (a context) some lack
+    one.  Gradients are cleared after each."""
+    from repro_torch.train import loss_fn
+
+    def backward_lacking():
+        loss, _ = loss_fn(model, cfg, tokens, labels, remat=True)
+        loss.backward()
+        bad = lacking_gradient(torch, model)
+        for p in model.parameters():
+            p.grad = None
+        return bad
+
+    lacking = backward_lacking()
+    with fault():
+        planted = backward_lacking()
+    n_leaves = len(list(model.parameters()))
+    log(f"(a) parameters lacking a gradient: {len(lacking)} of {n_leaves}; with the planted "
+        f"fault: {len(planted)} ({', '.join(planted[:6])}, ...)")
+    if lacking or not planted:
+        raise AssertionError(f"(a) lacking gradients {lacking}; planted fault lacking {planted[:6]}")
+    return dict(leaves=n_leaves, lacking=len(lacking), lacking_under_fault=len(planted))
+
+
+# --------------------------------------------------------------------------- #
+# phase: one Jamba period trains (the hybrid super segment)
+# --------------------------------------------------------------------------- #
+HYBRID_TRAIN_ARCH = "jamba-v0.1-52b"
+# one period of 8 layers (the least ``segments`` allows) at full width, with
+# the experts cut from 16 to 4 (top-2 kept): 4.81 B parameters; AdamW with
+# bf16 moments (the reference's option) keeps the train state at ~54 GiB
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_EXPERTS = 8, 4
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH = 5, 4  # 2 microbatches of 2 x 1024 tokens
+
+
+def hybrid_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    return dataclasses.replace(cfg, n_layers=HYBRID_TRAIN_LAYERS,
+                               moe=dataclasses.replace(cfg.moe, n_experts=HYBRID_TRAIN_EXPERTS))
+
+
+def hybrid_train_phase(torch, np) -> dict:
+    """One Jamba period trains at full width: attention, seven mamba2
+    mixers, four MoE and four dense FFNs in one backward.  (a) every
+    parameter gets a finite, non-zero gradient (planted fault: every
+    kernel's Function without its backward); 5 counted steps with launches
+    exactly as ``expected_launches`` counts them, the loss finite and
+    falling."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import HealthMonitor
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = hybrid_config()
+    tcfg = TrainConfig(microbatches=2, remat=True,
+                       optim=AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=HYBRID_TRAIN_STEPS,
+                                         bf16_moments=True))
+    ds = SyntheticLMDataset(cfg.vocab, seq_len=TRAIN_SEQ, global_batch=HYBRID_TRAIN_BATCH, seed=0)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, ds, monitor=HealthMonitor(n_workers=1, window=HYBRID_TRAIN_STEPS),
+                 seed=0, device="cuda")
+    rescale_attention(torch, cfg, tr.params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params (bf16), AdamW with bf16 "
+        f"moments; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    first = ds.batch(0)
+    mb = HYBRID_TRAIN_BATCH // tcfg.microbatches
+    report = {"a": every_gradient(
+        torch, cfg, tr.params, torch.as_tensor(first.inputs[:mb], device="cuda"),
+        torch.as_tensor(first.labels[:mb], device="cuda"), every_kernel_without_backward)}
+    release(torch)
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    tr.run(HYBRID_TRAIN_STEPS, log_every=1, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    per_step = expected_launches(torch, cfg, train=(tcfg, HYBRID_TRAIN_BATCH, TRAIN_SEQ))
+    check_launches(launches, {lib: {v: n * HYBRID_TRAIN_STEPS for v, n in c.items()}
+                              for lib, c in per_step.items()})
+    log(f"launches a step: {per_step}")
+    report["e"] = dict(step_report(torch, tr, HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH, wall),
+                       launches_per_step=per_step, params=n_params)
+    losses = report["e"]["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(e) losses {losses}: not finite, or not falling")
+    del tr
+    log("train jamba: " + json.dumps(report))
+    return launches
+
+
+@contextmanager
+def every_kernel_without_backward():
+    """Every kernel's output with no gradient path: flash and SwiGLU
+    detached, the SSD scan's Function returning None (a planted fault)."""
+    with detached_kernels(), ssd_backward_none():
+        yield
 
 
 # --------------------------------------------------------------------------- #
@@ -3013,7 +3291,8 @@ def main() -> None:
     parser.add_argument("--only", default="",
                         help="development: run the build and only these comma-separated "
                              "phases (kernels, tinyllama, mamba2, deepseek, jamba, hubert, "
-                             "llava, arctic, train), then exit 2 with no result")
+                             "llava, arctic, train, train_mamba2, train_jamba), then exit 2 "
+                             "with no result")
     args = parser.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -3067,7 +3346,12 @@ def main() -> None:
                ("serve llava-next-mistral-7b", "llava", lambda: serve_llava(torch, np)),
                (f"serve arctic-480b ({ARCTIC_LAYERS} layers)", "arctic",
                 lambda: serve_arctic(torch, np)),
-               (f"train {TRAIN_ARCH}", "train", lambda: train_phase(torch, np))]
+               (f"train {TRAIN_ARCH}", "train", lambda: train_phase(torch, np)),
+               (f"train {SSM_TRAIN_ARCH}", "train_mamba2",
+                lambda: train_phase(torch, np, SSM_TRAIN_ARCH)),
+               (f"train {HYBRID_TRAIN_ARCH} ({HYBRID_TRAIN_LAYERS} layers, "
+                f"{HYBRID_TRAIN_EXPERTS} experts)", "train_jamba",
+                lambda: hybrid_train_phase(torch, np))]
     for name, path, run in serving:
         if only and path not in only:
             continue
@@ -3131,7 +3415,8 @@ def main() -> None:
                  # the train path: one microbatch's forward (the backward is
                  # PyTorch); launches from the 20 counted steps
                  ("flash_attention", "mma", "train", "train", " train BH=128"),
-                 ("swiglu_matmul", "wgmma", "train", "train", " train M=4096")]
+                 ("swiglu_matmul", "wgmma", "train", "train", " train M=4096"),
+                 ("ssd_scan", "wgmma", "train", "train_mamba2", " train B=4")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")

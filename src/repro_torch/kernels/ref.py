@@ -46,13 +46,15 @@ def ssd_scan_ref(
     return_state: bool = False,
 ):
     """Exact sequential SSD recurrence: h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,
-    y_t = C_t · h_t.  Returns y [BH, S, P] in x's dtype and, with
-    ``return_state``, also the final state h [BH, P, N] in f32."""
+    y_t = C_t · h_t, in f32 (f64 for f64 inputs).  Returns y [BH, S, P] in
+    x's dtype and, with ``return_state``, also the final state h [BH, P, N]
+    in f32 (f64)."""
     BH, S, P = x.shape
     N = B.shape[-1]
-    xf, Bf, Cf = x.to(F32), B.to(F32), C.to(F32)
-    dtf, Af = dt.to(F32), A.to(F32)
-    h = torch.zeros((BH, P, N), dtype=F32, device=x.device)
+    acc = torch.promote_types(x.dtype, F32)
+    xf, Bf, Cf = x.to(acc), B.to(acc), C.to(acc)
+    dtf, Af = dt.to(acc), A.to(acc)
+    h = torch.zeros((BH, P, N), dtype=acc, device=x.device)
     ys = []
     for t in range(S):
         dA = torch.exp(dtf[:, t] * Af)
@@ -61,6 +63,32 @@ def ssd_scan_ref(
         ys.append(torch.einsum("bn,bpn->bp", Cf[:, t], h))
     y = torch.stack(ys, dim=1).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def on_flat_heads(scan, x, dt, A, Bm, Cm, return_state: bool = False):
+    """``scan`` (over flat ``[B·H, S, *]`` operands, as :func:`ssd_scan_ref`
+    takes them) on the mixer's layout: x [B, S, H, P], dt [B, S, H], A [H],
+    Bm and Cm [B, S, G, N], head h reading group h // (H/G).  The operands
+    are copied to the flat layout with the groups broadcast to heads; y
+    comes back as [B, S, H, P] and the final state as [B, H, P, N]."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    rep = H // Bm.shape[2]
+    if rep != 1:
+        Bm = Bm.repeat_interleave(rep, dim=2)
+        Cm = Cm.repeat_interleave(rep, dim=2)
+    xf = x.movedim(2, 1).reshape(Bsz * H, S, P).contiguous()
+    dtf = dt.movedim(2, 1).reshape(Bsz * H, S).contiguous()
+    Bf = Bm.movedim(2, 1).reshape(Bsz * H, S, N).contiguous()
+    Cf = Cm.movedim(2, 1).reshape(Bsz * H, S, N).contiguous()
+    out = scan(xf, dtf, A.repeat(Bsz), Bf, Cf, return_state=return_state)
+    y = (out[0] if return_state else out).reshape(Bsz, H, S, P).movedim(1, 2)
+    return (y, out[1].reshape(Bsz, H, P, N)) if return_state else y
+
+
+def ssd_mixer_ref(x, dt, A, Bm, Cm, return_state: bool = False):
+    """:func:`ssd_scan_ref` on the mixer's layout (:func:`on_flat_heads`)."""
+    return on_flat_heads(ssd_scan_ref, x, dt, A, Bm, Cm, return_state)
 
 
 def _split_bf16(t: torch.Tensor):

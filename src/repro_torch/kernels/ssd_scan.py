@@ -25,24 +25,33 @@ prefill needs for its cache.  CPU tensors take the plain version,
 :func:`ref.ssd_scan_ref`, and autograd runs through it; CUDA tensors launch
 the selected variant or raise.
 
-The kernels have no backward yet.  A CUDA call whose inputs require grad
-(with grad mode on) raises ``NotImplementedError`` rather than return an
-output with no gradient path: mamba2 and Jamba train on the card once the
-scan has a VJP (ROADMAP Queue 1, item 9b).
+On the card each launch sits in :class:`_SSDScan`, an
+``autograd.Function`` whose backward is :func:`ssd_scan_vjp`: the chunked
+form's VJP in PyTorch (the Pallas kernel has no VJP of its own, so there is
+no backward kernel to port).  It recomputes the chunk-start states from the
+saved inputs rather than reading the ``wgmma`` kernel's ``states`` scratch,
+which holds them in the accumulator's register order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import KernelLibrary, check_cuda_operands, stream_handle
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import on_flat_heads, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_mixer", "select_variant", "wgmma_operands", "LIBRARY", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_mixer", "ssd_scan_vjp", "select_variant", "wgmma_operands",
+           "LIBRARY", "CHUNK", "VJP_CHUNK"]
 
 MAX_STATE = 128
 CHUNK = {"wgmma": 64, "cuda_core": 32}  # each variant's chunk length
+VJP_CHUNK = 64  # the backward's chunk length (any length gives the same gradients)
+# the backward works on slices of (batch, group, head in group) whose
+# [..., chunk, chunk] intermediates hold at most this many elements (64 MB in f32)
+VJP_CHUNK_ELEMS = 1 << 24
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("ssd_scan", {
     # x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, P, N, strides, stream
@@ -51,14 +60,6 @@ LIBRARY = KernelLibrary("ssd_scan", {
     # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
     "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 })
-
-
-def _no_grad_path(name: str, tensors) -> None:
-    """Raise if a CUDA call would need a gradient the kernels cannot give."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA SSD scan has no VJP yet, so it cannot train on the card "
-            "(ROADMAP Queue 1, item 9b); train on the CPU, or call it under torch.no_grad()")
 
 
 def select_variant(P: int, N: int, dtype: torch.dtype) -> str:
@@ -129,6 +130,212 @@ def _launch_wgmma(x, dt, A2, Bm, Cm, return_state):
     return y, h
 
 
+def _launch_cuda_core(x, dt, A2, Bm, Cm, return_state):
+    """The ``cuda_core`` variant on one-head operands in the mixer's layout
+    (x [BH, S, 1, P], dt [BH, S, 1], A2 [BH, 1], Bm and Cm [BH, S, 1, N]:
+    views of flat contiguous ``[BH, S, *]`` tensors): y [BH, S, 1, P] and
+    the final state [BH, 1, P, N] (f32) or None."""
+    x, dt, A, Bm, Cm = x[:, :, 0], dt[:, :, 0], A2[:, 0], Bm[:, :, 0], Cm[:, :, 0]
+    BH, S, P = x.shape
+    N = Bm.shape[-1]
+    dtype = check_cuda_operands("ssd_scan", (x, Bm, Cm), (torch.float32, torch.bfloat16))
+    check_cuda_operands("ssd_scan", (dt, A), (torch.float32,))
+    if dt.device != x.device:
+        raise ValueError(f"ssd_scan: operands on {x.device} and {dt.device}")
+    if N > MAX_STATE or N % 4:
+        raise ValueError(f"ssd_scan: state width {N} is not a multiple of 4 up to {MAX_STATE}")
+    y = torch.empty_like(x)
+    h = torch.empty((BH, P, N), dtype=torch.float32, device=x.device) if return_state else None
+    LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                   Cm.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
+                   BH, S, P, N, dtype, stream_handle(x))
+    return y[:, :, None], (h[:, None] if return_state else None)
+
+
+def _chunk_starts(decay: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The state each chunk starts from: h_0 = 0, h_{c+1} = decay_c h_c + s_c
+    (``decay`` [b, nc, ...], ``s`` [b, nc, ..., P, N])."""
+    h = torch.zeros_like(s[:, 0])
+    out = torch.empty_like(s)
+    for c in range(s.shape[1]):
+        out[:, c] = h
+        h = decay[:, c, ..., None, None] * h + s[:, c]
+    return out
+
+
+def _chunk_end_grads(decay: torch.Tensor, r: torch.Tensor,
+                     dh_final: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cotangent of the state each chunk ends with, carried backwards:
+    dh_end(last) = ``dh_final`` (or 0), dh_end(c - 1) = decay_c dh_end(c) + r_c,
+    where r_c = Σ_i exp(cs_i) dy_i C_iᵀ is chunk c's own term."""
+    dh = torch.zeros_like(r[:, 0]) if dh_final is None else dh_final
+    out = torch.empty_like(r)
+    for c in reversed(range(r.shape[1])):
+        out[:, c] = dh
+        dh = decay[:, c, ..., None, None] * dh + r[:, c]
+    return out
+
+
+def _inter_chunk_dcs(ecs: torch.Tensor, dy: torch.Tensor, h0C: torch.Tensor) -> torch.Tensor:
+    """d cs_i of the inter-chunk term exp(cs_i) h_0 C_i: exp(cs_i) dy_i · (h_0 C_i)."""
+    return ecs * (dy * h0C).sum(-1)
+
+
+def _vjp_slice(x, dt, A, B, C, dy, dh_final, Q: int):
+    """:func:`ssd_scan_vjp` on one slice, every operand in the accumulation
+    dtype: x, dy [b, S, g, r, P], dt [b, S, g, r], A [b, g, r], B, C
+    [b, S, g, N], dh_final [b, g, r, P, N] or None.  Returns dx, ddt, dA, dB,
+    dC in those shapes (dB, dC summed over the slice's heads r)."""
+    b, S = x.shape[:2]
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t, lead: int):
+        """[b, S, ...] -> [b, nc, <the next ``lead`` dims>, Q, <the rest>],
+        zero past S (dt = 0 there: no decay, no input, no gradient)."""
+        t = F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad]).reshape(b, nc, Q, *t.shape[2:])
+        return t.movedim(2, 2 + lead)
+
+    xc, dyc = chunks(x, 2), chunks(dy, 2)              # [b, nc, g, r, Q, P]
+    dtc = chunks(dt, 2)                                # [b, nc, g, r, Q]
+    Bc, Cc = chunks(B, 1), chunks(C, 1)                # [b, nc, g, Q, N]
+    Ab = A[:, None, :, :, None]
+    cs = torch.cumsum(dtc * Ab, dim=-1)                # cs_i, along the innermost dim
+    T = cs[..., -1]                                    # [b, nc, g, r]
+    decay = torch.exp(T)
+    ecs = torch.exp(cs)                                # exp(cs_i)
+    w = torch.exp(T[..., None] - cs)                   # exp(T - cs_j)
+    u = xc * dtc[..., None]                            # u_j = dt_j x_j
+    uw = u * w[..., None]
+    # forward over chunks: the states the chunks start from (recomputed)
+    h0 = _chunk_starts(decay, torch.einsum("bcgrjp,bcgjn->bcgrpn", uw, Bc))
+    # backward over chunks: the cotangents of the states they end with
+    dyecs = dyc * ecs[..., None]
+    dh1 = _chunk_end_grads(decay, torch.einsum("bcgrip,bcgin->bcgrpn", dyecs, Cc), dh_final)
+
+    # within each chunk; L_ij = exp(cs_i - cs_j) for j <= i
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(~causal, float("-inf")))
+    CB = torch.einsum("bcgin,bcgjn->bcgij", Cc, Bc)
+    K = CB[:, :, :, None] * L                          # y_i = Σ_j K_ij u_j + ...
+    dhB = torch.einsum("bcgrpn,bcgjn->bcgrjp", dh1, Bc)
+    du = torch.einsum("bcgrij,bcgrip->bcgrjp", K, dyc) + w[..., None] * dhB
+    Gm = torch.einsum("bcgrip,bcgrjp->bcgrij", dyc, u)  # dy_i · u_j
+    M = K * Gm                                         # d cs through L
+    dCB = (L * Gm).sum(3)
+    del L, K, Gm
+    dC = (torch.einsum("bcgij,bcgjn->bcgin", dCB, Bc)
+          + torch.einsum("bcgrip,bcgrpn->bcgin", dyecs, h0))
+    dB = (torch.einsum("bcgij,bcgin->bcgjn", dCB, Cc)
+          + torch.einsum("bcgrjp,bcgrpn->bcgjn", uw, dh1))
+    del dCB
+    W = w * (u * dhB).sum(-1)                          # d(T - cs_j) through the end state
+    h0C = torch.einsum("bcgrpn,bcgin->bcgrip", h0, Cc)
+    dcs = M.sum(-1) - M.sum(-2) + _inter_chunk_dcs(ecs, dyc, h0C) - W
+    del M
+    dcs[..., -1] += W.sum(-1) + decay * (dh1 * h0).sum((-1, -2))  # d T
+    da = dcs.flip(-1).cumsum(-1).flip(-1)              # a_t enters every cs_i, i >= t
+    dA = (dtc * da).sum((1, -1))
+
+    def unchunks(t, lead: int):
+        t = t.movedim(2 + lead, 2)
+        return t.reshape(b, nc * Q, *t.shape[3:])[:, :S]
+
+    return (unchunks(dtc[..., None] * du, 2),
+            unchunks((xc * du).sum(-1) + Ab * da, 2), dA,
+            unchunks(dB, 1), unchunks(dC, 1))
+
+
+def ssd_scan_vjp(
+    x: torch.Tensor,    # [B, S, H, P]
+    dt: torch.Tensor,   # [B, S, H]
+    A: torch.Tensor,    # [B, H]
+    B: torch.Tensor,    # [B, S, G, N]
+    C: torch.Tensor,    # [B, S, G, N]
+    dy: Optional[torch.Tensor],        # [B, S, H, P]
+    dh_final: Optional[torch.Tensor],  # [B, H, P, N]
+    chunk: int = VJP_CHUNK,
+):
+    """(dx, ddt, dA, dB, dC) of the scan on the mixer's layout (head h
+    reading group h // (H/G)) at the cotangents ``dy`` of y and ``dh_final``
+    of the final state (``None`` for zero), in the inputs' dtypes and
+    shapes.  Computed in f32 (f64 for f64 inputs) over chunks of ``chunk``
+    positions.  For one chunk, with a_t = dt_t A, cs = cumsum(a), T = cs_last,
+    L_ij = exp(cs_i - cs_j) for j <= i, u_j = dt_j x_j and h_0 the state the
+    chunk starts from:
+
+        y_i = Σ_{j<=i} (C_i·B_j) L_ij u_j + exp(cs_i) h_0 C_i,
+        h_1 = exp(T) h_0 + Σ_j exp(T - cs_j) u_j B_jᵀ;
+
+    a forward pass over chunks recomputes every h_0, and a backward pass
+    carries dh_0 = exp(T) dh_1 + Σ_i exp(cs_i) dy_i C_iᵀ from the last chunk
+    (where dh_1 = ``dh_final``) to the first.  Within a chunk:
+
+        du_j = Σ_{i>=j} (C_i·B_j) L_ij dy_i + exp(T - cs_j) dh_1 B_j;
+        dC_i, dB_j from the masked scores C_i·B_j and from both state terms
+        (summed over the heads of a group);
+        dcs from L, from exp(cs_i) in the inter-chunk term, and from
+        exp(T - cs_j) and exp(T) in h_1; da = reverse cumsum of dcs;
+        dx_j = dt_j du_j, ddt_j = x_j·du_j + A da_j, dA = Σ_t dt_t da_t.
+
+    Positions past S are zero (dt = 0 there) and get no gradient.  The
+    work goes in slices of (batch row, group, head within the group) whose
+    ``[..., chunk, chunk]`` intermediates hold at most ``VJP_CHUNK_ELEMS``
+    elements each."""
+    Bsz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
+    acc = torch.promote_types(x.dtype, torch.float32)
+    if dy is None:
+        dy = torch.zeros_like(x)
+    dx = torch.empty((Bsz, S, G, R, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, S, G, R), dtype=dt.dtype, device=x.device)
+    dA = torch.empty((Bsz, G, R), dtype=A.dtype, device=x.device)
+    dB = torch.zeros((Bsz, S, G, N), dtype=acc, device=x.device)
+    dC = torch.zeros((Bsz, S, G, N), dtype=acc, device=x.device)
+    units = max(1, VJP_CHUNK_ELEMS // (-(-S // chunk) * chunk * chunk))
+    r_step = min(R, units)
+    g_step = min(G, max(1, units // r_step))
+    b_step = max(1, units // (r_step * g_step))
+    x5, dy5 = x.reshape(Bsz, S, G, R, P), dy.reshape(Bsz, S, G, R, P)
+    dt4, A3 = dt.reshape(Bsz, S, G, R), A.reshape(Bsz, G, R)
+    dh5 = None if dh_final is None else dh_final.reshape(Bsz, G, R, P, N)
+    for b0 in range(0, Bsz, b_step):
+        for g0 in range(0, G, g_step):
+            for r0 in range(0, R, r_step):
+                bs, gs, rs = slice(b0, b0 + b_step), slice(g0, g0 + g_step), slice(r0, r0 + r_step)
+                out = _vjp_slice(
+                    x5[bs, :, gs, rs].to(acc), dt4[bs, :, gs, rs].to(acc), A3[bs, gs, rs].to(acc),
+                    B[bs, :, gs].to(acc), C[bs, :, gs].to(acc), dy5[bs, :, gs, rs].to(acc),
+                    None if dh5 is None else dh5[bs, gs, rs].to(acc), chunk)
+                dx[bs, :, gs, rs] = out[0]
+                ddt[bs, :, gs, rs] = out[1]
+                dA[bs, gs, rs] = out[2]
+                dB[bs, :, gs] += out[3]
+                dC[bs, :, gs] += out[4]
+    return (dx.reshape(x.shape), ddt.reshape(dt.shape), dA.reshape(A.shape),
+            dB.to(B.dtype), dC.to(C.dtype))
+
+
+class _SSDScan(torch.autograd.Function):
+    """Either variant's launch forward (``_launch_wgmma`` on the mixer's
+    layout, ``_launch_cuda_core`` on one-head views of flat operands),
+    :func:`ssd_scan_vjp` backward.  Unused cotangents stay ``None``: a
+    train step discards the final state, and no zeros are made for it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A2, Bm, Cm, variant: str, return_state: bool):
+        launch = _launch_wgmma if variant == "wgmma" else _launch_cuda_core
+        y, h = launch(x, dt, A2, Bm, Cm, return_state)
+        ctx.save_for_backward(x, dt, A2, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return (y, h) if return_state else y
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        return (*ssd_scan_vjp(*ctx.saved_tensors, dy, dh), None, None)
+
+
 def ssd_scan(
     x: torch.Tensor,   # [BH, S, P]
     dt: torch.Tensor,  # [BH, S]   (f32, post-softplus)
@@ -146,24 +353,10 @@ def ssd_scan(
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}")
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, return_state=return_state)
-    _no_grad_path("ssd_scan", (x, dt, A, B, C))
-    dtype = check_cuda_operands("ssd_scan", (x, B, C), (torch.float32, torch.bfloat16))
-    check_cuda_operands("ssd_scan", (dt, A), (torch.float32,))
-    if dt.device != x.device:
-        raise ValueError(f"ssd_scan: operands on {x.device} and {dt.device}")
-    if select_variant(P, N, x.dtype) == "wgmma":
-        # each sequence as a batch row of one head and one group
-        y, h = _launch_wgmma(x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None],
-                             C[:, :, None], return_state)
-        return (y[:, :, 0], h[:, 0]) if return_state else y[:, :, 0]
-    if N > MAX_STATE or N % 4:
-        raise ValueError(f"ssd_scan: state width {N} is not a multiple of 4 up to {MAX_STATE}")
-    y = torch.empty_like(x)
-    h = torch.empty((BH, P, N), dtype=torch.float32, device=x.device) if return_state else None
-    LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                   C.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
-                   BH, S, P, N, dtype, stream_handle(x))
-    return (y, h) if return_state else y
+    # each sequence as a batch row of one head and one group
+    out = _SSDScan.apply(x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None],
+                         C[:, :, None], select_variant(P, N, x.dtype), return_state)
+    return (out[0][:, :, 0], out[1][:, 0]) if return_state else out[:, :, 0]
 
 
 def ssd_mixer(
@@ -179,30 +372,20 @@ def ssd_mixer(
     [B, S, H, P] in x's dtype; with ``return_state`` also the final state
     [B, H, P, N] in f32, which the reference's ``ssm_block`` takes from
     ``_ssd_chunked``.  The ``wgmma`` variant reads the tensors as they are
-    (the views ``models/ssm.py`` slices from its conv output included); the
+    (the views ``models/ssm.py`` slices from its conv output included, whose
+    gradients reach the conv output through autograd's view handling); the
     plain version and the ``cuda_core`` variant take flat ``[B·H, S, *]``
-    copies with the groups broadcast to heads.  Unlike the reference it does
-    not pad S to its block: the kernels mask a ragged end themselves."""
+    copies with the groups broadcast to heads (``ref.on_flat_heads``).
+    Unlike the reference it does not pad S to its block: the kernels mask a
+    ragged end themselves."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if (dt.shape != (Bsz, S, H) or A.shape != (H,) or Bm.shape != (Bsz, S, G, N)
             or Cm.shape != Bm.shape or H % G):
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
-    if x.device.type == "cuda":
-        _no_grad_path("ssd_mixer", (x, dt, A, Bm, Cm))
     dt, A = dt.to(torch.float32), A.to(torch.float32)
     if x.device.type == "cuda" and select_variant(P, N, x.dtype) == "wgmma":
-        y, h = _launch_wgmma(x, dt, A[None].expand(Bsz, H), Bm, Cm, return_state)
-        return (y, h) if return_state else y
-    rep = H // G
-    if rep != 1:
-        Bm = Bm.repeat_interleave(rep, dim=2)
-        Cm = Cm.repeat_interleave(rep, dim=2)
-    xf = x.movedim(2, 1).reshape(Bsz * H, S, P).contiguous()
-    dtf = dt.movedim(2, 1).reshape(Bsz * H, S).contiguous()
-    Bf = Bm.movedim(2, 1).reshape(Bsz * H, S, N).contiguous()
-    Cf = Cm.movedim(2, 1).reshape(Bsz * H, S, N).contiguous()
-    out = ssd_scan(xf, dtf, A.repeat(Bsz), Bf, Cf, return_state=return_state)
-    y = (out[0] if return_state else out).reshape(Bsz, H, S, P).movedim(1, 2)
-    return (y, out[1].reshape(Bsz, H, P, N)) if return_state else y
+        # A's gradient comes back [B, H] and autograd sums it over the expand
+        return _SSDScan.apply(x, dt, A[None].expand(Bsz, H), Bm, Cm, "wgmma", return_state)
+    return on_flat_heads(ssd_scan, x, dt, A, Bm, Cm, return_state)

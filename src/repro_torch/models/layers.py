@@ -14,6 +14,11 @@ plain torch, as in the reference: ``chunked_attention`` for GQA, the
 absorbed latent products for MLA.  ``constrain`` (mesh hints) has no
 counterpart on one card.
 
+The ``*_defs`` functions return the reference's trees of
+:class:`~repro_torch.parallel.sharding.ParamDef` (shape, logical axes,
+dtype, initializer), from which ``models/transformer.py`` builds the
+parameters.
+
 Cache writes happen in place: the cache tensors passed in are updated and
 returned, where the reference returns new arrays.
 """
@@ -28,6 +33,7 @@ from repro_torch.configs.base import ArchConfig, MoESpec
 from repro_torch.kernels.ops import (
     fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention, swiglu_experts,
 )
+from repro_torch.parallel.sharding import ParamDef
 
 F32 = torch.float32
 NEG_INF = -1e30  # finite, as in the reference: a fully masked row stays finite
@@ -45,6 +51,10 @@ def f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #
+def rmsnorm_defs(d: int) -> Dict[str, ParamDef]:
+    return {"scale": ParamDef((d,), ("embed",), init="ones")}
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -129,6 +139,27 @@ def chunked_attention(
 # --------------------------------------------------------------------------- #
 # GQA attention
 # --------------------------------------------------------------------------- #
+def attention_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # "qk" (head_dim) is the TP fallback axis: GQA head counts (40, 56, 14…)
+    # rarely divide a 16-way model axis, head_dim=128 always does.  The rules
+    # decide which of heads/qk actually binds per policy + divisibility.
+    out: Dict[str, Any] = {
+        "wq": ParamDef((d, H, Dh), ("embed", "heads", "qk")),
+        "wk": ParamDef((d, KV, Dh), ("embed", "kv_heads", "qk")),
+        "wv": ParamDef((d, KV, Dh), ("embed", "kv_heads", "qk")),
+        "wo": ParamDef((H, Dh, d), ("heads", "qk", "embed")),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamDef((H, Dh), ("heads", None), init="zeros")
+        out["bk"] = ParamDef((KV, Dh), ("kv_heads", None), init="zeros")
+        out["bv"] = ParamDef((KV, Dh), ("kv_heads", None), init="zeros")
+    if cfg.qk_norm:
+        out["q_norm"] = ParamDef((Dh,), (None,), init="ones")
+        out["k_norm"] = ParamDef((Dh,), (None,), init="ones")
+    return out
+
+
 def attention_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -229,19 +260,22 @@ def attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # MLA attention (DeepSeek-V2): latent-compressed KV
 # --------------------------------------------------------------------------- #
-def mla_defs(cfg: ArchConfig) -> Dict[str, tuple]:
-    """Shapes of the MLA leaves (``mla_defs`` of the reference)."""
+def mla_defs(cfg: ArchConfig) -> Dict[str, Any]:
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
     dq = m.nope_head_dim + m.rope_head_dim
-    return {
-        "wq": (d, H, dq),                                  # full-rank queries (V2-Lite)
-        "w_dkv": (d, m.kv_lora_rank + m.rope_head_dim),    # latent + decoupled rope key
-        "kv_norm": (m.kv_lora_rank,),
-        "w_uk": (m.kv_lora_rank, H, m.nope_head_dim),      # up-projections from the latent
-        "w_uv": (m.kv_lora_rank, H, m.v_head_dim),
-        "wo": (H, m.v_head_dim, d),
+    out: Dict[str, Any] = {
+        # queries (V2-Lite: full-rank)
+        "wq": ParamDef((d, H, dq), ("embed", "heads", None)),
+        # joint KV down-projection -> latent + decoupled rope key
+        "w_dkv": ParamDef((d, m.kv_lora_rank + m.rope_head_dim), ("embed", None)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones"),
+        # up-projections from the latent
+        "w_uk": ParamDef((m.kv_lora_rank, H, m.nope_head_dim), (None, "heads", None)),
+        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim), (None, "heads", None)),
+        "wo": ParamDef((H, m.v_head_dim, d), ("heads", None, "embed")),
     }
+    return out
 
 
 def _mla_latent(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -327,6 +361,14 @@ def mla_attention_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # SwiGLU MLP
 # --------------------------------------------------------------------------- #
+def mlp_defs(d: int, f: int) -> Dict[str, ParamDef]:
+    return {
+        "wg": ParamDef((d, f), ("embed", "ffn")),
+        "wu": ParamDef((d, f), ("embed", "ffn")),
+        "wd": ParamDef((f, d), ("ffn", "embed")),
+    }
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``silu(x @ wg) * (x @ wu) @ wd``: the gate/up products and the
     epilogue in the fused kernel, the down projection a plain matmul."""
@@ -336,21 +378,23 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Mixture of Experts
 # --------------------------------------------------------------------------- #
-MOE_F32_LEAVES = {"router"}  # f32 whatever the model's dtype, as in the reference
-
-
 def moe_defs(cfg: ArchConfig) -> Dict[str, Any]:
-    """Shapes of the MoE leaves (``moe_defs`` of the reference): the router,
-    the stacked expert weights, and the shared experts' and the dense
-    residual's MLPs where the config has them."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
-    out: Dict[str, Any] = {"router": (d, E), "wg": (E, d, f), "wu": (E, d, f), "wd": (E, f, d)}
+    # expert weights use dedicated logical axes (§Perf i5): `expert_ffn`
+    # maps to `data` as a TENSOR-parallel dim (activation psums), never the
+    # FSDP gather path — 480B of expert weights must stay resident, not be
+    # re-gathered every microbatch (was 38 s/step of all-gather for arctic)
+    out: Dict[str, Any] = {
+        "router": ParamDef((d, E), ("embed", "experts"), dtype=torch.float32),
+        "wg": ParamDef((E, d, f), ("experts", "expert_embed", "expert_ffn")),
+        "wu": ParamDef((E, d, f), ("experts", "expert_embed", "expert_ffn")),
+        "wd": ParamDef((E, f, d), ("experts", "expert_ffn", "expert_embed")),
+    }
     if m.n_shared:
-        out["shared"] = {"wg": (d, m.n_shared * f), "wu": (d, m.n_shared * f),
-                         "wd": (m.n_shared * f, d)}
+        out["shared"] = mlp_defs(d, m.n_shared * f)
     if m.dense_residual:
-        out["residual"] = {"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)}
+        out["residual"] = mlp_defs(d, cfg.d_ff)
     return out
 
 

@@ -19,12 +19,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import ssd_mixer
+from repro_torch.parallel.sharding import ParamDef
 
-__all__ = ["ssm_dims", "ssm_defs", "F32_LEAVES", "ssm_block", "ssm_cache_defs"]
+__all__ = ["ssm_dims", "ssm_defs", "ssm_block", "ssm_cache_defs"]
 
 F32 = torch.float32
-# leaves the reference keeps in f32 whatever the model's dtype (``ParamDef(dtype=F32)``)
-F32_LEAVES = frozenset({"dt_bias", "A_log", "Dskip"})
 
 Params = Dict[str, torch.Tensor]
 
@@ -36,38 +35,39 @@ def ssm_dims(cfg: ArchConfig) -> Tuple[int, int, int, int, int]:
     return d_in, n_heads, s.head_dim, s.d_state, s.n_groups
 
 
-def ssm_defs(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """Parameter shapes of one mixer (``ssm_defs`` of the reference)."""
+def ssm_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
     s = cfg.ssm
     d = cfg.d_model
     d_in, H, P, N, G = ssm_dims(cfg)
     conv_ch = d_in + 2 * G * N
     return {
-        "wz": (d, d_in),
-        "wx": (d, d_in),
-        "wB": (d, G * N),
-        "wC": (d, G * N),
-        "wdt": (d, H),
-        "dt_bias": (H,),
-        "A_log": (H,),
-        "Dskip": (H,),
-        "conv_w": (s.conv_width, conv_ch),
-        "conv_b": (conv_ch,),
-        "norm": (d_in,),
-        "wo": (d_in, d),
+        "wz": ParamDef((d, d_in), ("embed", "ssm_inner")),
+        "wx": ParamDef((d, d_in), ("embed", "ssm_inner")),
+        "wB": ParamDef((d, G * N), ("embed", None)),
+        "wC": ParamDef((d, G * N), ("embed", None)),
+        "wdt": ParamDef((d, H), ("embed", "heads")),
+        "dt_bias": ParamDef((H,), ("heads",), dtype=F32, init="zeros"),
+        "A_log": ParamDef((H,), ("heads",), dtype=F32, init="zeros"),
+        "Dskip": ParamDef((H,), ("heads",), dtype=F32, init="ones"),
+        "conv_w": ParamDef((s.conv_width, conv_ch), (None, "ssm_inner"),
+                           scale=1.0 / s.conv_width),
+        "conv_b": ParamDef((conv_ch,), ("ssm_inner",), init="zeros"),
+        "norm": ParamDef((d_in,), ("ssm_inner",), init="ones"),
+        "wo": ParamDef((d_in, d), ("ssm_inner", "embed")),
     }
 
 
-def ssm_cache_defs(cfg: ArchConfig, batch: int, dtype: torch.dtype = torch.bfloat16
-                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """Cache shapes and dtypes of one mixer: the conv window (bf16 by
-    default, ``ParamDef``'s default) and the state (f32)."""
+def ssm_cache_defs(cfg: ArchConfig, batch: int) -> Dict[str, ParamDef]:
+    """The conv window (bf16) and the state (f32) of one mixer."""
     s = cfg.ssm
     d_in, H, P, N, G = ssm_dims(cfg)
     conv_ch = d_in + 2 * G * N
     return {
-        "conv": ((batch, s.conv_width - 1, conv_ch), dtype),
-        "ssd": ((batch, H, P, N), F32),
+        "conv": ParamDef((batch, s.conv_width - 1, conv_ch),
+                         ("batch", None, "ssm_inner"), dtype=torch.bfloat16,
+                         init="zeros"),
+        "ssd": ParamDef((batch, H, P, N), ("batch", "heads", None, None),
+                        dtype=F32, init="zeros"),
     }
 
 

@@ -15,7 +15,11 @@ the reference's tree and stacked layouts (``[repeat, B, Smax, KV, D]``
 k/v; ``[repeat, B, Smax, r]`` MLA latent and ``[repeat, B, Smax, rope]``
 key; ``[repeat, B, w-1, CH]`` conv window and ``[repeat, B, H, P, N]``
 state), and is updated in place.  ``constrain`` (mesh sharding hints) has
-no counterpart on one card.
+no counterpart on one card.  The reference's ``ParamDef`` trees
+(:func:`model_defs`, :func:`cache_model_defs`) are the one source of
+shapes, dtypes and initializers: the modules build their parameters from
+each layer's :func:`block_defs`, and :func:`init_params` and
+:func:`init_cache` read them.
 
 Three entry points share parameters:
 
@@ -30,8 +34,8 @@ Both take ``moe_impl`` (``"einsum"`` or ``"scatter"``), as the reference.
 """
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+import dataclasses
+from typing import Any, Dict, Iterator, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -41,14 +45,66 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.parallel.sharding import ParamDef, abstract_tree, tree_map_defs
 
 __all__ = ["Transformer", "Block", "SSMBlock", "LayerSlot", "segments", "layer_plan",
-           "init_params", "init_cache", "forward", "decode_step"]
+           "block_defs", "model_defs", "cache_defs_for", "cache_model_defs", "named_defs",
+           "abstract_params", "abstract_cache", "init_params", "init_cache", "forward",
+           "decode_step"]
 
-# parameter leaves by initializer (``ParamDef.init`` in the reference)
-_ONES = {"scale", "q_norm", "k_norm", "kv_norm", "Dskip", "norm"}
-_ZEROS = {"bq", "bk", "bv", "dt_bias", "A_log", "conv_b"}
-_EMBED_SCALE = 0.02
+
+# --------------------------------------------------------------------------- #
+# block defs per layer kind (the reference's ParamDef trees)
+# --------------------------------------------------------------------------- #
+def _attn_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    mix = L.mla_defs(cfg) if cfg.mla is not None else L.attention_defs(cfg)
+    return {"ln1": L.rmsnorm_defs(cfg.d_model), "attn": mix}
+
+
+def _ffn_defs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    if kind == "moe":
+        return {"ln2": L.rmsnorm_defs(cfg.d_model), "moe": L.moe_defs(cfg)}
+    if kind == "dense":
+        return {"ln2": L.rmsnorm_defs(cfg.d_model), "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff)}
+    if kind == "none":
+        return {}
+    raise ValueError(kind)
+
+
+def block_defs(cfg: ArchConfig, mixer: str, ffn: str) -> Dict[str, Any]:
+    """mixer: attn | ssm;  ffn: dense | moe | none."""
+    if mixer == "ssm":
+        out = {"ln1": L.rmsnorm_defs(cfg.d_model), "ssm": S.ssm_defs(cfg)}
+    else:
+        out = _attn_defs(cfg)
+    out.update(_ffn_defs(cfg, ffn))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# cache defs per layer kind
+# --------------------------------------------------------------------------- #
+def _attn_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> Dict[str, ParamDef]:
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "c_kv": ParamDef((batch, max_seq, m.kv_lora_rank),
+                             ("batch", "kvseq", None), init="zeros"),
+            "k_rope": ParamDef((batch, max_seq, m.rope_head_dim),
+                               ("batch", "kvseq", None), init="zeros"),
+        }
+    return {
+        "k": ParamDef((batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+                      ("batch", "kvseq", "kv_heads", None), init="zeros"),
+        "v": ParamDef((batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+                      ("batch", "kvseq", "kv_heads", None), init="zeros"),
+    }
+
+
+def cache_defs_for(cfg: ArchConfig, mixer: str, batch: int, max_seq: int):
+    if mixer == "ssm":
+        return S.ssm_cache_defs(cfg, batch)
+    return _attn_cache_defs(cfg, batch, max_seq)
 
 
 def segments(cfg: ArchConfig) -> List[Dict[str, Any]]:
@@ -84,12 +140,71 @@ def segments(cfg: ArchConfig) -> List[Dict[str, Any]]:
     return [{"name": "dense", "repeat": cfg.n_layers, "pattern": [("attn", "dense")]}]
 
 
-def _param(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+def _stack_defs(defs, n: int):
+    """Prepend a stacked [n] 'layers' dim to every ParamDef in the tree."""
+    def f(d: ParamDef) -> ParamDef:
+        return dataclasses.replace(d, shape=(n, *d.shape), axes=("layers", *d.axes))
+    return tree_map_defs(f, defs)
 
 
-def _pdict(shapes: Dict[str, Tuple[int, ...]], device, dtype) -> nn.ParameterDict:
-    return nn.ParameterDict({n: _param(s, device, dtype) for n, s in shapes.items()})
+# --------------------------------------------------------------------------- #
+# whole-model defs
+# --------------------------------------------------------------------------- #
+def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, V = cfg.d_model, cfg.vocab
+    out: Dict[str, Any] = {
+        "embed": ParamDef((V, d), ("vocab", "embed"), scale=0.02),
+        "final_norm": L.rmsnorm_defs(d),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
+    segs = {}
+    for seg in segments(cfg):
+        pos_defs = [block_defs(cfg, mixer, ffn) for (mixer, ffn) in seg["pattern"]]
+        segs[seg["name"]] = _stack_defs(
+            {f"p{j}": pd for j, pd in enumerate(pos_defs)}, seg["repeat"]
+        )
+    out["segments"] = segs
+    return out
+
+
+def cache_model_defs(cfg: ArchConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    segs = {}
+    for seg in segments(cfg):
+        pos = {}
+        for j, (mixer, _ffn) in enumerate(seg["pattern"]):
+            pos[f"p{j}"] = cache_defs_for(cfg, mixer, batch, max_seq)
+        segs[seg["name"]] = _stack_defs(pos, seg["repeat"])
+    return {"segments": segs}
+
+
+def abstract_params(cfg: ArchConfig):
+    """:func:`model_defs` as ``meta`` tensors, in the reference's stacked tree."""
+    return abstract_tree(model_defs(cfg))
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int):
+    """:func:`cache_model_defs` as ``meta`` tensors, with ``init_cache``'s
+    scalar ``pos``."""
+    c = abstract_tree(cache_model_defs(cfg, batch, max_seq))
+    c["pos"] = torch.empty((), dtype=torch.int64, device="meta")
+    return c
+
+
+def _leaf_dtype(d: ParamDef, dtype: torch.dtype) -> torch.dtype:
+    """A leaf's dtype in a model (or cache) of ``dtype``: the leaves the
+    reference keeps in f32 whatever the rest (the router, ``dt_bias``,
+    ``A_log``, ``Dskip``; the SSM state) stay f32."""
+    return torch.float32 if d.dtype == torch.float32 else dtype
+
+
+def _param(d: ParamDef, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(d.shape, device=device, dtype=_leaf_dtype(d, dtype)),
+                        requires_grad=False)
+
+
+def _pdict(defs: Dict[str, ParamDef], device, dtype) -> nn.ParameterDict:
+    return nn.ParameterDict({n: _param(d, device, dtype) for n, d in defs.items()})
 
 
 class MoEParams(nn.Module):
@@ -98,33 +213,24 @@ class MoEParams(nn.Module):
     model's dtype, the stacked expert weights, and the shared experts'
     and the dense residual's MLPs where the config has them."""
 
-    def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
+    def __init__(self, defs: Dict[str, Any], device=None, dtype=torch.bfloat16):
         super().__init__()
-        for name, shape in L.moe_defs(cfg).items():
-            if isinstance(shape, dict):
-                setattr(self, name, _pdict(shape, device, dtype))
+        for name, d in defs.items():
+            if isinstance(d, dict):
+                setattr(self, name, _pdict(d, device, dtype))
             else:
-                dt = torch.float32 if name in L.MOE_F32_LEAVES else dtype
-                self.register_parameter(name, _param(shape, device, dt))
+                self.register_parameter(name, _param(d, device, dtype))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
 
 
-def _add_ffn(block: nn.Module, cfg: ArchConfig, ffn: str, device, dtype) -> None:
-    """A layer's FFN leaves (``_ffn_defs`` of the reference): ``ln2`` and a
-    SwiGLU ``mlp`` (``"dense"``) or a ``moe`` layer; none for ``"none"``."""
-    if ffn == "none":
-        return
-    d = cfg.d_model
-    block.ln2 = _pdict({"scale": (d,)}, device, dtype)
-    if ffn == "moe":
-        block.moe = MoEParams(cfg, device, dtype)
-    elif ffn == "dense":
-        block.mlp = _pdict({"wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)},
-                           device, dtype)
-    else:
-        raise ValueError(f"unknown ffn {ffn!r}")
+def _add_leaves(block: nn.Module, defs: Dict[str, Any], device, dtype) -> None:
+    """A layer's leaves from its :func:`block_defs`, in their order: ``ln1``,
+    the mixer (``attn`` or ``ssm``), then ``ln2`` and a SwiGLU ``mlp`` or a
+    ``moe`` layer where the layer has an FFN."""
+    for name, sub in defs.items():
+        setattr(block, name, (MoEParams if name == "moe" else _pdict)(sub, device, dtype))
 
 
 def _apply_ffn(block: nn.Module, cfg: ArchConfig, x: torch.Tensor, moe_impl: str):
@@ -144,18 +250,7 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16, ffn: str = "dense"):
         super().__init__()
-        d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        if cfg.mla is not None:
-            attn = L.mla_defs(cfg)
-        else:
-            attn = {"wq": (d, H, Dh), "wk": (d, KV, Dh), "wv": (d, KV, Dh), "wo": (H, Dh, d)}
-            if cfg.qkv_bias:
-                attn.update(bq=(H, Dh), bk=(KV, Dh), bv=(KV, Dh))
-            if cfg.qk_norm:
-                attn.update(q_norm=(Dh,), k_norm=(Dh,))
-        self.ln1 = _pdict({"scale": (d,)}, device, dtype)
-        self.attn = _pdict(attn, device, dtype)
-        _add_ffn(self, cfg, ffn, device, dtype)
+        _add_leaves(self, block_defs(cfg, "attn", ffn), device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
         h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
@@ -180,11 +275,7 @@ class SSMBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16, ffn: str = "none"):
         super().__init__()
-        self.ln1 = _pdict({"scale": (cfg.d_model,)}, device, dtype)
-        self.ssm = nn.ParameterDict({
-            n: _param(shape, device, torch.float32 if n in S.F32_LEAVES else dtype)
-            for n, shape in S.ssm_defs(cfg).items()})
-        _add_ffn(self, cfg, ffn, device, dtype)
+        _add_leaves(self, block_defs(cfg, "ssm", ffn), device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
         o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos, mode)
@@ -217,86 +308,80 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
-        d, V = cfg.d_model, cfg.vocab
-        self.embed = _param((V, d), device, dtype)
-        self.final_norm = _pdict({"scale": (d,)}, device, dtype)
-        self.lm_head = None if cfg.tie_embeddings else _param((d, V), device, dtype)
+        defs = model_defs(cfg)
+        self.embed = _param(defs["embed"], device, dtype)
+        self.final_norm = _pdict(defs["final_norm"], device, dtype)
+        self.lm_head = None if cfg.tie_embeddings else _param(defs["lm_head"], device, dtype)
         self.plan = layer_plan(cfg)
         self.layers = nn.ModuleList(
             (SSMBlock if slot.mixer == "ssm" else Block)(cfg, device, dtype, ffn=slot.ffn)
             for slot in self.plan)
 
 
-def _default_scale(shape: Tuple[int, ...]) -> float:
-    """``ParamDef.default_scale``: 1/sqrt(shape[-2]) (shape[-1] for vectors)."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return 1.0 / math.sqrt(max(fan_in, 1))
+def _flat_defs(defs: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, ParamDef]]:
+    for name, d in defs.items():
+        if isinstance(d, ParamDef):
+            yield prefix + name, d
+        else:
+            yield from _flat_defs(d, f"{prefix}{name}.")
+
+
+def named_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    """Each parameter of :class:`Transformer` by its name, with its
+    ``ParamDef``: the top leaves of :func:`model_defs` and each layer's
+    :func:`block_defs` (the unstacked defs of its segment position)."""
+    top = {k: v for k, v in model_defs(cfg).items() if k != "segments"}
+    out = dict(_flat_defs(top))
+    for i, slot in enumerate(layer_plan(cfg)):
+        out.update(_flat_defs(block_defs(cfg, slot.mixer, slot.ffn), f"layers.{i}."))
+    return out
 
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda", dtype=torch.bfloat16) -> Transformer:
-    """Random weights drawn as the reference's ``ParamDef`` does: normals at
-    ``default_scale`` (``embed`` at 0.02, ``conv_w`` at 1/conv_width), norm
-    scales, ``kv_norm`` and ``Dskip`` at one, biases, ``dt_bias`` and
-    ``A_log`` at zero.  ``default_scale`` takes ``shape[-2]`` as the fan-in,
-    which for MLA's ``wq [d, H, nope+rope]`` and ``w_uk``/``w_uv [r, H, *]``
-    is the head count, as in the reference.  The router and the SSM's f32
-    leaves stay f32.
-    The normals come from ``generator`` (drawn in f32 on its device, scaled
-    in place, then cast: one f32 temporary of the largest leaf, 16.6 GiB for
-    Arctic's experts), so they differ from ``jax.random``'s; tests that
-    compare the two packages convert the reference's weights with
-    ``params_from_numpy`` instead."""
+    """Random weights drawn as each leaf's ``ParamDef`` says
+    (:func:`named_defs`): normals at ``default_scale`` (``embed`` at 0.02,
+    ``conv_w`` at 1/conv_width), ones, zeros.  ``default_scale`` takes
+    ``shape[-2]`` as the fan-in, which for ``wq``/``wk``/``wv``
+    ``[d, H, Dh]`` and MLA's ``wq [d, H, nope+rope]`` and ``w_uk``/``w_uv
+    [r, H, *]`` is the head count, as in the reference.  The router and the
+    SSM's f32 leaves stay f32.
+    The normals come from ``generator``, leaf by leaf in parameter order
+    (drawn in f32 on its device, scaled in place, then cast: one f32
+    temporary of the largest leaf, 16.6 GiB for Arctic's experts), so they
+    differ from ``jax.random``'s; tests that compare the two packages
+    convert the reference's weights with ``params_from_numpy`` instead."""
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    defs = named_defs(cfg)
     for name, prm in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in _ONES:
+        d = defs[name]
+        if d.init == "ones":
             prm.fill_(1.0)
-        elif leaf in _ZEROS:
+        elif d.init == "zeros":
             prm.zero_()
-        else:
-            if leaf == "embed":
-                scale = _EMBED_SCALE
-            elif leaf == "conv_w":
-                scale = 1.0 / cfg.ssm.conv_width
-            else:
-                scale = _default_scale(tuple(prm.shape))
+        elif d.init == "normal":
             # one f32 temporary, freed before the next leaf's draw
             prm.copy_(torch.randn(prm.shape, generator=generator,
-                                  device=generator.device).mul_(scale))
+                                  device=generator.device).mul_(d.default_scale()))
+        else:
+            raise ValueError(f"unknown init {d.init!r}")
     return model
-
-
-def _cache_defs(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
-                dtype) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-    """One layer's cache leaves (``cache_defs_for`` of the reference)."""
-    if mixer == "ssm":
-        return S.ssm_cache_defs(cfg, batch, dtype)
-    if cfg.mla is not None:
-        m = cfg.mla
-        return {"c_kv": ((batch, max_seq, m.kv_lora_rank), dtype),
-                "k_rope": ((batch, max_seq, m.rope_head_dim), dtype)}
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: DeviceLike = "cuda", dtype=torch.bfloat16):
-    """Zeroed cache in the reference's tree (``segments/<name>/p<j>``, each
-    leaf stacked over the segment's repeats), with a scalar ``pos``: k/v or
-    MLA's latent and rope key in ``dtype`` (bf16, ``ParamDef``'s default,
-    whatever the params are), or the SSM's conv window in ``dtype`` and its
-    state in f32.  ``max_seq`` is unused by an SSM."""
+    """Zeroed cache in the reference's tree (:func:`cache_model_defs`:
+    ``segments/<name>/p<j>``, each leaf stacked over the segment's repeats),
+    with a scalar ``pos``: k/v or MLA's latent and rope key in ``dtype``
+    (bf16, ``ParamDef``'s default, whatever the params are), or the SSM's
+    conv window in ``dtype`` and its state in f32.  ``max_seq`` is unused by
+    an SSM."""
     dev = resolve_device(device)
-    segs = {}
-    for seg in segments(cfg):
-        segs[seg["name"]] = {
-            f"p{j}": {n: torch.zeros((seg["repeat"], *shape), dtype=dt, device=dev)
-                      for n, (shape, dt) in _cache_defs(cfg, mixer, batch, max_seq,
-                                                        dtype).items()}
-            for j, (mixer, _ffn) in enumerate(seg["pattern"])}
-    return {"segments": segs, "pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    c = tree_map_defs(lambda d: torch.zeros(d.shape, dtype=_leaf_dtype(d, dtype), device=dev),
+                      cache_model_defs(cfg, batch, max_seq))
+    c["pos"] = torch.zeros((), dtype=torch.int64, device=dev)
+    return c
 
 
 def _embed(params: Transformer, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -782,20 +782,53 @@ def test_swiglu_experts_vjp_on_card(card, dtype, E, M, D, F):
     _grads_close(got, want, dtype)
 
 
-def test_ssd_scan_raises_under_grad(card):
-    """No VJP for the SSD scan yet: a CUDA call that would need one raises;
-    under ``no_grad`` (serving) it runs."""
-    x, dt, A, B, C = _ssd_inputs(card, 27, 2, 64, 64, 16, torch.bfloat16)
-    xg = x.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="VJP"):
-        ssd_scan(xg, dt, A, B, C)
-    # the mixer's layout: B = 1, S = 64, H = 2 heads of 64, one group of 16
-    x4, dt4 = xg.reshape(1, 2, 64, 64).movedim(1, 2), dt.reshape(1, 2, 64).movedim(1, 2)
-    B4, C4 = (t.reshape(1, 2, 64, 16)[:, :1].movedim(1, 2) for t in (B, C))
-    with pytest.raises(NotImplementedError, match="VJP"):
-        ssd_mixer(x4, dt4, A[:2], B4, C4)
-    with torch.no_grad():
-        assert ssd_mixer(x4, dt4, A[:2], B4, C4).shape == x4.shape
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_dh", [True, False])
+@pytest.mark.parametrize("H,N,Bsz,S", [(32, 128, 2, 300), (128, 16, 1, 200)])
+def test_ssd_vjp_on_card(card, dtype, with_dh, H, N, Bsz, S):
+    """The SSD scan's ``autograd.Function`` on the mixer's strided views of
+    one conv output, at mamba2's layout (32 heads of 64, state 128) and
+    Jamba's (128 heads, state 16), one group, dt ~0.02 (the carry counts):
+    bf16 through ``wgmma``, f32 through ``cuda_core`` on flat copies.  The
+    gradients of the conv output, dt and A equal autograd through the plain
+    version on the card, with a cotangent for the final state and without
+    one (a train step discards it); the backward launches no kernel."""
+    from repro_torch.kernels.ref import ssd_mixer_ref
+
+    P, G = 64, 1
+    rng = np.random.default_rng(28)
+    buf = torch.from_numpy((rng.standard_normal((Bsz, S, H * P + 2 * G * N)) * 0.5)
+                           .astype(np.float32)).to(card, dtype).requires_grad_(True)
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((Bsz, S, H)) - 4.0)
+                          .astype(np.float32)).to(card).requires_grad_(True)
+    A = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)).to(
+        card).requires_grad_(True)
+    dy = torch.from_numpy(rng.standard_normal((Bsz, S, H, P)).astype(np.float32)).to(card, dtype)
+    dh = torch.from_numpy(rng.standard_normal((Bsz, H, P, N)).astype(np.float32)).to(card)
+
+    def views():
+        return (buf[..., :H * P].reshape(Bsz, S, H, P),
+                buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N),
+                buf[..., H * P + G * N:].reshape(Bsz, S, G, N))
+
+    def grads(fn):
+        x, Bm, Cm = views()
+        y, h = fn(x, dt, A, Bm, Cm, return_state=True)
+        outs, cots = ([y, h], [dy, dh]) if with_dh else ([y], [dy])
+        return y, torch.autograd.grad(outs, (buf, dt, A), cots)
+
+    variant = select_ssd_variant(P, N, dtype)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
+    before = dict(SSD_LIBRARY.counts)
+    y, got = grads(ssd_mixer)
+    assert y.grad_fn is not None
+    assert SSD_LIBRARY.counts[variant] == before[variant] + 1
+    assert SSD_LIBRARY.launches == sum(before.values()) + 1  # the backward launches none
+    _, want = grads(ssd_mixer_ref)
+    for name, g, w in zip(("conv output", "dt", "A"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= GRAD_TOL[dtype], (name, err)
 
 
 def _narrow(arch):
@@ -807,17 +840,19 @@ def _narrow(arch):
     if arch == "tinyllama-1.1b":
         return dataclasses.replace(base, n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
                                    head_dim=64, d_ff=512, vocab=512)
+    if arch == "mamba2-370m":  # 8 heads of 64, state 128: the wgmma scan's shapes
+        return dataclasses.replace(base, n_layers=2, d_model=256, vocab=512)
     return dataclasses.replace(  # MLA at its real head dims, 8 experts top-2, a shared one
         base, n_layers=3, d_model=256, n_heads=2, vocab=512,
         moe=dataclasses.replace(base.moe, n_experts=8, top_k=2, d_ff_expert=96, n_shared=1,
                                 router_chunk=64))
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b", "mamba2-370m"])
 def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
-    """A narrow dense and a narrow MoE model train one backward on the card
-    through the kernels (bf16: every parameter's gradient finite and not
-    zero), and in f32 their gradients equal the CPU's (the plain versions)
+    """A narrow dense, a narrow MoE and a narrow mamba2 model train one
+    backward on the card through the kernels (bf16: every parameter's
+    gradient finite and not zero), and in f32 their gradients equal the CPU's (the plain versions)
     to 1e-3 of each leaf's largest magnitude (remat on).  Attention is
     rescaled to its real fan-in first, as ``chip_smoke.py`` does: at the
     reference's scale the scores are a hard argmax, whose near ties the
@@ -832,7 +867,7 @@ def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
         with torch.no_grad():
             for block in model.layers:
                 for n in ("wq", "wk", "wv", "w_uk", "w_uv"):
-                    if n in block.attn:
+                    if n in getattr(block, "attn", {}):
                         w = block.attn[n]
                         fan_in = cfg.d_model if n in ("wq", "wk", "wv") else w.shape[0]
                         w.mul_((w.shape[1] / fan_in) ** 0.5)
@@ -841,11 +876,13 @@ def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
             m = model.to(dev).requires_grad_(True)
             for p in m.parameters():
                 p.grad = None
-            before = FLASH_LIBRARY.launches
+            before = FLASH_LIBRARY.launches, SSD_LIBRARY.launches
             loss, _ = loss_fn(m, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev), remat=True)
             loss.backward()
-            if dev == "cuda":  # every layer's flash launches twice: forward, recompute
-                assert FLASH_LIBRARY.launches == before + 2 * cfg.n_layers
+            if dev == "cuda":  # every layer's kernel launches twice: forward, recompute
+                n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
+                assert FLASH_LIBRARY.launches == before[0] + 2 * (cfg.n_layers - n_ssm)
+                assert SSD_LIBRARY.launches == before[1] + 2 * n_ssm
             grads[dev] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
         for name, g in grads["cuda"].items():
             assert torch.isfinite(g).all() and g.abs().max() > 0, (dtype, name)

@@ -66,6 +66,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.moe_scatter, repro_torch.core.expert_placement\n"
         "import repro_torch.models.frontends\n"
         "import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.ckpt\n"
+        "import repro_torch.core.pipeline_partition, repro_torch.parallel.sharding\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
@@ -93,7 +94,8 @@ def test_config_copies_equal_reference(arch):
 
 # modules of the port that are the reference's text with ``repro`` renamed
 VERBATIM = ["codegen/analyze.py", "codegen/validate.py", "codegen/plan.py", "runtime/elastic.py",
-            "serve/trace.py", "core/expert_placement.py", "data/pipeline.py", "data/__init__.py"]
+            "serve/trace.py", "core/expert_placement.py", "data/pipeline.py", "data/__init__.py",
+            "core/pipeline_partition.py"]
 # the checkpoint manager's methods that the port copies (its save, its
 # writer and its restore differ: bf16 leaves go through 2-byte integers)
 CHECKPOINT_METHODS = ["__init__", "_step_dir", "latest_step", "all_steps", "wait",

@@ -17,6 +17,7 @@ ulps (rtol 2**-6); in the bf16 runs the layers' inputs already differ as
 the logits do, so the cache takes the logits' tolerance.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -262,21 +263,29 @@ def test_every_registry_config_runs(arch):
     assert int(cache["pos"]) == 12
 
 
+# how init_params chose each leaf's initializer by its name before it read
+# the ParamDef trees (the reference's initializers, written out)
+_ONES = {"scale", "q_norm", "k_norm", "kv_norm", "Dskip", "norm"}
+_ZEROS = {"bq", "bk", "bv", "dt_bias", "A_log", "conv_b"}
+
+
 def _init_params_scaling_out_of_place(cfg, generator):
-    """``init_params`` as it drew before it scaled in place:
+    """``init_params`` as it drew before it scaled in place and before it
+    read the ``ParamDef`` trees: initializer by leaf name,
     ``prm.copy_(draw * scale)``, which holds a second f32 temporary."""
     model = transformer.Transformer(cfg, device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
         for name, prm in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in transformer._ONES:
+            if leaf in _ONES:
                 prm.fill_(1.0)
-            elif leaf in transformer._ZEROS:
+            elif leaf in _ZEROS:
                 prm.zero_()
             else:
-                scale = (transformer._EMBED_SCALE if leaf == "embed" else
+                fan_in = prm.shape[-2] if prm.dim() >= 2 else prm.shape[-1]
+                scale = (0.02 if leaf == "embed" else
                          1.0 / cfg.ssm.conv_width if leaf == "conv_w" else
-                         transformer._default_scale(tuple(prm.shape)))
+                         1.0 / math.sqrt(max(fan_in, 1)))
                 draw = torch.randn(prm.shape, generator=generator, device=generator.device)
                 prm.copy_(draw * scale)
     return model
@@ -284,8 +293,9 @@ def _init_params_scaling_out_of_place(cfg, generator):
 
 @pytest.mark.parametrize("arch", jax_list_archs())
 def test_init_params_in_place_scaling_draws_the_same_bits(arch):
-    """Scaling each drawn leaf in place gives bit for bit the weights that
-    scaling out of place gave, from one seed (so every earlier run's weights
+    """Reading each leaf's initializer from its ``ParamDef`` and scaling the
+    draw in place gives bit for bit the weights that the name-driven,
+    out-of-place draw gave, from one seed (so every earlier run's weights
     stand)."""
     cfg = get_config(arch).reduced()
     new = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")

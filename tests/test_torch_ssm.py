@@ -101,8 +101,9 @@ class TestMixer:
         assert out_full.dtype == getattr(torch, dtype)
         _assert_rel(out_full, ref_full, dtype)
         ref, jcache = jax_ssm.ssm_block(jp, jcfg, jx, mode="prefill")
-        shapes = ssm.ssm_cache_defs(cfg, 2, getattr(torch, dtype))
-        cache = {n: torch.zeros(s, dtype=d) for n, (s, d) in shapes.items()}
+        defs = ssm.ssm_cache_defs(cfg, 2)
+        cache = {"conv": torch.zeros(defs["conv"].shape, dtype=getattr(torch, dtype)),
+                 "ssd": torch.zeros(defs["ssd"].shape, dtype=defs["ssd"].dtype)}
         out, cache = ssm.ssm_block(tp, cfg, tx, cache, mode="prefill")
         _assert_rel(out, ref, dtype)
         _assert_ssm_cache(cache, jcache, dtype, one_layer=True)
@@ -112,7 +113,7 @@ class TestMixer:
         jp = _layer0(params)
         tp = {k: tensor_from_numpy(np.asarray(v)) for k, v in jp.items()}
         rng = np.random.default_rng(1)
-        (cs, _), (ss, _) = ssm.ssm_cache_defs(cfg, 3).values()
+        cs, ss = (d.shape for d in ssm.ssm_cache_defs(cfg, 3).values())
         conv = rng.standard_normal(cs).astype(np.float32)
         state = rng.standard_normal(ss).astype(np.float32)
         jx, tx = _both(rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32), dtype)
@@ -275,9 +276,8 @@ def test_prefill_hands_the_scan_conv_views_uncopied(monkeypatch):
     d_in, H, P, N, G = ssm.ssm_dims(cfg)
     assert select_ssd_variant(P, N, torch.bfloat16) == "wgmma"
     g = torch.Generator().manual_seed(0)
-    p = {k: (torch.randn(s, generator=g) * 0.02).to(
-        torch.float32 if k in ssm.F32_LEAVES else torch.bfloat16)
-        for k, s in ssm.ssm_defs(cfg).items()}
+    p = {k: (torch.randn(d.shape, generator=g) * 0.02).to(d.dtype)
+         for k, d in ssm.ssm_defs(cfg).items()}
     seen = {}
 
     def spy(x, dt, A, Bm, Cm, return_state=False):
@@ -286,7 +286,7 @@ def test_prefill_hands_the_scan_conv_views_uncopied(monkeypatch):
 
     monkeypatch.setattr(ssm, "ssd_mixer", spy)
     S = 5
-    cache = {n: torch.zeros(s, dtype=d) for n, (s, d) in ssm.ssm_cache_defs(cfg, 1).items()}
+    cache = {n: torch.zeros(d.shape, dtype=d.dtype) for n, d in ssm.ssm_cache_defs(cfg, 1).items()}
     ssm.ssm_block(p, cfg, torch.randn(1, S, cfg.d_model, generator=g).to(torch.bfloat16), cache,
                   mode="prefill")
     x, dt, A, Bm, Cm = (seen[k] for k in ("x", "dt", "A", "Bm", "Cm"))

@@ -40,7 +40,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.convert import params_from_numpy, reference_tree
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.kernels import ref as plain
-from repro_torch.models import forward, frontend_token_split, init_params, synth_inputs
+from repro_torch.models import forward, frontend_token_split, init_params, layer_plan, synth_inputs
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import HealthMonitor, simulate_failure_recovery
 from repro_torch.train import TrainConfig, Trainer, loss_fn, make_eval_step, make_train_step
@@ -50,10 +50,11 @@ from _torch_cnn_cases import one_intra_op_thread  # noqa: F401  (autouse)
 # the wrappers' modules (the package exports functions of the same names)
 flash_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 swiglu_mod = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+ssd_mod = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 GRAD_TOL = 2e-4
 GRAD_ARCHS = ["tinyllama-1.1b", "deepseek-v2-lite-16b", "hubert-xlarge",
-              "llava-next-mistral-7b", "mamba2-370m"]
+              "llava-next-mistral-7b", "mamba2-370m", "jamba-v0.1-52b"]
 
 
 def _reference_f32(arch):
@@ -110,7 +111,8 @@ def _assert_grads(ours_tree, ref_tree):
 def test_loss_grads_equal_reference(arch):
     """f32 ``loss_fn`` gradients per leaf against ``jax.grad`` of the
     reference's: a dense model, MLA with routed and shared experts, HuBERT
-    (every frame labelled), LLaVA (the image prefix unlabelled), mamba2."""
+    (every frame labelled), LLaVA (the image prefix unlabelled), mamba2,
+    Jamba's hybrid period."""
     jcfg, cfg, params = _reference_f32(arch)
     tokens, embeds, labels = _inputs(cfg)
 
@@ -230,10 +232,12 @@ def test_eval_step():
 # --------------------------------------------------------------------------- #
 @pytest.fixture
 def stand_in_kernels(monkeypatch):
-    """Route the CPU calls of the flash and SwiGLU wrappers through their
-    CUDA path's ``autograd.Function``s, with each launch replaced by the
-    plain version under ``no_grad`` (what a kernel returns: a tensor with no
-    history).  The backward is then the explicit VJP, as on the card."""
+    """Route the CPU calls of the flash, SwiGLU and SSD-scan wrappers
+    through their CUDA path's ``autograd.Function``s, with each launch
+    replaced by the plain version under ``no_grad`` (what a kernel returns:
+    a tensor with no history).  The backward is then the explicit VJP, as
+    on the card.  The mixer's scan takes the ``wgmma`` route, on the views
+    of the conv output with A expanded to [B, H]."""
     def flash_launch(q, k, v, causal, sc):
         with torch.no_grad():
             return plain.flash_attention_ref(q, k, v, causal=causal, scale=sc)
@@ -243,30 +247,51 @@ def stand_in_kernels(monkeypatch):
             ref = plain.swiglu_experts_ref if x.dim() == 3 else plain.swiglu_ref
             return ref(x, wg, wu)
 
+    def ssd_launch(x, dt, A2, Bm, Cm, return_state):
+        with torch.no_grad():
+            y, h = plain.ssd_mixer_ref(x, dt, A2[0], Bm, Cm, return_state=True)
+        return y, (h if return_state else None)
+
     def flash(q, k, v, causal=True, scale=None):
         return flash_mod._FlashAttention.apply(q, k, v, causal,
                                                scale if scale is not None else q.shape[-1] ** -0.5)
 
+    def mixer(x, dt, A, Bm, Cm, return_state=False):
+        return ssd_mod._SSDScan.apply(x, dt.float(), A.float()[None].expand(x.shape[0], -1),
+                                      Bm, Cm, "wgmma", return_state)
+
     monkeypatch.setattr(flash_mod, "_launch", flash_launch)
     monkeypatch.setattr(swiglu_mod, "_launch", swiglu_launch)
+    monkeypatch.setattr(ssd_mod, "_launch_wgmma", ssd_launch)
     import repro_torch.kernels.ops as ops
     monkeypatch.setattr(ops, "flash_attention", flash)
     monkeypatch.setattr(ops, "swiglu_matmul", swiglu_mod._SwiGLU.apply)
     monkeypatch.setattr(ops, "swiglu_experts", swiglu_mod._SwiGLU.apply)
     import repro_torch.models.layers as layers
     monkeypatch.setattr(layers, "swiglu_experts", swiglu_mod._SwiGLU.apply)
+    import repro_torch.models.ssm as ssm
+    monkeypatch.setattr(ssm, "ssd_mixer", mixer)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b", "hubert-xlarge",
+                                  "mamba2-370m", "jamba-v0.1-52b"])
 def test_kernel_functions_carry_gradients(arch, stand_in_kernels):
     """Through the Functions (the card's route) the gradients equal
-    autograd through the plain versions (the CPU's route) in f32, and every
-    parameter the loss reads gets one: a dense model (flash causal, SwiGLU),
-    MLA with experts (flash at Dv != D, the expert entry), an encoder
-    (non-causal flash)."""
+    ``jax.grad`` of the reference's loss in f32, and every parameter the
+    loss reads gets one: a dense model (flash causal, SwiGLU), MLA with
+    experts (flash at Dv != D, the expert entry), an encoder (non-causal
+    flash), mamba2 (the SSD scan's Function on the mixer's views; A_log,
+    dt_bias, Dskip and the conv among the leaves) and Jamba's hybrid period
+    (attention, mixers, experts and dense FFNs in one backward)."""
     jcfg, cfg, params = _reference_f32(arch)
     tokens, embeds, labels = _inputs(cfg)
-    _, _, grads = _port_grads(cfg, _port(cfg, params), tokens, embeds, labels)
+    vjp_calls = []
+    vjp = ssd_mod.ssd_scan_vjp
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ssd_mod, "ssd_scan_vjp", lambda *a: vjp_calls.append(1) or vjp(*a))
+        _, _, grads = _port_grads(cfg, _port(cfg, params), tokens, embeds, labels)
+    n_ssm = sum(slot.mixer == "ssm" for slot in layer_plan(cfg))
+    assert len(vjp_calls) == n_ssm  # one VJP a mixer
     rgrads = jax.jit(jax.grad(lambda p: jax_loss_fn(p, jcfg, _j(tokens), _j(labels),
                                                    embeds=_j(embeds))[0]))(params)
     _assert_grads(reference_tree(cfg, grads), rgrads)
