@@ -62,6 +62,18 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              width, experts cut from 16 to 4, AdamW with bf16 moments): (a)
              with every kernel's backward gone as the fault, 5 counted steps,
              the loss falling.
+   accounting — the launch accounting (``src/repro_torch/launch``): (a) for
+             every registry arch × runnable shape at full size on one card,
+             host only, the analytic compute and memory seconds under the
+             H100's peaks, the dominant term, the operands' GiB and whether
+             they fit; (b) every arch × kind as a probe (``validate_probe``:
+             2 layers or one period, full width, seq 1024, batch 16) counted
+             on ``meta`` and, where the meta count fits the card, on the card:
+             FLOPs equal per component and kernel variant, launches equal
+             to the meta count and ``expected_launches``, outputs finite, the
+             skipped probes exactly Arctic's and Jamba's train (planted
+             fault: the SwiGLU entry recording no work); prints counted /
+             analytic FLOPs, device ms, the analytic bound, MFU, the peak.
 5. cnn     — the paper's pipeline: inception_net(224) at batch 8 (random
              weights from a seeded generator), DSH plans on the whole model
              (m=4) and on the grid-sliced one (m=8), validated; run_sequential,
@@ -106,7 +118,8 @@ The last line of standard output is
 
 For development, ``--only kernels,jamba`` runs the build and the named
 phases alone (the kernels phase, the serving paths, ``train``,
-``train_mamba2`` and ``train_jamba``), then exits 2 with no result.
+``train_mamba2``, ``train_jamba`` and ``accounting``), then exits 2 with
+no result.
 """
 from __future__ import annotations
 
@@ -122,11 +135,6 @@ from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger of
-# its bytes over the memory rate and its operations over the peak for its type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 # tolerances (absolute, relative) of a kernel against its plain version, as
 # in the CPU tests: the kernel and the plain version both accumulate in f32
@@ -231,47 +239,6 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def flash_work(BH, Sq, Sk, D, causal, elem, Dv=None):
-    """Bytes (q, k, v read once, o written once) and operations (QK^T over
-    D and PV over Dv, 2 each per multiply-add) of the unmasked (query, key)
-    pairs; Dv defaults to D."""
-    Dv = D if Dv is None else Dv
-    if causal:
-        off = Sk - Sq
-        pairs = sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    nbytes = (BH * Sq * D + BH * Sk * D + BH * Sk * Dv + BH * Sq * Dv) * elem
-    return nbytes, 2.0 * BH * pairs * (D + Dv)
-
-
-def swiglu_work(M, D, F, elem, E=1):
-    """Bytes (x and both weights read once, the output written once) and
-    operations of E products of M rows (E = 1: one product)."""
-    return E * (M * D + 2 * D * F + M * F) * elem, 4.0 * E * M * D * F
-
-
-def ssd_work(heads, groups, S, P, N, elem, chunk):
-    """Bytes and operations of one scan over ``heads`` sequences that read
-    ``groups`` B and C sequences (a flat ``[BH, S, *]`` call: groups =
-    heads; the mixer's layout: the model's groups).  Bytes: x read and y
-    written, B and C read, in the input type; dt, A read and the final state
-    written in f32.  Operations: the chunked form at the variant's
-    ``chunk``, per head and chunk C·B^T and (C·B^T∘L)·x over the lower
-    triangle, C·h and the state update in full; 2 per multiply-add."""
-    nbytes = ((2 * heads * S * P + 2 * groups * S * N) * elem + heads * S * 4 + heads * 4
-              + heads * P * N * 4)
-    Q = chunk
-    macs = -(-S // Q) * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * P * N)
-    return nbytes, 2.0 * heads * macs
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -344,6 +311,11 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     5120 (HuBERT) and D 7168 F 4864 (Arctic's residual); the expert entries
     at E 16, D 4096, F 14336 (Jamba) and E 128, D 7168, F 4864 (Arctic); the
     SSD scan on Jamba's mixer layout (H 128, N 16, rows of 8224)."""
+    from repro_torch.kernels.flash_attention import work as flash_work
+    from repro_torch.kernels.swiglu_matmul import work as swiglu_work
+    from repro_torch.kernels.ssd_scan import work as ssd_work
+    from repro_torch.launch.roofline_model import H100
+
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -374,7 +346,7 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
             f"{max_err(o, r):.3g}")
         if timed:
             lib = sdpa_call(torch, SDPBackend.FLASH_ATTENTION, q, k, v, causal=causal)
-            b_ms, b_by = bound(*flash_work(BH, S, S, D, causal, 2), bf16)
+            b_ms, b_by = H100.bound_ms(*flash_work(BH, S, S, D, causal, 2), bf16)
             rows[("flash_attention", variant, "hubert")] = dict(
                 shape=f"BH={BH} S={S} D={D} bf16 non-causal", max_abs_err=max_err(o, r),
                 tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)),
@@ -396,7 +368,7 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
                                  f"max err {max_err(o, r):.3g} > {tol}")
         log(f"swiglu_matmul[{variant}] path M={M} D={D} F={Fd}: max err {max_err(o, r):.3g}")
         if key is not None:
-            b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2), bf16)
+            b_ms, b_by = H100.bound_ms(*swiglu_work(M, D, Fd, 2), bf16)
             rows[("swiglu_matmul", variant, key)] = dict(
                 shape=f"M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
                 ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
@@ -417,7 +389,7 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
         if variant != ("experts_wgmma" if M >= 64 else "experts_decode") or not within(o, r, tol):
             raise AssertionError(f"swiglu_experts[{variant}] path E={E} M={M} D={D} F={Fd}: "
                                  f"max err {max_err(o, r):.3g} > {tol}")
-        b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2, E=E), bf16)
+        b_ms, b_by = H100.bound_ms(*swiglu_work(M, D, Fd, 2, E=E), bf16)
         rows[("swiglu_matmul", variant, f"{key}{M}")] = dict(
             shape=f"E={E} M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
             ms=timer.ms(lambda: swiglu_experts(x, wg, wu)),
@@ -442,7 +414,7 @@ def slice_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     ref = ssd_scan_ref(*flat, return_state=True)
     err, ytol = ssd_hold(f"[{variant}] Jamba's layout S={S}",
                          (out[0][0].movedim(1, 0), out[1][0]), ref, bf16)
-    b_ms, b_by = bound(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    b_ms, b_by = H100.bound_ms(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
     rows[("ssd_scan", variant, "jamba")] = dict(
         shape=f"B=1 S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
         tol=list(ytol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
@@ -457,6 +429,11 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     over 4 x 32 heads of 64 (causal) and the SwiGLU ``wgmma`` over 4096
     rows at D 2048, F 5632 (TinyLlama); the SSD scan's ``wgmma`` on
     mamba2's mixer views at B 4 (the 4 sequences of a microbatch)."""
+    from repro_torch.kernels.flash_attention import work as flash_work
+    from repro_torch.kernels.swiglu_matmul import work as swiglu_work
+    from repro_torch.kernels.ssd_scan import work as ssd_work
+    from repro_torch.launch.roofline_model import H100
+
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -471,7 +448,7 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     tol = FLASH_TOL[str(bf16)]
     if variant != "mma" or not within(o, r, tol):
         raise AssertionError(f"flash_attention[{variant}] train path: max err {max_err(o, r):.3g}")
-    b_ms, b_by = bound(*flash_work(BH, S, S, D, True, 2), bf16)
+    b_ms, b_by = H100.bound_ms(*flash_work(BH, S, S, D, True, 2), bf16)
     rows[("flash_attention", variant, "train")] = dict(
         shape=f"BH={BH} S={S} D={D} bf16 causal", max_abs_err=max_err(o, r), tol=list(tol),
         ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
@@ -489,7 +466,7 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     tol = SWIGLU_TOL[str(bf16)]
     if variant != "wgmma" or not within(o, r, tol):
         raise AssertionError(f"swiglu_matmul[{variant}] train path: max err {max_err(o, r):.3g}")
-    b_ms, b_by = bound(*swiglu_work(M, D, Fd, 2), bf16)
+    b_ms, b_by = H100.bound_ms(*swiglu_work(M, D, Fd, 2), bf16)
     rows[("swiglu_matmul", variant, "train")] = dict(
         shape=f"M={M} D={D} F={Fd} bf16", max_abs_err=max_err(o, r), tol=list(tol),
         ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
@@ -509,7 +486,7 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
         raise AssertionError(f"ssd_mixer on mamba2's train layout took {variant}, not wgmma")
     ref = ssd_mixer_ref(*args, return_state=True)
     err, tol = ssd_hold(f"[{variant}] mamba2's train layout B={Bsz}", out, ref, bf16)
-    b_ms, b_by = bound(*ssd_work(Bsz * H, Bsz * G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    b_ms, b_by = H100.bound_ms(*ssd_work(Bsz * H, Bsz * G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
     rows[("ssd_scan", variant, "train")] = dict(
         shape=f"B={Bsz} S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
         tol=list(tol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
@@ -531,6 +508,10 @@ def check_kernels(torch, timer):
         flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
     )
     from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
+    from repro_torch.kernels.flash_attention import work as flash_work
+    from repro_torch.kernels.swiglu_matmul import work as swiglu_work
+    from repro_torch.kernels.ssd_scan import work as ssd_work
+    from repro_torch.launch.roofline_model import H100
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -591,8 +572,8 @@ def check_kernels(torch, timer):
                                  f"max err {max_err(o, r):.3g} > {tol}")
         backend, lib_name = ((SDPBackend.FLASH_ATTENTION, "sdpa[flash]") if dtype == bf16 else
                              (SDPBackend.EFFICIENT_ATTENTION, "sdpa[efficient]"))
-        nbytes, ops = flash_work(BH, S, S, D, True, q.element_size())
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        ops, nbytes = flash_work(BH, S, S, D, True, q.element_size())
+        b_ms, b_by = H100.bound_ms(ops, nbytes, dtype)
         rows[("flash_attention", variant, S)] = dict(
             shape=f"BH={BH} S={S} D={D} {str(dtype)[6:]} causal", max_abs_err=max_err(o, r),
             tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
@@ -613,7 +594,7 @@ def check_kernels(torch, timer):
     if not within(lib_out, r, tol):
         raise AssertionError(f"{lib_name} does not compute the same function: "
                              f"max err {max_err(lib_out, r):.3g}")
-    b_ms, b_by = bound(*flash_work(BH, S, S, D, True, 2, Dv=Dv), bf16)
+    b_ms, b_by = H100.bound_ms(*flash_work(BH, S, S, D, True, 2, Dv=Dv), bf16)
     rows[("flash_attention", variant, "mla")] = dict(
         shape=f"BH={BH} S={S} D={D} Dv={Dv} bf16 causal", max_abs_err=max_err(o, r),
         tol=list(tol), ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
@@ -674,8 +655,8 @@ def check_kernels(torch, timer):
         if not within(o, r, tol):
             raise AssertionError(f"swiglu_matmul[{variant}] path M={M} {dtype}: "
                                  f"max err {max_err(o, r):.3g} > {tol}")
-        nbytes, ops = swiglu_work(M, D, Fd, x.element_size())
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        ops, nbytes = swiglu_work(M, D, Fd, x.element_size())
+        b_ms, b_by = H100.bound_ms(ops, nbytes, dtype)
         rows[("swiglu_matmul", variant, M)] = dict(
             shape=f"M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
             tol=list(tol), ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
@@ -729,7 +710,7 @@ def check_kernels(torch, timer):
         if not within(o, r, tol):
             raise AssertionError(f"swiglu_experts[{variant}] path M={M} {dtype}: "
                                  f"max err {max_err(o, r):.3g} > {tol}")
-        b_ms, b_by = bound(*swiglu_work(M, D, Fd, x.element_size(), E=E), dtype)
+        b_ms, b_by = H100.bound_ms(*swiglu_work(M, D, Fd, x.element_size(), E=E), dtype)
         rows[("swiglu_matmul", variant, M)] = dict(
             shape=f"E={E} M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
             tol=list(tol), ms=timer.ms(lambda: swiglu_experts(x, wg, wu)),
@@ -845,8 +826,8 @@ def check_kernels(torch, timer):
         BH, P, N = 32, 64, 128
         args = ssd_inputs(BH, S, P, N, dtype)
         (err, tol), variant = ssd_check(f"path S={S}", args, dtype)
-        b_ms, b_by = bound(*ssd_work(BH, BH, S, P, N, args[0].element_size(), SSD_CHUNK[variant]),
-                           dtype)
+        b_ms, b_by = H100.bound_ms(
+            *ssd_work(BH, BH, S, P, N, args[0].element_size(), SSD_CHUNK[variant]), dtype)
         rows[("ssd_scan", variant, S)] = dict(
             shape=f"BH={BH} S={S} P={P} N={N} {str(dtype)[6:]}", max_abs_err=err, tol=list(tol),
             ms=timer.ms(lambda: ssd_scan(*args, return_state=True)),
@@ -857,7 +838,8 @@ def check_kernels(torch, timer):
             out = cuda_core_bf16(*args)
             err, tol = ssd_hold("[cuda_core] path S=1024", out,
                                 ssd_scan_ref(*args, return_state=True), bf16)
-            b_ms, b_by = bound(*ssd_work(BH, BH, S, P, N, 2, SSD_CHUNK["cuda_core"]), bf16)
+            b_ms, b_by = H100.bound_ms(*ssd_work(BH, BH, S, P, N, 2, SSD_CHUNK["cuda_core"]),
+                                       bf16)
             rows[("ssd_scan", "cuda_core", "bf16")] = dict(
                 rows[("ssd_scan", variant, S)], shape=f"BH={BH} S={S} P={P} N={N} bf16, earlier",
                 max_abs_err=err, tol=list(tol),
@@ -873,7 +855,7 @@ def check_kernels(torch, timer):
     ref = ssd_scan_ref(*flat, return_state=True)
     err, tol = ssd_hold(f"[{variant}] serving layout S={S}",
                         (out[0][0].movedim(1, 0), out[1][0]), ref, bf16)
-    b_ms, b_by = bound(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
+    b_ms, b_by = H100.bound_ms(*ssd_work(H, G, S, P, N, 2, SSD_CHUNK[variant]), bf16)
     rows[("ssd_scan", variant, "serving")] = dict(
         shape=f"B=1 S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out", max_abs_err=err,
         tol=list(tol), ms=timer.ms(lambda: ssd_mixer(*args, return_state=True)),
@@ -1970,6 +1952,9 @@ def vjp_checks(torch, timer) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from repro_torch.kernels.flash_attention import work as flash_work
+    from repro_torch.launch.roofline_model import H100
+
     from repro_torch.kernels import (
         flash_attention, flash_attention_vjp, swiglu_matmul, swiglu_vjp,
     )
@@ -1996,8 +1981,9 @@ def vjp_checks(torch, timer) -> dict:
          {"no causal mask": grads_err(flash_attention_vjp(qd, kd, vd, od, do, False, sc), want)})
     del got, want
     nbytes = (3 + 2 + 3) * BH * S * D * 2  # q, k, v, o, dO read; dq, dk, dv written
-    _, fwd_ops = flash_work(BH, S, S, D, True, 2)
-    b_ms, b_by = bound(nbytes, 2.5 * fwd_ops, torch.bfloat16)  # 5 products to the forward's 2
+    fwd_ops, _ = flash_work(BH, S, S, D, True, 2)
+    # 5 products to the forward's 2
+    b_ms, b_by = H100.bound_ms(2.5 * fwd_ops, nbytes, torch.bfloat16)
     q4, k4, v4 = (t.view(1, *t.shape) for t in (q, k, v))
 
     def sdpa_fwd_bwd():
@@ -2031,7 +2017,7 @@ def vjp_checks(torch, timer) -> dict:
          {"sigma(g) for silu'(g)": grads_err(sigma_fault_vjp(torch)(xd, wgd, wud, dout), want)})
     del got, want
     nbytes = (M * D + 2 * D * Fd + M * Fd) * 2 * 2  # x, wg, wu, dout read; dx, dwg, dwu written
-    b_ms, b_by = bound(nbytes, 6 * 2.0 * M * D * Fd, torch.bfloat16)  # 6 products
+    b_ms, b_by = H100.bound_ms(6 * 2.0 * M * D * Fd, nbytes, torch.bfloat16)  # 6 products
     rows["swiglu"] = dict(
         shape=f"M={M} D={D} F={Fd} bf16",
         vjp_ms=timer.ms(lambda: swiglu_vjp(xd, wgd, wud, dout), reps=10),
@@ -2138,6 +2124,7 @@ def ssd_vjp_checks(torch, timer) -> dict:
     its bound (no library call computes an SSD scan)."""
     from repro_torch.kernels import ssd_mixer
     from repro_torch.kernels.ref import ssd_mixer_ref
+    from repro_torch.launch.roofline_model import H100
 
     ssd = ssd_module()
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2177,7 +2164,7 @@ def ssd_vjp_checks(torch, timer) -> dict:
     Q, nc = ssd.VJP_CHUNK, -(-S // ssd.VJP_CHUNK)
     nbytes = 3 * Bsz * S * H * P * 2 + 4 * Bsz * S * G * N * 2 + 2 * Bsz * S * H * 4 + 2 * H * 4
     ops = 2.0 * Bsz * nc * (H * (6 * Q * P * N + 2 * Q * Q * P) + G * 3 * Q * Q * N)
-    b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+    b_ms, b_by = H100.bound_ms(ops, nbytes, torch.bfloat16)
     return {"ssd": dict(
         shape=f"B={Bsz} S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out",
         vjp_ms=timer.ms(lambda: ssd.ssd_scan_vjp(x, dtd, A2, Bm, Cm, dy, None), reps=10),
@@ -2546,6 +2533,151 @@ def every_kernel_without_backward():
     detached, the SSD scan's Function returning None (a planted fault)."""
     with detached_kernels(), ssd_backward_none():
         yield
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b: the launch accounting
+# --------------------------------------------------------------------------- #
+# the reference's validate_probe defaults: probe_config depth, full width
+PROBE_SEQ, PROBE_BATCH = 1024, 16
+# the probes whose meta count (operands plus the step's peak) exceeds the
+# card: Arctic's 2 layers and Jamba's period at full expert count (26.8 B and
+# 13.3 B parameters) with f32 moments
+PROBE_SKIPS = {("arctic-480b", "train"), ("jamba-v0.1-52b", "train")}
+PROBE_WARM, PROBE_REPS = 2, 5
+
+
+def accounting_cells() -> None:
+    """(a) Every registry arch × runnable shape at full size on one card
+    (``CARD_MESH``), host only: the analytic compute and memory seconds under
+    the H100's peaks, the dominant term, the operands' GiB (parameters,
+    moments, cache, inputs) and whether they fit the card."""
+    from repro_torch.configs import SHAPES, get_config, list_archs, runnable_cells
+    from repro_torch.launch.mesh import CARD_MESH
+    from repro_torch.launch.roofline_model import H100, analytic_terms
+    from repro_torch.launch.specs import cell_pspecs, per_device_bytes
+
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for name in runnable_cells(cfg):
+            shape = SHAPES[name]
+            ana = analytic_terms(cfg, shape, CARD_MESH, chip=H100)
+            arg = per_device_bytes(cell_pspecs(cfg, shape, CARD_MESH), CARD_MESH)
+            r = ana["roofline"]
+            log(f"cell {arch:22s} {name:12s} compute {r['compute_s']:10.4f} s  memory "
+                f"{r['memory_s']:9.4f} s  dominant {ana['dominant'][:-2]:7s}  operands "
+                f"{arg / 2**30:9.2f} GiB  fits one card: {arg <= H100.hbm_bytes}")
+
+
+def probe_timer(torch):
+    """Median device ms of a call over ``PROBE_REPS`` runs after
+    ``PROBE_WARM`` (CUDA events around each run)."""
+    def ms(call) -> float:
+        for _ in range(PROBE_WARM):
+            call()
+        times = []
+        for _ in range(PROBE_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+    return ms
+
+
+def probe_launches(torch, cfg, kind: str) -> dict:
+    """``expected_launches`` for one probe step: a prefill of PROBE_BATCH
+    sequences, one decode tick of PROBE_BATCH slots, or one train step (one
+    microbatch, remat)."""
+    from repro_torch.train import TrainConfig
+
+    if kind == "train":
+        return expected_launches(torch, cfg, train=(TrainConfig(microbatches=1, remat=True),
+                                                    PROBE_BATCH, PROBE_SEQ))
+    if kind == "prefill":
+        return expected_launches(torch, cfg, [PROBE_SEQ], batch=PROBE_BATCH)
+    return expected_launches(torch, cfg, n_decode=1, slots=PROBE_BATCH)
+
+
+def accounting_phase(torch, device: str = "cuda") -> list:
+    """(a) ``accounting_cells``; (b) every arch × kind of the registry as a
+    probe (``launch.analysis.validate_probe``: ``probe_config`` depth, full
+    width, seq PROBE_SEQ, batch PROBE_BATCH, one microbatch, f32 moments):
+    counted on ``meta``; where the operands and the counted peak fit the
+    card, counted again on ``device`` and timed.  Checks: the FLOPs on the
+    card equal the meta count exactly, per component and per kernel variant
+    (planted fault: the SwiGLU entry's ``work()`` not recorded on CUDA); the
+    launches equal the meta count and ``expected_launches``; the outputs are
+    finite; the skipped probes are exactly ``PROBE_SKIPS``.  Prints counted / analytic FLOPs (in total and
+    by component), device ms, the analytic bound, MFU and the peak."""
+    import importlib
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.analysis import probe_config, validate_probe
+    from repro_torch.launch.roofline_model import H100
+
+    accounting_cells()
+    timer = probe_timer(torch)
+    rows, skipped = [], set()
+    for arch in list_archs():
+        cfg = probe_config(get_config(arch))
+        for kind in ("train", "prefill") + (() if cfg.encoder_only else ("decode",)):
+            meta = validate_probe(arch, kind, "meta", PROBE_SEQ, PROBE_BATCH)
+            mc = meta["count"]
+            need = mc["argument_bytes"] + mc["peak_bytes"]
+            if need > H100.hbm_bytes:
+                skipped.add((arch, kind))
+                log(f"probe {arch} {kind}: skipped, the meta count needs {need / 2**30:.2f} GiB "
+                    f"(operands {mc['argument_bytes'] / 2**30:.2f} + peak "
+                    f"{mc['peak_bytes'] / 2**30:.2f}) > {H100.hbm_bytes / 2**30:.2f} GiB")
+                continue
+            release(torch)
+            card = validate_probe(arch, kind, device, PROBE_SEQ, PROBE_BATCH, timer=timer)
+            cc = card["count"]
+            peak = cc["device_peak_bytes"]  # the counted step's, operands included
+            if cc["components"] != mc["components"] or cc["kernels"] != mc["kernels"]:
+                raise AssertionError(f"probe {arch} {kind}: card count {cc['components']} "
+                                     f"{cc['kernels']} != meta {mc['components']} "
+                                     f"{mc['kernels']}")
+            expect = probe_launches(torch, cfg, kind)
+            if cc["launches"] != mc["launches"] or cc["launches"] != expect:
+                raise AssertionError(f"probe {arch} {kind}: launches {cc['launches']}, meta "
+                                     f"{mc['launches']}, expected {expect}")
+            if not card["finite"]:
+                raise AssertionError(f"probe {arch} {kind}: non-finite outputs")
+            ms, bound_s = card["ms"], card["analytic"]["step_time_bound_s"]
+            mfu = card["model_flops"] / (ms * 1e-3 * H100.peak_flops)
+            row = dict(arch=arch, kind=kind, counted_flops=cc["flops"],
+                       analytic_flops=card["analytic"]["flops"], ratio=card["ratio"], ms=ms,
+                       bound_ms=bound_s * 1e3, mfu=mfu, peak_gib=peak / 2**30,
+                       meta_operands_gib=mc["argument_bytes"] / 2**30,
+                       meta_peak_gib=mc["peak_bytes"] / 2**30,
+                       launches={f"{lib}[{v}]": n for lib, row in cc["launches"].items()
+                                 for v, n in row.items() if n})
+            parts = ", ".join(f"{k} {v:.3f}" for k, v in card["ratio"].items()
+                              if k != "flops" and v is not None)
+            log(f"probe {arch} {kind}: counted/analytic {card['ratio']['flops']:.4f} "
+                f"({parts}); {ms:.3f} ms (bound {bound_s * 1e3:.3f} ms); MFU {mfu:.4f}; peak "
+                f"{peak / 2**30:.2f} GiB (meta: operands {mc['argument_bytes'] / 2**30:.2f} + "
+                f"peak {mc['peak_bytes'] / 2**30:.2f}); launches {row['launches']}")
+            rows.append(row)
+            del card
+    if skipped != PROBE_SKIPS:
+        raise AssertionError(f"skipped probes {sorted(skipped)} != {sorted(PROBE_SKIPS)}")
+    # planted fault: the dense SwiGLU entry records no work on CUDA; the card's
+    # count must then differ from the meta count
+    sw_module = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    with patched(sw_module, "record", lambda *a: None):
+        faulty = validate_probe("tinyllama-1.1b", "prefill", device, 128, 2)["count"]
+    honest = validate_probe("tinyllama-1.1b", "prefill", "meta", 128, 2)["count"]
+    if faulty["components"] == honest["components"]:
+        raise AssertionError("a kernel entry that records no work went unnoticed")
+    log("planted fault (the SwiGLU entry records no work): the card's count differs from meta")
+    release(torch)
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -3291,8 +3423,8 @@ def main() -> None:
     parser.add_argument("--only", default="",
                         help="development: run the build and only these comma-separated "
                              "phases (kernels, tinyllama, mamba2, deepseek, jamba, hubert, "
-                             "llava, arctic, train, train_mamba2, train_jamba), then exit 2 "
-                             "with no result")
+                             "llava, arctic, train, train_mamba2, train_jamba, accounting), "
+                             "then exit 2 with no result")
     args = parser.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -3351,7 +3483,8 @@ def main() -> None:
                 lambda: train_phase(torch, np, SSM_TRAIN_ARCH)),
                (f"train {HYBRID_TRAIN_ARCH} ({HYBRID_TRAIN_LAYERS} layers, "
                 f"{HYBRID_TRAIN_EXPERTS} experts)", "train_jamba",
-                lambda: hybrid_train_phase(torch, np))]
+                lambda: hybrid_train_phase(torch, np)),
+               ("accounting", "accounting", lambda: accounting_phase(torch))]
     for name, path, run in serving:
         if only and path not in only:
             continue

@@ -112,6 +112,12 @@ class KernelLibrary:
                 f"{self.name} ({variant}) kernel launch failed: CUDA error {code} ({msg})")
         self.counts[variant] += 1
 
+    def account(self, variant: str) -> None:
+        """Count the launch of ``variant`` that a call on ``meta`` tensors
+        stands for: the one a CUDA call of those shapes makes.  Nothing is
+        built or launched."""
+        self.counts[variant] += 1
+
 
 def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, float]:
     """Compile every library that is not built yet, one ``nvcc`` each, all
@@ -161,14 +167,14 @@ def check_aligned(name: str, tensors: Sequence[torch.Tensor]) -> None:
 
 def check_cuda_operands(name: str, tensors: Sequence[torch.Tensor],
                         dtypes: Sequence[torch.dtype], contiguous: bool = True) -> int:
-    """Validate operands for a kernel launch; return the kernel's dtype code
-    (0 = float32, 1 = bfloat16).  Raises ``ValueError`` on what the kernel
-    does not take: another device type, mixed devices or dtypes, an
-    unsupported dtype, or (unless the kernel takes strides) a non-contiguous
-    tensor."""
+    """Validate operands for a kernel launch (or, on ``meta`` tensors, for
+    the launch they stand for); return the kernel's dtype code (0 = float32,
+    1 = bfloat16).  Raises ``ValueError`` on what the kernel does not take:
+    another device type, mixed devices or dtypes, an unsupported dtype, or
+    (unless the kernel takes strides) a non-contiguous tensor."""
     first = tensors[0]
-    if first.device.type != "cuda":
-        raise ValueError(f"{name}: expected CPU or CUDA tensors, got {first.device}")
+    if first.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: expected CPU, CUDA or meta tensors, got {first.device}")
     for t in tensors:
         if t.device != first.device:
             raise ValueError(f"{name}: operands on {first.device} and {t.device}")

@@ -18,7 +18,12 @@ its own entry point and launch count (``LIBRARY.counts``);
 cores) or ``cuda_core`` (f32, and bf16 with other head dims).
 Nothing catches a failed build or launch and tries another.  CPU tensors
 take the plain version, :func:`ref.flash_attention_ref`, and autograd runs
-through it; CUDA tensors launch a kernel or raise.
+through it; CUDA tensors launch a kernel or raise.  ``meta`` tensors take
+the CUDA route without launching: the ``autograd.Function`` returns an
+empty output of the kernel's shape and dtype and counts the launch the
+selected variant would make, so that a step can be shape-propagated (and
+its backward too).  Every call records its :func:`work` once, at the entry
+(``kernels/_work.py``), whichever of the three routes it takes.
 
 On the card the launch sits in a ``torch.autograd.Function``, so the output
 has a gradient path whenever an input requires grad.  The reference's
@@ -36,9 +41,10 @@ import torch
 from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
+from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "LIBRARY"]
+__all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "work", "LIBRARY"]
 
 MAX_HEAD_DIM = 192    # q and k
 MAX_V_HEAD_DIM = 128  # v and the output
@@ -62,6 +68,27 @@ def select_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
     return "cuda_core"
 
 
+def _causal_pairs(Sq: int, Sk: int) -> int:
+    """(query, key) pairs a causal call computes: query i sees keys
+    j <= i + Sk - Sq, i.e. min(Sk, max(0, i + Sk - Sq + 1)) of them; the
+    largest count, query Sq - 1's, is Sk, so the sum is that of the
+    integers from max(1, Sk - Sq + 1) to Sk."""
+    lo = max(1, Sk - Sq + 1)
+    return (Sk * (Sk + 1) - (lo - 1) * lo) // 2 if Sk >= lo else 0
+
+
+def work(BH: int, Sq: int, Sk: int, D: int, causal: bool, elem: int,
+         Dv: Optional[int] = None) -> tuple:
+    """(operations, bytes) of one call: operations 2 per multiply-add of
+    QKᵀ over D and PV over Dv for the (query, key) pairs the mask leaves
+    (all Sq·Sk when not causal); bytes q, k, v read once and o written
+    once, ``elem`` bytes an element.  ``Dv`` defaults to D."""
+    Dv = D if Dv is None else Dv
+    pairs = _causal_pairs(Sq, Sk) if causal else Sq * Sk
+    nbytes = (BH * Sq * D + BH * Sk * D + BH * Sk * Dv + BH * Sq * Dv) * elem
+    return 2.0 * BH * pairs * (D + Dv), nbytes
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             sc: float) -> torch.Tensor:
     """Launch the variant :func:`select_variant` picks: o [BH, Sq, Dv]."""
@@ -73,6 +100,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"flash_attention: head dims {D}/{Dv} > {MAX_HEAD_DIM}/{MAX_V_HEAD_DIM}")
     o = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
     variant = select_variant(D, Dv, q.dtype)
+    if q.is_meta:
+        LIBRARY.account(variant)
+        return o
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq, Sk, D, Dv, float(sc),
             int(causal))
     if variant == "cuda_core":
@@ -140,7 +170,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_vjp(q, k, v, o, do, ctx.causal, ctx.sc)
+        with uncounted("flash_attention"):
+            dq, dk, dv = flash_attention_vjp(q, k, v, o, do, ctx.causal, ctx.sc)
         return dq, dk, dv, None, None
 
 
@@ -158,6 +189,9 @@ def flash_attention(
     if k.shape != (BH, Sk, D) or v.shape != (BH, Sk, Dv):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     sc = scale if scale is not None else D ** -0.5
+    record("flash_attention", select_variant(D, Dv, q.dtype),
+           work(BH, Sq, Sk, D, causal, q.element_size(), Dv))
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, scale=sc)
+        with uncounted():
+            return flash_attention_ref(q, k, v, causal=causal, scale=sc)
     return _FlashAttention.apply(q, k, v, causal, sc)

@@ -23,7 +23,11 @@ Both mask a ragged end themselves, so they take any ``S``: the reference's
 Unlike the Pallas kernel they can also return the final state (f32), which a
 prefill needs for its cache.  CPU tensors take the plain version,
 :func:`ref.ssd_scan_ref`, and autograd runs through it; CUDA tensors launch
-the selected variant or raise.
+the selected variant or raise.  ``meta`` tensors take the CUDA route
+without launching: :class:`_SSDScan` returns empty outputs and counts the
+launch the selected variant would make.  Every call of :func:`ssd_scan` or
+:func:`ssd_mixer` records its :func:`work` once, at the entry
+(``kernels/_work.py``), whichever of the three routes it takes.
 
 On the card each launch sits in :class:`_SSDScan`, an
 ``autograd.Function`` whose backward is :func:`ssd_scan_vjp`: the chunked
@@ -41,10 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._build import KernelLibrary, check_cuda_operands, stream_handle
+from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import on_flat_heads, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_mixer", "ssd_scan_vjp", "select_variant", "wgmma_operands",
-           "LIBRARY", "CHUNK", "VJP_CHUNK"]
+           "work", "LIBRARY", "CHUNK", "VJP_CHUNK"]
 
 MAX_STATE = 128
 CHUNK = {"wgmma": 64, "cuda_core": 32}  # each variant's chunk length
@@ -68,6 +73,22 @@ def select_variant(P: int, N: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16 and P == 64 and N % 16 == 0 and 16 <= N <= MAX_STATE:
         return "wgmma"
     return "cuda_core"
+
+
+def work(heads: int, groups: int, S: int, P: int, N: int, elem: int, chunk: int) -> tuple:
+    """(operations, bytes) of one scan over ``heads`` sequences that read
+    ``groups`` B and C sequences (a flat ``[BH, S, *]`` call: groups =
+    heads; the mixer's layout: the model's groups).  Operations: the chunked
+    form at the variant's ``chunk``, per head and chunk C·Bᵀ and
+    (C·Bᵀ∘L)·x over the lower triangle, C·h and the state update in full;
+    2 per multiply-add.  Bytes: x read and y written, B and C read, in the
+    input type (``elem`` bytes); dt, A read and the final state written in
+    f32."""
+    nbytes = ((2 * heads * S * P + 2 * groups * S * N) * elem + heads * S * 4 + heads * 4
+              + heads * P * N * 4)
+    Q = chunk
+    macs = -(-S // Q) * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * P * N)
+    return 2.0 * heads * macs, nbytes
 
 
 def _tma_strides(t: torch.Tensor) -> list:
@@ -119,6 +140,9 @@ def _launch_wgmma(x, dt, A2, Bm, Cm, return_state):
     dev = x.device
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev) if return_state else None
+    if x.is_meta:
+        LIBRARY.account("wgmma")
+        return y, h
     # the kernel keeps each chunk's [P, N] state padded to 64 or 128 columns
     states = torch.empty((Bsz * H, nch, P * (64 if N <= 64 else 128)), dtype=torch.float32,
                          device=dev)
@@ -146,9 +170,12 @@ def _launch_cuda_core(x, dt, A2, Bm, Cm, return_state):
         raise ValueError(f"ssd_scan: state width {N} is not a multiple of 4 up to {MAX_STATE}")
     y = torch.empty_like(x)
     h = torch.empty((BH, P, N), dtype=torch.float32, device=x.device) if return_state else None
-    LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                   Cm.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
-                   BH, S, P, N, dtype, stream_handle(x))
+    if x.is_meta:
+        LIBRARY.account("cuda_core")
+    else:
+        LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                       Cm.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
+                       BH, S, P, N, dtype, stream_handle(x))
     return y[:, :, None], (h[:, None] if return_state else None)
 
 
@@ -333,7 +360,9 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh=None):
-        return (*ssd_scan_vjp(*ctx.saved_tensors, dy, dh), None, None)
+        with uncounted("ssd_scan"):
+            grads = ssd_scan_vjp(*ctx.saved_tensors, dy, dh)
+        return (*grads, None, None)
 
 
 def ssd_scan(
@@ -351,8 +380,18 @@ def ssd_scan(
     if dt.shape != (BH, S) or A.shape != (BH,) or B.shape != (BH, S, N) or C.shape != B.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}")
+    variant = select_variant(P, N, x.dtype)
+    record("ssd_scan", variant, work(BH, BH, S, P, N, x.element_size(), CHUNK[variant]))
+    return _scan(x, dt, A, B, C, return_state)
+
+
+def _scan(x, dt, A, B, C, return_state: bool = False):
+    """:func:`ssd_scan` without recording its work (the mixer records its
+    own call)."""
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B, C, return_state=return_state)
+        with uncounted():
+            return ssd_scan_ref(x, dt, A, B, C, return_state=return_state)
+    P, N = x.shape[-1], B.shape[-1]
     # each sequence as a batch row of one head and one group
     out = _SSDScan.apply(x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None],
                          C[:, :, None], select_variant(P, N, x.dtype), return_state)
@@ -385,7 +424,11 @@ def ssd_mixer(
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
     dt, A = dt.to(torch.float32), A.to(torch.float32)
-    if x.device.type == "cuda" and select_variant(P, N, x.dtype) == "wgmma":
+    variant = select_variant(P, N, x.dtype)
+    wgmma = variant == "wgmma"
+    record("ssd_scan", variant, work(Bsz * H, Bsz * (G if wgmma else H), S, P, N,
+                                     x.element_size(), CHUNK[variant]))
+    if x.device.type != "cpu" and wgmma:
         # A's gradient comes back [B, H] and autograd sums it over the expand
         return _SSDScan.apply(x, dt, A[None].expand(Bsz, H), Bm, Cm, "wgmma", return_state)
-    return on_flat_heads(ssd_scan, x, dt, A, Bm, Cm, return_state)
+    return on_flat_heads(_scan, x, dt, A, Bm, Cm, return_state)

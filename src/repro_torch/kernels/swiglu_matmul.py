@@ -26,6 +26,10 @@ This is a dispatch by shape between hand-written kernels: nothing catches a
 failed build or launch and tries another.  CPU tensors take the plain
 versions, :func:`ref.swiglu_ref` and :func:`ref.swiglu_experts_ref`, and
 autograd runs through them; CUDA tensors launch a kernel or raise.
+``meta`` tensors take the CUDA route without launching: the
+``autograd.Function`` returns an empty output and counts the launch the
+selected variant would make.  Every call records its :func:`work` once, at
+the entry (``kernels/_work.py``), whichever of the three routes it takes.
 
 On the card each launch sits in a ``torch.autograd.Function``, so the output
 has a gradient path whenever an input requires grad.  The reference's
@@ -42,10 +46,11 @@ import torch
 from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
+from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
 
 __all__ = ["swiglu_matmul", "swiglu_experts", "swiglu_vjp", "select_variant",
-           "select_experts_variant", "LIBRARY", "PREFILL_MIN_M"]
+           "select_experts_variant", "work", "LIBRARY", "PREFILL_MIN_M"]
 
 PREFILL_MIN_M = 64  # rows from which the bf16 product is bound by operations
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,6 +80,14 @@ def select_experts_variant(M: int, D: int, F: int, dtype: torch.dtype) -> str:
     expert launches: the expert entry of the kernel one product of that
     shape takes."""
     return "experts_" + select_variant(M, D, F, dtype)
+
+
+def work(M: int, D: int, F: int, elem: int, E: int = 1) -> tuple:
+    """(operations, bytes) of E products of M rows (E = 1: one product):
+    operations 2 per multiply-add of both x·wg and x·wu; bytes x and both
+    weights read once and the output written once, ``elem`` bytes an
+    element."""
+    return 4.0 * E * M * D * F, E * (M * D + 2 * D * F + M * F) * elem
 
 
 def swiglu_vjp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
@@ -113,6 +126,9 @@ def _launch(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor
     Fd = wg.shape[-1]
     out = torch.empty((*lead, M, Fd), dtype=x.dtype, device=x.device)
     variant = (select_experts_variant if experts else select_variant)(M, D, Fd, x.dtype)
+    if x.is_meta:
+        LIBRARY.account(variant)
+        return out
     args = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), *lead, M, D, Fd)
     if variant.endswith("cuda_core"):
         LIBRARY.launch(variant, *args, dtype, stream_handle(x))
@@ -132,7 +148,8 @@ class _SwiGLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return swiglu_vjp(*ctx.saved_tensors, dout)
+        with uncounted("swiglu_matmul"):
+            return swiglu_vjp(*ctx.saved_tensors, dout)
 
 
 def swiglu_matmul(
@@ -144,8 +161,10 @@ def swiglu_matmul(
     F = wg.shape[1]
     if wg.shape != (D, F) or wu.shape != (D, F):
         raise ValueError(f"shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
+    record("swiglu_matmul", select_variant(M, D, F, x.dtype), work(M, D, F, x.element_size()))
     if x.device.type == "cpu":
-        return swiglu_ref(x, wg, wu)
+        with uncounted():
+            return swiglu_ref(x, wg, wu)
     return _SwiGLU.apply(x, wg, wu)
 
 
@@ -159,6 +178,9 @@ def swiglu_experts(
     F = wg.shape[-1]
     if wg.shape != (E, D, F) or wu.shape != (E, D, F):
         raise ValueError(f"shapes x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
+    record("swiglu_matmul", select_experts_variant(M, D, F, x.dtype),
+           work(M, D, F, x.element_size(), E=E))
     if x.device.type == "cpu":
-        return swiglu_experts_ref(x, wg, wu)
+        with uncounted():
+            return swiglu_experts_ref(x, wg, wu)
     return _SwiGLU.apply(x, wg, wu)

@@ -341,7 +341,8 @@ def named_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda", dtype=torch.bfloat16) -> Transformer:
     """Random weights drawn as each leaf's ``ParamDef`` says
-    (:func:`named_defs`): normals at ``default_scale`` (``embed`` at 0.02,
+    (:func:`named_defs`, :meth:`ParamDef.materialize`): normals at
+    ``default_scale`` (``embed`` at 0.02,
     ``conv_w`` at 1/conv_width), ones, zeros.  ``default_scale`` takes
     ``shape[-2]`` as the fan-in, which for ``wq``/``wk``/``wv``
     ``[d, H, Dh]`` and MLA's ``wq [d, H, nope+rope]`` and ``w_uk``/``w_uv
@@ -352,20 +353,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     temporary of the largest leaf, 16.6 GiB for Arctic's experts), so they
     differ from ``jax.random``'s; tests that compare the two packages
     convert the reference's weights with ``params_from_numpy`` instead."""
-    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    dev = resolve_device(device)
+    model = Transformer(cfg, device="meta", dtype=dtype)
     defs = named_defs(cfg)
-    for name, prm in model.named_parameters():
-        d = defs[name]
-        if d.init == "ones":
-            prm.fill_(1.0)
-        elif d.init == "zeros":
-            prm.zero_()
-        elif d.init == "normal":
-            # one f32 temporary, freed before the next leaf's draw
-            prm.copy_(torch.randn(prm.shape, generator=generator,
-                                  device=generator.device).mul_(d.default_scale()))
-        else:
-            raise ValueError(f"unknown init {d.init!r}")
+    for name, prm in list(model.named_parameters()):
+        # each leaf allocated as it is drawn (ParamDef.materialize): one f32
+        # temporary, freed before the next leaf's draw
+        owner, _, leaf = name.rpartition(".")
+        value = defs[name].materialize(generator, dev, prm.dtype)
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(value, requires_grad=False))
     return model
 
 

@@ -19,10 +19,15 @@ from the trees of them (``models/transformer.py``), and
 ``default_scale`` keeps the reference's fan-in of ``shape[-2]``, which the
 port reproduces (for ``wq``/``wk``/``wv`` that is the head count).
 
+:meth:`ParamDef.materialize` draws one leaf (ones, zeros, or normals at
+``default_scale``) from a ``torch.Generator``, and :func:`init_tree` a tree
+of them, leaf by leaf in the tree's order from the one generator (the
+reference splits one ``jax.random`` key per leaf, so the values differ).
+
 The reference's ``constrain`` (``with_sharding_constraint`` inside a mesh)
 and ``tree_shardings`` (``NamedSharding`` over a ``jax.sharding.Mesh``)
 have no counterpart on one card: the port places every tensor on its one
-device, and :func:`tree_pspecs` gives what a mesh would be handed.
+device, and :func:`tree_pspecs` gives the same specs a mesh would be handed.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ __all__ = [
     "SERVE_RULES",
     "logical_to_pspec",
     "abstract_tree",
+    "init_tree",
     "tree_map_defs",
     "tree_pspecs",
     "mesh_axis_size",
@@ -227,6 +233,25 @@ class ParamDef:
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         return 1.0 / math.sqrt(max(fan_in, 1))
 
+    def materialize(self, generator: torch.Generator, device=None,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """This leaf on ``device`` (default: the generator's) in ``dtype``
+        (default: its own): ones, zeros, or normals at
+        :meth:`default_scale`, drawn from ``generator`` in f32 on the
+        generator's device, scaled in place, then cast and moved.  On
+        ``meta`` nothing is drawn (the generator does not advance)."""
+        dev = torch.device(generator.device if device is None else device)
+        dtype = self.dtype if dtype is None else dtype
+        if dev.type == "meta" or self.init == "zeros":
+            make = torch.empty if dev.type == "meta" else torch.zeros
+            return make(self.shape, dtype=dtype, device=dev)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=dev)
+        if self.init == "normal":
+            draw = torch.randn(self.shape, generator=generator, device=generator.device)
+            return draw.mul_(self.default_scale()).to(device=dev, dtype=dtype)
+        raise ValueError(f"unknown init {self.init!r}")
+
     def abstract(self) -> torch.Tensor:
         """A ``meta`` tensor of this shape and dtype (nothing allocated)."""
         return torch.empty(self.shape, dtype=self.dtype, device="meta")
@@ -245,6 +270,12 @@ def tree_map_defs(fn, defs):
 def abstract_tree(defs) -> Any:
     """The tree of ``meta`` tensors (the reference's ``ShapeDtypeStruct``s)."""
     return tree_map_defs(ParamDef.abstract, defs)
+
+
+def init_tree(defs, generator: torch.Generator, device=None) -> Any:
+    """Every leaf of a tree of :class:`ParamDef` materialised from
+    ``generator``, in the tree's order."""
+    return tree_map_defs(lambda d: d.materialize(generator, device), defs)
 
 
 def tree_pspecs(defs, rules: AxisRules, mesh_shape: Mapping[str, int]):

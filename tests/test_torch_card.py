@@ -970,3 +970,35 @@ def test_vjp_planted_faults_break_the_bounds():
     want_dwg = torch.autograd.grad(out, wg, dout)[0]
     fault_dwg = x.detach().T @ (dout * u * torch.sigmoid(g))  # the fault: σ(g) for silu'(g)
     assert float((fault_dwg - want_dwg).abs().max() / want_dwg.abs().max()) > 0.2
+
+
+ACCOUNTING_FAMILIES = ["tinyllama-1.1b", "deepseek-v2-lite-16b", "mamba2-370m",
+                       "jamba-v0.1-52b", "hubert-xlarge", "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in ACCOUNTING_FAMILIES
+                                       for k in ("train", "prefill", "decode")
+                                       if (a, k) != ("hubert-xlarge", "decode")])
+def test_card_count_equals_meta_count(card, arch, kind):
+    """The launch accounting of one narrow config of each family: the step
+    counted on the card (kernels launched, VJPs in the backward) equals the
+    same step counted on ``meta`` (``launch.analysis.count_step``), per aten
+    op, per kernel variant and per VJP, launches included; the outputs are
+    finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import analysis
+
+    cfg = get_config(arch).reduced()
+    shape = ShapeSpec("narrow", kind, 96, 2)
+    counts = {}
+    for device in ("meta", card):
+        step, args, _ = analysis.build_cell(cfg, shape, device, microbatches=1,
+                                            bf16_moments=False)
+        counts[str(device)] = analysis.count_step(step, args)
+    meta, got = counts["meta"], counts[str(card)]
+    assert got["components"] == meta["components"] and got["kernels"] == meta["kernels"]
+    assert got["launches"] == meta["launches"]
+    assert sum(n for row in got["launches"].values() for n in row.values()) == sum(
+        row["calls"] for row in got["kernels"].values())
+    assert analysis.finite(got["outputs"])

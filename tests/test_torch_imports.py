@@ -67,6 +67,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.frontends\n"
         "import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.ckpt\n"
         "import repro_torch.core.pipeline_partition, repro_torch.parallel.sharding\n"
+        "import repro_torch.launch.analysis, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.postprocess, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.roofline_model, repro_torch.launch.specs\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"

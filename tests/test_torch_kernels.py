@@ -9,6 +9,9 @@ Tolerances are those of ``tests/test_kernels.py``: flash f32 atol 2e-5,
 bf16 3e-2, rtol 1e-2; swiglu f32 1e-4, bf16 5e-2, rtol 2e-2; ssd_scan f32
 2e-3·scale, bf16 0.15·scale with scale = max(|ref|, 1).
 """
+import importlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -377,15 +380,29 @@ class TestWrappers:
         _, ssd_in = _ssd_inputs(10, 2, 16, 8, 8)
         torch.testing.assert_close(ssd_scan(*ssd_in), ssd_scan_ref(*ssd_in), atol=0, rtol=0)
 
-    def test_other_devices_raise(self):
-        """No silent fallback: a tensor that is neither on the CPU nor on a
-        CUDA card is refused, not computed by the plain version."""
+    def test_other_devices_raise(self, monkeypatch):
+        """No silent fallback: a tensor that is neither on the CPU, on a CUDA
+        card nor on ``meta`` is refused, and no device but the CPU is
+        computed by the plain version.  ``meta`` tensors take the CUDA route
+        without launching (the shape-only path of the launch accounting):
+        empty outputs, never the plain version's."""
+        from repro_torch.kernels._build import check_cuda_operands
+
+        other = types.SimpleNamespace(device=torch.device("xpu"), dtype=torch.float32)
+        for name in ("flash_attention", "swiglu_matmul", "ssd_scan"):
+            with pytest.raises(ValueError, match="CPU, CUDA or meta"):
+                check_cuda_operands(name, (other,), (torch.float32,))
+
+        def plain(*a, **k):
+            raise AssertionError("the plain version ran on meta tensors")
+
+        for module, ref in (("flash_attention", "flash_attention_ref"),
+                            ("swiglu_matmul", "swiglu_ref"), ("ssd_scan", "ssd_scan_ref")):
+            monkeypatch.setattr(importlib.import_module(f"repro_torch.kernels.{module}"), ref,
+                                plain)
         q = torch.empty((2, 16, 8), device="meta")
-        with pytest.raises(ValueError, match="CPU or CUDA"):
-            flash_attention(q, q, q)
+        assert flash_attention(q, q, q).is_meta
         x, w = torch.empty((4, 8), device="meta"), torch.empty((8, 16), device="meta")
-        with pytest.raises(ValueError, match="CPU or CUDA"):
-            swiglu_matmul(x, w, w)
+        assert swiglu_matmul(x, w, w).is_meta
         x, dt, B = (torch.empty(s, device="meta") for s in ((2, 16, 8), (2, 16), (2, 16, 8)))
-        with pytest.raises(ValueError, match="CPU or CUDA"):
-            ssd_scan(x, dt, dt[:, 0], B, B)
+        assert ssd_scan(x, dt, dt[:, 0].contiguous(), B, B).is_meta
