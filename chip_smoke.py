@@ -17,7 +17,9 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              also on the mixer's own strided, grouped layout), and time
              variant, plain version and one PyTorch call that computes the
              same function (a yardstick the port never calls: SDPA on 4-D
-             views under a forced, named fused backend; cuBLAS for SwiGLU).
+             views under a forced, named fused backend; cuBLAS for SwiGLU);
+             the backward kernels at the train paths' shapes, each launched
+             twice for the same bits, beside SDPA's backward and cuBLAS.
 4. serve   — the LM paths, each at full width, random weights from a
              seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
              attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
@@ -40,17 +42,21 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              forward) and one decode tick are profiled.
    train   — TinyLlama-1.1B trains at full width and depth (22 layers, bf16,
              AdamW, 2 microbatches of 4 x 1024 tokens, remat): the flash and
-             SwiGLU kernels forward, their explicit VJPs (PyTorch) backward.
+             SwiGLU kernels forward and their backward kernels (``mma_bwd``,
+             ``wgmma_bwd``) backward, no PyTorch VJP.
              (a) every parameter gets a finite, non-zero gradient (planted
-             fault: the kernels' outputs detached); (b) each VJP at the path's
-             shape against autograd through its plain version (faults: no
-             causal mask, σ(g) for silu'(g)); (c) one step at 2 layers on the
-             card against the CPU in f32 (every fault of (a) and (b)); (d) one
-             batch as 1 or 2 microbatches; (e) 20 steps through
-             ``Trainer.run``, counted (88 flash ``mma`` and 88 SwiGLU
-             ``wgmma`` a step) and timed, the loss falling; (f) the
-             kill-and-resume drill at 2 layers with checkpoints in a temporary
-             directory, against an uninterrupted run.
+             fault: the kernels' outputs detached); (b) each backward kernel
+             at the path's shape, through its Function, against autograd
+             through its plain version (faults through the kernels' own
+             launches: the causal flag cleared, dg and du swapped); (c) one
+             step at 2 layers on the card against the CPU in f32 (every fault
+             of (a) and (b)); (d) one batch as 1 or 2 microbatches; (e) 20
+             steps through ``Trainer.run``, counted (88 flash ``mma``, 44
+             ``mma_bwd``, 88 SwiGLU ``wgmma`` and 44 ``wgmma_bwd`` a step; the
+             flash and SwiGLU VJPs called 0 times) and timed, the loss
+             falling; (f) the kill-and-resume drill at 2 layers with
+             checkpoints in a temporary directory, against an uninterrupted
+             run, bit for bit (the backward kernels use no float atomics).
              Then mamba2-370m (48 layers, 0.420 B parameters) through the SSD
              scan's ``wgmma`` kernel forward and its VJP (PyTorch) backward,
              with the same data shape and checks: (a)'s fault the SSD
@@ -141,6 +147,16 @@ SRC = os.path.join(ROOT, "src")
 # and differ in summation order; bf16 outputs differ by bf16 rounding of that
 FLASH_TOL = {"torch.float32": (2e-5, 1e-2), "torch.bfloat16": (3e-2, 1e-2)}
 SWIGLU_TOL = {"torch.float32": (1e-4, 2e-2), "torch.bfloat16": (5e-2, 2e-2)}
+# the flash backward kernel against its plain version from the same inputs
+# (the forward kernel's own o and lse), within this share of each
+# gradient's largest magnitude: both compute in f32; the kernel rounds P and
+# dS to bf16 for its products, and both round the gradients to bf16
+# (tests/test_torch_card.py's bound).  The SwiGLU backward kernel's dg and du
+# are held to SWIGLU_TOL, as its forward.
+BWD_TOL = 3e-2
+# the forward kernel's lse (f32, natural log) against the plain forward's,
+# per element, (absolute, relative) as tests/test_torch_card.py holds it
+LSE_TOL = (1e-4, 1e-4)
 # ssd_scan against the exact sequential recurrence, per element.  Both
 # compute in f32 from the same inputs and differ only in summation order
 # (chunked against sequential form: <= 3e-6 of y's largest magnitude and of
@@ -495,6 +511,125 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
     log(f"train path: ssd_scan wgmma B={Bsz} S={S} H={H} N={N} within tolerance")
 
 
+def backward_paths(torch, timer, rows, randn) -> None:
+    """The backward kernels at the train paths' shapes, held against their
+    plain versions (the forward kernel's lse against the plain forward's
+    within LSE_TOL, then ``flash_attention_bwd_ref`` from the kernel's own o
+    and lse, within BWD_TOL of each gradient's largest magnitude;
+    ``swiglu_bwd_ref`` at SWIGLU_TOL), launched twice for bit-identical
+    results, and timed into ``rows`` beside their bound (``work_bwd``), the
+    plain version and the library's backward: flash ``mma_bwd`` at
+    TinyLlama's microbatch (BH 128 = 4 x 32 heads, S 1024, D 64, causal),
+    MLA's 192/128 (4 x 16 heads, causal), HuBERT's 80 (8 clips x 16 heads
+    of 1500 frames, non-causal) and 128 (4 x 32 heads, causal; LLaVA,
+    Jamba, Qwen); ``wgmma_bwd`` at TinyLlama's microbatch (M 4096, D 2048,
+    F 5632), ``experts_wgmma_bwd`` at DeepSeek's experts (E 64, M 120,
+    D 2048, F 1408) and at the Jamba train period's (``hybrid_expert_rows``:
+    E 4, M 1280, D 4096, F 14336), the path that launches it.  The
+    library's backward is SDPA's (under the forward's forced backend), and
+    for the SwiGLU the two cuBLAS products with autograd's derivative of
+    ``F.silu(g) * u``."""
+    import importlib
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels import FLASH_LIBRARY, SWIGLU_LIBRARY
+    from repro_torch.kernels.ref import (
+        flash_attention_bwd_ref, flash_attention_ref, swiglu_bwd_ref,
+    )
+    from repro_torch.launch.roofline_model import H100
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    bf16 = torch.bfloat16
+
+    def twice(lib, fn, what):
+        out, variant = launched(lib, fn)
+        again = fn()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"{lib.name}[{variant}] {what}: two launches differ")
+        return out, variant
+
+    for key, BH, S, D, Dv, causal in (("train", 128, TRAIN_SEQ, 64, 64, True),
+                                      ("mla", 64, 1024, 192, 128, True),
+                                      ("hubert", 128, 1500, 80, 80, False),
+                                      ("d128", 128, 1024, 128, 128, True)):
+        q, k = (randn(BH, S, D, dtype=bf16) for _ in range(2))
+        v, do = (randn(BH, S, Dv, dtype=bf16) for _ in range(2))
+        sc = D ** -0.5
+        o, lse = fa._launch(q, k, v, causal, sc, with_lse=True)
+        what = f"BH={BH} S={S} D={D} Dv={Dv} {'causal' if causal else 'non-causal'}"
+        want_lse = flash_attention_ref(q, k, v, causal, sc, return_lse=True)[1]
+        lse_err = max_err(lse, want_lse)
+        if not within(lse, want_lse, LSE_TOL):
+            raise AssertionError(f"flash_attention[mma] {what}: lse max err {lse_err:.3g} > "
+                                 f"{LSE_TOL}")
+        del want_lse
+        got, variant = twice(FLASH_LIBRARY, lambda: fa._launch_bwd(q, k, v, o, do, lse, causal, sc),
+                             what)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
+        rel = max(rel_err(g, w) for g, w in zip(got, want))
+        if variant != "mma_bwd" or not rel <= BWD_TOL:
+            raise AssertionError(f"flash_attention[{variant}] {what}: largest error {rel:.3g} "
+                                 f"of a gradient's largest magnitude > {BWD_TOL}")
+        # the library's backward alone: SDPA's forward once, its gradient timed
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        if Dv == D:
+            lib_name = "sdpa[flash] backward"
+            out = sdpa_call(torch, SDPBackend.FLASH_ATTENTION, *leaves, causal=causal)()
+        else:
+            call, lib_name = sdpa_value_dim_call(torch, *leaves)
+            out, lib_name = call(), lib_name + " backward"
+        lib_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do.view(out.shape),
+                                                      retain_graph=True), reps=10)
+        del out, leaves
+        b_ms, b_by = H100.bound_ms(*fa.work_bwd(BH, S, S, D, causal, 2, Dv), bf16)
+        rows[("flash_attention", variant, key)] = dict(
+            shape=what + " bf16", max_abs_err=max(max_err(g, w) for g, w in zip(got, want)),
+            rel_err=rel, tol_share=BWD_TOL, ms=timer.ms(lambda: fa._launch_bwd(q, k, v, o, do, lse, causal,
+                                                                   sc)),
+            plain_ms=timer.ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc),
+                              reps=5),
+            library=lib_name, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"flash_attention[{variant}] {what}: lse max err {lse_err:.3g}; largest error "
+            f"{rel:.3g} of a gradient's largest magnitude; bit-identical over two launches")
+        del q, k, v, do, o, lse, got, want
+        torch.cuda.empty_cache()
+
+    tol = SWIGLU_TOL[str(bf16)]
+    E_jamba, M_jamba = hybrid_expert_rows()
+    for key, E, M, D, Fd in (("train", None, 4 * TRAIN_SEQ, 2048, 5632), (120, 64, 120, 2048, 1408),
+                             ("train_jamba", E_jamba, M_jamba, 4096, 14336)):
+        lead = () if E is None else (E,)
+        x, dout = randn(*lead, M, D, dtype=bf16), randn(*lead, M, Fd, dtype=bf16)
+        wg, wu = (randn(*lead, D, Fd, dtype=bf16, scale=D ** -0.5) for _ in range(2))
+        what = f"{'' if E is None else f'E={E} '}M={M} D={D} F={Fd}"
+        got, variant = twice(SWIGLU_LIBRARY, lambda: sw._launch_bwd(x, wg, wu, dout), what)
+        want = swiglu_bwd_ref(x, wg, wu, dout)
+        if variant != ("wgmma_bwd" if E is None else "experts_wgmma_bwd") or not all(
+                within(g, w, tol) for g, w in zip(got, want)):
+            raise AssertionError(f"swiglu_matmul[{variant}] {what}: max err "
+                                 f"{max(max_err(g, w) for g, w in zip(got, want)):.3g} > {tol}")
+        mm = torch.matmul if E is None else torch.bmm
+
+        def library():
+            g, u = mm(x, wg).requires_grad_(True), mm(x, wu).requires_grad_(True)
+            return torch.autograd.grad(F.silu(g) * u, (g, u), dout)
+
+        b_ms, b_by = H100.bound_ms(*sw.work_bwd(M, D, Fd, 2, E or 1), bf16)
+        rows[("swiglu_matmul", variant, key)] = dict(
+            shape=what + " bf16", max_abs_err=max(max_err(g, w) for g, w in zip(got, want)),
+            tol=list(tol), ms=timer.ms(lambda: sw._launch_bwd(x, wg, wu, dout)),
+            plain_ms=timer.ms(lambda: swiglu_bwd_ref(x, wg, wu, dout), reps=5),
+            library=f"cuBLAS {'bmm' if E else 'x@wg, x@wu'}, autograd of F.silu(g)*u",
+            library_ms=timer.ms(library), bound_ms=b_ms, bound_by=b_by)
+        log(f"swiglu_matmul[{variant}] {what}: dg, du within {tol}; bit-identical over two "
+            f"launches")
+        del x, dout, wg, wu, got, want
+        torch.cuda.empty_cache()
+
+
 def check_kernels(torch, timer):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -638,8 +773,8 @@ def check_kernels(torch, timer):
                                      f"max err {max_err(o, r):.3g} > tol {tol}")
     log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases and {len(expert_cases) * 2} expert "
         f"cases within tolerance (variants {sorted(hit[SWIGLU_LIBRARY.name])})")
-    for lib in (FLASH_LIBRARY, SWIGLU_LIBRARY):
-        if hit[lib.name] != set(lib.variants):
+    for lib in (FLASH_LIBRARY, SWIGLU_LIBRARY):  # the backward kernels: backward_paths
+        if hit[lib.name] != {v for v in lib.variants if not v.endswith("_bwd")}:
             raise AssertionError(f"{lib.name}: the sweep reached {sorted(hit[lib.name])}, "
                                  f"not every variant of {sorted(lib.variants)}")
     # the serving path's shapes: decode (8 slots) and prefill rows, bf16;
@@ -866,13 +1001,17 @@ def check_kernels(torch, timer):
 
     slice_paths(torch, timer, rows, randn, conv_views, ssd_hold)
     train_paths(torch, timer, rows, randn, conv_views, ssd_hold)
+    backward_paths(torch, timer, rows, randn)
 
     log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
         f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
     for (name, variant, _), r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        # the flash backward's tolerance is a share of each gradient's largest magnitude
+        tol = (f"{r['rel_err']:.3g}<={r['tol_share']:.3g}" if "tol_share" in r else
+               "(" + ", ".join(f"{t:.3g}" for t in r["tol"]) + ")")
         log(f"{name + '[' + variant + ']':26} {r['shape']:32} {r['max_abs_err']:9.3g} "
-            f"{'(' + ', '.join(f'{t:.3g}' for t in r['tol']) + ')':>14} {r['ms']:9.4f} "
+            f"{tol:>14} {r['ms']:9.4f} "
             f"{r['plain_ms']:9.4f} {lib:>10} {r['bound_ms']:9.4f} {r['bound_by']:11} {r['library']}")
     return rows
 
@@ -900,15 +1039,20 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
     train step instead, for every family (the SSD scan in each mixer as
     flash in each attention layer): ``tcfg.microbatches`` forwards of
     global_batch / microbatches sequences each, twice under remat (the
-    forward, then its recompute in the backward); the backward itself
-    launches no kernel (the VJPs are PyTorch)."""
+    forward, then its recompute in the backward), and one backward of each:
+    per attention layer one flash ``mma_bwd``, per SwiGLU call of the
+    forward one ``wgmma_bwd`` (``experts_wgmma_bwd``), each through the
+    variant ``select_bwd_variant`` picks (the SSD scan's backward is
+    PyTorch)."""
+    n_backward = 0
     if train is not None:
         tcfg, global_batch, seq_len = train
         prompt_lens = [seq_len] * tcfg.microbatches * (2 if tcfg.remat else 1)
         batch = global_batch // tcfg.microbatches
+        n_backward = tcfg.microbatches
     from repro_torch.kernels import (
-        LIBRARIES, select_experts_variant, select_flash_variant, select_ssd_variant,
-        select_swiglu_variant,
+        LIBRARIES, select_experts_variant, select_flash_bwd_variant, select_flash_variant,
+        select_ssd_variant, select_swiglu_bwd_variant, select_swiglu_variant,
     )
     from repro_torch.models import layer_plan
     from repro_torch.models.layers import moe_capacity
@@ -925,24 +1069,33 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
         mlps["moe"] = ([cfg.moe.n_shared * cfg.moe.d_ff_expert] if cfg.moe.n_shared else []) + (
             [cfg.d_ff] if cfg.moe.dense_residual else [])
 
-    def step(rows: int, groups: int, group_tokens: int, prefill: bool):
+    def count(lib: str, variant: str):
+        if variant != "vjp":  # a PyTorch backward launches no kernel
+            expect[lib][variant] += 1
+
+    def step(rows: int, groups: int, group_tokens: int, prefill: bool, backward: bool = False):
         for slot in plan:
             if prefill and slot.mixer == "attn":
-                expect["flash_attention"][select_flash_variant(dq, dv, bf16)] += 1
-            if prefill and slot.mixer == "ssm":
-                expect["ssd_scan"][select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state,
-                                                      bf16)] += 1
+                count("flash_attention", (select_flash_bwd_variant if backward else
+                                          select_flash_variant)(dq, dv, bf16))
+            if prefill and slot.mixer == "ssm" and not backward:
+                count("ssd_scan", select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state, bf16))
             for f in mlps[slot.ffn]:
-                expect["swiglu_matmul"][select_swiglu_variant(rows, cfg.d_model, f, bf16)] += 1
+                count("swiglu_matmul", select_swiglu_bwd_variant(rows, cfg.d_model, f, bf16)
+                      if backward else select_swiglu_variant(rows, cfg.d_model, f, bf16))
             if slot.ffn == "moe":
                 m = groups * moe_capacity(cfg.moe, group_tokens)
-                expect["swiglu_matmul"][select_experts_variant(
-                    m, cfg.d_model, cfg.moe.d_ff_expert, bf16)] += 1
+                count("swiglu_matmul", select_swiglu_bwd_variant(
+                    m, cfg.d_model, cfg.moe.d_ff_expert, bf16, experts=True) if backward else
+                    select_experts_variant(m, cfg.d_model, cfg.moe.d_ff_expert, bf16))
 
     chunk = cfg.moe.router_chunk if cfg.moe is not None else 1
-    for n in prompt_lens:
+    for i, n in enumerate(prompt_lens):
         m = batch * n
-        step(-(-m // min(256, m)) * min(256, m), batch * -(-n // chunk), min(chunk, n), True)
+        shape = (-(-m // min(256, m)) * min(256, m), batch * -(-n // chunk), min(chunk, n))
+        step(*shape, True)
+        if i < n_backward:
+            step(*shape, True, backward=True)
     for _ in range(n_decode):
         step(slots, slots, 1, False)
     return expect
@@ -1873,11 +2026,13 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 20, 1024, 8
 # against the CPU, (f) writes checkpoints (2.2 GB each at 2 layers; the
 # 22-layer state is 10.4 GB, so the full-depth run writes none)
 TRAIN_SMALL_LAYERS = 2
-# (b): each VJP's gradients against autograd through its plain version at
-# the path's shapes, bf16, within this share of each gradient's largest
-# magnitude (tests/test_torch_card.py's bound).  Both round the gradients to
-# bf16; the VJPs read the kernels' bf16 outputs (flash: O in rowsum(dO ⊙ O))
-# and compute the SwiGLU's products in bf16.
+# (b): each kernel's backward at the path's shapes, through its autograd
+# Function on the card, against autograd through its plain version, bf16,
+# within this share of each gradient's largest magnitude
+# (tests/test_torch_card.py's bound).  Both round the gradients to bf16; the
+# kernels read the forward kernels' bf16 outputs (flash: O in rowsum(dO ⊙
+# O)) and round P and dS (flash) to bf16 for their products, and the
+# SwiGLU's four products around its kernel are bf16.
 VJP_TOL = 3e-2
 # (d): one batch as 1 or 2 microbatches, the loss's relative difference
 # (the reference test's bound)
@@ -1920,20 +2075,6 @@ def grads_err(got, want) -> float:
     return max(rel_err(g, w) for g, w in zip(got, want))
 
 
-def sigma_fault_vjp(torch):
-    """``swiglu_vjp`` with σ(g) in place of silu'(g) (a planted fault)."""
-    def vjp(x, wg, wu, dout):
-        acc = torch.float32
-        g, u, d = torch.matmul(x, wg).to(acc), torch.matmul(x, wu).to(acc), dout.to(acc)
-        sig = torch.sigmoid(g)
-        du = (d * g * sig).to(x.dtype)
-        dg = (d * u * sig).to(x.dtype)
-        dx = torch.matmul(dg, wg.transpose(-1, -2)) + torch.matmul(du, wu.transpose(-1, -2))
-        xt = x.transpose(-1, -2)
-        return dx, torch.matmul(xt, dg), torch.matmul(xt, du)
-    return vjp
-
-
 def hold(name: str, err: float, tol: float, faults: dict) -> None:
     """``err`` within ``tol`` and every planted fault's error beyond it."""
     log(f"{name}: {err:.4g} (tol {tol}); planted faults "
@@ -1946,24 +2087,45 @@ def hold(name: str, err: float, tol: float, faults: dict) -> None:
 
 
 def vjp_checks(torch, timer) -> dict:
-    """(b) Each VJP at the train path's shape against autograd through the
-    plain version on the card, bf16; the planted faults; the backward's
-    times beside its bound and the library's forward + backward."""
+    """(b) Each backward kernel at the train path's shape, through its
+    kernel's ``autograd.Function`` on the card (one launch of ``mma_bwd`` or
+    ``wgmma_bwd`` and no PyTorch VJP), against autograd through the plain
+    version, bf16; the planted faults, each through the kernel's own launch
+    (the causal flag cleared; dg and du swapped); the backward's times: the
+    PyTorch VJP it replaces, the SwiGLU's whole backward (the kernel and its
+    four products), the forward + backward beside the plain version's and
+    the library's, and the bound.  The flash and SwiGLU backward kernels'
+    own times are the kernels phase's (``backward_paths``, rows "train")."""
+    import importlib
+
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import work as flash_work
     from repro_torch.launch.roofline_model import H100
 
     from repro_torch.kernels import (
-        flash_attention, flash_attention_vjp, swiglu_matmul, swiglu_vjp,
+        FLASH_LIBRARY, SWIGLU_LIBRARY, flash_attention, flash_attention_vjp, swiglu_matmul,
+        swiglu_vjp,
     )
     from repro_torch.kernels.ref import flash_attention_ref, swiglu_ref
 
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda").mul_(scale).to(torch.bfloat16)
+
+    def grads(lib, variant, fn, inputs, cot):
+        """The gradients of ``fn()`` through the kernel's Function, and the
+        launch of ``variant`` its backward made (and no other)."""
+        out = fn()
+        if out.grad_fn is None:
+            raise AssertionError(f"{lib.name}: a CUDA output with no gradient path")
+        g, moved = launched(lib, lambda: torch.autograd.grad(out, inputs, cot))
+        if moved != variant:
+            raise AssertionError(f"{lib.name}: the backward launched {moved}, not {variant}")
+        return g
 
     rows = {}
     # flash: 4 sequences x 32 heads, S 1024, D 64, causal (one microbatch)
@@ -1971,19 +2133,17 @@ def vjp_checks(torch, timer) -> dict:
     sc = D ** -0.5
     q, k, v = (randn(BH, S, D).requires_grad_(True) for _ in range(3))
     do = randn(BH, S, D)
-    o = flash_attention(q, k, v, causal=True)
-    if o.grad_fn is None:
-        raise AssertionError("flash_attention: a CUDA output with no gradient path")
-    got = torch.autograd.grad(o, (q, k, v), do)
+    fwd = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    got = grads(FLASH_LIBRARY, "mma_bwd", fwd, (q, k, v), do)
     want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=True), (q, k, v), do)
-    qd, kd, vd, od = q.detach(), k.detach(), v.detach(), o.detach()
-    hold(f"(b) flash VJP BH={BH} S={S} D={D} causal, dq/dk/dv", grads_err(got, want), VJP_TOL,
-         {"no causal mask": grads_err(flash_attention_vjp(qd, kd, vd, od, do, False, sc), want)})
-    del got, want
-    nbytes = (3 + 2 + 3) * BH * S * D * 2  # q, k, v, o, dO read; dq, dk, dv written
-    fwd_ops, _ = flash_work(BH, S, S, D, True, 2)
-    # 5 products to the forward's 2
-    b_ms, b_by = H100.bound_ms(2.5 * fwd_ops, nbytes, torch.bfloat16)
+    with flash_bwd_without_mask():
+        fault = grads(FLASH_LIBRARY, "mma_bwd", fwd, (q, k, v), do)
+    hold(f"(b) flash mma_bwd BH={BH} S={S} D={D} causal, dq/dk/dv", grads_err(got, want),
+         VJP_TOL, {"causal flag cleared": grads_err(fault, want)})
+    del got, want, fault
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    od = fa._launch(qd, kd, vd, True, sc)[0]
+    b_ms, b_by = H100.bound_ms(*fa.work_bwd(BH, S, S, D, True, 2), torch.bfloat16)
     q4, k4, v4 = (t.view(1, *t.shape) for t in (q, k, v))
 
     def sdpa_fwd_bwd():
@@ -1994,35 +2154,41 @@ def vjp_checks(torch, timer) -> dict:
     rows["flash"] = dict(
         shape=f"BH={BH} S={S} D={D} bf16 causal",
         vjp_ms=timer.ms(lambda: flash_attention_vjp(qd, kd, vd, od, do, True, sc), reps=10),
-        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do),
-                            reps=10),
+        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(fwd(), (q, k, v), do), reps=10),
         plain_fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(
             flash_attention_ref(q, k, v, causal=True), (q, k, v), do), reps=5),
         library="sdpa[flash] forward + backward", library_ms=timer.ms(sdpa_fwd_bwd, reps=10),
         bound_ms=b_ms, bound_by=b_by)
-    del q, k, v, do, o, qd, kd, vd, od, q4, k4, v4
+    del q, k, v, do, qd, kd, vd, od, q4, k4, v4
     torch.cuda.empty_cache()
     # SwiGLU: one microbatch's 4096 rows at D 2048, F 5632
     M, D, Fd = 4 * TRAIN_SEQ, 2048, 5632
     x = randn(M, D).requires_grad_(True)
     wg, wu = (randn(D, Fd, scale=D ** -0.5).requires_grad_(True) for _ in range(2))
     dout = randn(M, Fd)
-    out = swiglu_matmul(x, wg, wu)
-    if out.grad_fn is None:
-        raise AssertionError("swiglu_matmul: a CUDA output with no gradient path")
-    got = torch.autograd.grad(out, (x, wg, wu), dout)
+    fwd = lambda: swiglu_matmul(x, wg, wu)  # noqa: E731
+    got = grads(SWIGLU_LIBRARY, "wgmma_bwd", fwd, (x, wg, wu), dout)
     want = torch.autograd.grad(swiglu_ref(x, wg, wu), (x, wg, wu), dout)
+    with swapped_swiglu_bwd():
+        fault = grads(SWIGLU_LIBRARY, "wgmma_bwd", fwd, (x, wg, wu), dout)
+    hold(f"(b) SwiGLU wgmma_bwd M={M} D={D} F={Fd}, dx/dwg/dwu", grads_err(got, want), VJP_TOL,
+         {"dg and du swapped": grads_err(fault, want)})
+    del got, want, fault
     xd, wgd, wud = x.detach(), wg.detach(), wu.detach()
-    hold(f"(b) SwiGLU VJP M={M} D={D} F={Fd}, dx/dwg/dwu", grads_err(got, want), VJP_TOL,
-         {"sigma(g) for silu'(g)": grads_err(sigma_fault_vjp(torch)(xd, wgd, wud, dout), want)})
-    del got, want
+    # the backward's work: the kernel's two products and the four around it
+    ops, _ = sw.work_bwd(M, D, Fd, 2)
     nbytes = (M * D + 2 * D * Fd + M * Fd) * 2 * 2  # x, wg, wu, dout read; dx, dwg, dwu written
-    b_ms, b_by = H100.bound_ms(6 * 2.0 * M * D * Fd, nbytes, torch.bfloat16)  # 6 products
+    b_ms, b_by = H100.bound_ms(3 * ops, nbytes, torch.bfloat16)
+
+    def kernel_bwd():
+        dg, du = sw._launch_bwd(xd, wgd, wud, dout)
+        return sw.swiglu_grads(xd, wgd, wud, dg, du)
+
     rows["swiglu"] = dict(
         shape=f"M={M} D={D} F={Fd} bf16",
+        bwd_ms=timer.ms(kernel_bwd, reps=10),
         vjp_ms=timer.ms(lambda: swiglu_vjp(xd, wgd, wud, dout), reps=10),
-        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(swiglu_matmul(x, wg, wu), (x, wg, wu),
-                                                        dout), reps=10),
+        fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(fwd(), (x, wg, wu), dout), reps=10),
         plain_fwd_bwd_ms=timer.ms(lambda: torch.autograd.grad(swiglu_ref(x, wg, wu),
                                                               (x, wg, wu), dout), reps=5),
         library="cuBLAS F.silu(x@wg)*(x@wu) forward + backward",
@@ -2040,26 +2206,30 @@ def detached_kernels():
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
-    with patched(fa._FlashAttention, "apply", staticmethod(fa._launch)), \
+    with patched(fa._FlashAttention, "apply",
+                 staticmethod(lambda q, k, v, causal, sc: fa._launch(q, k, v, causal, sc)[0])), \
             patched(sw._SwiGLU, "apply", staticmethod(sw._launch)):
         yield
 
 
-def unmasked_flash_vjp():
-    """The flash VJP without its causal mask (a planted fault)."""
+def flash_bwd_without_mask():
+    """The flash backward kernel launched with its causal flag cleared (a
+    planted fault)."""
     import importlib
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    vjp = fa.flash_attention_vjp
-    return patched(fa, "flash_attention_vjp",
-                   lambda q, k, v, o, do, causal, scale: vjp(q, k, v, o, do, False, scale))
+    launch = fa._launch_bwd
+    return patched(fa, "_launch_bwd", lambda q, k, v, o, do, lse, causal, sc: launch(
+        q, k, v, o, do, lse, False, sc))
 
 
-def sigma_swiglu_vjp(torch):
+def swapped_swiglu_bwd():
+    """The SwiGLU backward kernel's dg and du swapped (a planted fault)."""
     import importlib
 
-    return patched(importlib.import_module("repro_torch.kernels.swiglu_matmul"), "swiglu_vjp",
-                   sigma_fault_vjp(torch))
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    launch = sw._launch_bwd
+    return patched(sw, "_launch_bwd", lambda *args: launch(*args)[::-1])
 
 
 def lacking_gradient(torch, model) -> list:
@@ -2256,22 +2426,27 @@ def card_against_cpu(torch, cfg, faults, prepare=None) -> dict:
                 cpu_grad_norm=cpu[0]["grad_norm"])
 
 
+# the PyTorch VJPs that the flash and SwiGLU backward kernels replace on the
+# bf16 train paths: counted there, and called 0 times
+KERNEL_BACKWARD_VJPS = {"flash_attention": "flash_attention_vjp", "swiglu_matmul": "swiglu_vjp"}
+
+
 def train_path(torch, arch: str) -> dict:
     """What the train phase of ``arch`` checks beyond the common steps: (b)
-    its VJPs, (a)'s planted fault, (c)'s faults and weight adjustment, and
-    the VJPs it counts ({module: function})."""
+    its backwards, (a)'s planted fault, (c)'s faults and weight adjustment,
+    and the VJPs it counts ({module: function}; ``vjp_free``: each must be
+    called 0 times)."""
     if arch == TRAIN_ARCH:
         return dict(vjps=vjp_checks, detach=detached_kernels,
                     c_faults=lambda: {"detached outputs": detached_kernels(),
-                                      "flash VJP without causal mask": unmasked_flash_vjp(),
-                                      "sigma(g) for silu'(g)": sigma_swiglu_vjp(torch)},
-                    prepare=None,
-                    counted={"flash_attention": "flash_attention_vjp",
-                             "swiglu_matmul": "swiglu_vjp"})
+                                      "flash mma_bwd causal flag cleared":
+                                          flash_bwd_without_mask(),
+                                      "SwiGLU wgmma_bwd dg and du swapped": swapped_swiglu_bwd()},
+                    prepare=None, counted=KERNEL_BACKWARD_VJPS, vjp_free=True)
     return dict(vjps=ssd_vjp_checks, detach=ssd_backward_none,
                 c_faults=lambda: {"SSD backward returns None": ssd_backward_none(),
                                   **{k: f(torch) for k, f in SSD_VJP_FAULTS.items()}},
-                prepare=shifted_dt_bias, counted={"ssd_scan": "ssd_scan_vjp"})
+                prepare=shifted_dt_bias, counted={"ssd_scan": "ssd_scan_vjp"}, vjp_free=False)
 
 
 @contextmanager
@@ -2320,9 +2495,9 @@ def step_report(torch, tr, steps: int, batch: int, wall: float) -> dict:
 
 
 def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
-    """Train ``arch`` (TinyLlama-1.1B through the flash and SwiGLU kernels,
-    or mamba2-370m through the SSD scan) at full width and depth, each
-    kernel's VJP backward; checks (a)-(f) (module docstring)."""
+    """Train ``arch`` (TinyLlama-1.1B through the flash and SwiGLU kernels
+    and their backward kernels, or mamba2-370m through the SSD scan and its
+    VJP) at full width and depth; checks (a)-(f) (module docstring)."""
     import dataclasses
     import shutil
     import tempfile
@@ -2384,6 +2559,8 @@ def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
                               for lib, c in per_step.items()})
     calls = {k: n / TRAIN_STEPS for k, n in vjp_calls.items()}
     log(f"launches a step: {per_step}; VJP calls a step: {calls}")
+    if path["vjp_free"] and any(vjp_calls.values()):
+        raise AssertionError(f"(e) PyTorch VJPs called on the kernels' train path: {vjp_calls}")
     report["e"] = dict(step_report(torch, tr, TRAIN_STEPS, TRAIN_BATCH, wall),
                        launches_per_step=per_step, vjp_calls_per_step=calls)
     losses = report["e"]["losses"]
@@ -2461,7 +2638,8 @@ HYBRID_TRAIN_ARCH = "jamba-v0.1-52b"
 # the experts cut from 16 to 4 (top-2 kept): 4.81 B parameters; AdamW with
 # bf16 moments (the reference's option) keeps the train state at ~54 GiB
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_EXPERTS = 8, 4
-HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH = 5, 4  # 2 microbatches of 2 x 1024 tokens
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH = 5, 4
+HYBRID_TRAIN_MICROBATCHES = 2  # of 2 x 1024 tokens
 
 
 def hybrid_config():
@@ -2472,6 +2650,18 @@ def hybrid_config():
     cfg = get_config(HYBRID_TRAIN_ARCH)
     return dataclasses.replace(cfg, n_layers=HYBRID_TRAIN_LAYERS,
                                moe=dataclasses.replace(cfg.moe, n_experts=HYBRID_TRAIN_EXPERTS))
+
+
+def hybrid_expert_rows() -> tuple:
+    """(E, M) of the expert kernels on one microbatch of the Jamba period:
+    the experts kept, each with G·C rows (G groups of ``router_chunk``
+    tokens, C slots a group, as ``moe_layer`` dispatches them)."""
+    from repro_torch.models.layers import moe_capacity
+
+    m = hybrid_config().moe
+    chunk = min(m.router_chunk, TRAIN_SEQ)
+    groups = HYBRID_TRAIN_BATCH // HYBRID_TRAIN_MICROBATCHES * -(-TRAIN_SEQ // chunk)
+    return m.n_experts, groups * moe_capacity(m, chunk)
 
 
 def hybrid_train_phase(torch, np) -> dict:
@@ -2487,7 +2677,7 @@ def hybrid_train_phase(torch, np) -> dict:
     from repro_torch.train import TrainConfig, Trainer
 
     cfg = hybrid_config()
-    tcfg = TrainConfig(microbatches=2, remat=True,
+    tcfg = TrainConfig(microbatches=HYBRID_TRAIN_MICROBATCHES, remat=True,
                        optim=AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=HYBRID_TRAIN_STEPS,
                                          bf16_moments=True))
     ds = SyntheticLMDataset(cfg.vocab, seq_len=TRAIN_SEQ, global_batch=HYBRID_TRAIN_BATCH, seed=0)
@@ -2508,15 +2698,19 @@ def hybrid_train_phase(torch, np) -> dict:
         torch.as_tensor(first.labels[:mb], device="cuda"), every_kernel_without_backward)}
     release(torch)
     reset_counts(torch)
+    vjp_calls = {}
     t0 = time.perf_counter()
-    tr.run(HYBRID_TRAIN_STEPS, log_every=1, log=log)
+    with counting_vjps(KERNEL_BACKWARD_VJPS, vjp_calls):
+        tr.run(HYBRID_TRAIN_STEPS, log_every=1, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     per_step = expected_launches(torch, cfg, train=(tcfg, HYBRID_TRAIN_BATCH, TRAIN_SEQ))
     check_launches(launches, {lib: {v: n * HYBRID_TRAIN_STEPS for v, n in c.items()}
                               for lib, c in per_step.items()})
-    log(f"launches a step: {per_step}")
+    log(f"launches a step: {per_step}; flash and SwiGLU VJP calls: {vjp_calls}")
+    if any(vjp_calls.values()):
+        raise AssertionError(f"PyTorch VJPs called on the kernels' train path: {vjp_calls}")
     report["e"] = dict(step_report(torch, tr, HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH, wall),
                        launches_per_step=per_step, params=n_params)
     losses = report["e"]["losses"]
@@ -3545,11 +3739,17 @@ def main() -> None:
                  ("swiglu_matmul", "experts_decode", "arctic20", "arctic", " E=128 M=20"),
                  ("swiglu_matmul", "experts_decode", "arctic8", "arctic", " E=128 M=8"),
                  ("ssd_scan", "wgmma", "jamba", "jamba", " Jamba N=16"),
-                 # the train path: one microbatch's forward (the backward is
-                 # PyTorch); launches from the 20 counted steps
+                 # the train path: one microbatch's forward and its backward
+                 # kernels (the SSD scan's backward is PyTorch); launches from
+                 # the counted steps (the expert backward's: Jamba's period,
+                 # at its shape)
                  ("flash_attention", "mma", "train", "train", " train BH=128"),
                  ("swiglu_matmul", "wgmma", "train", "train", " train M=4096"),
-                 ("ssd_scan", "wgmma", "train", "train_mamba2", " train B=4")]
+                 ("ssd_scan", "wgmma", "train", "train_mamba2", " train B=4"),
+                 ("flash_attention", "mma_bwd", "train", "train", " train BH=128"),
+                 ("swiglu_matmul", "wgmma_bwd", "train", "train", " train M=4096"),
+                 ("swiglu_matmul", "experts_wgmma_bwd", "train_jamba", "train_jamba",
+                  " train Jamba E=4")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")
@@ -3567,6 +3767,7 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
+                **({"rel_err": r["rel_err"]} if "rel_err" in r else {}),
             })
         if any(not math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError("a kernel number is not finite")

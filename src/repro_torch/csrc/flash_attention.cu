@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention for Hopper (sm_90a), forward and backward, plain C
+// interface for ctypes.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (body `_kernel`): softmax(q k^T * scale) v for q, k [BH, S, D] and v [BH, S,
@@ -6,8 +7,9 @@
 // latent-expanded dims plus the 64-wide rope key, against a 128-wide value)
 // with an online (streaming) softmax, an optional causal mask offset by Sk - Sq, the finite
 // -1e30 mask value, f32 running max / denominator / accumulator, and the
-// output cast to the input type.  Two kernels, one C entry point each; the
-// wrapper (kernels/flash_attention.py::select_variant) picks one.
+// output cast to the input type.  Two forward kernels, one C entry point
+// each, and the backward of the tensor-core one; the wrapper
+// (kernels/flash_attention.py::select_variant, select_bwd_variant) picks.
 //
 // What bounds it on this card: at the serving path's prefill shapes (32 heads,
 // S up to 1024, D = 64) the work is ~4*S*S*D/2 operations per head against
@@ -32,6 +34,9 @@
 //    registers into P·V's A fragments without touching shared memory.  Only
 //    tiles that reach past the diagonal or Sk are masked.  Causal q tiles do
 //    unequal work, so the grid launches the last (longest) q tiles first.
+//    Given an lse buffer (training), each row's owner writes the logsumexp
+//    of its scaled scores in natural log, ln 2 (m + log2 l) from its final
+//    running max m (log2 units) and denominator l; serving passes none.
 //    Why mma.sync and not wgmma (FA3's layout): this kernel comes within
 //    10% of PyTorch's own flash backend (FA2) at S = 1024, and it takes
 //    under a tenth of a TinyLlama prefill's device time in a step whose wall
@@ -52,11 +57,41 @@
 //    P·V are register-blocked (each of the 256 threads owns a 4 x 4 score
 //    block and a 4 x Dv/16 accumulator block).  Tiles 32/32, 64/64, 128/128
 //    and 192/128 as above; any D up to 192 and Dv up to 128.
+// 3. The backward of (1) (entry flash_attention_mma_bwd; the TPU kernel has
+//    no VJP, its model trains through plain jnp): FA2's, from the forward's
+//    O and lse, on the same tiles, shapes and masks.  It is bound by
+//    operations: five products over the pairs the mask leaves (S = Q Kᵀ, dP
+//    = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K), 2.5x the forward's, against
+//    q, k, v, o, dO and the three gradients moved once.  Three kernels:
+//    `flash_delta_kernel` (delta = rowsum(dO ⊙ O), f32, one warp a row), then
+//    `flash_mma_dkdv_kernel` (one CTA per 128 keys; each warp holds 16 keys
+//    and walks the q tiles that see them, from the causal diagonal on, Q, dO,
+//    lse and delta double-buffered by cp.async; recomputes S and dP, forms P
+//    = exp2(S·scale·log2 e - lse·log2 e) and dS = P ⊙ (dP - delta) in f32 in
+//    the score registers, and accumulates dV += Pᵀ dO and dK += dSᵀ Q with P
+//    and dS rounded to bf16 straight into the A fragments) and
+//    `flash_mma_dq_kernel` (one CTA per 128 query rows, the forward's walk
+//    over K/V tiles: recomputes S, dP and dS, dQ += dS K).  No sum crosses
+//    CTAs and no float atomic is used, so dq, dk and dv are the same bits
+//    from run to run (a killed and resumed training run must equal the
+//    uninterrupted one); the price is that S and dP are computed twice, 7
+//    products against FA2's 5 (whose dQ is summed by atomics).  A masked
+//    pair has dS = 0, as autograd through the reference's `where` gives it,
+//    and P = 0, or the forward's uniform 1/Sk in a row that sees no key.
+//    Register pressure grows with the accumulators: dK and dV (each warp's 16
+//    keys x D, x Dv in f32) take 64 registers at 64/64 and 160 at 192/128,
+//    so the q step shrinks with the tile (64 rows at 32/32 and 64/64, 32 at
+//    128/128, 16 at 192/128) and the dQ kernel walks 32-key tiles at 192/128;
+//    K's and Q's fragments are reloaded from shared memory per step, never
+//    held across steps.
 //
 // -Xptxas -v (sm_90a, nvcc 12.8), no spills: flash_mma_kernel 117 / 127 / 215
 // / 195 registers for the 32/32, 64/64, 128/128 and 192/128 tiles, with 24 /
 // 48 / 96 / 128 KB of dynamic shared memory; flash_fwd_kernel 64 / 80 / 104-106
-// / 116 (H100; PERF.md).
+// / 116; flash_mma_dkdv_kernel 154 / 242 / 250 / 255 with 33 / 65 / 96.5 /
+// 100.25 KB; flash_mma_dq_kernel 124 / 166 / 228 / 249 with 32 / 64 / 128 /
+// 120 KB; flash_delta_kernel 24 (H100; PERF.md).  Past 128 registers a thread
+// the backward runs one CTA of 8 warps an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,6 +327,8 @@ using bf16 = __nv_bfloat16;
 constexpr int BQ = 128;   // query rows per CTA: 8 warps of 16
 constexpr int BKV = 64;   // keys per K/V tile
 constexpr int NTH = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // DP: q/k head dim padded to 32, 64, 128 or 192; DVP: v's, to 32, 64 or 128
 template <int DP, int DVP>
@@ -302,7 +339,8 @@ constexpr size_t smem_bytes() {
 template <int DP, int DVP>
 __global__ void __launch_bounds__(NTH) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int Sq, int Sk, int D, int Dv, float scale_log2, int causal) {
+    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int D, int Dv,
+    float scale_log2, int causal) {
   constexpr int CPR = DP / 8;    // 16-byte chunks a q/k row
   constexpr int CPRV = DVP / 8;  // ... a v row
   constexpr int KT = DP / 16;    // k16 steps of Q·Kᵀ over the head dim
@@ -422,8 +460,9 @@ __global__ void __launch_bounds__(NTH) flash_mma_kernel(
         if (edge) {
           const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = r_lo + (e >> 1) * 8;
-          if (key >= Sk) x = -INFINITY;                  // not a key at all
-          else if (causal && key > row + off) x = NEG_INF;  // the reference's finite mask
+          // past Sk not a key at all; the reference's finite mask, in log2 units
+          if (key >= Sk) x = -INFINITY;
+          else if (causal && key > row + off) x = NEG_INF * LOG2E;
         }
         s[j][e] = x;
       }
@@ -478,6 +517,15 @@ __global__ void __launch_bounds__(NTH) flash_mma_kernel(
     lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
     lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
   }
+  // the row's logsumexp of the scaled scores, natural log: ln 2 (m + log2 l)
+  // with m in log2 units; the backward's P = exp(s·scale - lse)
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + h * 8;
+      if (row < Sq) lse[(long long)bh * Sq + row] = (mrow[h] + log2f(lrow[h])) * LN2;
+    }
+  }
   bf16* og = o + (long long)bh * Sq * Dv;
 #pragma unroll
   for (int d = 0; d < ND; ++d)
@@ -493,8 +541,8 @@ __global__ void __launch_bounds__(NTH) flash_mma_kernel(
 }
 
 template <int DP, int DVP>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
-           int dv, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+           int sk, int d, int dv, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP, DVP>();
   cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<DP, DVP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -502,18 +550,436 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   flash_mma_kernel<DP, DVP><<<grid, NTH, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, d, dv, scale * 1.4426950408889634f, causal);
+      static_cast<bf16*>(o), lse, sq, sk, d, dv, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 // the tile is chosen by the wider of the two head dims, as in dispatch_d
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
-             int dv, float scale, int causal, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+             int sk, int d, int dv, float scale, int causal, cudaStream_t stream) {
   const int w = d > dv ? d : dv;
-  if (w <= 32) return launch<32, 32>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  if (w <= 64) return launch<64, 64>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  if (w <= 128) return launch<128, 128>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  return launch<192, 128>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
+  if (w <= 32) return launch<32, 32>(q, k, v, o, lse, bh, sq, sk, d, dv, scale, causal, stream);
+  if (w <= 64) return launch<64, 64>(q, k, v, o, lse, bh, sq, sk, d, dv, scale, causal, stream);
+  if (w <= 128)
+    return launch<128, 128>(q, k, v, o, lse, bh, sq, sk, d, dv, scale, causal, stream);
+  return launch<192, 128>(q, k, v, o, lse, bh, sq, sk, d, dv, scale, causal, stream);
+}
+
+// ------------------------------------------------------------------------- //
+// the backward: FA2's, deterministic (three kernels, no atomics)
+// ------------------------------------------------------------------------- //
+// rows [row0, row0 + n) of a [*, width] bf16 matrix into a swizzled [n, 8 CPRX]
+// tile by cp.async; rows past `valid` and columns past `width` zero-filled
+template <int CPRX>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int n, int valid,
+                                          int width) {
+  for (int i = threadIdx.x; i < n * CPRX; i += NTH) {
+    const int r = i / CPRX, c = i % CPRX, row = row0 + r;
+    const bool ok = row < valid && c * 8 < width;
+    hopper::cp_async16(dst + hopper::swz<CPRX>(r, c), ok ? src + (long long)row * width + c * 8 : src,
+                       ok);
+  }
+}
+
+// A fragments (16 rows x 16 columns) of rows r0.. of a swizzled tile, k16 step kt
+template <int CPRX>
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile, int r0, int kt, int lane) {
+  hopper::ldmatrix_x4(a, tile + hopper::swz<CPRX>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                  kt * 2 + (lane >> 4)));
+}
+// B fragments of two n8 tiles (rows n0 .. n0 + 15 of a [n][k] tile), k16 step kt
+template <int CPRX>
+__device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile, int n0, int kt, int lane) {
+  hopper::ldmatrix_x4(b, tile + hopper::swz<CPRX>(n0 + (lane & 7) + ((lane >> 4) & 1) * 8,
+                                                  kt * 2 + ((lane >> 3) & 1)));
+}
+// B fragments of two n8 tiles (columns 16 c .. 16 c + 15) of a [k][n] tile
+// (transposed by ldmatrix), k16 step over rows k0 .. k0 + 15
+template <int CPRX>
+__device__ __forceinline__ void ld_bt(uint32_t (&b)[4], const bf16* tile, int k0, int c, int lane) {
+  hopper::ldmatrix_x4_trans(b, tile + hopper::swz<CPRX>(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                        c * 2 + (lane >> 4)));
+}
+// the A fragment of k16 step kp from a row of n8 accumulator tiles, rounded to bf16
+template <int NJ>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[NJ][4], int kp) {
+  a[0] = hopper::pack_bf16(x[2 * kp][0], x[2 * kp][1]);
+  a[1] = hopper::pack_bf16(x[2 * kp][2], x[2 * kp][3]);
+  a[2] = hopper::pack_bf16(x[2 * kp + 1][0], x[2 * kp + 1][1]);
+  a[3] = hopper::pack_bf16(x[2 * kp + 1][2], x[2 * kp + 1][3]);
+}
+// acc[2 c], acc[2 c + 1] += a · (the two n8 tiles of b)
+template <int N>
+__device__ __forceinline__ void mma2(float (&acc)[N][4], int c, const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  hopper::mma_bf16(acc[2 * c], a, b[0], b[1]);
+  hopper::mma_bf16(acc[2 * c + 1], a, b[2], b[3]);
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+}
+// rows [row0, row0 + 16) of an [*, width] output from n8 accumulator tiles,
+// times `mul`, to bf16; rows past `valid` and columns past `width` not written
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[N][4], int row0,
+                                           int valid, int width, float mul, int lane) {
+#pragma unroll
+  for (int d = 0; d < N; ++d)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + (lane >> 2) + h * 8, col = d * 8 + (lane & 3) * 2;
+      if (row < valid && col < width)  // width is a multiple of 16, so col + 1 < width too
+        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * width + col) =
+            __floats2bfloat162_rn(acc[d][2 * h] * mul, acc[d][2 * h + 1] * mul);
+    }
+}
+
+// delta = rowsum(dO ⊙ O) in f32, one warp a row
+__global__ void __launch_bounds__(NTH) flash_delta_kernel(const bf16* __restrict__ o,
+                                                          const bf16* __restrict__ dout,
+                                                          float* __restrict__ delta,
+                                                          long long rows, int Dv) {
+  const long long row = (long long)blockIdx.x * (NTH / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp
+  float acc = 0.f;
+  for (int c = lane * 2; c < Dv; c += 64) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + row * Dv + c));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + row * Dv + c));
+    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+// dK and dV: one CTA per (bh, 128 keys), each of the 8 warps owns 16 keys
+// and walks the q tiles of BQ rows that see them (Q, dO, lse and delta
+// double-buffered).  Per q tile, keys x queries in f32: S = K Qᵀ, dP = V
+// dOᵀ, P = exp2(S·scale·log2 e - lse·log2 e), dS = P ⊙ (dP - delta); then
+// dV += P dO and dK += dS Q with P and dS rounded to bf16 straight from the
+// score registers.
+constexpr int BKB = 128;  // keys a dK/dV CTA
+
+template <int DP, int DVP, int BQB>
+constexpr size_t dkdv_smem_bytes() {
+  return (size_t)(BKB * DP + BKB * DVP + 2 * BQB * DP + 2 * BQB * DVP) * 2 + 2 * 2 * BQB * 4;
+}
+
+template <int DP, int DVP, int BQB>
+__global__ void __launch_bounds__(NTH) flash_mma_dkdv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+    int D, int Dv, float scale, float scale_log2, int causal) {
+  constexpr int CPR = DP / 8, CPRV = DVP / 8;
+  constexpr int KT = DP / 16, KTV = DVP / 16;  // k16 steps over D and Dv
+  constexpr int NJ = BQB / 8;                  // n8 tiles of queries
+  constexpr int ND = DP / 8, NDV = DVP / 8;    // n8 tiles of dK and dV
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BKB * DP]
+  bf16* vs = ks + BKB * DP;                      // [BKB * DVP]
+  bf16* qs = vs + BKB * DVP;                     // [2][BQB * DP]
+  bf16* dos = qs + 2 * BQB * DP;                 // [2][BQB * DVP]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQB * DVP);  // [2][BQB]: lse·log2 e
+  float* es = ls + 2 * BQB;                                   // [2][BQB]: delta
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * BKB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* qg = q + (long long)bh * Sq * D;
+  const bf16* dog = dout + (long long)bh * Sq * Dv;
+  const float* lg = lse + (long long)bh * Sq;
+  const float* eg = delta + (long long)bh * Sq;
+  const int off = Sk - Sq;
+
+  auto load_q = [&](int buf, int q0) {
+    load_tile<CPR>(qs + buf * BQB * DP, qg, q0, BQB, Sq, D);
+    load_tile<CPRV>(dos + buf * BQB * DVP, dog, q0, BQB, Sq, Dv);
+    for (int i = tid; i < BQB; i += NTH) {
+      const bool ok = q0 + i < Sq;
+      ls[buf * BQB + i] = ok ? lg[q0 + i] * LOG2E : 0.f;
+      es[buf * BQB + i] = ok ? eg[q0 + i] : 0.f;
+    }
+  };
+
+  // when causal (and Sq <= Sk), query rows before k0 - off see none of these keys
+  const int n_qt = (Sq + BQB - 1) / BQB;
+  const int t0 = causal && off >= 0 ? max(0, k0 - off) / BQB : 0;
+  load_tile<CPR>(ks, k + (long long)bh * Sk * D, k0, BKB, Sk, D);
+  load_tile<CPRV>(vs, v + (long long)bh * Sk * Dv, k0, BKB, Sk, Dv);
+  if (t0 < n_qt) load_q(0, t0 * BQB);
+  hopper::cp_async_commit();
+
+  float dka[ND][4], dva[NDV][4];
+  zero(dka);
+  zero(dva);
+  const int kw = warp * 16;              // this warp's keys in the tile
+  const int key_lo = k0 + kw + (lane >> 2);  // this thread's keys: key_lo and key_lo + 8
+  const float inv_sk = 1.f / (float)Sk;  // P of a row that sees no key (uniform)
+
+  for (int t = t0; t < n_qt; ++t) {
+    const int buf = (t - t0) & 1, q0 = t * BQB;
+    if (t + 1 < n_qt) load_q(buf ^ 1, q0 + BQB);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // tile t (and K, V) have landed
+    __syncthreads();
+    const bf16* qb = qs + buf * BQB * DP;
+    const bf16* db = dos + buf * BQB * DVP;
+    const float* lb = ls + buf * BQB;
+    const float* eb = es + buf * BQB;
+
+    float s[NJ][4], dp[NJ][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {  // S = K Qᵀ
+      uint32_t a[4];
+      ld_a<CPR>(a, ks, kw, kt, lane);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t b[4];
+        ld_b<CPR>(b, qb, jp * 16, kt, lane);
+        mma2(s, jp, a, b);
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < KTV; ++kt) {  // dP = V dOᵀ
+      uint32_t a[4];
+      ld_a<CPRV>(a, vs, kw, kt, lane);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t b[4];
+        ld_b<CPRV>(b, db, jp * 16, kt, lane);
+        mma2(dp, jp, a, b);
+      }
+    }
+
+    // P and dS in place (f32); only tiles that reach past an end or the
+    // diagonal are masked: a masked pair has dS = 0 and P = 0, or the
+    // forward's uniform 1/Sk in a row that sees no key at all
+    const bool edge = q0 + BQB > Sq || k0 + BKB > Sk || (causal && q0 + off < k0 + BKB - 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + (lane & 3) * 2 + (e & 1);
+        float p = exp2f(s[j][e] * scale_log2 - lb[col]);
+        float d = p * (dp[j][e] - eb[col]);
+        if (edge) {
+          const int key = key_lo + (e >> 1) * 8, row = q0 + col;
+          if (key >= Sk || row >= Sq) {
+            p = 0.f;
+            d = 0.f;
+          } else if (causal && key > row + off) {
+            p = row + off < 0 ? inv_sk : 0.f;
+            d = 0.f;
+          }
+        }
+        s[j][e] = p;
+        dp[j][e] = d;
+      }
+
+#pragma unroll
+    for (int kp = 0; kp < BQB / 16; ++kp) {  // dV += P dO, dK += dS Q
+      uint32_t a[4];
+      acc_to_a(a, s, kp);
+#pragma unroll
+      for (int c = 0; c < NDV / 2; ++c) {
+        uint32_t b[4];
+        ld_bt<CPRV>(b, db, kp * 16, c, lane);
+        mma2(dva, c, a, b);
+      }
+      acc_to_a(a, dp, kp);
+#pragma unroll
+      for (int c = 0; c < ND / 2; ++c) {
+        uint32_t b[4];
+        ld_bt<CPR>(b, qb, kp * 16, c, lane);
+        mma2(dka, c, a, b);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  hopper::cp_async_wait<0>();
+
+  store_rows(dv + (long long)bh * Sk * Dv, dva, k0 + kw, Sk, Dv, 1.f, lane);
+  store_rows(dk + (long long)bh * Sk * D, dka, k0 + kw, Sk, D, scale, lane);
+}
+
+// dQ: one CTA per (bh, 128 query rows), each warp 16 rows, walking the K/V
+// tiles of BKQ keys it sees (double-buffered, as the forward): S = Q Kᵀ,
+// dP = dO Vᵀ, dS = P ⊙ (dP - delta), dQ += dS K
+template <int DP, int DVP, int BKQ>
+constexpr size_t dq_smem_bytes() {
+  return (size_t)(BQ * DP + BQ * DVP + 2 * BKQ * DP + 2 * BKQ * DVP) * 2;
+}
+
+template <int DP, int DVP, int BKQ>
+__global__ void __launch_bounds__(NTH) flash_mma_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int D, int Dv,
+    float scale, float scale_log2, int causal) {
+  constexpr int CPR = DP / 8, CPRV = DVP / 8;
+  constexpr int KT = DP / 16, KTV = DVP / 16;
+  constexpr int NJ = BKQ / 8;  // n8 tiles of keys
+  constexpr int ND = DP / 8;   // n8 tiles of dQ
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ * DP]
+  bf16* dos = qs + BQ * DP;                      // [BQ * DVP]
+  bf16* ks = dos + BQ * DVP;                     // [2][BKQ * DP]
+  bf16* vs = ks + 2 * BKQ * DP;                  // [2][BKQ * DVP]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest (last) q tiles launch first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* kg = k + (long long)bh * Sk * D;
+  const bf16* vg = v + (long long)bh * Sk * Dv;
+  const int off = Sk - Sq;
+
+  int n_tiles = (Sk + BKQ - 1) / BKQ;
+  if (causal && off >= 0) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1 + off) / BKQ + 1);
+
+  load_tile<CPR>(qs, q + (long long)bh * Sq * D, q0, BQ, Sq, D);
+  load_tile<CPRV>(dos, dout + (long long)bh * Sq * Dv, q0, BQ, Sq, Dv);
+  load_tile<CPR>(ks, kg, 0, BKQ, Sk, D);
+  load_tile<CPRV>(vs, vg, 0, BKQ, Sk, Dv);
+  hopper::cp_async_commit();
+
+  // this thread's rows r_lo and r_lo + 8: lse·log2 e and delta (0 past Sq,
+  // where Q and dO are zero and nothing is stored)
+  const int r_lo = q0 + warp * 16 + (lane >> 2);
+  float lrow[2], erow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + h * 8;
+    lrow[h] = row < Sq ? lse[(long long)bh * Sq + row] * LOG2E : 0.f;
+    erow[h] = row < Sq ? delta[(long long)bh * Sq + row] : 0.f;
+  }
+  float dqa[ND][4];
+  zero(dqa);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_tile<CPR>(ks + (buf ^ 1) * BKQ * DP, kg, (t + 1) * BKQ, BKQ, Sk, D);
+      load_tile<CPRV>(vs + (buf ^ 1) * BKQ * DVP, vg, (t + 1) * BKQ, BKQ, Sk, Dv);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kb = ks + buf * BKQ * DP;
+    const bf16* vb = vs + buf * BKQ * DVP;
+
+    float s[NJ][4], dp[NJ][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {  // S = Q Kᵀ
+      uint32_t a[4];
+      ld_a<CPR>(a, qs, warp * 16, kt, lane);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t b[4];
+        ld_b<CPR>(b, kb, jp * 16, kt, lane);
+        mma2(s, jp, a, b);
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < KTV; ++kt) {  // dP = dO Vᵀ
+      uint32_t a[4];
+      ld_a<CPRV>(a, dos, warp * 16, kt, lane);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t b[4];
+        ld_b<CPRV>(b, vb, jp * 16, kt, lane);
+        mma2(dp, jp, a, b);
+      }
+    }
+
+    const int k0 = t * BKQ;
+    const bool edge = k0 + BKQ > Sk || (causal && k0 + BKQ - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float d = exp2f(s[j][e] * scale_log2 - lrow[h]) * (dp[j][e] - erow[h]);
+        if (edge) {
+          const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          if (key >= Sk || (causal && key > r_lo + h * 8 + off)) d = 0.f;
+        }
+        dp[j][e] = d;
+      }
+
+#pragma unroll
+    for (int kp = 0; kp < BKQ / 16; ++kp) {  // dQ += dS K
+      uint32_t a[4];
+      acc_to_a(a, dp, kp);
+#pragma unroll
+      for (int c = 0; c < ND / 2; ++c) {
+        uint32_t b[4];
+        ld_bt<CPR>(b, kb, kp * 16, c, lane);
+        mma2(dqa, c, a, b);
+      }
+    }
+    __syncthreads();
+  }
+  hopper::cp_async_wait<0>();
+  store_rows(dq + (long long)bh * Sq * D, dqa, q0 + warp * 16, Sq, D, scale, lane);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// BQB: query rows a dK/dV step; BKQ: keys a dQ step (smaller where the
+// dK and dV, or dQ, accumulators are wide: no spill)
+template <int DP, int DVP, int BQB, int BKQ>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, void* dq, void* dk, void* dv, float* delta, int bh, int sq,
+               int sk, int d, int dvd, float scale, int causal, cudaStream_t stream) {
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *dop = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const long long rows = (long long)bh * sq;
+  flash_delta_kernel<<<(unsigned)((rows + NTH / 32 - 1) / (NTH / 32)), NTH, 0, stream>>>(
+      static_cast<const bf16*>(o), dop, delta, rows, dvd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t kv_smem = dkdv_smem_bytes<DP, DVP, BQB>();
+  if ((err = allow_smem(flash_mma_dkdv_kernel<DP, DVP, BQB>, kv_smem)) != cudaSuccess) return (int)err;
+  flash_mma_dkdv_kernel<DP, DVP, BQB><<<dim3(bh, (sk + BKB - 1) / BKB), NTH, kv_smem, stream>>>(
+      qp, kp, vp, dop, lp, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, d, dvd,
+      scale, scale * LOG2E, causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t q_smem = dq_smem_bytes<DP, DVP, BKQ>();
+  if ((err = allow_smem(flash_mma_dq_kernel<DP, DVP, BKQ>, q_smem)) != cudaSuccess) return (int)err;
+  flash_mma_dq_kernel<DP, DVP, BKQ><<<dim3(bh, (sq + BQ - 1) / BQ), NTH, q_smem, stream>>>(
+      qp, kp, vp, dop, lp, delta, static_cast<bf16*>(dq), sq, sk, d, dvd, scale, scale * LOG2E,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const void* lse, void* dq, void* dk, void* dv, float* delta, int bh, int sq,
+                 int sk, int d, int dvd, float scale, int causal, cudaStream_t stream) {
+  const int w = d > dvd ? d : dvd;
+  if (w <= 32)
+    return launch_bwd<32, 32, 64, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, sq, sk, d,
+                                      dvd, scale, causal, stream);
+  if (w <= 64)
+    return launch_bwd<64, 64, 64, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, sq, sk, d,
+                                      dvd, scale, causal, stream);
+  if (w <= 128)
+    return launch_bwd<128, 128, 32, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, sq, sk, d,
+                                        dvd, scale, causal, stream);
+  return launch_bwd<192, 128, 16, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, bh, sq, sk, d,
+                                      dvd, scale, causal, stream);
 }
 }  // namespace tc
 
@@ -536,14 +1002,30 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // The bf16 tensor-core variant: same operands, bf16 only, d a multiple of 16
 // up to 192 and dv a multiple of 16 up to 128.
+// lse: [bh, sq] f32, each row's logsumexp of its scaled scores (natural
+// log), for the backward; null writes none.
 extern "C" int flash_attention_mma_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int bh, int sq, int sk, int d, int dv, float scale,
-                                       int causal, void* stream) {
+                                       void* lse, int bh, int sq, int sk, int d, int dv,
+                                       float scale, int causal, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 192 || d % 16 || dv <= 0 || dv > 128 ||
       dv % 16)
     return (int)cudaErrorInvalidValue;
-  return tc::dispatch(q, k, v, o, bh, sq, sk, d, dv, scale, causal,
+  return tc::dispatch(q, k, v, o, static_cast<float*>(lse), bh, sq, sk, d, dv, scale, causal,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The backward of the mma variant: dq, dk, dv (bf16, the shapes of q, k, v)
+// at the cotangent dout [bh, sq, dv], from the forward's o and lse; delta:
+// [bh, sq] f32 scratch.  The same shapes as flash_attention_mma_fwd.
+extern "C" int flash_attention_mma_bwd(const void* q, const void* k, const void* v, const void* o,
+                                       const void* dout, const void* lse, void* dq, void* dk,
+                                       void* dv, void* delta, int bh, int sq, int sk, int d,
+                                       int dvd, float scale, int causal, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 192 || d % 16 || dvd <= 0 || dvd > 128 ||
+      dvd % 16)
+    return (int)cudaErrorInvalidValue;
+  return tc::dispatch_bwd(q, k, v, o, dout, lse, dq, dk, dv, static_cast<float*>(delta), bh, sq,
+                          sk, d, dvd, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

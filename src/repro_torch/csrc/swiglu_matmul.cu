@@ -60,6 +60,20 @@
 //    computes one [BM, BN] tile of both products from one shared x tile;
 //    16 x 32 tiles for M <= 16, 64 x 64 otherwise; any M, D, F.
 //
+// 4. The backward of both entries (swiglu_matmul_wgmma_bwd,
+//    swiglu_experts_wgmma_bwd; the TPU kernel has no VJP, its model trains
+//    through einsums): kernel 1's mainloop, tiles and persistent walk
+//    unchanged, with a second epilogue (a template parameter, not a copy)
+//    that reads the dout tile and writes, from the f32 accumulators, dg = dout
+//    u σ(g)(1 + g(1 - σ(g))) and du = dout g σ(g) in bf16.  g and u are
+//    never rounded or stored: the only [M, F] intermediates are dg and du.
+//    It recomputes the two forward products (bound by operations as the
+//    forward is) and moves dout, dg and du besides; the wrapper then forms
+//    dx = dg wgᵀ + du wuᵀ, dwg = xᵀ dg and dwu = xᵀ du as plain cuBLAS
+//    products, as the reference leaves them to XLA.  Any M: the mainloop
+//    takes ragged tiles, so the backward of a decode-sized forward (an
+//    expert's few rows) runs here too.
+//
 // The expert entries (swiglu_experts_{wgmma,decode,}fwd):
 // - wgmma: the expert is the outermost coordinate of the persistent walk
 //   (m fastest, then n, then e: the CTAs at work share an expert's weight
@@ -74,8 +88,8 @@
 // - cuda_core: the expert is the grid's z axis.
 //
 // -Xptxas -v (sm_90a, nvcc 12.8), no spills anywhere: swiglu_wgmma_kernel
-// 168 registers at launch (2 consumers, one product or experts; 3 consumers:
-// 128) before setmaxnreg (producer 40 and consumers 232; 24 and 160),
+// 168 registers at launch (2 consumers, one product or experts, forward or
+// backward epilogue; 3 consumers: 128) before setmaxnreg (producer 40 and consumers 232; 24 and 160),
 // 197,696 and 164,928 bytes of dynamic shared memory; swiglu_decode_kernel
 // 48 / 96 / 121 registers for 16 / 32 / 64 rows of x, 87,040 to 102,400
 // bytes of dynamic shared memory; swiglu_kernel 32 to 64 registers, 10-12 KB
@@ -229,12 +243,15 @@ __device__ __forceinline__ void mma_tile(float (&acc)[BN], uint64_t da, uint64_t
   }
 }
 
-// EXPERTS: E products, 4-D maps with the expert as their third coordinate
-template <int CONS, int BN, bool EXPERTS>
+// EXPERTS: E products, 4-D maps with the expert as their third coordinate.
+// BWD: the backward's epilogue (the derivative at dout, into out = dg and du)
+// in place of the forward's (silu(g) u into out); dout and du are null
+// without it.
+template <int CONS, int BN, bool EXPERTS, bool BWD>
 __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
-    const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out, int E, int M, int D,
-    int F) {
+    const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out,
+    const bf16* __restrict__ dout, bf16* __restrict__ du, int E, int M, int D, int F) {
   using C = Cfg<CONS, BN>;
   constexpr int NA = C::NA;
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -303,7 +320,8 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     int it = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles % ncols) * BN;
-      bf16* oe = out + (long long)(t / (mtiles * ncols)) * M * F;  // this tile's expert
+      const long long eoff = (long long)(t / (mtiles * ncols)) * M * F;  // this tile's expert
+      bf16* oe = out + eoff;
       float acc[BN];  // 64 x 2 BN f32 over 128 threads: gate in [0, BN/2), up in [BN/2, BN)
 #pragma unroll
       for (int i = 0; i < BN; ++i) acc[i] = 0.f;
@@ -339,17 +357,31 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
         if (r < M && c < F) {  // F is a multiple of 8, so c + 1 < F too
           const float g0 = acc[i], g1 = acc[i + 1];
           const float u0 = acc[i + BN / 2], u1 = acc[i + 1 + BN / 2];
-          *reinterpret_cast<__nv_bfloat162*>(oe + (long long)r * F + c) = __floats2bfloat162_rn(
-              g0 / (1.f + __expf(-g0)) * u0, g1 / (1.f + __expf(-g1)) * u1);
+          const long long at = (long long)r * F + c;
+          if constexpr (BWD) {
+            // s = σ(g); du = dout g s; dg = dout u s (1 + g (1 - s)), in f32
+            // from the accumulators: g and u are never rounded or stored
+            const float2 d = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(dout + eoff + at));
+            const float s0 = 1.f / (1.f + __expf(-g0)), s1 = 1.f / (1.f + __expf(-g1));
+            *reinterpret_cast<__nv_bfloat162*>(du + eoff + at) =
+                __floats2bfloat162_rn(d.x * g0 * s0, d.y * g1 * s1);
+            *reinterpret_cast<__nv_bfloat162*>(oe + at) =
+                __floats2bfloat162_rn(d.x * u0 * s0 * (1.f + g0 * (1.f - s0)),
+                                      d.y * u1 * s1 * (1.f + g1 * (1.f - s1)));
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(oe + at) = __floats2bfloat162_rn(
+                g0 / (1.f + __expf(-g0)) * u0, g1 / (1.f + __expf(-g1)) * u1);
+          }
         }
       }
     }
   }
 }
 
-template <int CONS, int BN, bool EXPERTS>
-int launch(const void* x, const void* wgt, const void* wup, void* out, int E, int M, int D,
-           int F, cudaStream_t stream) {
+template <int CONS, int BN, bool EXPERTS, bool BWD>
+int launch(const void* x, const void* wgt, const void* wup, void* out, const void* dout,
+           void* du, int E, int M, int D, int F, cudaStream_t stream) {
   using C = Cfg<CONS, BN>;
   CUtensorMap xm, gm, um;
   if constexpr (EXPERTS) {
@@ -367,14 +399,15 @@ int launch(const void* x, const void* wgt, const void* wup, void* out, int E, in
         !hopper::make_map_bf16(&um, wup, D, F, BK, ATOM))
       return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(swiglu_wgmma_kernel<CONS, BN, EXPERTS>,
+  cudaError_t err = cudaFuncSetAttribute(swiglu_wgmma_kernel<CONS, BN, EXPERTS, BWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::BYTES);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)E * ((M + C::BM - 1) / C::BM) * ((F + BN - 1) / BN);
   const int grid = tiles < hopper::num_sms() ? (int)tiles : hopper::num_sms();  // one CTA per SM
-  swiglu_wgmma_kernel<CONS, BN, EXPERTS><<<grid, C::NT, C::BYTES, stream>>>(
-      xm, gm, um, static_cast<bf16*>(out), E, M, D, F);
+  swiglu_wgmma_kernel<CONS, BN, EXPERTS, BWD><<<grid, C::NT, C::BYTES, stream>>>(
+      xm, gm, um, static_cast<bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(du), E, M, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -382,21 +415,24 @@ int launch(const void* x, const void* wgt, const void* wup, void* out, int E, in
 // less of the card's waves idle (waves of one CTA per SM times the tile's
 // area; the larger tile on a tie): M = 512 is 264 tiles of 192 x 64, two
 // waves of 12288 against 176 of 128 x 128, two waves of 16384.
-int dispatch(const void* x, const void* wgt, const void* wup, void* out, int M, int D, int F,
-             cudaStream_t stream) {
+// (BWD: the same tiles for the backward, out = dg)
+template <bool BWD>
+int dispatch(const void* x, const void* wgt, const void* wup, void* out, const void* dout,
+             void* du, int M, int D, int F, cudaStream_t stream) {
   const long long sms = hopper::num_sms();
   auto cost = [&](int bm, int bn) {
     const long long tiles = (long long)((M + bm - 1) / bm) * ((F + bn - 1) / bn);
     return (tiles + sms - 1) / sms * bm * bn;
   };
   if (cost(192, 64) < cost(128, 128))
-    return launch<3, 64, false>(x, wgt, wup, out, 1, M, D, F, stream);
-  return launch<2, 128, false>(x, wgt, wup, out, 1, M, D, F, stream);
+    return launch<3, 64, false, BWD>(x, wgt, wup, out, dout, du, 1, M, D, F, stream);
+  return launch<2, 128, false, BWD>(x, wgt, wup, out, dout, du, 1, M, D, F, stream);
 }
 
-int dispatch_experts(const void* x, const void* wgt, const void* wup, void* out, int E, int M,
-                     int D, int F, cudaStream_t stream) {
-  return launch<2, 128, true>(x, wgt, wup, out, E, M, D, F, stream);
+template <bool BWD>
+int dispatch_experts(const void* x, const void* wgt, const void* wup, void* out, const void* dout,
+                     void* du, int E, int M, int D, int F, cudaStream_t stream) {
+  return launch<2, 128, true, BWD>(x, wgt, wup, out, dout, du, E, M, D, F, stream);
 }
 }  // namespace prefill
 
@@ -595,7 +631,8 @@ extern "C" int swiglu_matmul_fwd(const void* x, const void* wg, const void* wu, 
 extern "C" int swiglu_matmul_wgmma_fwd(const void* x, const void* wg, const void* wu, void* out,
                                        int M, int D, int F, void* stream) {
   if (M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
-  return prefill::dispatch(x, wg, wu, out, M, D, F, static_cast<cudaStream_t>(stream));
+  return prefill::dispatch<false>(x, wg, wu, out, nullptr, nullptr, M, D, F,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int swiglu_matmul_decode_fwd(const void* x, const void* wg, const void* wu, void* out,
@@ -618,7 +655,28 @@ extern "C" int swiglu_experts_fwd(const void* x, const void* wg, const void* wu,
 extern "C" int swiglu_experts_wgmma_fwd(const void* x, const void* wg, const void* wu, void* out,
                                         int E, int M, int D, int F, void* stream) {
   if (E <= 0 || M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
-  return prefill::dispatch_experts(x, wg, wu, out, E, M, D, F, static_cast<cudaStream_t>(stream));
+  return prefill::dispatch_experts<false>(x, wg, wu, out, nullptr, nullptr, E, M, D, F,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// The backward of either entry (bf16; D and F multiples of 8; any M): the
+// gate and up products recomputed by the wgmma kernel and, in its epilogue,
+// dg = dout u σ(g)(1 + g(1 - σ(g))) and du = dout g σ(g) at the cotangent
+// dout [M, F] ([E, M, F]), into dg and du of dout's shape.
+extern "C" int swiglu_matmul_wgmma_bwd(const void* x, const void* wg, const void* wu,
+                                       const void* dout, void* dg, void* du, int M, int D, int F,
+                                       void* stream) {
+  if (M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
+  return prefill::dispatch<true>(x, wg, wu, dg, dout, du, M, D, F,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int swiglu_experts_wgmma_bwd(const void* x, const void* wg, const void* wu,
+                                        const void* dout, void* dg, void* du, int E, int M, int D,
+                                        int F, void* stream) {
+  if (E <= 0 || M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
+  return prefill::dispatch_experts<true>(x, wg, wu, dg, dout, du, E, M, D, F,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int swiglu_experts_decode_fwd(const void* x, const void* wg, const void* wu, void* out,

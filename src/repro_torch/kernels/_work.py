@@ -14,16 +14,18 @@ A :class:`WorkLog` counts the region it is open over:
 - ``aten``: FLOPs of the aten ops (``torch.utils.flop_counter``'s
   registry: matrix products, convolutions, attention), by op;
 - ``calls[(kernel, variant)] = [calls, operations, bytes]``: the records
-  of the kernel calls; a kernel's backward, an explicit VJP in PyTorch,
-  runs under :func:`uncounted` with ``component=kernel`` and is recorded as
-  ``(kernel, "vjp")`` with its aten FLOPs (and no byte count);
+  of the kernel calls, backward kernels (``*_bwd``) included; the PyTorch
+  part of a kernel's backward (an explicit VJP, or the products around a
+  backward kernel) runs under :func:`uncounted` with ``component=kernel``
+  and is recorded as ``(kernel, "vjp")`` with its aten FLOPs (and no byte
+  count);
 - ``peak``: the most bytes held at once by the storages created in the
   region (outputs of ops that alias no input), the operands it was given
   not included;
 - ``unbatched``: the FLOPs of the products with no batch dim among the aten
   ops (``mm``, ``addmm``, and ``bmm`` over a batch of one, as ``einsum``
-  lowers a projection) and the dense SwiGLU kernel's: the products whose
-  outputs the reference's remat policy (``dots_with_no_batch_dims``)
+  lowers a projection) and the dense SwiGLU kernel's forward: the products
+  whose outputs the reference's remat policy (``dots_with_no_batch_dims``)
   saves rather than recomputes.
 
 The plain versions run under :func:`uncounted` too: their aten ops are the
@@ -138,7 +140,8 @@ class WorkLog:
         self.unbatched += self._live.unbatched
 
     def add(self, kernel: str, variant: str, flops: float, nbytes: float) -> None:
-        if kernel == "swiglu_matmul" and not variant.startswith(("experts", "vjp")):
+        if kernel == "swiglu_matmul" and not variant.startswith(("experts", "vjp")) and \
+                not variant.endswith("_bwd"):
             self.unbatched += flops
         row = self.calls.setdefault((kernel, variant), [0, 0.0, 0.0])
         row[0] += 1

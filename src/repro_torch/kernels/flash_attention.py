@@ -1,5 +1,5 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_attention.cu`` and
-its wrapper.
+"""Flash attention, forward and backward: the CUDA kernels
+``csrc/flash_attention.cu`` and their wrapper.
 
 Port of ``repro/kernels/flash_attention.py`` (a Pallas TPU kernel).  The
 Pallas grid's sequential KV axis, with the online-softmax state carried in
@@ -27,9 +27,17 @@ its backward too).  Every call records its :func:`work` once, at the entry
 
 On the card the launch sits in a ``torch.autograd.Function``, so the output
 has a gradient path whenever an input requires grad.  The reference's
-kernel has no custom VJP (its model trains through plain ``jnp``), so there
-is no backward kernel to port: the backward is :func:`flash_attention_vjp`,
-an explicit VJP in PyTorch that recomputes the probabilities in f32.
+kernel has no custom VJP (its model trains through plain ``jnp``); the
+port's backward is a kernel of its own where the forward is ``mma``:
+:func:`select_bwd_variant` picks ``mma_bwd`` (FA2's backward from the
+forward's output and its per-row logsumexp, which the forward then writes)
+or, behind the ``cuda_core`` forward (f32, other head dims; no train path on
+the card takes it), ``"vjp"``: :func:`flash_attention_vjp`, an explicit VJP
+in PyTorch that recomputes the probabilities in f32.  The choice is made
+from the head dims and the dtype before anything launches; a failed build
+or launch of ``mma_bwd`` raises, nothing tries the VJP instead.  The
+backward records its :func:`work_bwd` as ``("flash_attention",
+"mma_bwd")``; on ``meta`` it returns empty gradients and counts the launch.
 """
 from __future__ import annotations
 
@@ -42,9 +50,10 @@ from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
 from repro_torch.kernels._work import record, uncounted
-from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "work", "LIBRARY"]
+__all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "select_bwd_variant",
+           "work", "work_bwd", "LIBRARY"]
 
 MAX_HEAD_DIM = 192    # q and k
 MAX_V_HEAD_DIM = 128  # v and the output
@@ -52,10 +61,12 @@ MAX_V_HEAD_DIM = 128  # v and the output
 VJP_CHUNK_ELEMS = 1 << 24
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary("flash_attention", {
-    # q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream
-    "mma": ("flash_attention_mma_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, o, lse (or null), bh, sq, sk, d, dv, scale, causal, stream
+    "mma": ("flash_attention_mma_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     # q, k, v, o, bh, sq, sk, d, dv, scale, causal, dtype, stream
     "cuda_core": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # q, k, v, o, do, lse, dq, dk, dv, delta, bh, sq, sk, d, dv, scale, causal, stream
+    "mma_bwd": ("flash_attention_mma_bwd", [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P]),
 })
 
 
@@ -66,6 +77,13 @@ def select_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
             and Dv <= MAX_V_HEAD_DIM):
         return "mma"
     return "cuda_core"
+
+
+def select_bwd_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
+    """The backward a CUDA call of these head dims and dtype runs:
+    ``"mma_bwd"`` (a kernel launch) behind the ``mma`` forward, otherwise
+    ``"vjp"`` (:func:`flash_attention_vjp`)."""
+    return "mma_bwd" if select_variant(D, Dv, dtype) == "mma" else "vjp"
 
 
 def _causal_pairs(Sq: int, Sk: int) -> int:
@@ -89,9 +107,24 @@ def work(BH: int, Sq: int, Sk: int, D: int, causal: bool, elem: int,
     return 2.0 * BH * pairs * (D + Dv), nbytes
 
 
+def work_bwd(BH: int, Sq: int, Sk: int, D: int, causal: bool, elem: int,
+             Dv: Optional[int] = None) -> tuple:
+    """(operations, bytes) of one backward: operations 2.5 times
+    :func:`work`'s over the same pairs (five products, S = Q Kᵀ, dP = dO Vᵀ,
+    dV, dK and dQ, to the forward's two); bytes q, k, v, o, dO read and dq,
+    dk, dv written once, ``elem`` bytes an element, and the f32 lse and
+    delta rows read once."""
+    Dv = D if Dv is None else Dv
+    ops, _ = work(BH, Sq, Sk, D, causal, elem, Dv)
+    nbytes = (2 * (BH * Sq * D + BH * Sk * D + BH * Sk * Dv) + 2 * BH * Sq * Dv) * elem
+    return 2.5 * ops, nbytes + 2 * BH * Sq * 4
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            sc: float) -> torch.Tensor:
-    """Launch the variant :func:`select_variant` picks: o [BH, Sq, Dv]."""
+            sc: float, with_lse: bool = False):
+    """Launch the variant :func:`select_variant` picks: (o [BH, Sq, Dv], lse
+    [BH, Sq] f32 or None).  ``with_lse`` (the ``mma`` variant only) has the
+    kernel write each row's logsumexp for the backward."""
     BH, Sq, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     dtype = check_cuda_operands("flash_attention", (q, k, v),
@@ -100,78 +133,83 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"flash_attention: head dims {D}/{Dv} > {MAX_HEAD_DIM}/{MAX_V_HEAD_DIM}")
     o = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
     variant = select_variant(D, Dv, q.dtype)
+    lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+           if with_lse and variant == "mma" else None)
     if q.is_meta:
         LIBRARY.account(variant)
-        return o
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq, Sk, D, Dv, float(sc),
-            int(causal))
+        return o, lse
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    dims = (BH, Sq, Sk, D, Dv, float(sc), int(causal))
     if variant == "cuda_core":
-        LIBRARY.launch(variant, *args, dtype, stream_handle(q))
+        LIBRARY.launch(variant, *ptrs, *dims, dtype, stream_handle(q))
     else:
         check_aligned("flash_attention", (q, k, v))
-        LIBRARY.launch(variant, *args, stream_handle(q))
-    return o
+        LIBRARY.launch(variant, *ptrs, None if lse is None else lse.data_ptr(), *dims,
+                       stream_handle(q))
+    return o, lse
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                do: torch.Tensor, lse: torch.Tensor, causal: bool, sc: float):
+    """Launch ``mma_bwd``: (dq, dk, dv) in the inputs' dtype from the
+    forward's o and lse at the cotangent ``do``."""
+    BH, Sq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    check_cuda_operands("flash_attention", (q, k, v, o, do), (torch.bfloat16,))
+    check_cuda_operands("flash_attention", (lse,), (torch.float32,))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        LIBRARY.account("mma_bwd")
+        return dq, dk, dv
+    check_aligned("flash_attention", (q, k, v, o, do))
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    LIBRARY.launch("mma_bwd", *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+                   BH, Sq, Sk, D, Dv, float(sc), int(causal), stream_handle(q))
+    return dq, dk, dv
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         do: torch.Tensor, causal: bool, scale: float):
     """(dq, dk, dv) of o = softmax(q kᵀ · scale) v at the output cotangent
-    ``do``, in the inputs' dtypes.  Computed in f32 (f64 for f64 inputs)
-    over chunks of BH, so that each ``[chunk, Sq, Sk]`` intermediate holds
-    at most ``VJP_CHUNK_ELEMS`` elements:
-
-        S = q kᵀ · scale, masked as the kernel masks it (when causal, key j
-        is seen by query i iff j <= i + Sk - Sq);  P = softmax(S);
-        dV = Pᵀ dO;  dP = dO Vᵀ;  dS = P ⊙ (dP - rowsum(dO ⊙ O));
-        dQ = dS K · scale;  dK = dSᵀ Q · scale.
-
-    ``o`` is the forward's output.  dS is zero under the mask, as autograd
-    through the plain version's ``where`` gives it (a row that sees no key
-    has a uniform P, which only dV reads)."""
+    ``do``, in the inputs' dtypes, from the forward's output ``o``:
+    :func:`ref.flash_attention_bwd_ref` given no lse (it takes the softmax of
+    the masked scores; the ``cuda_core`` forward writes none), in f32 (f64 for
+    f64 inputs), over chunks of BH, so that each ``[chunk, Sq, Sk]``
+    intermediate holds at most ``VJP_CHUNK_ELEMS`` elements."""
     BH, Sq, _ = q.shape
-    Sk = k.shape[1]
-    acc = torch.promote_types(q.dtype, torch.float32)
-    mask = None
-    if causal:
-        kpos = torch.arange(Sk, device=q.device)
-        qpos = torch.arange(Sq, device=q.device)
-        mask = kpos[None, :] <= (qpos[:, None] + (Sk - Sq))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    step = max(1, VJP_CHUNK_ELEMS // max(Sq * Sk, 1))
+    step = max(1, VJP_CHUNK_ELEMS // max(Sq * k.shape[1], 1))
     for b0 in range(0, BH, step):
         sl = slice(b0, b0 + step)
-        qc, kc, vc, oc, doc = (t[sl].to(acc) for t in (q, k, v, o, do))
-        s = torch.bmm(qc, kc.transpose(1, 2)) * scale
-        if mask is not None:
-            s = torch.where(mask, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        del s
-        dv[sl] = torch.bmm(p.transpose(1, 2), doc)
-        dp = torch.bmm(doc, vc.transpose(1, 2))
-        ds = p * (dp - (doc * oc).sum(-1, keepdim=True))
-        del p, dp
-        if mask is not None:
-            ds = torch.where(mask, ds, 0.0)
-        dq[sl] = torch.bmm(ds, kc) * scale
-        dk[sl] = torch.bmm(ds.transpose(1, 2), qc) * scale
+        dq[sl], dk[sl], dv[sl] = flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], None,
+                                                         do[sl], causal, scale)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's launch forward, :func:`flash_attention_vjp` backward."""
+    """The kernel's launch forward; backward the ``mma_bwd`` launch or
+    :func:`flash_attention_vjp`, as :func:`select_bwd_variant` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sc: float):
-        o = _launch(q, k, v, causal, sc)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.causal, ctx.sc = causal, sc
+        bwd = select_bwd_variant(q.shape[-1], v.shape[-1], q.dtype)
+        o, lse = _launch(q, k, v, causal, sc,
+                         with_lse=bwd == "mma_bwd" and any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sc, ctx.bwd = causal, sc, bwd
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        with uncounted("flash_attention"):
-            dq, dk, dv = flash_attention_vjp(q, k, v, o, do, ctx.causal, ctx.sc)
+        q, k, v, o, lse = ctx.saved_tensors
+        if ctx.bwd == "vjp":
+            with uncounted("flash_attention"):
+                dq, dk, dv = flash_attention_vjp(q, k, v, o, do, ctx.causal, ctx.sc)
+        else:
+            BH, Sq, D = q.shape
+            record("flash_attention", ctx.bwd, work_bwd(BH, Sq, k.shape[1], D, ctx.causal,
+                                                       q.element_size(), v.shape[-1]))
+            dq, dk, dv = _launch_bwd(q, k, v, o, do.contiguous(), lse, ctx.causal, ctx.sc)
         return dq, dk, dv, None, None
 
 

@@ -2,7 +2,10 @@
 
 Port of ``repro/kernels/ref.py``: the same functions with f32 accumulation.
 The kernel wrappers take them for CPU tensors, and ``chip_smoke.py`` holds
-each CUDA kernel against them on the card.  Beside them,
+each CUDA kernel against them on the card; :func:`flash_attention_bwd_ref`
+and :func:`swiglu_bwd_ref` are the backward kernels'; the ``"vjp"``
+backward routes (f32, and shapes the kernels do not take) compute through
+the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
 decomposition and operand rounding on the CPU, for the tests.
 """
@@ -23,18 +26,67 @@ def flash_attention_ref(
     v: torch.Tensor,  # [BH, Sk, Dv]
     causal: bool = True,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """softmax(q kᵀ · scale) v in f32: [BH, Sq, Dv] in q's dtype."""
+    return_lse: bool = False,
+):
+    """softmax(q kᵀ · scale) v in f32: [BH, Sq, Dv] in q's dtype; with
+    ``return_lse`` also each row's logsumexp of its masked scaled scores
+    (natural log, f32 [BH, Sq]), which the ``mma`` kernel writes for the
+    backward."""
     sc = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q.to(F32), k.to(F32)) * sc
     if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        kpos = torch.arange(Sk, device=q.device)
-        qpos = torch.arange(Sq, device=q.device)
-        mask = kpos[None, :] <= (qpos[:, None] + (Sk - Sq))
-        s = torch.where(mask[None], s, NEG_INF)
+        s = torch.where(causal_mask(q.shape[1], k.shape[1], q.device)[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.to(F32)).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", p, v.to(F32)).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
+    """[Sq, Sk]: query i sees key j iff j <= i + Sk - Sq."""
+    kpos = torch.arange(Sk, device=device)
+    qpos = torch.arange(Sq, device=device)
+    return kpos[None, :] <= (qpos[:, None] + (Sk - Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention_ref` at the cotangent ``do``,
+    from the forward's output ``o`` and its ``lse``, as the ``mma_bwd``
+    kernel computes them, in f32 (f64 for f64 inputs), returned in the
+    inputs' dtypes:
+
+        P = exp(q kᵀ · scale - lse);  delta = rowsum(dO ⊙ O);
+        dV = Pᵀ dO;  dS = P ⊙ (dO Vᵀ - delta);
+        dQ = dS K · scale;  dK = dSᵀ Q · scale.
+
+    A masked pair has dS = 0 (autograd through the forward's ``where``) and
+    P = 0, but a row that sees no key (when causal and Sq > Sk) has the
+    forward's uniform P = 1/Sk.  With ``lse`` None, P is the softmax of the
+    masked scaled scores, computed here (the backward of a forward that
+    writes no lse)."""
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    acc = torch.promote_types(q.dtype, F32)
+    qf, kf, vf, of, dof = (t.to(acc) for t in (q, k, v, o, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * sc
+    Sq, Sk = q.shape[1], k.shape[1]
+    mask = causal_mask(Sq, Sk, q.device) if causal else None
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp(s - lse.to(acc)[..., None])
+        if mask is not None:  # a row that sees no key: the forward's uniform P
+            blind = (torch.arange(Sq, device=q.device) + (Sk - Sq) < 0)[:, None]
+            p = torch.where(blind, 1.0 / Sk, p)
+    del s
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - (dof * of).sum(-1)[..., None])
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * sc
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * sc
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_scan_ref(
@@ -178,6 +230,26 @@ def swiglu_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Ten
     g = torch.einsum("md,df->mf", x.to(F32), wg.to(F32))
     u = torch.einsum("md,df->mf", x.to(F32), wu.to(F32))
     return (F.silu(g) * u).to(x.dtype)
+
+
+def swiglu_derivative(g: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                      dtype: torch.dtype):
+    """(dg, du) of silu(g) ⊙ u at ``dout``, from g and u in f32 (or f64):
+    s = σ(g), du = dout g s, dg = dout u s (1 + g (1 - s)), in ``dtype``."""
+    d = dout.to(g.dtype)
+    s = torch.sigmoid(g)
+    return (d * u * s * (1 + g * (1 - s))).to(dtype), (d * g * s).to(dtype)
+
+
+def swiglu_bwd_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
+    """(dg, du) of silu(x wg) ⊙ (x wu) at ``dout``, as the ``wgmma_bwd``
+    kernel computes them: g = x wg and u = x wu in f32 (f64 for f64 inputs),
+    then :func:`swiglu_derivative`, in x's dtype.  One product or a leading
+    expert dim."""
+    acc = torch.promote_types(x.dtype, F32)
+    xf = x.to(acc)
+    return swiglu_derivative(torch.matmul(xf, wg.to(acc)), torch.matmul(xf, wu.to(acc)), dout,
+                             x.dtype)
 
 
 def swiglu_experts_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:

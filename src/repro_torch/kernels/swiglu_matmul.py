@@ -33,9 +33,20 @@ the entry (``kernels/_work.py``), whichever of the three routes it takes.
 
 On the card each launch sits in a ``torch.autograd.Function``, so the output
 has a gradient path whenever an input requires grad.  The reference's
-kernel has no custom VJP (its model trains through plain einsums), so there
-is no backward kernel to port: the backward of both entries is
-:func:`swiglu_vjp`, an explicit VJP in PyTorch.
+kernel has no custom VJP (its model trains through plain einsums); the
+port's backward of either entry is a kernel where the shapes allow it:
+:func:`select_bwd_variant` picks ``wgmma_bwd`` (``experts_wgmma_bwd``) for
+every bf16 call whose D and F are multiples of 8, at any M: the ``wgmma``
+kernel's mainloop recomputes g = x wg and u = x wu and its backward
+epilogue writes dg and du (:func:`ref.swiglu_bwd_ref`); the wrapper then
+forms dx = dg wgᵀ + du wuᵀ, dwg = xᵀ dg, dwu = xᵀ du as plain products
+(:func:`swiglu_grads`, counted as ``("swiglu_matmul", "vjp")``).  Other
+calls (f32; D or F not a multiple of 8) get ``"vjp"``: :func:`swiglu_vjp`,
+the same derivative in PyTorch.  The choice is made from the shapes and
+the dtype before anything launches; nothing falls back from a failed
+launch.  The kernel records its :func:`work_bwd` as ``("swiglu_matmul",
+"wgmma_bwd")``; on ``meta`` it returns empty dg and du and counts the
+launch.
 """
 from __future__ import annotations
 
@@ -47,10 +58,11 @@ from repro_torch.kernels._build import (
     KernelLibrary, check_aligned, check_cuda_operands, stream_handle,
 )
 from repro_torch.kernels._work import record, uncounted
-from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
+from repro_torch.kernels.ref import swiglu_derivative, swiglu_experts_ref, swiglu_ref
 
-__all__ = ["swiglu_matmul", "swiglu_experts", "swiglu_vjp", "select_variant",
-           "select_experts_variant", "work", "LIBRARY", "PREFILL_MIN_M"]
+__all__ = ["swiglu_matmul", "swiglu_experts", "swiglu_vjp", "swiglu_grads", "select_variant",
+           "select_experts_variant", "select_bwd_variant", "work", "work_bwd", "LIBRARY",
+           "PREFILL_MIN_M"]
 
 PREFILL_MIN_M = 64  # rows from which the bf16 product is bound by operations
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,6 +77,10 @@ LIBRARY = KernelLibrary("swiglu_matmul", {
     "experts_decode": ("swiglu_experts_decode_fwd", _EXPERT_TC_ARGS),
     # x, wg, wu, out, E, M, D, F, dtype, stream
     "experts_cuda_core": ("swiglu_experts_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, wg, wu, dout, dg, du, M, D, F, stream
+    "wgmma_bwd": ("swiglu_matmul_wgmma_bwd", [_P] * 6 + [_I, _I, _I, _P]),
+    # x, wg, wu, dout, dg, du, E, M, D, F, stream
+    "experts_wgmma_bwd": ("swiglu_experts_wgmma_bwd", [_P] * 6 + [_I, _I, _I, _I, _P]),
 })
 
 
@@ -82,6 +98,16 @@ def select_experts_variant(M: int, D: int, F: int, dtype: torch.dtype) -> str:
     return "experts_" + select_variant(M, D, F, dtype)
 
 
+def select_bwd_variant(M: int, D: int, F: int, dtype: torch.dtype, experts: bool = False) -> str:
+    """The backward a CUDA call of these shapes and dtype runs (of
+    :func:`swiglu_experts` with ``experts``): the ``wgmma_bwd`` kernel
+    (``experts_wgmma_bwd``) for bf16 with D and F multiples of 8, at any M;
+    otherwise ``"vjp"`` (:func:`swiglu_vjp`)."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        return "experts_wgmma_bwd" if experts else "wgmma_bwd"
+    return "vjp"
+
+
 def work(M: int, D: int, F: int, elem: int, E: int = 1) -> tuple:
     """(operations, bytes) of E products of M rows (E = 1: one product):
     operations 2 per multiply-add of both x·wg and x·wu; bytes x and both
@@ -90,30 +116,36 @@ def work(M: int, D: int, F: int, elem: int, E: int = 1) -> tuple:
     return 4.0 * E * M * D * F, E * (M * D + 2 * D * F + M * F) * elem
 
 
-def swiglu_vjp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
-    """(dx, dwg, dwu) of out = silu(x wg) ⊙ (x wu) at the cotangent ``dout``,
-    in the inputs' dtypes, for x [M, D] and wg, wu [D, F], or for a leading
-    expert dim (x [E, M, D], wg, wu [E, D, F]):
+def work_bwd(M: int, D: int, F: int, elem: int, E: int = 1) -> tuple:
+    """(operations, bytes) of E backward kernel calls of M rows: operations
+    the two recomputed products (as :func:`work`); bytes x, both weights and
+    dout read once, dg and du written once."""
+    return 4.0 * E * M * D * F, E * (M * D + 2 * D * F + 3 * M * F) * elem
 
-        g = x wg, u = x wu (recomputed);  du = dout ⊙ silu(g);
-        dg = dout ⊙ u ⊙ σ(g)(1 + g(1 - σ(g)));
-        dx = dg wgᵀ + du wuᵀ;  dwg = xᵀ dg;  dwu = xᵀ du.
 
-    The products are ``torch.matmul`` in the operands' dtype (cuBLAS
-    accumulates bf16 in f32 and rounds the result to bf16, as the
-    reference's einsums do); the elementwise derivative is f32 (f64 for f64
-    inputs)."""
-    acc = torch.promote_types(x.dtype, torch.float32)
-    g = torch.matmul(x, wg).to(acc)
-    u = torch.matmul(x, wu).to(acc)
-    d = dout.to(acc)
-    sig = torch.sigmoid(g)
-    du = (d * g * sig).to(x.dtype)
-    dg = (d * u * sig * (1 + g * (1 - sig))).to(x.dtype)
-    del g, u, d, sig
+def swiglu_grads(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dg: torch.Tensor,
+                 du: torch.Tensor):
+    """(dx, dwg, dwu) from dg and du: dx = dg wgᵀ + du wuᵀ, dwg = xᵀ dg,
+    dwu = xᵀ du, as ``torch.matmul`` in the operands' dtype (one product or
+    a leading expert dim)."""
     dx = torch.matmul(dg, wg.transpose(-1, -2)) + torch.matmul(du, wu.transpose(-1, -2))
     xt = x.transpose(-1, -2)
     return dx.to(x.dtype), torch.matmul(xt, dg).to(wg.dtype), torch.matmul(xt, du).to(wu.dtype)
+
+
+def swiglu_vjp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
+    """(dx, dwg, dwu) of out = silu(x wg) ⊙ (x wu) at the cotangent ``dout``,
+    in the inputs' dtypes, for x [M, D] and wg, wu [D, F], or for a leading
+    expert dim (x [E, M, D], wg, wu [E, D, F]): g = x wg and u = x wu
+    recomputed as ``torch.matmul`` in the operands' dtype (cuBLAS
+    accumulates bf16 in f32 and rounds the result to bf16, as the
+    reference's einsums do), :func:`ref.swiglu_derivative` in f32 (f64 for
+    f64 inputs), then :func:`swiglu_grads`."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    g, u = torch.matmul(x, wg).to(acc), torch.matmul(x, wu).to(acc)
+    dg, du = swiglu_derivative(g, u, dout, x.dtype)
+    del g, u
+    return swiglu_grads(x, wg, wu, dg, du)
 
 
 def _launch(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
@@ -138,8 +170,28 @@ def _launch(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor
     return out
 
 
+def _launch_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor):
+    """Launch ``wgmma_bwd`` (``experts_wgmma_bwd`` for x [E, M, D]): (dg, du)
+    of dout's shape and dtype."""
+    experts = x.dim() == 3
+    name = "swiglu_experts" if experts else "swiglu_matmul"
+    check_cuda_operands(name, (x, wg, wu, dout), (torch.bfloat16,))
+    *lead, M, D = x.shape
+    variant = "experts_wgmma_bwd" if experts else "wgmma_bwd"
+    dg, du = torch.empty_like(dout), torch.empty_like(dout)
+    if x.is_meta:
+        LIBRARY.account(variant)
+        return dg, du
+    check_aligned(name, (x, wg, wu, dout))
+    LIBRARY.launch(variant, *(t.data_ptr() for t in (x, wg, wu, dout, dg, du)), *lead, M, D,
+                   wg.shape[-1], stream_handle(x))
+    return dg, du
+
+
 class _SwiGLU(torch.autograd.Function):
-    """Either entry's launch forward, :func:`swiglu_vjp` backward."""
+    """Either entry's launch forward; backward the ``wgmma_bwd`` launch and
+    :func:`swiglu_grads`, or :func:`swiglu_vjp`, as :func:`select_bwd_variant`
+    picks."""
 
     @staticmethod
     def forward(ctx, x, wg, wu):
@@ -148,8 +200,17 @@ class _SwiGLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        x, wg, wu = ctx.saved_tensors
+        *lead, M, D = x.shape
+        F = wg.shape[-1]
+        variant = select_bwd_variant(M, D, F, x.dtype, experts=bool(lead))
+        if variant == "vjp":
+            with uncounted("swiglu_matmul"):
+                return swiglu_vjp(x, wg, wu, dout)
+        record("swiglu_matmul", variant, work_bwd(M, D, F, x.element_size(), *lead))
+        dg, du = _launch_bwd(x, wg, wu, dout.contiguous())
         with uncounted("swiglu_matmul"):
-            return swiglu_vjp(*ctx.saved_tensors, dout)
+            return swiglu_grads(x, wg, wu, dg, du)
 
 
 def swiglu_matmul(

@@ -13,16 +13,17 @@ the port has no compiler to ask, so it runs the step and counts it:
 - :func:`count_step` runs it inside a ``kernels._work.WorkLog``: the aten
   ops' FLOPs (``torch.utils.flop_counter``), each kernel call's own
   ``work()`` recorded once at its entry (so a call counts the same work on
-  ``meta``, the CPU and the card), each kernel VJP's FLOPs on their own,
-  the launches (``LIBRARY.counts``), the operands' bytes and the peak of
-  what the step allocates;
+  ``meta``, the CPU and the card; backward kernels too, as
+  ``flash_attention[mma_bwd]``, ``swiglu_matmul[wgmma_bwd]``), each kernel
+  VJP's FLOPs on their own, the launches (``LIBRARY.counts``), the
+  operands' bytes and the peak of what the step allocates;
 - :func:`analyze_cell` sets the count beside :func:`attach_analytic`'s
   terms and the chip's memory; :func:`validate_probe` holds the count of a
   shallow full-width probe against the analytic model, by component.
 
 On the CPU a train step's backward runs through the plain versions (autograd
-through their aten ops), on ``meta`` and the card through the kernels' VJPs:
-the two counts differ by design.  Prefill and decode count the same on all
+through their aten ops), on ``meta`` and the card through the backward
+kernels and the VJPs: the two counts differ by design.  Prefill and decode count the same on all
 three.  ``moe_impl="scatter"`` has shapes that depend on the routing and
 cannot run on ``meta``; it is counted on real tensors only.
 
@@ -127,7 +128,8 @@ def tensor_bytes(tree) -> int:
 def count_step(step: Callable, args: tuple) -> Dict[str, Any]:
     """Run ``step(*args)`` once, counted.  Returns ``flops`` (the total),
     ``components`` (FLOPs by aten op, ``"aten.mm"``, ..., by kernel variant,
-    ``"flash_attention[mma]"``, ..., and by kernel VJP,
+    ``"flash_attention[mma]"``, ``"flash_attention[mma_bwd]"``, ..., and by
+    kernel VJP,
     ``"flash_attention.vjp"``, ...), ``kernels`` (per kernel variant: calls,
     FLOPs, bytes of its ``work()``), ``launches`` (per kernel and variant:
     what ``LIBRARY.counts`` rose by; 0 on the CPU, which launches nothing),
@@ -287,7 +289,7 @@ def validate_probe(arch: str, kind: str, device="meta", seq: int = 1024, batch: 
     """Count a probe (``probe_config`` depth, full width, one microbatch,
     f32 moments) on ``device`` and hold it against the analytic terms, in
     total and by component: the attention core (the flash kernel and its
-    VJP against all S² scores: the kernel's causal calls count only the
+    backward against all S² scores: the kernel's causal calls count only the
     pairs the mask leaves) and the SSD core (the scan and its VJP against
     the conv and the chunked scan); ``rest`` is everything else.
     ``finite``: the counted step's outputs are finite (they are not kept).

@@ -14,7 +14,12 @@ that are multiples of 16; the SSD scan: wgmma for head dim 64 and a state
 width that is a multiple of 16 up to 128) unless the shapes rule them out.  Tolerances are
 those of ``tests/test_kernels.py`` for flash attention and SwiGLU; ssd_scan
 is held element by element against the exact sequential recurrence, as
-``chip_smoke.py`` holds it (see ``_ssd_close``).
+``chip_smoke.py`` holds it (see ``_ssd_close``).  The backward kernels
+(flash ``mma_bwd``, SwiGLU ``wgmma_bwd`` and ``experts_wgmma_bwd``) are
+held against their plain versions and launched twice for the same bits
+(``test_flash_mma_bwd``, ``test_swiglu_wgmma_bwd``), and through the
+autograd Functions against autograd through the plain versions
+(``test_*_vjp_on_card``).
 """
 import numpy as np
 import pytest
@@ -749,7 +754,8 @@ def test_flash_vjp_on_card(card, dtype, causal, Sq, Sk, D, Dv):
     assert FLASH_LIBRARY.launches == before + 1 and o.grad_fn is not None
     got = torch.autograd.grad(o, (q, k, v), do)
     want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=causal), (q, k, v), do)
-    assert FLASH_LIBRARY.launches == before + 1  # the backward launches no kernel
+    # bf16: the backward launches mma_bwd; f32: its VJP is PyTorch
+    assert FLASH_LIBRARY.launches == before + (2 if dtype == torch.bfloat16 else 1)
     _grads_close(got, want, dtype)
 
 
@@ -780,6 +786,88 @@ def test_swiglu_experts_vjp_on_card(card, dtype, E, M, D, F):
     got = torch.autograd.grad(out, (x, wg, wu), dout)
     want = torch.autograd.grad(swiglu_experts_ref(x, wg, wu), (x, wg, wu), dout)
     _grads_close(got, want, dtype)
+
+
+# --------------------------------------------------------------------------- #
+# the backward kernels against their plain versions, and run against run
+# --------------------------------------------------------------------------- #
+# Each kernel against its plain version from the same inputs (flash: the
+# kernel's own o and lse): both compute in f32; the kernels round P and dS
+# (flash) to bf16 for their products, and every gradient is rounded to bf16.
+# Within 3e-2 of each gradient's largest magnitude, as the VJPs above.
+BWD_TOL = 3e-2
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", [(100, 100, 32, 32), (128, 128, 64, 64),
+                                        (1024, 1024, 64, 64), (100, 130, 64, 64),
+                                        (130, 100, 64, 64), (1, 100, 64, 64),
+                                        (100, 100, 80, 80), (77, 130, 80, 80),
+                                        (150, 150, 128, 128), (300, 300, 128, 128),
+                                        (100, 100, 192, 128), (256, 256, 192, 128),
+                                        (130, 100, 192, 128)])
+def test_flash_mma_bwd(card, causal, Sq, Sk, D, Dv):
+    """``mma_bwd`` at every tile class (32/32, 64/64, 128/128, 192/128),
+    ragged S, Sq != Sk both ways (rows that see no key): dq, dk, dv against
+    ``flash_attention_bwd_ref`` from the forward kernel's o and lse (lse
+    against the plain version's to 1e-4), and bit for bit the same over two
+    calls."""
+    import importlib
+
+    from repro_torch.kernels import flash_attention_bwd_ref
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q, k, v, do = _inputs(card, 40, [(3, Sq, D), (3, Sk, D), (3, Sk, Dv), (3, Sq, Dv)],
+                          torch.bfloat16)
+    sc = D ** -0.5
+    o, lse = fa._launch(q, k, v, causal, sc, with_lse=True)
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, scale=sc, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    before = dict(FLASH_LIBRARY.counts)
+    got = fa._launch_bwd(q, k, v, o, do, lse, causal, sc)
+    assert FLASH_LIBRARY.counts["mma_bwd"] == before["mma_bwd"] + 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, w) <= BWD_TOL, (name, _rel(g, w))
+    again = fa._launch_bwd(q, k, v, o, do, lse, causal, sc)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("E,M,D,F", [(None, 8, 256, 96), (None, 200, 256, 96),
+                                     (None, 79, 2056, 200), (None, 4096, 2048, 512),
+                                     (None, 1, 64, 64), (5, 64, 256, 96), (3, 24, 256, 96),
+                                     (4, 120, 2048, 1408), (3, 7, 64, 64),
+                                     (4, 1280, 4096, 14336)])
+def test_swiglu_wgmma_bwd(card, E, M, D, F):
+    """``wgmma_bwd`` and ``experts_wgmma_bwd`` at rows below and above 64,
+    ragged M and F tiles, a K tail (D = 2056), DeepSeek's experts and the
+    Jamba train period's (4 kept of 16, 1280 rows each): dg and du against
+    ``swiglu_bwd_ref`` (the forward's tolerance: 5e-2 + 2e-2·|ref|), and
+    bit for bit the same over two calls."""
+    import importlib
+
+    from repro_torch.kernels import swiglu_bwd_ref
+
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    lead = () if E is None else (E,)
+    x, wg, wu, dout = _inputs(card, 41, [(*lead, M, D), (*lead, D, F), (*lead, D, F),
+                                         (*lead, M, F)], torch.bfloat16,
+                              scales=[1.0, D ** -0.5, D ** -0.5, 1.0])
+    variant = "wgmma_bwd" if E is None else "experts_wgmma_bwd"
+    before = dict(SWIGLU_LIBRARY.counts)
+    got = sw._launch_bwd(x, wg, wu, dout)
+    assert SWIGLU_LIBRARY.counts[variant] == before[variant] + 1
+    for g, w in zip(got, swiglu_bwd_ref(x, wg, wu, dout)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=2e-2)
+    again = sw._launch_bwd(x, wg, wu, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -880,8 +968,9 @@ def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
             loss, _ = loss_fn(m, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev), remat=True)
             loss.backward()
             if dev == "cuda":  # every layer's kernel launches twice: forward, recompute
-                n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
-                assert FLASH_LIBRARY.launches == before[0] + 2 * (cfg.n_layers - n_ssm)
+                n_ssm = cfg.n_layers if cfg.family == "ssm" else 0  # (bf16: and mma_bwd)
+                per_layer = 3 if dtype == torch.bfloat16 else 2
+                assert FLASH_LIBRARY.launches == before[0] + per_layer * (cfg.n_layers - n_ssm)
                 assert SSD_LIBRARY.launches == before[1] + 2 * n_ssm
             grads[dev] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
         for name, g in grads["cuda"].items():

@@ -44,7 +44,7 @@ from repro_torch.launch import analysis as A
 from repro_torch.launch import dryrun, postprocess
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import CARD_MESH, production_mesh_shape
-from repro_torch.models import init_params
+from repro_torch.models import init_params, layer_plan
 from repro_torch.models import transformer as T
 from repro_torch.parallel.sharding import ParamDef, init_tree
 from repro_torch.train.loop import TrainConfig, make_train_step
@@ -273,8 +273,12 @@ def test_flash_attention_on_meta(D, Dv, dtype, variant):
     with WorkLog() as log:
         o.sum().backward()
     assert [tuple(t.grad.shape) for t in (q, k, v)] == [(6, 100, D), (6, 130, D), (6, 130, Dv)]
-    assert list(log.calls) == [("flash_attention", "vjp")] and log.calls[
-        ("flash_attention", "vjp")][1] > 0
+    if variant == "mma":  # the backward kernel: its work, recorded once
+        assert log.calls == {("flash_attention", "mma_bwd"): [
+            1, *fa.work_bwd(6, 100, 130, D, True, q.element_size(), Dv)]}
+    else:  # the explicit VJP: its aten FLOPs
+        assert list(log.calls) == [("flash_attention", "vjp")] and log.calls[
+            ("flash_attention", "vjp")][1] > 0
 
 
 @pytest.mark.parametrize("M,D,F,dtype,variant", [
@@ -297,6 +301,8 @@ def test_swiglu_on_meta(M, D, F, dtype, variant):
     with WorkLog() as log:
         o.sum().backward()
     assert tuple(x.grad.shape) == (E, M, D) and ("swiglu_matmul", "vjp") in log.calls
+    assert (("swiglu_matmul", "experts_wgmma_bwd") in log.calls) == (dtype == torch.bfloat16
+                                                                     and D % 8 == F % 8 == 0)
 
 
 @pytest.mark.parametrize("return_state", [False, True])
@@ -376,16 +382,25 @@ def test_meta_count_equals_cpu_count(family, kind):
 
 
 def test_train_counts_the_vjps_on_meta_and_the_plain_versions_on_the_cpu():
-    """The two counts differ by design: on ``meta`` (as on the card) each
-    kernel's backward is its VJP, recorded as ``<kernel>.vjp``; on the CPU
-    autograd runs through the plain versions, whose backward aten ops count
-    as aten ops."""
+    """The two counts differ by design: on ``meta`` (as on the card) the
+    flash and SwiGLU backwards are kernels (``[mma_bwd]``, ``[wgmma_bwd]``,
+    ``[experts_wgmma_bwd]``; the SwiGLU's four products around its kernel,
+    and the SSD scan's backward, PyTorch, recorded as ``<kernel>.vjp``); on
+    the CPU autograd runs through the plain versions, whose backward aten
+    ops count as aten ops."""
     cfg = get_config("jamba-v0.1-52b").reduced()
     shape = ShapeSpec("s", "train", 64, 2)
     meta, cpu = _count(cfg, shape, "meta"), _count(cfg, shape, "cpu")
-    assert meta["kernels"] == cpu["kernels"]  # the forwards (twice: remat) alike
+    bwd = {k: row for k, row in meta["kernels"].items() if k.endswith("_bwd]")}
+    assert set(bwd) == {"flash_attention[mma_bwd]", "swiglu_matmul[wgmma_bwd]",
+                        "swiglu_matmul[experts_wgmma_bwd]"}
+    # the forwards (twice: remat) alike
+    assert {k: row for k, row in meta["kernels"].items() if k not in bwd} == cpu["kernels"]
+    plan = layer_plan(cfg)
+    assert bwd["flash_attention[mma_bwd]"]["calls"] == sum(s.mixer == "attn" for s in plan)
+    assert meta["launches"]["flash_attention"]["mma_bwd"] == sum(s.mixer == "attn" for s in plan)
     vjps = {k for k in meta["components"] if k.endswith(".vjp")}
-    assert vjps == {"flash_attention.vjp", "swiglu_matmul.vjp", "ssd_scan.vjp"}
+    assert vjps == {"swiglu_matmul.vjp", "ssd_scan.vjp"}
     assert not {k for k in cpu["components"] if k.endswith(".vjp")}
     assert A.finite(cpu["outputs"]) and torch.isfinite(cpu["outputs"][2]["loss"])
 
@@ -492,7 +507,8 @@ def _xla_comparable(arch, shape):
     plain = A.count_step(make_train_step(cfg, TrainConfig(microbatches=1, remat=False)), args)
     recompute_saved = remat["unbatched_flops"] - plain["unbatched_flops"]
     dense_swiglu = sum(v for k, v in remat["components"].items()
-                       if k.startswith("swiglu_matmul[") and "experts" not in k)
+                       if k.startswith("swiglu_matmul[") and "experts" not in k
+                       and not k.endswith("_bwd]"))
     return remat["flops"] - recompute_saved - dense_swiglu / 2  # one VJP a forward and recompute
 
 

@@ -3,10 +3,10 @@
 Both packages get the same weights (the reference's ``init_params`` tree in
 f32, handed over as numpy through ``params_from_numpy``) and the same
 numpy inputs.  On the CPU the kernel wrappers take their plain versions and
-autograd runs through them; the CUDA route (kernel forward, explicit VJP
-backward) is stood in for here by the same ``torch.autograd.Function``s with
-the launch swapped for the plain version (``test_kernel_functions_*``), and
-runs for real on the card (``tests/test_torch_card.py``, ``chip_smoke.py``).
+autograd runs through them; the CUDA route (kernel forward, backward kernel
+or explicit VJP) is stood in for here by the same ``torch.autograd.Function``s
+with the launches swapped for the plain versions (``test_kernel_functions_*``),
+and runs for real on the card (``tests/test_torch_card.py``, ``chip_smoke.py``).
 
 Tolerances (f32 on both sides; the two differ in summation order, and in
 attention: the port's flash plain version against the reference's chunked
@@ -235,17 +235,30 @@ def stand_in_kernels(monkeypatch):
     """Route the CPU calls of the flash, SwiGLU and SSD-scan wrappers
     through their CUDA path's ``autograd.Function``s, with each launch
     replaced by the plain version under ``no_grad`` (what a kernel returns:
-    a tensor with no history).  The backward is then the explicit VJP, as
-    on the card.  The mixer's scan takes the ``wgmma`` route, on the views
+    a tensor with no history).  The flash and SwiGLU backwards take their
+    kernel route whatever the dtype (``select_bwd_variant`` stood in too):
+    the backward launches become the plain backward versions
+    (``flash_attention_bwd_ref`` from the forward's lse, ``swiglu_bwd_ref``
+    and the four products), as on the card; the SSD scan's backward is its
+    explicit VJP.  The mixer's scan takes the ``wgmma`` route, on the views
     of the conv output with A expanded to [B, H]."""
-    def flash_launch(q, k, v, causal, sc):
+    def flash_launch(q, k, v, causal, sc, with_lse=False):
         with torch.no_grad():
-            return plain.flash_attention_ref(q, k, v, causal=causal, scale=sc)
+            o, lse = plain.flash_attention_ref(q, k, v, causal=causal, scale=sc, return_lse=True)
+        return o, (lse if with_lse else None)
+
+    def flash_launch_bwd(q, k, v, o, do, lse, causal, sc):
+        with torch.no_grad():
+            return plain.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
 
     def swiglu_launch(x, wg, wu):
         with torch.no_grad():
             ref = plain.swiglu_experts_ref if x.dim() == 3 else plain.swiglu_ref
             return ref(x, wg, wu)
+
+    def swiglu_launch_bwd(x, wg, wu, dout):
+        with torch.no_grad():
+            return plain.swiglu_bwd_ref(x, wg, wu, dout)
 
     def ssd_launch(x, dt, A2, Bm, Cm, return_state):
         with torch.no_grad():
@@ -261,7 +274,13 @@ def stand_in_kernels(monkeypatch):
                                       Bm, Cm, "wgmma", return_state)
 
     monkeypatch.setattr(flash_mod, "_launch", flash_launch)
+    monkeypatch.setattr(flash_mod, "_launch_bwd", flash_launch_bwd)
+    monkeypatch.setattr(flash_mod, "select_bwd_variant", lambda D, Dv, dtype: "mma_bwd")
     monkeypatch.setattr(swiglu_mod, "_launch", swiglu_launch)
+    monkeypatch.setattr(swiglu_mod, "_launch_bwd", swiglu_launch_bwd)
+    monkeypatch.setattr(swiglu_mod, "select_bwd_variant",
+                        lambda M, D, F, dtype, experts=False:
+                        "experts_wgmma_bwd" if experts else "wgmma_bwd")
     monkeypatch.setattr(ssd_mod, "_launch_wgmma", ssd_launch)
     import repro_torch.kernels.ops as ops
     monkeypatch.setattr(ops, "flash_attention", flash)
@@ -285,13 +304,28 @@ def test_kernel_functions_carry_gradients(arch, stand_in_kernels):
     (attention, mixers, experts and dense FFNs in one backward)."""
     jcfg, cfg, params = _reference_f32(arch)
     tokens, embeds, labels = _inputs(cfg)
-    vjp_calls = []
-    vjp = ssd_mod.ssd_scan_vjp
+    calls = {"ssd_scan_vjp": 0, "flash_attention_vjp": 0, "swiglu_vjp": 0,
+             "flash_bwd": 0, "swiglu_bwd": 0}
+
+    def counting(name, fn):
+        def call(*a):
+            calls[name] += 1
+            return fn(*a)
+        return call
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ssd_mod, "ssd_scan_vjp", lambda *a: vjp_calls.append(1) or vjp(*a))
+        for mod, name in ((ssd_mod, "ssd_scan_vjp"), (flash_mod, "flash_attention_vjp"),
+                          (swiglu_mod, "swiglu_vjp")):
+            mp.setattr(mod, name, counting(name, getattr(mod, name)))
+        mp.setattr(flash_mod, "_launch_bwd", counting("flash_bwd", flash_mod._launch_bwd))
+        mp.setattr(swiglu_mod, "_launch_bwd", counting("swiglu_bwd", swiglu_mod._launch_bwd))
         _, _, grads = _port_grads(cfg, _port(cfg, params), tokens, embeds, labels)
-    n_ssm = sum(slot.mixer == "ssm" for slot in layer_plan(cfg))
-    assert len(vjp_calls) == n_ssm  # one VJP a mixer
+    plan = layer_plan(cfg)
+    assert calls["ssd_scan_vjp"] == sum(slot.mixer == "ssm" for slot in plan)  # one a mixer
+    # one backward launch an attention layer, none through the PyTorch VJPs
+    assert calls["flash_bwd"] == sum(slot.mixer == "attn" for slot in plan)
+    assert calls["flash_attention_vjp"] == calls["swiglu_vjp"] == 0
+    assert calls["swiglu_bwd"] >= sum(slot.ffn == "dense" for slot in plan)
     rgrads = jax.jit(jax.grad(lambda p: jax_loss_fn(p, jcfg, _j(tokens), _j(labels),
                                                    embeds=_j(embeds))[0]))(params)
     _assert_grads(reference_tree(cfg, grads), rgrads)
