@@ -19,7 +19,8 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              same function (a yardstick the port never calls: SDPA on 4-D
              views under a forced, named fused backend; cuBLAS for SwiGLU);
              the backward kernels at the train paths' shapes, each launched
-             twice for the same bits, beside SDPA's backward and cuBLAS.
+             twice for the same bits, beside SDPA's backward and cuBLAS (the
+             SSD scan's beside ``ssd_scan_vjp``).
 4. serve   — the LM paths, each at full width, random weights from a
              seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
              attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
@@ -58,16 +59,17 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              checkpoints in a temporary directory, against an uninterrupted
              run, bit for bit (the backward kernels use no float atomics).
              Then mamba2-370m (48 layers, 0.420 B parameters) through the SSD
-             scan's ``wgmma`` kernel forward and its VJP (PyTorch) backward,
-             with the same data shape and checks: (a)'s fault the SSD
-             Function's backward returning None; (b) the VJP on the mixer's
-             strided views at B 4, S 1024, dt ~0.02 (faults: dh not carried
-             across chunks, exp(cs) dropped from dcs, dA left out); (c) with
-             dt_bias at -4 so the carried state counts; (e) 192 ``wgmma``
-             launches a step.  Then one Jamba-v0.1 period (8 layers, full
+             scan's ``wgmma`` kernel forward and its ``wgmma_bwd`` kernel
+             backward, with the same data shape and checks: (a)'s fault the
+             SSD Function's backward returning None; (b) the backward kernel
+             on the mixer's strided views at B 4, S 1024, dt ~0.02 (faults
+             through its launch: no carry across chunks, dB and dC swapped,
+             dA dropped); (c) with dt_bias at -4 so the carried state counts;
+             (e) 192 ``wgmma`` and 96 ``wgmma_bwd`` launches a step, the SSD
+             VJP called 0 times.  Then one Jamba-v0.1 period (8 layers, full
              width, experts cut from 16 to 4, AdamW with bf16 moments): (a)
              with every kernel's backward gone as the fault, 5 counted steps,
-             the loss falling.
+             no PyTorch VJP called, the loss falling.
    accounting — the launch accounting (``src/repro_torch/launch``): (a) for
              every registry arch × runnable shape at full size on one card,
              host only, the analytic compute and memory seconds under the
@@ -154,6 +156,12 @@ SWIGLU_TOL = {"torch.float32": (1e-4, 2e-2), "torch.bfloat16": (5e-2, 2e-2)}
 # (tests/test_torch_card.py's bound).  The SwiGLU backward kernel's dg and du
 # are held to SWIGLU_TOL, as its forward.
 BWD_TOL = 3e-2
+# the SSD scan's backward kernel against ssd_scan_vjp on the same inputs,
+# within this share of each gradient's largest magnitude: both compute in
+# f32 (the kernel's f32 operands as bf16 hi + lo pairs: ~5e-6 of each
+# gradient on the CPU, ref.ssd_scan_bwd_phases) and round dx, dB and dC to
+# bf16 (tests/test_torch_card.py's bound)
+SSD_BWD_TOL = 1e-2
 # the forward kernel's lse (f32, natural log) against the plain forward's,
 # per element, (absolute, relative) as tests/test_torch_card.py holds it
 LSE_TOL = (1e-4, 1e-4)
@@ -528,7 +536,12 @@ def backward_paths(torch, timer, rows, randn) -> None:
     E 4, M 1280, D 4096, F 14336), the path that launches it.  The
     library's backward is SDPA's (under the forward's forced backend), and
     for the SwiGLU the two cuBLAS products with autograd's derivative of
-    ``F.silu(g) * u``."""
+    ``F.silu(g) * u``.  Then the SSD scan's ``wgmma_bwd`` at mamba2's train
+    layout (B 4, S 1024, H 32, N 128) and the Jamba period's (B 2, H 128,
+    N 16), on strided views of one conv output with dt ~0.02 (the carry
+    counts), against ``ssd_scan_vjp`` (its plain version, and the VJP it
+    replaces) within SSD_BWD_TOL of each gradient's largest magnitude; no
+    library call computes an SSD scan."""
     import importlib
 
     import torch.nn.functional as F
@@ -627,6 +640,39 @@ def backward_paths(torch, timer, rows, randn) -> None:
         log(f"swiglu_matmul[{variant}] {what}: dg, du within {tol}; bit-identical over two "
             f"launches")
         del x, dout, wg, wu, got, want
+        torch.cuda.empty_cache()
+
+    from repro_torch.kernels import SSD_LIBRARY
+
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    for key, Bsz, H, N in (("train", 4, 32, 128), ("train_jamba", 2, 128, 16)):
+        S, G, P = TRAIN_SEQ, 1, 64
+        buf = randn(Bsz, S, H * P + 2 * G * N, dtype=bf16, scale=0.5)
+        x = buf[..., :H * P].reshape(Bsz, S, H, P)
+        Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+        Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+        dt = F.softplus(randn(Bsz, S, H, dtype=torch.float32) - 4.0)
+        A2 = (-torch.exp(randn(H, dtype=torch.float32, scale=0.5)))[None].expand(Bsz, H)
+        dy = randn(Bsz, S, H, P, dtype=bf16)
+        what = f"B={Bsz} S={S} H={H} G={G} P={P} N={N}"
+        got, variant = twice(SSD_LIBRARY, lambda: ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, None),
+                             what)
+        want = ssd.ssd_scan_vjp(x, dt, A2, Bm, Cm, dy, None)
+        rel = max(rel_err(g, w) for g, w in zip(got, want))
+        if variant != "wgmma_bwd" or not rel <= SSD_BWD_TOL:
+            raise AssertionError(f"ssd_scan[{variant}] {what}: largest error {rel:.3g} of a "
+                                 f"gradient's largest magnitude > {SSD_BWD_TOL}")
+        b_ms, b_by = H100.bound_ms(*ssd.work_bwd(Bsz * H, Bsz * G, S, P, N, 2), bf16)
+        rows[("ssd_scan", variant, key)] = dict(
+            shape=what + " bf16, views of conv_out, dt ~0.02",
+            max_abs_err=max(max_err(g, w) for g, w in zip(got, want)), rel_err=rel,
+            tol_share=SSD_BWD_TOL,
+            ms=timer.ms(lambda: ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, None)),
+            plain_ms=timer.ms(lambda: ssd.ssd_scan_vjp(x, dt, A2, Bm, Cm, dy, None), reps=5),
+            library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"ssd_scan[{variant}] {what}: largest error {rel:.3g} of a gradient's largest "
+            f"magnitude; bit-identical over two launches")
+        del buf, x, Bm, Cm, dt, A2, dy, got, want
         torch.cuda.empty_cache()
 
 
@@ -927,7 +973,8 @@ def check_kernels(torch, timer):
     for (BH, S, P, N, dtype) in slow_cases:
         ssd_check(f"{(BH, S, P, N)} slow decay", ssd_inputs(BH, S, P, N, dtype, dt_shift=4.0),
                   dtype)
-    if hit[SSD_LIBRARY.name] != set(SSD_LIBRARY.variants):
+    # the backward kernel: backward_paths
+    if hit[SSD_LIBRARY.name] != {v for v in SSD_LIBRARY.variants if not v.endswith("_bwd")}:
         raise AssertionError(f"ssd_scan: the sweep reached {sorted(hit[SSD_LIBRARY.name])}")
 
     def conv_views(Bsz, S, H, G, P, N, scale=1.0):
@@ -1040,10 +1087,10 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
     flash in each attention layer): ``tcfg.microbatches`` forwards of
     global_batch / microbatches sequences each, twice under remat (the
     forward, then its recompute in the backward), and one backward of each:
-    per attention layer one flash ``mma_bwd``, per SwiGLU call of the
-    forward one ``wgmma_bwd`` (``experts_wgmma_bwd``), each through the
-    variant ``select_bwd_variant`` picks (the SSD scan's backward is
-    PyTorch)."""
+    per attention layer one flash ``mma_bwd``, per mamba2 mixer one SSD
+    ``wgmma_bwd``, per SwiGLU call of the forward one ``wgmma_bwd``
+    (``experts_wgmma_bwd``), each through the variant ``select_bwd_variant``
+    picks (a ``"vjp"`` backward, PyTorch, launches nothing)."""
     n_backward = 0
     if train is not None:
         tcfg, global_batch, seq_len = train
@@ -1052,7 +1099,8 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
         n_backward = tcfg.microbatches
     from repro_torch.kernels import (
         LIBRARIES, select_experts_variant, select_flash_bwd_variant, select_flash_variant,
-        select_ssd_variant, select_swiglu_bwd_variant, select_swiglu_variant,
+        select_ssd_bwd_variant, select_ssd_variant, select_swiglu_bwd_variant,
+        select_swiglu_variant,
     )
     from repro_torch.models import layer_plan
     from repro_torch.models.layers import moe_capacity
@@ -1078,8 +1126,9 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
             if prefill and slot.mixer == "attn":
                 count("flash_attention", (select_flash_bwd_variant if backward else
                                           select_flash_variant)(dq, dv, bf16))
-            if prefill and slot.mixer == "ssm" and not backward:
-                count("ssd_scan", select_ssd_variant(cfg.ssm.head_dim, cfg.ssm.d_state, bf16))
+            if prefill and slot.mixer == "ssm":
+                count("ssd_scan", (select_ssd_bwd_variant if backward else select_ssd_variant)(
+                    cfg.ssm.head_dim, cfg.ssm.d_state, bf16))
             for f in mlps[slot.ffn]:
                 count("swiglu_matmul", select_swiglu_bwd_variant(rows, cfg.d_model, f, bf16)
                       if backward else select_swiglu_variant(rows, cfg.d_model, f, bf16))
@@ -2007,7 +2056,8 @@ def profile_steps(torch, steps: dict) -> dict:
         events.sort(key=lambda e: -e.self_device_time_total)
         busy = sum(e.self_device_time_total for e in events) / 1e3
         log(f"profile {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
-            f"device idle {100 * max(0.0, 1 - busy / wall):.1f}%")
+            f"device idle {100 * max(0.0, 1 - busy / wall):.1f}%, "
+            f"{sum(e.count for e in events)} device kernels")
         # the eight largest, then every other kernel of the port's sources
         ours = [e for e in events[8:] if any(k in e.key for k in PORT_KERNELS)]
         for e in events[:8] + ours:
@@ -2253,45 +2303,62 @@ def ssd_backward_none():
                    staticmethod(lambda ctx, dy, dh=None: (None,) * 7))
 
 
-def ssd_no_carry(torch):
-    """The SSD VJP with dh not carried across chunks (a planted fault): each
-    chunk ends with a zero cotangent but the last."""
-    def no_carry(decay, r, dh_final):
-        out = torch.zeros_like(r)
-        if dh_final is not None:
-            out[:, -1] = dh_final
-        return out
-    return patched(ssd_module(), "_chunk_end_grads", no_carry)
-
-
-def ssd_ecs_dropped(torch):
-    """The SSD VJP with the exp(cs) factor of the inter-chunk term dropped
-    from dcs (a planted fault)."""
-    return patched(ssd_module(), "_inter_chunk_dcs", lambda ecs, dy, h0C: (dy * h0C).sum(-1))
-
-
-def ssd_no_dA(torch):
-    """The SSD VJP with dA left out (a planted fault)."""
+def ssd_bwd_per_chunk(torch):
+    """The SSD backward kernel launched on each chunk of 64 positions alone
+    (a planted fault): no state reaches a chunk and no state cotangent
+    leaves it, in either direction."""
     ssd = ssd_module()
-    vjp = ssd.ssd_scan_vjp
+    launch, Q = ssd._launch_bwd, ssd.CHUNK["wgmma"]
+
+    def per_chunk(x, dt, A2, Bm, Cm, dy, dh):
+        S = x.shape[1]
+        outs = [launch(x[:, s:s + Q], dt[:, s:s + Q], A2, Bm[:, s:s + Q], Cm[:, s:s + Q],
+                       dy[:, s:s + Q], dh if s + Q >= S else None) for s in range(0, S, Q)]
+        return (torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1),
+                sum(o[2] for o in outs), torch.cat([o[3] for o in outs], 1),
+                torch.cat([o[4] for o in outs], 1))
+    return patched(ssd, "_launch_bwd", per_chunk)
+
+
+def ssd_bwd_swapped(torch):
+    """The SSD backward kernel's dB and dC swapped (a planted fault)."""
+    ssd = ssd_module()
+    launch = ssd._launch_bwd
+
+    def swapped(*args):
+        dx, ddt, dA, dB, dC = launch(*args)
+        return dx, ddt, dA, dC, dB
+    return patched(ssd, "_launch_bwd", swapped)
+
+
+def ssd_bwd_no_dA(torch):
+    """The SSD backward kernel's dA dropped: A's gradient path cut (a
+    planted fault)."""
+    ssd = ssd_module()
+    launch = ssd._launch_bwd
 
     def without_dA(*args):
-        dx, ddt, dA, dB, dC = vjp(*args)
+        dx, ddt, dA, dB, dC = launch(*args)
         return dx, ddt, torch.zeros_like(dA), dB, dC
-    return patched(ssd, "ssd_scan_vjp", without_dA)
+    return patched(ssd, "_launch_bwd", without_dA)
 
 
-SSD_VJP_FAULTS = {"dh not carried": ssd_no_carry, "exp(cs) dropped from dcs": ssd_ecs_dropped,
-                  "dA left out": ssd_no_dA}
+# each through the kernel's own launch (the VJP's planted faults, which
+# patch its helpers, are the CPU tests': tests/test_torch_ssd_vjp.py)
+SSD_BWD_FAULTS = {"no carry across chunks": ssd_bwd_per_chunk, "dB and dC swapped": ssd_bwd_swapped,
+                  "dA dropped": ssd_bwd_no_dA}
 
 
-def ssd_vjp_checks(torch, timer) -> dict:
-    """(b) The SSD scan's VJP at the train path's shape (one microbatch of
-    mamba2-370m: B 4, S 1024, 32 heads of 64, state 128, one group) on the
-    mixer's strided views of one bf16 conv output, dt = softplus(N(0,1) - 4)
-    (dt ~0.02: a dropped carry shows), against autograd through the plain
-    version on the card; the planted faults; the backward's times beside
-    its bound (no library call computes an SSD scan)."""
+def ssd_bwd_checks(torch, timer) -> dict:
+    """(b) The SSD scan's backward at the train path's shape (one microbatch
+    of mamba2-370m: B 4, S 1024, 32 heads of 64, state 128, one group)
+    through ``_SSDScan`` (one ``wgmma_bwd`` launch, no VJP) on the mixer's
+    strided views of one bf16 conv output, dt = softplus(N(0,1) - 4) (dt
+    ~0.02: a dropped carry shows), against autograd through the plain
+    version on the card; the planted faults, each through the kernel's own
+    launch; the backward's times beside its bound and the VJP it replaces
+    (no library call computes an SSD scan).  The kernel's own time is the
+    kernels phase's (``backward_paths``, row "train")."""
     from repro_torch.kernels import ssd_mixer
     from repro_torch.kernels.ref import ssd_mixer_ref
     from repro_torch.launch.roofline_model import H100
@@ -2316,27 +2383,28 @@ def ssd_vjp_checks(torch, timer) -> dict:
         y, _ = fn(x, dt, A, Bm, Cm, return_state=True)  # the train path discards the state
         return torch.autograd.grad(y, (buf, dt, A), dy)
 
+    from repro_torch.kernels import SSD_LIBRARY
+
+    before = dict(SSD_LIBRARY.counts)
     got = fwd_bwd(ssd_mixer)
+    moved = {v: n - before[v] for v, n in SSD_LIBRARY.counts.items() if n != before[v]}
+    if moved != {"wgmma": 1, "wgmma_bwd": 1}:
+        raise AssertionError(f"(b) the SSD forward and backward launched {moved}, not one "
+                             f"wgmma and one wgmma_bwd")
     want = fwd_bwd(ssd_mixer_ref)
     faults = {}
-    for name, fault in SSD_VJP_FAULTS.items():
+    for name, fault in SSD_BWD_FAULTS.items():
         with fault(torch):
             faults[name] = grads_err(fwd_bwd(ssd_mixer), want)
-    hold(f"(b) SSD VJP B={Bsz} S={S} H={H} N={N}, d(conv output)/ddt/dA", grads_err(got, want),
-         VJP_TOL, faults)
+    hold(f"(b) SSD wgmma_bwd B={Bsz} S={S} H={H} N={N}, d(conv output)/ddt/dA",
+         grads_err(got, want), VJP_TOL, faults)
     del got, want
     x, Bm, Cm = (t.detach() for t in views())
     dtd, A2 = dt.detach(), A.detach()[None].expand(Bsz, H)
-    # bytes: x, dy read and dx written (bf16), B, C read and dB, dC written,
-    # dt read and ddt written (f32); operations: the VJP's products over
-    # chunks of 64 (per head 6 of Q·P·N and 2 of Q·Q·P, per group 3 of
-    # Q·Q·N), 2 per multiply-add
-    Q, nc = ssd.VJP_CHUNK, -(-S // ssd.VJP_CHUNK)
-    nbytes = 3 * Bsz * S * H * P * 2 + 4 * Bsz * S * G * N * 2 + 2 * Bsz * S * H * 4 + 2 * H * 4
-    ops = 2.0 * Bsz * nc * (H * (6 * Q * P * N + 2 * Q * Q * P) + G * 3 * Q * Q * N)
-    b_ms, b_by = H100.bound_ms(ops, nbytes, torch.bfloat16)
+    b_ms, b_by = H100.bound_ms(*ssd.work_bwd(Bsz * H, Bsz * G, S, P, N, 2), torch.bfloat16)
     return {"ssd": dict(
         shape=f"B={Bsz} S={S} H={H} G={G} P={P} N={N} bf16, views of conv_out",
+        bwd_ms=timer.ms(lambda: ssd._launch_bwd(x, dtd, A2, Bm, Cm, dy, None), reps=10),
         vjp_ms=timer.ms(lambda: ssd.ssd_scan_vjp(x, dtd, A2, Bm, Cm, dy, None), reps=10),
         fwd_bwd_ms=timer.ms(lambda: fwd_bwd(ssd_mixer), reps=10),
         plain_fwd_bwd_ms=timer.ms(lambda: fwd_bwd(ssd_mixer_ref), reps=2),
@@ -2426,27 +2494,26 @@ def card_against_cpu(torch, cfg, faults, prepare=None) -> dict:
                 cpu_grad_norm=cpu[0]["grad_norm"])
 
 
-# the PyTorch VJPs that the flash and SwiGLU backward kernels replace on the
-# bf16 train paths: counted there, and called 0 times
-KERNEL_BACKWARD_VJPS = {"flash_attention": "flash_attention_vjp", "swiglu_matmul": "swiglu_vjp"}
+# the PyTorch VJPs that the flash, SwiGLU and SSD backward kernels replace on
+# the bf16 train paths: counted there, and called 0 times
+KERNEL_BACKWARD_VJPS = {"flash_attention": "flash_attention_vjp", "swiglu_matmul": "swiglu_vjp",
+                        "ssd_scan": "ssd_scan_vjp"}
 
 
 def train_path(torch, arch: str) -> dict:
     """What the train phase of ``arch`` checks beyond the common steps: (b)
-    its backwards, (a)'s planted fault, (c)'s faults and weight adjustment,
-    and the VJPs it counts ({module: function}; ``vjp_free``: each must be
-    called 0 times)."""
+    its backwards, (a)'s planted fault, (c)'s faults and weight adjustment."""
     if arch == TRAIN_ARCH:
         return dict(vjps=vjp_checks, detach=detached_kernels,
                     c_faults=lambda: {"detached outputs": detached_kernels(),
                                       "flash mma_bwd causal flag cleared":
                                           flash_bwd_without_mask(),
                                       "SwiGLU wgmma_bwd dg and du swapped": swapped_swiglu_bwd()},
-                    prepare=None, counted=KERNEL_BACKWARD_VJPS, vjp_free=True)
-    return dict(vjps=ssd_vjp_checks, detach=ssd_backward_none,
+                    prepare=None)
+    return dict(vjps=ssd_bwd_checks, detach=ssd_backward_none,
                 c_faults=lambda: {"SSD backward returns None": ssd_backward_none(),
-                                  **{k: f(torch) for k, f in SSD_VJP_FAULTS.items()}},
-                prepare=shifted_dt_bias, counted={"ssd_scan": "ssd_scan_vjp"}, vjp_free=False)
+                                  **{k: f(torch) for k, f in SSD_BWD_FAULTS.items()}},
+                prepare=shifted_dt_bias)
 
 
 @contextmanager
@@ -2497,7 +2564,8 @@ def step_report(torch, tr, steps: int, batch: int, wall: float) -> dict:
 def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
     """Train ``arch`` (TinyLlama-1.1B through the flash and SwiGLU kernels
     and their backward kernels, or mamba2-370m through the SSD scan and its
-    VJP) at full width and depth; checks (a)-(f) (module docstring)."""
+    backward kernel) at full width and depth; checks (a)-(f) (module
+    docstring)."""
     import dataclasses
     import shutil
     import tempfile
@@ -2549,7 +2617,7 @@ def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
     vjp_calls = {}
     reset_counts(torch)
     t0 = time.perf_counter()
-    with counting_vjps(path["counted"], vjp_calls):
+    with counting_vjps(KERNEL_BACKWARD_VJPS, vjp_calls):
         tr.run(TRAIN_STEPS, log_every=5, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2559,7 +2627,7 @@ def train_phase(torch, np, arch: str = TRAIN_ARCH) -> dict:
                               for lib, c in per_step.items()})
     calls = {k: n / TRAIN_STEPS for k, n in vjp_calls.items()}
     log(f"launches a step: {per_step}; VJP calls a step: {calls}")
-    if path["vjp_free"] and any(vjp_calls.values()):
+    if any(vjp_calls.values()):
         raise AssertionError(f"(e) PyTorch VJPs called on the kernels' train path: {vjp_calls}")
     report["e"] = dict(step_report(torch, tr, TRAIN_STEPS, TRAIN_BATCH, wall),
                        launches_per_step=per_step, vjp_calls_per_step=calls)
@@ -2708,7 +2776,7 @@ def hybrid_train_phase(torch, np) -> dict:
     per_step = expected_launches(torch, cfg, train=(tcfg, HYBRID_TRAIN_BATCH, TRAIN_SEQ))
     check_launches(launches, {lib: {v: n * HYBRID_TRAIN_STEPS for v, n in c.items()}
                               for lib, c in per_step.items()})
-    log(f"launches a step: {per_step}; flash and SwiGLU VJP calls: {vjp_calls}")
+    log(f"launches a step: {per_step}; flash, SwiGLU and SSD VJP calls: {vjp_calls}")
     if any(vjp_calls.values()):
         raise AssertionError(f"PyTorch VJPs called on the kernels' train path: {vjp_calls}")
     report["e"] = dict(step_report(torch, tr, HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH, wall),
@@ -2842,6 +2910,11 @@ def accounting_phase(torch, device: str = "cuda") -> list:
                                      f"{mc['launches']}, expected {expect}")
             if not card["finite"]:
                 raise AssertionError(f"probe {arch} {kind}: non-finite outputs")
+            # every bf16 train path's backward is a kernel: no PyTorch VJP's work
+            vjps = [k for k in cc["components"] if k.endswith(".vjp") and
+                    not k.startswith("swiglu_matmul")]
+            if vjps:
+                raise AssertionError(f"probe {arch} {kind}: PyTorch VJPs {vjps} on the card")
             ms, bound_s = card["ms"], card["analytic"]["step_time_bound_s"]
             mfu = card["model_flops"] / (ms * 1e-3 * H100.peak_flops)
             row = dict(arch=arch, kind=kind, counted_flops=cc["flops"],
@@ -3740,7 +3813,7 @@ def main() -> None:
                  ("swiglu_matmul", "experts_decode", "arctic8", "arctic", " E=128 M=8"),
                  ("ssd_scan", "wgmma", "jamba", "jamba", " Jamba N=16"),
                  # the train path: one microbatch's forward and its backward
-                 # kernels (the SSD scan's backward is PyTorch); launches from
+                 # kernels; launches from
                  # the counted steps (the expert backward's: Jamba's period,
                  # at its shape)
                  ("flash_attention", "mma", "train", "train", " train BH=128"),
@@ -3749,7 +3822,10 @@ def main() -> None:
                  ("flash_attention", "mma_bwd", "train", "train", " train BH=128"),
                  ("swiglu_matmul", "wgmma_bwd", "train", "train", " train M=4096"),
                  ("swiglu_matmul", "experts_wgmma_bwd", "train_jamba", "train_jamba",
-                  " train Jamba E=4")]
+                  " train Jamba E=4"),
+                 ("ssd_scan", "wgmma_bwd", "train", "train_mamba2", " train B=4"),
+                 ("ssd_scan", "wgmma_bwd", "train_jamba", "train_jamba",
+                  " train Jamba H=128 N=16")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")

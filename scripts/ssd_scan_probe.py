@@ -3,9 +3,10 @@
 
 Run from the root of a checkout::
 
-    python3 scripts/ssd_scan_probe.py            # both probes
-    python3 scripts/ssd_scan_probe.py phases     # or one of them
+    python3 scripts/ssd_scan_probe.py            # all three probes
+    python3 scripts/ssd_scan_probe.py phases     # or some of them
     python3 scripts/ssd_scan_probe.py faults
+    python3 scripts/ssd_scan_probe.py bwd
 
 ``phases``: device time of each of the variant's three kernels (profiler
 kernel names, L2 flushed before each call) and of the whole call (CUDA
@@ -22,6 +23,16 @@ every case the largest error of y and of the final state over the
 tolerance ``chip_smoke.py`` holds them to (a check fails above 1).  Cases
 with dt ~0.02 (``dt_shift`` 4) are those where the state carried from chunk
 to chunk counts.
+
+``bwd``: the backward ``wgmma_bwd`` at the train layouts (mamba2-370m's
+microbatch: B 4, S 1024, H 32, N 128; the Jamba period's: B 2, H 128, N
+16; views of one conv output): the whole call (CUDA events, median of 30,
+L2 flushed) and each of its six kernels (profiler), as built and without
+programmatic dependent launch; then planted faults in copies of the
+source (the reverse state pass without its decay, dC without exp(cs), the
+d T term dropped), each with its largest error over ``ssd_scan_vjp``'s
+gradients as a share of their largest magnitude (``chip_smoke.py`` holds
+the kernel to 1e-2).
 
 The copies live under ``build/ssd_scan_probe/`` (listed in ``.gitignore``);
 every copy builds its own library there.  Exits non-zero without a card.
@@ -53,6 +64,21 @@ FAULTS = {
         ("  lo = hopper::pack_bf16(v0 - __low2float(h), v1 - __high2float(h));", "  lo = 0u;")],
 }
 NO_PDL = [("cfg.numAttrs = 1;", "cfg.numAttrs = 0;")]
+# the backward's planted faults
+BWD_FAULTS = {
+    "none": [],
+    "no decay in the reverse state pass": [
+        (f"dh.{c} = fmaf(d[k], dh.{c}, r[k].{c});", f"dh.{c} = r[k].{c};") for c in "xyzw"],
+    "dC without exp(cs)": [
+        ("for (int v = 0; v < 32; ++v) acc[a][v] *= ecs[r0 + 8 * ((v >> 1) & 1)];",
+         "for (int v = 0; v < 32; ++v) acc[a][v] *= 1.f;")],
+    "d T dropped": [("if (tid == 0) dcs[Q - 1] += s + expf(cs[Q - 1]) * (scr[0] + scr[1] + "
+                     "scr[2] + scr[3]);", "if (tid == 0) dcs[Q - 1] += 0.f;")],
+}
+# (B, S, H, N): the train layouts of mamba2-370m and of the Jamba period
+BWD_CASES = [(4, 1024, 32, 128), (2, 1024, 128, 16)]
+BWD_KERNELS = ("chunk_state", "state_pass", "chunk_state_rev", "state_pass_bwd", "chunk_grad",
+               "grad_reduce")
 # (BH, S, P, N, dt_shift)
 FAULT_CASES = [(2, 100, 64, 128, 0.0), (3, 256, 64, 128, 0.0), (1, 37, 64, 16, 0.0),
                (2, 64, 64, 64, 0.0), (1, 1, 64, 128, 0.0), (2, 1000, 64, 128, 0.0),
@@ -110,21 +136,6 @@ def child(mode: str, src: str) -> None:
         return x, dt, A, randn(BH, S, N, dtype=bf16, scale=0.5), randn(BH, S, N, dtype=bf16,
                                                                           scale=0.5)
 
-    if mode == "faults":
-        def ratio(o, r, atol, rtol):
-            o, r = o.float(), r.float()
-            return float(((o - r).abs() / (atol * max(float(r.abs().max()), 1.0)
-                                           + rtol * r.abs())).max())
-        res = {}
-        for (BH, S, P, N, shift) in FAULT_CASES:
-            args = flat(BH, S, P, N, shift)
-            y, h = ssd_scan(*args, return_state=True)
-            ry, rh = ssd_scan_ref(*args, return_state=True)
-            res[str((BH, S, P, N, shift))] = [round(ratio(y, ry, 1e-4, 2 ** -7), 3),
-                                              round(ratio(h, rh, 1e-4, 0.0), 3)]
-        print("RESULT " + json.dumps(res), flush=True)
-        return
-
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
 
@@ -143,6 +154,67 @@ def child(mode: str, src: str) -> None:
             times.append(start.elapsed_time(end))
         return sorted(times)[reps // 2]
 
+    def kernel_ms(fn, pattern, reps=10):
+        """Device ms a call of each kernel whose profiler name matches
+        ``pattern`` (group 1 its phase name; a REV template argument marks
+        the reverse chunk_state)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(pattern, e.key)
+            if m:
+                rev = re.search(r"<\d+, (true|\(bool\)1)>", e.key)
+                name = m.group(1) + ("_rev" if rev else "")
+                out[name] = e.self_device_time_total / reps / 1e3
+        return out
+
+    if mode in ("bwd", "bwd_faults"):
+        import importlib
+
+        ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+        res = {}
+        for (Bsz, S, H, N) in BWD_CASES:
+            P, G = 64, 1
+            buf = randn(Bsz, S, H * P + 2 * G * N, dtype=bf16, scale=0.5)
+            x = buf[..., :H * P].reshape(Bsz, S, H, P)
+            Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+            Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+            dt = torch.nn.functional.softplus(randn(Bsz, S, H, dtype=f32) - 4.0)
+            A2 = (-torch.exp(randn(H, dtype=f32, scale=0.5)))[None].expand(Bsz, H)
+            dy = randn(Bsz, S, H, P, dtype=bf16)
+            args = (x, dt, A2, Bm, Cm, dy, None)
+            key = f"B={Bsz} S={S} H={H} N={N}"
+            if mode == "bwd_faults":
+                got, want = ssd._launch_bwd(*args), ssd.ssd_scan_vjp(*args)
+                res[key] = max(float((g.float() - w.float()).abs().max()
+                                     / w.float().abs().max()) for g, w in zip(got, want))
+                continue
+            fn = lambda: ssd._launch_bwd(*args)  # noqa: E731
+            phases = kernel_ms(fn, r"ssd_(chunk_state|state_pass_bwd|state_pass|chunk_grad|"
+                                   r"grad_reduce)_kernel")
+            res[key] = {"ms": ms(fn), **{k: phases.get(k, 0.0) for k in BWD_KERNELS}}
+        print("RESULT " + json.dumps(res), flush=True)
+        return
+
+    if mode == "faults":
+        def ratio(o, r, atol, rtol):
+            o, r = o.float(), r.float()
+            return float(((o - r).abs() / (atol * max(float(r.abs().max()), 1.0)
+                                           + rtol * r.abs())).max())
+        res = {}
+        for (BH, S, P, N, shift) in FAULT_CASES:
+            args = flat(BH, S, P, N, shift)
+            y, h = ssd_scan(*args, return_state=True)
+            ry, rh = ssd_scan_ref(*args, return_state=True)
+            res[str((BH, S, P, N, shift))] = [round(ratio(y, ry, 1e-4, 2 ** -7), 3),
+                                              round(ratio(h, rh, 1e-4, 0.0), 3)]
+        print("RESULT " + json.dumps(res), flush=True)
+        return
+
     def serving(S, H=32, P=64, N=128):
         buf = randn(1, S, H * P + 2 * N, dtype=bf16)
         x = buf[..., :H * P].reshape(1, S, H, P)
@@ -157,16 +229,7 @@ def child(mode: str, src: str) -> None:
                              ("serving S=1024", ssd_mixer, serving(1024))):
         fn = lambda: call(*args, return_state=True)  # noqa: E731
         total = ms(fn)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        phases = {}
-        for e in prof.key_averages():
-            m = re.search(r"ssd_(chunk_state|state_pass|chunk_scan)_kernel", e.key)
-            if m:
-                phases[m.group(1)] = e.self_device_time_total / e.count / 1e3
+        phases = kernel_ms(fn, r"ssd_(chunk_state|state_pass|chunk_scan)_kernel")
         res[name] = {"ms": total, **{k: phases[k] for k in ("chunk_state", "state_pass",
                                                             "chunk_scan")}}
     print("RESULT " + json.dumps(res), flush=True)
@@ -181,7 +244,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("ssd_scan_probe: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    modes = sys.argv[1:] or ["phases", "faults"]
+    modes = sys.argv[1:] or ["phases", "faults", "bwd"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
@@ -194,6 +257,20 @@ def main() -> None:
                 print(f"  {shape:15} call {r['ms']:.4f}  chunk_state {r['chunk_state']:.4f}  "
                       f"state_pass {r['state_pass']:.4f}  chunk_scan {r['chunk_scan']:.4f}",
                       flush=True)
+    if "bwd" in modes:
+        for label, subs in (("as built", []), ("without programmatic dependent launch", NO_PDL)):
+            res = run_child("bwd", os.path.join(ROOT, "src") if not subs
+                            else copy_with("no pdl", subs))
+            print(f"backward phases, {label} (ms; L2 flushed):", flush=True)
+            for shape, r in res.items():
+                print(f"  {shape:22} call {r['ms']:.4f}  " + "  ".join(
+                    f"{k} {r[k]:.4f}" for k in BWD_KERNELS), flush=True)
+        print("backward faults: largest error of a gradient over ssd_scan_vjp's, as a share of "
+              "its largest magnitude (chip_smoke.py's bound: 1e-2)", flush=True)
+        for name, subs in BWD_FAULTS.items():
+            res = run_child("bwd_faults", copy_with("bwd " + name, subs) if subs
+                            else os.path.join(ROOT, "src"))
+            print(f"  {name}: " + ", ".join(f"{k} {v:.4g}" for k, v in res.items()), flush=True)
     if "faults" in modes:
         srcs = {name: copy_with(name, subs) for name, subs in FAULTS.items()}
         procs = {name: subprocess.Popen(

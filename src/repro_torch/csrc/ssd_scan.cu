@@ -8,9 +8,9 @@
 //     y   = (C B^T ∘ L)(dt·x) + exp(cs) ∘ (C h^T),   L_ij = exp(cs_i - cs_j), i >= j
 //     h  <- exp(cs_Q) h + (x ∘ w)^T B,               w_j = exp(cs_Q - cs_j) dt_j
 // with the f32 state h [P, N] carried from chunk to chunk.  y is written in
-// x's dtype; the final state, on request, in f32.  Two variants, one C entry
-// point each; the wrapper (kernels/ssd_scan.py::select_variant) picks one
-// from (P, N, dtype).  Every exponent is of a non-positive number (cs_i - cs_j
+// x's dtype; the final state, on request, in f32.  Two forward variants, one
+// C entry point each; the wrapper (kernels/ssd_scan.py::select_variant) picks
+// one from (P, N, dtype); the backward of the first is the third entry.  Every exponent is of a non-positive number (cs_i - cs_j
 // for i >= j, cs, cs_Q - cs_j), so nothing overflows; positions past S are
 // masked with dt = 0, which leaves y and h unchanged.
 //
@@ -59,11 +59,37 @@
 //    and double-buffered shared memory; the next chunk's operands prefetched
 //    into registers; f32 products on the CUDA cores.
 //
+// 3. `wgmma_bwd` (entry ssd_scan_wgmma_bwd): the backward of `wgmma`, on the
+//    same layout.  The Pallas kernel has no VJP (the reference trains through
+//    _ssd_chunked, which XLA differentiates), so this replaces no TPU kernel:
+//    it computes what jax.vjp of _ssd_chunked gives, (dx, ddt, dA, dB, dC) at
+//    the cotangents dy and dh_final, where kernels/ssd_scan.py::ssd_scan_vjp
+//    (its plain version) computes it in eager PyTorch.  Six kernels, one
+//    count: the forward's chunk_state and state_pass recompute the
+//    chunk-start states h0 (recomputed rather than saved: a saved scratch
+//    would keep 67 MB a layer and microbatch alive at mamba2's train shape
+//    without remat; recomputed, one backward's scratch is alive at a time);
+//    chunk_state<REV> and state_pass_bwd carry the state cotangent dh1 from
+//    the last chunk to the first; chunk_grad computes every gradient of one
+//    (chunk, head) in ~116 m64n64k16 products (f32 operands as hi + lo
+//    pairs, as in the forward; ref.ssd_scan_bwd_phases emulates it); and
+//    grad_reduce sums dB and dC over the heads of a group and dA over
+//    chunks, in a fixed order: no float atomics, so two launches give the
+//    same bits.  What bounds it: at mamba2's train layout (B 4, S 1024, H 32,
+//    N 128, one group) the bytes of x, dy, dx, B, C, dB, dC, dt and ddt, 55.6
+//    MB, ~16.6 us at 3.35 TB/s (kernels/ssd_scan.py::work_bwd); the products,
+//    ~15.2 GFLOP, ~15.4 us at the bf16 peak: bytes, by a little.  The per-head dB and dC partials
+//    (2 x 67 MB written and read there) and the recomputed states are this
+//    design's own traffic beyond that bound.
+//
 // -Xptxas -v (sm_90a, nvcc 12.8), no spills: ssd_chunk_scan_kernel 128 / 113
 // registers (N > 64 / N <= 64; launch bounds of 4 CTAs an SM), 42,760 /
 // 34,568 bytes of dynamic shared memory; ssd_chunk_state_kernel 122 / 90
 // registers, 26,376 / 18,184 bytes; ssd_state_pass_kernel 141 registers;
-// ssd_scan_kernel 214 registers, ~60 KB of dynamic shared memory.
+// ssd_scan_kernel 214 registers, ~60 KB of dynamic shared memory.  The
+// backward: ssd_chunk_grad_kernel 255 registers with 24 bytes spilled / 202
+// (N > 64 / N <= 64), 121,640 / 88,872 bytes of dynamic shared memory (one /
+// two CTAs an SM); ssd_state_pass_bwd_kernel 144, ssd_grad_reduce_kernel 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -394,7 +420,10 @@ __device__ __forceinline__ void chunk_cumsum(float* cs, float* dts, const float*
 // into states[bh, c], and its decay exp(cs_Q) into decay[bh, c].  A is
 // (x∘w)^T, built in registers from the swizzled x tile as hi + lo halves;
 // B is the chunk's B tile, MN-major.
-template <int NA>
+//
+// With REV (the backward's phase 1) the same kernel computes r_c =
+// (dy ∘ exp(cs))^T C from the dy and C maps, and writes no decay.
+template <int NA, bool REV = false>
 __global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
     const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ states,
@@ -420,8 +449,8 @@ __global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
     for (int a = 0; a < NA; ++a) hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
   }
   chunk_cumsum(cs, dts, dt, L, b, h, t0, S, A[b * L.a_b + h * L.a_h]);
-  if (tid < Q) w[tid] = expf(cs[Q - 1] - cs[tid]) * dts[tid];
-  if (tid == 0) decay[(long long)bh * nch + c] = expf(cs[Q - 1]);
+  if (tid < Q) w[tid] = REV ? expf(cs[tid]) : expf(cs[Q - 1] - cs[tid]) * dts[tid];
+  if (!REV && tid == 0) decay[(long long)bh * nch + c] = expf(cs[Q - 1]);
   __syncthreads();
   hopper::mbar_wait(bar, 0);
 
@@ -672,6 +701,525 @@ __global__ void __launch_bounds__(NT, 4) ssd_chunk_scan_kernel(
   }
 }
 
+// ------------------------------------------------------------------------- //
+// wgmma_bwd: the backward of the wgmma variant (kernels/ssd_scan.py's
+// _SSDScan.backward), six kernels on PyTorch's stream:
+//   1-2. the forward's chunk_state and state_pass again: h0, the state each
+//        chunk starts from (recomputed, not saved: one layer's scratch is
+//        alive at a time);
+//   3.   chunk_state<REV>: r_c = (dy ∘ exp(cs))^T C per chunk;
+//   4.   state_pass_bwd: dh1, the cotangent of each chunk's end state, from
+//        the last chunk to the first (dh1(c-1) = exp(T_c) dh1(c) + r_c);
+//   5.   chunk_grad, grid (chunk, batch·H): every gradient of one head's chunk;
+//   6.   grad_reduce: dB and dC over the heads of a group, dA over chunks.
+// ------------------------------------------------------------------------- //
+
+// Phase 4, grid (P·64 NA / 4 / PASS_NT, batch·H): the backward's only
+// sequential part, the forward's state pass run from the last chunk:
+//   dh1(nch - 1) = dh_final (or 0),  dh1(c - 1) = decay_c dh1(c) + r_c;
+// dstates[bh, c] holds r_c on entry and dh1(c) on exit, in the
+// accumulator's register order.  dh_final is [batch·H, P, N], natural order.
+__global__ void __launch_bounds__(PASS_NT) ssd_state_pass_bwd_kernel(
+    float* __restrict__ dstates, const float* __restrict__ decay,
+    const float* __restrict__ dh_final, int PN4, int N, int nch) {
+  const int e = blockIdx.x * PASS_NT + threadIdx.x;
+  const long long bh = blockIdx.y;
+  hopper::griddep_launch_dependents();
+  hopper::griddep_wait();  // phase 3's r_c
+  if (e >= PN4) return;
+  float4* st = reinterpret_cast<float4*>(dstates) + bh * nch * PN4 + e;
+  const float* dec = decay + bh * nch;
+  float4 dh = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (dh_final != nullptr) {
+    // float4 g of thread t: (row p0, columns n, n + 1) and (row p0 + 8, the same)
+    const int t = e % NT, q = e / NT;
+    const int p0 = 16 * (t >> 5) + ((t & 31) >> 2), n = 8 * q + 2 * (t & 3);
+    if (n < N) {
+      const float* s = dh_final + bh * P * N;
+      dh = make_float4(s[p0 * N + n], s[p0 * N + n + 1], s[(p0 + 8) * N + n],
+                       s[(p0 + 8) * N + n + 1]);
+    }
+  }
+  for (int c1 = nch - 1; c1 >= 0; c1 -= PASS_CH) {
+    float4 r[PASS_CH];
+    float d[PASS_CH];
+#pragma unroll
+    for (int k = 0; k < PASS_CH; ++k) {
+      if (c1 - k >= 0) {
+        r[k] = st[(long long)(c1 - k) * PN4];
+        d[k] = dec[c1 - k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_CH; ++k) {
+      if (c1 - k >= 0) {
+        st[(long long)(c1 - k) * PN4] = dh;
+        dh.x = fmaf(d[k], dh.x, r[k].x);
+        dh.y = fmaf(d[k], dh.y, r[k].y);
+        dh.z = fmaf(d[k], dh.z, r[k].z);
+        dh.w = fmaf(d[k], dh.w, r[k].w);
+      }
+    }
+  }
+}
+
+// This warp's share of the column sums of a [64, 64] accumulator (rows
+// 16 warp .. 16 warp + 15) into red[warp * Q + column].
+__device__ __forceinline__ void col_partials(const float (&v)[32], float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      float s = v[4 * q + b] + v[4 * q + 2 + b];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) red[warp * Q + 8 * q + 2 * lane + b] = s;
+    }
+  }
+}
+
+// The row sums of a [64, 64] accumulator (each row lies in one warp) into out[row].
+__device__ __forceinline__ void row_sums(const float (&v)[32], float* out) {
+  const int lane = threadIdx.x & 31;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    s0 += v[4 * q] + v[4 * q + 1];
+    s1 += v[4 * q + 2] + v[4 * q + 3];
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if ((lane & 3) == 0) {
+    const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+    out[r0] = s0;
+    out[r0 + 8] = s1;
+  }
+}
+
+// One (bh, chunk) state in the scratch's register order (src: its float4s,
+// offset by the thread; null for zero) into bf16 hi and lo tiles [P rows]
+// [64 NA columns] (NA swizzled atoms each), whose wgmma reads are K-major A
+// (M = p, K = n) or MN-major B (K = p, N = n).  Returns Σ src ∘ other over
+// the thread's values (other null: 0).
+template <int NA>
+__device__ __forceinline__ float stage_state(const float4* src, const float4* other, bf16* hi,
+                                             bf16* lo) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  float dot = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8 * NA; ++q) {
+    const float4 f = src != nullptr ? src[q * NT] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (other != nullptr) {
+      const float4 o = other[q * NT];
+      dot = fmaf(f.x, o.x, fmaf(f.y, o.y, fmaf(f.z, o.z, fmaf(f.w, o.w, dot))));
+    }
+    const int n = 8 * q + 2 * (lane & 3);
+    const int off = (n >> 6) * TILE;
+    uint32_t h, l;
+    split2(f.x, f.y, h, l);
+    *reinterpret_cast<uint32_t*>(hi + off + swz(r0, n & 63)) = h;
+    *reinterpret_cast<uint32_t*>(lo + off + swz(r0, n & 63)) = l;
+    split2(f.z, f.w, h, l);
+    *reinterpret_cast<uint32_t*>(hi + off + swz(r0 + 8, n & 63)) = h;
+    *reinterpret_cast<uint32_t*>(lo + off + swz(r0 + 8, n & 63)) = l;
+  }
+  return dot;
+}
+
+// Rows i of an [i, 64 NA] accumulator (atom a's columns in acc[a]) into
+// part[row0 + i H][n] (f32; row0 is (t0, h)'s row of [batch·S·H, N]), rows
+// past S and columns past N left out.
+template <int NA>
+__device__ __forceinline__ void store_rows(const float (&acc)[NA][32], float* __restrict__ part,
+                                           long long row0, int H, int N, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int v = 0; v < 32; v += 2) {
+      const int i = r0 + 8 * ((v >> 1) & 1);
+      const int n = 64 * a + 8 * (v >> 2) + 2 * (lane & 3);
+      if (i < rows && n < N)
+        *reinterpret_cast<float2*>(part + (row0 + (long long)i * H) * N + n) =
+            make_float2(acc[a][v], acc[a][v + 1]);
+    }
+  }
+}
+
+// Phase 5, grid (chunk, batch·H): one head's chunk, every product a 64-row
+// wgmma m64n64k16 from shared memory (each f32 operand as bf16 hi and lo
+// tiles, two products into one f32 accumulator), in this order:
+//   (a) CB = C B^T, G = dy x^T [i, j] -> K = CB ∘ L, dCB = L ∘ G ∘ dt_j (both
+//       split into tiles), M = CB ∘ dCB: its row sums and column sums;
+//   (b) dC = exp(cs_i) (dy h0) + dCB B [i, n], into part_c;
+//   (c) h0 C^T [p, i] -> Σ_p dy_ip (h0 C^T)_pi, the inter-chunk dcs;
+//   (d) dB = dt_j exp(T - cs_j) (x dh1) + dCB^T C [j, n], into part_b;
+//   (e) dh1 B^T and du^T = dy^T K + exp(T - cs_j) dh1 B^T [p, j] -> W_j,
+//       dx = dt du (bf16, through shared memory to 16-byte rows), x·du;
+//   (f) dcs = rowsum M - colsum M + exp(cs) (...) - W, d T onto the last
+//       position, da = reverse cumsum (two warp scans), ddt = x·du + A da,
+//       and this chunk's share of dA, Σ_j dt_j da_j, into part_a.
+// Sums across warps are taken in a fixed order: the bits do not depend on
+// scheduling.
+template <int NA>
+__global__ void __launch_bounds__(NT, 1) ssd_chunk_grad_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+    const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap cmap,
+    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ states,
+    const float* __restrict__ dstates, bf16* __restrict__ dx, float* __restrict__ ddt,
+    float* __restrict__ part_b, float* __restrict__ part_c, float* __restrict__ part_a,
+    const Layout L, int S, int H, int G, int N, int nch) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  bf16* sx = reinterpret_cast<bf16*>(smem_raw + pad);  // [Q][P]
+  bf16* sdy = sx + TILE;                               // [Q][P]
+  bf16* sb = sdy + TILE;                               // NA atoms [Q][64]
+  bf16* sc = sb + NA * TILE;                           // NA atoms [Q][64]
+  bf16* shi = sc + NA * TILE;                          // h0, then dh1 [P][64 NA]: hi
+  bf16* slo = shi + NA * TILE;                         // and lo
+  bf16* skhi = slo + NA * TILE;                        // K [i][j] hi; then dx [j][p]
+  bf16* sklo = skhi + TILE;                            // K lo
+  bf16* sdhi = sklo + TILE;                            // dCB [i][j] hi
+  bf16* sdlo = sdhi + TILE;                            // dCB lo
+  float* cs = reinterpret_cast<float*>(sdlo + TILE);   // [Q]
+  float* dts = cs + Q;                                 // [Q]
+  float* ecs = dts + Q;                                // [Q]: exp(cs)
+  float* wexp = ecs + Q;                               // [Q]: exp(T - cs)
+  float* rowm = wexp + Q;                              // [Q]: row sums of M
+  float* red = rowm + Q;                               // [4 sums][4 warps][Q]
+  float* dcs = red + 16 * Q;                           // [Q]
+  float* tmp = dcs + Q;                                // [Q]
+  float* scr = tmp + Q;                                // [8]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(scr + 8);
+
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int t0 = c * Q, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int rows = min(Q, S - t0);
+  hopper::griddep_launch_dependents();
+  init_barrier(bar);
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, (2 + 2 * NA) * TILE_BYTES);
+    hopper::tma_load_4d(sx, &xmap, bar, 0, h, t0, b);
+    hopper::tma_load_4d(sdy, &dymap, bar, 0, h, t0, b);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
+      hopper::tma_load_4d(sc + a * TILE, &cmap, bar, a * ATOM, g, t0, b);
+    }
+  }
+  const float a_h = A[b * L.a_b + h * L.a_h];
+  chunk_cumsum(cs, dts, dt, L, b, h, t0, S, a_h);
+  if (tid < Q) {
+    ecs[tid] = expf(cs[tid]);
+    wexp[tid] = expf(cs[Q - 1] - cs[tid]);
+  }
+  __syncthreads();
+  hopper::mbar_wait(bar, 0);
+
+  // (a) value v of a [64, 64] accumulator is row r0 + 8 ((v / 2) % 2),
+  // column 8 (v / 4) + 2 (lane % 4) + v % 2
+  {
+    float cb[32], gx[32], m[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+      hopper::wgmma_m64n64k16_ss<0, 0>(cb, hopper::wgmma_desc(sc + o, 16, 1024),
+                                       hopper::wgmma_desc(sb + o, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss<0, 0>(gx, hopper::wgmma_desc(sdy + kk * 16, 16, 1024),
+                                       hopper::wgmma_desc(sx + kk * 16, 16, 1024), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < 32; v += 2) {
+      const int i = r0 + 8 * ((v >> 1) & 1);
+      const int j = 8 * (v >> 2) + 2 * (lane & 3);
+      const float csi = cs[i];
+      const float l0 = j <= i ? expf(csi - cs[j]) : 0.f;
+      const float l1 = j + 1 <= i ? expf(csi - cs[j + 1]) : 0.f;
+      const float d0 = l0 * gx[v] * dts[j], d1 = l1 * gx[v + 1] * dts[j + 1];
+      m[v] = cb[v] * d0;
+      m[v + 1] = cb[v + 1] * d1;
+      uint32_t hi, lo;
+      split2(cb[v] * l0, cb[v + 1] * l1, hi, lo);
+      *reinterpret_cast<uint32_t*>(skhi + swz(i, j)) = hi;
+      *reinterpret_cast<uint32_t*>(sklo + swz(i, j)) = lo;
+      split2(d0, d1, hi, lo);
+      *reinterpret_cast<uint32_t*>(sdhi + swz(i, j)) = hi;
+      *reinterpret_cast<uint32_t*>(sdlo + swz(i, j)) = lo;
+    }
+    row_sums(m, rowm);
+    col_partials(m, red);
+  }
+  // phases 1-4 have written the states by now; h0 is zero in chunk 0
+  hopper::griddep_wait();
+  const long long soff = ((long long)bh * nch + c) * P * ATOM * NA;
+  const float4* h0src = c > 0 ? reinterpret_cast<const float4*>(states + soff) + tid : nullptr;
+  stage_state<NA>(h0src, nullptr, shi, slo);
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  const long long row0 = ((long long)b * S + t0) * H + h;  // (t0, h)'s row of [batch·S·H, *]
+  float acc[NA][32];
+  // (b) dC [i, n]: A = dy (K-major), B = h0 (MN-major); then A = dCB
+  // (K-major), B = the B tile (MN-major)
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::wgmma_desc(sdy + kk * 16, 16, 1024);
+      const int o = a * TILE + kk * 16 * ATOM;
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(shi + o, TILE_BYTES, 1024),
+                                       kk > 0);
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(slo + o, TILE_BYTES, 1024),
+                                       1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) acc[a][v] *= ecs[r0 + 8 * ((v >> 1) & 1)];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = hopper::wgmma_desc(sb + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(sdhi + kk * 16, 16, 1024), db,
+                                       1);
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(sdlo + kk * 16, 16, 1024), db,
+                                       1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  store_rows<NA>(acc, part_c, row0, H, N, rows);
+
+  // (c) h0 C^T [p, i]: A = h0 (K-major), B = the C tile (K-major)
+  {
+    float hc[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+      const uint64_t db = hopper::wgmma_desc(sc + o, 16, 1024);
+      hopper::wgmma_m64n64k16_ss<0, 0>(hc, hopper::wgmma_desc(shi + o, 16, 1024), db, kk > 0);
+      hopper::wgmma_m64n64k16_ss<0, 0>(hc, hopper::wgmma_desc(slo + o, 16, 1024), db, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < 32; ++v)
+      hc[v] *= __bfloat162float(sdy[swz(8 * (v >> 2) + 2 * (lane & 3) + (v & 1),
+                                        r0 + 8 * ((v >> 1) & 1))]);
+    col_partials(hc, red + 4 * Q);
+  }
+  __syncthreads();  // every warp's reads of h0 are done
+  // dh1 in h0's place, and this thread's share of Σ dh1 ∘ h0 (d T's state term)
+  const float hdot = stage_state<NA>(reinterpret_cast<const float4*>(dstates + soff) + tid,
+                                     h0src, shi, slo);
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  // (d) dB [j, n]: A = x (K-major), B = dh1 (MN-major); then A = dCB^T (the
+  // dCB tiles MN-major), B = the C tile (MN-major)
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::wgmma_desc(sx + kk * 16, 16, 1024);
+      const int o = a * TILE + kk * 16 * ATOM;
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(shi + o, TILE_BYTES, 1024),
+                                       kk > 0);
+      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(slo + o, TILE_BYTES, 1024),
+                                       1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int j = r0 + 8 * ((v >> 1) & 1);
+      acc[a][v] *= dts[j] * wexp[j];
+    }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = hopper::wgmma_desc(sc + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
+      hopper::wgmma_m64n64k16_ss<1, 1>(
+          acc[a], hopper::wgmma_desc(sdhi + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
+      hopper::wgmma_m64n64k16_ss<1, 1>(
+          acc[a], hopper::wgmma_desc(sdlo + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  store_rows<NA>(acc, part_b, row0, H, N, rows);
+
+  // (e) dh1 B^T [p, j]: A = dh1 (K-major), B = the B tile (K-major);
+  // dy^T K [p, j]: A = dy^T (the dy tile MN-major), B = K (MN-major)
+  {
+    float hb[32], du[32], t[32], xv[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+      const uint64_t db = hopper::wgmma_desc(sb + o, 16, 1024);
+      hopper::wgmma_m64n64k16_ss<0, 0>(hb, hopper::wgmma_desc(shi + o, 16, 1024), db, kk > 0);
+      hopper::wgmma_m64n64k16_ss<0, 0>(hb, hopper::wgmma_desc(slo + o, 16, 1024), db, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::wgmma_desc(sdy + kk * 16 * ATOM, TILE_BYTES, 1024);
+      hopper::wgmma_m64n64k16_ss<1, 1>(
+          du, da, hopper::wgmma_desc(skhi + kk * 16 * ATOM, TILE_BYTES, 1024), kk > 0);
+      hopper::wgmma_m64n64k16_ss<1, 1>(
+          du, da, hopper::wgmma_desc(sklo + kk * 16 * ATOM, TILE_BYTES, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int j = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+      xv[v] = __bfloat162float(sx[swz(j, r0 + 8 * ((v >> 1) & 1))]);
+      t[v] = hb[v] * xv[v];
+      du[v] = fmaf(wexp[j], hb[v], du[v]);
+    }
+    col_partials(t, red + 8 * Q);  // Σ_p x_jp (dh1 B^T)_pj
+#pragma unroll
+    for (int v = 0; v < 32; ++v) t[v] = du[v] * xv[v];
+    col_partials(t, red + 12 * Q);  // Σ_p x_jp du_jp
+    __syncthreads();  // every warp's reads of K are done: dx takes its place
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int j = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+      skhi[swz(j, r0 + 8 * ((v >> 1) & 1))] = __float2bfloat16_rn(dts[j] * du[v]);
+    }
+  }
+  {
+    float s = hdot;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) scr[warp] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = tid; e < Q * P / 8; e += NT) {
+    const int i = e >> 3, ch = e & 7;
+    if (i < rows)
+      *reinterpret_cast<uint4*>(dx + (row0 + (long long)i * H) * P + ch * 8) =
+          *reinterpret_cast<const uint4*>(skhi + swz(i, ch * 8));
+  }
+
+  // (f) dcs, d T, da, ddt and dA's share; red[(4 k + w) Q + j] is sum k of warp w
+  if (tid < Q) {
+    const int j = tid;
+    const float colm = red[j] + red[Q + j] + red[2 * Q + j] + red[3 * Q + j];
+    const float inter = red[4 * Q + j] + red[5 * Q + j] + red[6 * Q + j] + red[7 * Q + j];
+    const float xhb = red[8 * Q + j] + red[9 * Q + j] + red[10 * Q + j] + red[11 * Q + j];
+    const float W = dts[j] * wexp[j] * xhb;
+    dcs[j] = rowm[j] - colm + ecs[j] * inter - W;
+    tmp[j] = W;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float s = tmp[tid] + tmp[tid + 32];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (tid == 0) dcs[Q - 1] += s + expf(cs[Q - 1]) * (scr[0] + scr[1] + scr[2] + scr[3]);
+  }
+  __syncthreads();
+  // da_j = Σ_{i >= j} dcs_i: thread k scans position Q - 1 - k
+  if (tid < Q) {
+    float v = dcs[Q - 1 - tid];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    tmp[tid] = v;
+  }
+  __syncthreads();
+  if (tid < Q) {
+    const int j = Q - 1 - tid;
+    const float da = tid >= 32 ? tmp[tid] + tmp[31] : tmp[tid];
+    const float xdu = red[12 * Q + j] + red[13 * Q + j] + red[14 * Q + j] + red[15 * Q + j];
+    if (j < rows) ddt[row0 + (long long)j * H] = fmaf(a_h, da, xdu);
+    float s = dts[j] * da;  // dt = 0 past S
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) scr[4 + warp] = s;
+  }
+  __syncthreads();
+  if (tid == 0) part_a[(long long)bh * nch + c] = scr[4] + scr[5];
+}
+
+// Phase 6: dB and dC [batch·S·G rows, N] in bf16, each the sum over the
+// R = H / G heads of its group in order (part rows row·R + r); the blocks
+// past sum_blocks take dA [batch·H], the sum over chunks in order.
+__global__ void __launch_bounds__(PASS_NT) ssd_grad_reduce_kernel(
+    const float* __restrict__ part_b, const float* __restrict__ part_c,
+    const float* __restrict__ part_a, bf16* __restrict__ dB, bf16* __restrict__ dC,
+    float* __restrict__ dA, long long rows, int R, int N4, int BH, int nch, int sum_blocks) {
+  hopper::griddep_wait();  // phase 5's partials
+  if ((int)blockIdx.x < sum_blocks) {
+    const long long e = (long long)blockIdx.x * PASS_NT + threadIdx.x;
+    if (e >= rows * N4) return;
+    const long long row = e / N4;
+    const int n4 = (int)(e % N4);
+    const float4* pb = reinterpret_cast<const float4*>(part_b) + row * R * N4 + n4;
+    const float4* pc = reinterpret_cast<const float4*>(part_c) + row * R * N4 + n4;
+    float4 sb = pb[0], sc = pc[0];
+    for (int r = 1; r < R; ++r) {
+      const float4 u = pb[(long long)r * N4], v = pc[(long long)r * N4];
+      sb.x += u.x;
+      sb.y += u.y;
+      sb.z += u.z;
+      sb.w += u.w;
+      sc.x += v.x;
+      sc.y += v.y;
+      sc.z += v.z;
+      sc.w += v.w;
+    }
+    *reinterpret_cast<uint2*>(dB + e * 4) =
+        make_uint2(hopper::pack_bf16(sb.x, sb.y), hopper::pack_bf16(sb.z, sb.w));
+    *reinterpret_cast<uint2*>(dC + e * 4) =
+        make_uint2(hopper::pack_bf16(sc.x, sc.y), hopper::pack_bf16(sc.z, sc.w));
+  } else {
+    const int i = (blockIdx.x - sum_blocks) * PASS_NT + threadIdx.x;
+    if (i >= BH) return;
+    const float* p = part_a + (long long)i * nch;
+    float s = p[0];
+    for (int c = 1; c < nch; ++c) s += p[c];
+    dA[i] = s;
+  }
+}
+
+template <int NA>
+constexpr size_t grad_smem() {
+  return (size_t)(2 + 4 * NA + 4) * TILE_BYTES + (23 * Q + 8) * sizeof(float) + 8 + 1024;
+}
+
 template <int NA>
 constexpr size_t state_smem() {
   return (size_t)(1 + NA) * TILE_BYTES + 3 * Q * sizeof(float) + 8 + 1024;
@@ -738,6 +1286,99 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// The backward's six kernels (see wgmma_bwd above).  Phases 2, 4, 5 and 6
+// start by programmatic dependent launch while the phase before drains;
+// phase 3 follows phase 2 in stream order.
+template <int NA>
+int launch_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
+               const void* dy, const void* dh_final, void* dx, void* ddt, void* dA, void* dB,
+               void* dC, void* states, void* dstates, void* decay, void* part_b, void* part_c,
+               void* part_a, int batch, int S, int H, int G, int N, const Layout& L,
+               const long long (&dys)[3], cudaStream_t stream) {
+  CUtensorMap xm, dym, bm, cm;
+  const int box[4] = {ATOM, 1, Q, 1};
+  const long long xd[4] = {P, H, S, batch};
+  const long long xs[3] = {2 * L.x_h, 2 * L.x_s, 2 * L.x_b};
+  const long long dyst[3] = {2 * dys[2], 2 * dys[1], 2 * dys[0]};
+  const long long bd[4] = {N, G, S, batch};
+  const long long bs[3] = {2 * L.bc_g, 2 * L.bc_s, 2 * L.bc_b};
+  if (!hopper::make_map_bf16_4d(&xm, x, xd, xs, box) ||
+      !hopper::make_map_bf16_4d(&dym, dy, xd, dyst, box) ||
+      !hopper::make_map_bf16_4d(&bm, B, bd, bs, box) ||
+      !hopper::make_map_bf16_4d(&cm, C, bd, bs, box))
+    return (int)cudaErrorInvalidValue;
+  static bool attributes_set = false;  // per instantiation, once per process
+  cudaError_t err = cudaSuccess;
+  if (!attributes_set) {
+    err = cudaFuncSetAttribute(ssd_chunk_state_kernel<NA, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem<NA>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_chunk_state_kernel<NA, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)state_smem<NA>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_chunk_grad_kernel<NA>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)grad_smem<NA>());
+    if (err != cudaSuccess) return (int)err;
+    attributes_set = true;
+  }
+  const int nch = (S + Q - 1) / Q;
+  const dim3 grid(nch, batch * H);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* st = static_cast<float*>(states);
+  float* dst = static_cast<float*>(dstates);
+  float* dec = static_cast<float*>(decay);
+  const int PN4 = P * ATOM * NA / 4;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  // 1-2: h0
+  ssd_chunk_state_kernel<NA, false><<<grid, NT, state_smem<NA>(), stream>>>(xm, bm, dtf, Af, st,
+                                                                            dec, L, S, H, G, nch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3((PN4 + PASS_NT - 1) / PASS_NT, batch * H);
+  cfg.blockDim = dim3(PASS_NT);
+  cfg.dynamicSmemBytes = 0;
+  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_kernel, st, static_cast<const float*>(dec),
+                           static_cast<float*>(nullptr), PN4, N, nch);
+  if (err != cudaSuccess) return (int)err;
+  // 3-4: dh1
+  ssd_chunk_state_kernel<NA, true><<<grid, NT, state_smem<NA>(), stream>>>(dym, cm, dtf, Af, dst,
+                                                                           dec, L, S, H, G, nch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_bwd_kernel, dst, static_cast<const float*>(dec),
+                           static_cast<const float*>(dh_final), PN4, N, nch);
+  if (err != cudaSuccess) return (int)err;
+  // 5: the chunks' gradients
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = grad_smem<NA>();
+  err = cudaLaunchKernelEx(&cfg, ssd_chunk_grad_kernel<NA>, xm, dym, bm, cm, dtf, Af,
+                           static_cast<const float*>(st), static_cast<const float*>(dst),
+                           static_cast<bf16*>(dx), static_cast<float*>(ddt),
+                           static_cast<float*>(part_b), static_cast<float*>(part_c),
+                           static_cast<float*>(part_a), L, S, H, G, N, nch);
+  if (err != cudaSuccess) return (int)err;
+  // 6: the sums over heads and chunks
+  const long long rows = (long long)batch * S * G;
+  const int N4 = N / 4;
+  const int sum_blocks = (int)((rows * N4 + PASS_NT - 1) / PASS_NT);
+  cfg.gridDim = dim3(sum_blocks + (batch * H + PASS_NT - 1) / PASS_NT);
+  cfg.blockDim = dim3(PASS_NT);
+  cfg.dynamicSmemBytes = 0;
+  err = cudaLaunchKernelEx(&cfg, ssd_grad_reduce_kernel, static_cast<const float*>(part_b),
+                           static_cast<const float*>(part_c), static_cast<const float*>(part_a),
+                           static_cast<bf16*>(dB), static_cast<bf16*>(dC), static_cast<float*>(dA),
+                           rows, H / G, N4, batch * H, nch, sum_blocks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 }  // namespace tc
 
 }  // namespace
@@ -781,6 +1422,39 @@ extern "C" int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* A, 
   if (N <= tc::ATOM)
     return tc::launch<1>(x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, N, L, s);
   return tc::launch<2>(x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, N, L, s);
+}
+
+// The wgmma variant's backward (wgmma_bwd), on the forward's layout: x, dt,
+// A, B, C as ssd_scan_wgmma_fwd takes them, dy [batch, S, H, P] bf16 (its
+// own strides), dh_final [batch, H, P, N] f32 contiguous or null (zero).
+// `strides` holds 14 element strides: x (batch, S, H), dt (batch, S, H), A
+// (batch, H), B and C (batch, S, G), dy (batch, S, H); dy's last dim is
+// contiguous, it starts on 16 bytes and its strides are multiples of 8
+// elements (TMA).  Outputs, contiguous: dx [batch, S, H, P] bf16, ddt
+// [batch, S, H] f32, dA [batch, H] f32, dB and dC [batch, S, G, N] bf16.
+// f32 scratch: states and dstates [batch·H, ceil(S / 64), P·64] (P·128 for
+// N > 64), decay and part_a [batch·H, ceil(S / 64)], part_b and part_c
+// [batch, S, H, N].  P = 64; N a multiple of 16 up to 128.  Enqueues six
+// kernels on `stream`; returns cudaGetLastError() after them (0 on success).
+extern "C" int ssd_scan_wgmma_bwd(const void* x, const void* dt, const void* A, const void* B,
+                                  const void* C, const void* dy, const void* dh_final, void* dx,
+                                  void* ddt, void* dA, void* dB, void* dC, void* states,
+                                  void* dstates, void* decay, void* part_b, void* part_c,
+                                  void* part_a, int batch, int S, int H, int G, int P, int N,
+                                  const long long* strides, void* stream) {
+  if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P != tc::P || N < 16 ||
+      N > NMAX || N % 16 != 0 || strides == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* t = strides;
+  const tc::Layout L = {t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8], t[9], t[10],
+                        0,    0,    0};
+  const long long dys[3] = {t[11], t[12], t[13]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= tc::ATOM)
+    return tc::launch_bwd<1>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates,
+                             decay, part_b, part_c, part_a, batch, S, H, G, N, L, dys, s);
+  return tc::launch_bwd<2>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates,
+                           decay, part_b, part_c, part_a, batch, S, H, G, N, L, dys, s);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

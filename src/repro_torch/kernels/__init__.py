@@ -7,6 +7,7 @@ from repro_torch.kernels.flash_attention import select_variant as select_flash_v
 from repro_torch.kernels.flash_attention import select_bwd_variant as select_flash_bwd_variant
 from repro_torch.kernels.ssd_scan import LIBRARY as SSD_LIBRARY, ssd_scan
 from repro_torch.kernels.ssd_scan import select_variant as select_ssd_variant
+from repro_torch.kernels.ssd_scan import select_bwd_variant as select_ssd_bwd_variant
 from repro_torch.kernels.swiglu_matmul import LIBRARY as SWIGLU_LIBRARY, swiglu_experts
 from repro_torch.kernels.swiglu_matmul import swiglu_matmul, swiglu_vjp
 from repro_torch.kernels.swiglu_matmul import select_experts_variant
@@ -35,6 +36,7 @@ __all__ = [
     "select_swiglu_variant",
     "select_swiglu_bwd_variant",
     "select_ssd_variant",
+    "select_ssd_bwd_variant",
     "ref",
     "flash_attention_bwd_ref",
     "swiglu_bwd_ref",

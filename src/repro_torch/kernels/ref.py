@@ -7,7 +7,8 @@ and :func:`swiglu_bwd_ref` are the backward kernels'; the ``"vjp"``
 backward routes (f32, and shapes the kernels do not take) compute through
 the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
-decomposition and operand rounding on the CPU, for the tests.
+decomposition and operand rounding on the CPU, for the tests, and
+:func:`ssd_scan_bwd_phases` its backward ``wgmma_bwd``'s.
 """
 from __future__ import annotations
 
@@ -223,6 +224,128 @@ def ssd_scan_three_phase(
     y = y + torch.exp(cs)[..., None] * mm("bcihn,bchpn->bcihp", Cc, hs, split_b=True)
     y = y.reshape(Bsz, nc * Q, H, P)[:, :S].to(x.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_scan_bwd_phases(
+    x: torch.Tensor,   # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H]     (f32)
+    A: torch.Tensor,   # [H] or [B, H] (f32)
+    Bm: torch.Tensor,  # [B, S, G, N]
+    Cm: torch.Tensor,  # [B, S, G, N]
+    dy: torch.Tensor,  # [B, S, H, P]
+    dh_final: Optional[torch.Tensor] = None,  # [B, H, P, N]
+    lo: bool = True,
+):
+    """The ``wgmma_bwd`` kernel's arithmetic on the CPU, for the tests (the
+    plain version it is held against on the card is
+    ``kernels/ssd_scan.py::ssd_scan_vjp``).  (dx, ddt, dA, dB, dC) of the
+    scan at the cotangents ``dy`` and ``dh_final`` (``None``: zero), over
+    chunks of 64 positions, head h reading group h // (H/G), in the kernel's
+    phases:
+
+    0. the chunk-start states h0, as the forward's phases 1 and 2;
+    1. r_c = (dy∘exp(cs))^T C, and the cotangent of each chunk's end state
+       carried backwards: dh1(last) = dh_final, dh1(c-1) = exp(T_c) dh1(c) + r_c;
+    2. per (chunk, head): CB = C B^T, G = dy x^T, L_ij = exp(cs_i - cs_j)
+       (j <= i), K = CB∘L, dCB = L∘G∘dt_j, M = CB∘dCB;
+       dC = exp(cs_i)(dy h0) + dCB B,  dB = dt_j exp(T - cs_j)(x dh1) + dCB^T C;
+       du^T = dy^T K + exp(T - cs_j)(dh1 B^T);
+       dcs_i = Σ_j M_ij - Σ_j M_ji + exp(cs_i) dy_i·(h0 C_i) - W_i with
+       W_j = dt_j exp(T - cs_j) x_j·(dh1 B_j), and d T = Σ W + exp(T) Σ dh1∘h0
+       added to the last position; da = the reverse cumsum of dcs;
+       dx = dt du, ddt = x·du + A da, the chunk's share of dA = Σ dt da;
+    3. dB and dC summed over the heads of a group, head by head in order;
+       dA over the chunks in order.
+
+    In f32 every f32 operand of a product enters as hi + lo bf16 halves, as
+    the kernel feeds the tensor cores (``lo=False`` drops the lo halves: a
+    planted fault); f64 inputs compute in f64 with no split (the phases'
+    algebra, exact).  Returns dx in x's dtype, ddt and dA ([B, H]) in f32
+    (f64), dB and dC in B's dtype."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    acc = torch.promote_types(x.dtype, F32)
+    Q = 64
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):  # [B, S, k, ...] -> [B, nc, k, Q, ...], zero past S
+        t = F.pad(t.to(acc), [0, 0] * (t.ndim - 2) + [0, pad])
+        return t.reshape(Bsz, nc, Q, *t.shape[2:]).movedim(2, 3)
+
+    def parts(t):
+        if acc == torch.float64:
+            return (t,)
+        hi, low = _split_bf16(t)
+        return (hi, low) if lo else (hi,)
+
+    def mm(eq, a, b):
+        """einsum with whichever of a, b is a tuple of halves summed over."""
+        if isinstance(a, tuple):
+            return sum(torch.einsum(eq, t, b) for t in a)
+        if isinstance(b, tuple):
+            return sum(torch.einsum(eq, a, t) for t in b)
+        return torch.einsum(eq, a, b)
+
+    gidx = torch.arange(H, device=x.device) // R
+    xc, dyc = chunks(x), chunks(dy)                    # [B,nc,H,Q,P]
+    dtc = chunks(dt[..., None])[..., 0]                # [B,nc,H,Q]
+    Bc, Cc = chunks(Bm)[:, :, gidx], chunks(Cm)[:, :, gidx]  # [B,nc,H,Q,N]
+    Ah = A.to(acc).expand(Bsz, H)[:, None, :, None]    # [B,1,H,1]
+    cs = torch.cumsum(dtc * Ah, dim=-1)
+    T = cs[..., -1:]
+    decay = torch.exp(T[..., 0])                       # [B,nc,H]
+    ecs, wexp = torch.exp(cs), torch.exp(T - cs)
+    # phase 0: the states the chunks start from
+    s = mm("bchjp,bchjn->bchpn", parts(xc * (wexp * dtc)[..., None]), Bc)
+    h = torch.zeros_like(s[:, 0])
+    h0 = torch.empty_like(s)
+    for c in range(nc):
+        h0[:, c] = h
+        h = decay[:, c, :, None, None] * h + s[:, c]
+    # phase 1: the cotangents of the states they end with
+    r = mm("bchip,bchin->bchpn", parts(dyc * ecs[..., None]), Cc)
+    dh = torch.zeros_like(r[:, 0]) if dh_final is None else dh_final.to(acc)
+    dh1 = torch.empty_like(r)
+    for c in reversed(range(nc)):
+        dh1[:, c] = dh
+        dh = decay[:, c, :, None, None] * dh + r[:, c]
+    # phase 2: within each chunk
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(~causal, float("-inf")))
+    CB = torch.einsum("bchin,bchjn->bchij", Cc, Bc)
+    K = CB * L
+    dCB = L * torch.einsum("bchip,bchjp->bchij", dyc, xc) * dtc[..., None, :]
+    M = CB * dCB
+    dCh = (ecs[..., None] * mm("bchip,bchpn->bchin", dyc, parts(h0))
+           + mm("bchij,bchjn->bchin", parts(dCB), Bc))
+    dBh = ((dtc * wexp)[..., None] * mm("bchjp,bchpn->bchjn", xc, parts(dh1))
+           + mm("bchij,bchin->bchjn", parts(dCB), Cc))
+    h0C = mm("bchpn,bchin->bchpi", parts(h0), Cc)
+    dhB = mm("bchpn,bchjn->bchpj", parts(dh1), Bc)
+    W = dtc * wexp * torch.einsum("bchjp,bchpj->bchj", xc, dhB)
+    duT = mm("bchip,bchij->bchpj", dyc, parts(K)) + wexp[..., None, :] * dhB
+    dcs = M.sum(-1) - M.sum(-2) + ecs * torch.einsum("bchip,bchpi->bchi", dyc, h0C) - W
+    dcs[..., -1] += W.sum(-1) + decay * (dh1 * h0).sum((-1, -2))
+    da = dcs.flip(-1).cumsum(-1).flip(-1)
+    ddt = torch.einsum("bchjp,bchpj->bchj", xc, duT) + Ah * da
+    dx = dtc[..., None] * duT.transpose(-1, -2)
+    # phase 3: fixed-order sums over the heads of a group and over chunks
+    dA = torch.zeros((Bsz, H), dtype=acc, device=x.device)
+    for c in range(nc):
+        dA = dA + (dtc[:, c] * da[:, c]).sum(-1)
+    dBh, dCh = (t.reshape(Bsz, nc, G, R, Q, N) for t in (dBh, dCh))
+    dB, dC = dBh[:, :, :, 0], dCh[:, :, :, 0]
+    for rr in range(1, R):  # head h = g·R + r of group g
+        dB, dC = dB + dBh[:, :, :, rr], dC + dCh[:, :, :, rr]
+
+    def unchunks(t):  # [B, nc, k, Q, ...] -> [B, S, k, ...]
+        t = t.movedim(3, 2)
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :S]
+
+    return (unchunks(dx).to(x.dtype), unchunks(ddt[..., None])[..., 0], dA,
+            unchunks(dB).to(Bm.dtype), unchunks(dC).to(Cm.dtype))
 
 
 def swiglu_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:

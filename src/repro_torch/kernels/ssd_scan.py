@@ -30,11 +30,21 @@ launch the selected variant would make.  Every call of :func:`ssd_scan` or
 (``kernels/_work.py``), whichever of the three routes it takes.
 
 On the card each launch sits in :class:`_SSDScan`, an
-``autograd.Function`` whose backward is :func:`ssd_scan_vjp`: the chunked
-form's VJP in PyTorch (the Pallas kernel has no VJP of its own, so there is
-no backward kernel to port).  It recomputes the chunk-start states from the
-saved inputs rather than reading the ``wgmma`` kernel's ``states`` scratch,
-which holds them in the accumulator's register order.
+``autograd.Function``.  The Pallas kernel has no VJP of its own (the
+reference trains through ``_ssd_chunked``, which XLA differentiates), so
+the backward computes what ``jax.vjp`` of ``_ssd_chunked`` gives;
+:func:`select_bwd_variant` picks how:
+
+- ``wgmma_bwd`` behind the ``wgmma`` forward: a backward kernel in the same
+  source (six kernels, one launch of the variant: the chunk-start states
+  recomputed with the forward's first two phases, the state cotangents
+  carried from the last chunk to the first, every gradient of a (chunk,
+  head) on the tensor cores, then fixed-order sums over the heads of a group
+  and over chunks, no float atomics).  It records :func:`work_bwd`; a failed
+  build or launch raises, nothing tries the VJP instead.
+- ``"vjp"`` behind ``cuda_core`` (f32, other shapes): :func:`ssd_scan_vjp`,
+  the chunked form's VJP in PyTorch, recorded as ``("ssd_scan", "vjp")``.
+  It is also the plain version the backward kernel is held against.
 """
 from __future__ import annotations
 
@@ -48,8 +58,8 @@ from repro_torch.kernels._build import KernelLibrary, check_cuda_operands, strea
 from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import on_flat_heads, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_mixer", "ssd_scan_vjp", "select_variant", "wgmma_operands",
-           "work", "LIBRARY", "CHUNK", "VJP_CHUNK"]
+__all__ = ["ssd_scan", "ssd_mixer", "ssd_scan_vjp", "select_variant", "select_bwd_variant",
+           "wgmma_operands", "work", "work_bwd", "LIBRARY", "CHUNK", "VJP_CHUNK"]
 
 MAX_STATE = 128
 CHUNK = {"wgmma": 64, "cuda_core": 32}  # each variant's chunk length
@@ -64,6 +74,10 @@ LIBRARY = KernelLibrary("ssd_scan", {
               [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
     # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
     "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates, decay,
+    # part_b, part_c, part_a, batch, S, H, G, P, N, strides, stream
+    "wgmma_bwd": ("ssd_scan_wgmma_bwd",
+                  [_P] * 18 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
 })
 
 
@@ -73,6 +87,13 @@ def select_variant(P: int, N: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16 and P == 64 and N % 16 == 0 and 16 <= N <= MAX_STATE:
         return "wgmma"
     return "cuda_core"
+
+
+def select_bwd_variant(P: int, N: int, dtype: torch.dtype) -> str:
+    """The backward behind a CUDA call of these shapes and dtype:
+    ``"wgmma_bwd"`` (a kernel launch) behind the ``wgmma`` forward,
+    otherwise ``"vjp"`` (:func:`ssd_scan_vjp`)."""
+    return "wgmma_bwd" if select_variant(P, N, dtype) == "wgmma" else "vjp"
 
 
 def work(heads: int, groups: int, S: int, P: int, N: int, elem: int, chunk: int) -> tuple:
@@ -89,6 +110,22 @@ def work(heads: int, groups: int, S: int, P: int, N: int, elem: int, chunk: int)
     Q = chunk
     macs = -(-S // Q) * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * P * N)
     return 2.0 * heads * macs, nbytes
+
+
+def work_bwd(heads: int, groups: int, S: int, P: int, N: int, elem: int,
+             chunk: int = VJP_CHUNK) -> tuple:
+    """(operations, bytes) of one backward over ``heads`` sequences that
+    read ``groups`` B and C sequences.  Operations: the chunked form's
+    products at ``chunk``, per head and chunk 6 of Q·P·N (the chunk's state
+    and its cotangent's term, h0 Cᵀ, dh1 Bᵀ, dy h0, x dh1) and 2 of Q·Q·P
+    (dy xᵀ, Kᵀ dy), per group and chunk 3 of Q·Q·N (C Bᵀ, dCB B, dCBᵀ C);
+    2 per multiply-add.  Bytes: x and dy read and dx written, B and C read
+    and dB and dC written, in the input type (``elem`` bytes); dt read and
+    ddt written, A read and dA written, in f32."""
+    Q, nc = chunk, -(-S // chunk)
+    nbytes = (3 * heads * S * P + 4 * groups * S * N) * elem + 2 * heads * S * 4 + 2 * heads * 4
+    ops = 2.0 * nc * (heads * (6 * Q * P * N + 2 * Q * Q * P) + groups * 3 * Q * Q * N)
+    return ops, nbytes
 
 
 def _tma_strides(t: torch.Tensor) -> list:
@@ -152,6 +189,46 @@ def _launch_wgmma(x, dt, A2, Bm, Cm, return_state):
                    states.data_ptr(), decay.data_ptr(), Bsz, S, H, G, P, N,
                    (ctypes.c_longlong * len(strides))(*strides), stream_handle(x))
     return y, h
+
+
+def _launch_bwd(x, dt, A2, Bm, Cm, dy, dh_final):
+    """Launch ``wgmma_bwd`` on the forward's operands (x [B, S, H, P], dt
+    [B, S, H], A2 [B, H], Bm and Cm [B, S, G, N], as :func:`_launch_wgmma`
+    takes them) at the cotangents dy [B, S, H, P] (bf16) and dh_final
+    [B, H, P, N] (f32, or None for zero): (dx, ddt, dA2, dB, dC) in the
+    operands' dtypes and shapes."""
+    check_cuda_operands("ssd_scan", (x, Bm, Cm, dy), (torch.bfloat16,), contiguous=False)
+    check_cuda_operands("ssd_scan", (dt, A2), (torch.float32,), contiguous=False)
+    if dt.device != x.device:
+        raise ValueError(f"ssd_scan: operands on {x.device} and {dt.device}")
+    x, dt, A2, Bm, Cm, strides = wgmma_operands(x, dt, A2, Bm, Cm)
+    dy = dy if _tma_ready(dy) else dy.contiguous()
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((Bsz, H), dtype=f32, device=dev)
+    dB = torch.empty((Bsz, S, G, N), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=Cm.dtype, device=dev)
+    if x.is_meta:
+        LIBRARY.account("wgmma_bwd")
+        return dx, ddt, dA, dB, dC
+    if dh_final is not None:
+        dh_final = dh_final.to(f32).contiguous()
+    nch = -(-S // CHUNK["wgmma"])
+    # chunk states as the forward keeps them (padded to 64 or 128 columns),
+    # per-chunk decays and dA shares, per-head dB and dC
+    states, dstates = (torch.empty((Bsz * H, nch, P * (64 if N <= 64 else 128)), dtype=f32,
+                                   device=dev) for _ in range(2))
+    decay, part_a = (torch.empty((Bsz * H, nch), dtype=f32, device=dev) for _ in range(2))
+    part_b, part_c = (torch.empty((Bsz, S, H, N), dtype=f32, device=dev) for _ in range(2))
+    strides = strides[:11] + _tma_strides(dy)[:3]
+    LIBRARY.launch("wgmma_bwd", *(t.data_ptr() if t is not None else None for t in (
+        x, dt, A2, Bm, Cm, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates, decay, part_b,
+        part_c, part_a)), Bsz, S, H, G, P, N, (ctypes.c_longlong * 14)(*strides),
+        stream_handle(x))
+    return dx, ddt, dA, dB, dC
 
 
 def _launch_cuda_core(x, dt, A2, Bm, Cm, return_state):
@@ -346,9 +423,11 @@ def ssd_scan_vjp(
 
 class _SSDScan(torch.autograd.Function):
     """Either variant's launch forward (``_launch_wgmma`` on the mixer's
-    layout, ``_launch_cuda_core`` on one-head views of flat operands),
-    :func:`ssd_scan_vjp` backward.  Unused cotangents stay ``None``: a
-    train step discards the final state, and no zeros are made for it."""
+    layout, ``_launch_cuda_core`` on one-head views of flat operands);
+    backward the ``wgmma_bwd`` launch behind ``wgmma`` where
+    :func:`select_bwd_variant` picks it, :func:`ssd_scan_vjp` otherwise.
+    Unused cotangents stay ``None``: a train step discards the final state,
+    and no zeros are made for it."""
 
     @staticmethod
     def forward(ctx, x, dt, A2, Bm, Cm, variant: str, return_state: bool):
@@ -356,12 +435,21 @@ class _SSDScan(torch.autograd.Function):
         y, h = launch(x, dt, A2, Bm, Cm, return_state)
         ctx.save_for_backward(x, dt, A2, Bm, Cm)
         ctx.set_materialize_grads(False)
+        ctx.bwd = (select_bwd_variant(x.shape[-1], Bm.shape[-1], x.dtype) if variant == "wgmma"
+                   else "vjp")
         return (y, h) if return_state else y
 
     @staticmethod
     def backward(ctx, dy, dh=None):
-        with uncounted("ssd_scan"):
-            grads = ssd_scan_vjp(*ctx.saved_tensors, dy, dh)
+        x, dt, A2, Bm, Cm = ctx.saved_tensors
+        if ctx.bwd == "vjp":
+            with uncounted("ssd_scan"):
+                grads = ssd_scan_vjp(x, dt, A2, Bm, Cm, dy, dh)
+        else:
+            Bsz, S, H, P = x.shape
+            G, N = Bm.shape[2], Bm.shape[3]
+            record("ssd_scan", ctx.bwd, work_bwd(Bsz * H, Bsz * G, S, P, N, x.element_size()))
+            grads = _launch_bwd(x, dt, A2, Bm, Cm, torch.zeros_like(x) if dy is None else dy, dh)
         return (*grads, None, None)
 
 

@@ -14,7 +14,8 @@ the port has no compiler to ask, so it runs the step and counts it:
   ops' FLOPs (``torch.utils.flop_counter``), each kernel call's own
   ``work()`` recorded once at its entry (so a call counts the same work on
   ``meta``, the CPU and the card; backward kernels too, as
-  ``flash_attention[mma_bwd]``, ``swiglu_matmul[wgmma_bwd]``), each kernel
+  ``flash_attention[mma_bwd]``, ``swiglu_matmul[wgmma_bwd]``,
+  ``ssd_scan[wgmma_bwd]``: their ``work_bwd()``), each kernel
   VJP's FLOPs on their own, the launches (``LIBRARY.counts``), the
   operands' bytes and the peak of what the step allocates;
 - :func:`analyze_cell` sets the count beside :func:`attach_analytic`'s
@@ -267,7 +268,8 @@ def probe_config(cfg: ArchConfig) -> ArchConfig:
 def analytic_cores(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, float]:
     """The analytic model's attention core (QKᵀ and PV over all S² scores)
     and SSD core (conv and chunked scan), with train's multiplier, on one
-    device: the components the kernels and their VJPs count."""
+    device: the components the kernels, their backward kernels and their
+    VJPs count."""
     B, S, kind = shape.global_batch, shape.seq_len, shape.kind
     mult_core = 4.0 if kind == "train" else 1.0
     attn, ssm = Terms(), Terms()
@@ -290,8 +292,9 @@ def validate_probe(arch: str, kind: str, device="meta", seq: int = 1024, batch: 
     f32 moments) on ``device`` and hold it against the analytic terms, in
     total and by component: the attention core (the flash kernel and its
     backward against all S² scores: the kernel's causal calls count only the
-    pairs the mask leaves) and the SSD core (the scan and its VJP against
-    the conv and the chunked scan); ``rest`` is everything else.
+    pairs the mask leaves) and the SSD core (the scan and its backward, the
+    ``wgmma_bwd`` kernel's ``work_bwd`` or the VJP's aten FLOPs, against the
+    conv and the chunked scan); ``rest`` is everything else.
     ``finite``: the counted step's outputs are finite (they are not kept).
     With ``timer``, also ``ms``: ``timer(call)`` of the same step, called
     again."""

@@ -880,7 +880,8 @@ def test_ssd_vjp_on_card(card, dtype, with_dh, H, N, Bsz, S):
     bf16 through ``wgmma``, f32 through ``cuda_core`` on flat copies.  The
     gradients of the conv output, dt and A equal autograd through the plain
     version on the card, with a cotangent for the final state and without
-    one (a train step discards it); the backward launches no kernel."""
+    one (a train step discards it); the bf16 backward is one ``wgmma_bwd``
+    launch, the f32 one launches no kernel."""
     from repro_torch.kernels.ref import ssd_mixer_ref
 
     P, G = 64, 1
@@ -911,12 +912,78 @@ def test_ssd_vjp_on_card(card, dtype, with_dh, H, N, Bsz, S):
     y, got = grads(ssd_mixer)
     assert y.grad_fn is not None
     assert SSD_LIBRARY.counts[variant] == before[variant] + 1
-    assert SSD_LIBRARY.launches == sum(before.values()) + 1  # the backward launches none
+    # the bf16 backward is one wgmma_bwd launch; the f32 one (the VJP) launches none
+    bwd = dtype == torch.bfloat16
+    assert SSD_LIBRARY.counts["wgmma_bwd"] == before["wgmma_bwd"] + bwd
+    assert SSD_LIBRARY.launches == sum(before.values()) + 1 + bwd
     _, want = grads(ssd_mixer_ref)
     for name, g, w in zip(("conv output", "dt", "A"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
         assert err <= GRAD_TOL[dtype], (name, err)
+
+
+# the SSD scan's backward kernel against ssd_scan_vjp on the same inputs,
+# per gradient, within this share of its largest magnitude: both compute in
+# f32 (the kernel's f32 operands as bf16 hi + lo pairs, ~5e-6 of each
+# gradient on the CPU, ref.ssd_scan_bwd_phases), and both round dx, dB and
+# dC to bf16 (one ulp, 2**-8 of a value)
+SSD_BWD_TOL = 1e-2
+
+
+def ssd_bwd_case(card, seed, Bsz, S, H, G, N, with_dh, dt_shift):
+    """The backward's operands on the mixer's layout: x, B and C strided
+    views of one bf16 conv output, dt, A as [B, H], dy (bf16), dh_final (f32
+    or None)."""
+    P = 64
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy((rng.standard_normal((Bsz, S, H * P + 2 * G * N)) * 0.5)
+                           .astype(np.float32)).to(card, torch.bfloat16)
+    x = buf[..., :H * P].reshape(Bsz, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    Cm = buf[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    dt = torch.from_numpy(np.logaddexp(0.0, rng.standard_normal((Bsz, S, H)) - dt_shift)
+                          .astype(np.float32)).to(card)
+    A2 = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)).to(
+        card)[None].expand(Bsz, H)
+    dy = torch.from_numpy(rng.standard_normal((Bsz, S, H, P)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    dh = (torch.from_numpy(rng.standard_normal((Bsz, H, P, N)).astype(np.float32)).to(card)
+          if with_dh else None)
+    return x, dt, A2, Bm, Cm, dy, dh
+
+
+@pytest.mark.parametrize("with_dh", [True, False])
+@pytest.mark.parametrize("Bsz,S,H,G,N,dt_shift", [
+    (1, 64, 1, 1, 128, 0.0), (2, 100, 4, 2, 128, 4.0), (1, 300, 4, 1, 16, 4.0),
+    (2, 1, 2, 1, 128, 4.0), (1, 200, 4, 4, 64, 4.0), (2, 130, 8, 2, 48, 4.0),
+    (1, 257, 2, 1, 80, 4.0), (4, 1024, 32, 1, 128, 4.0), (2, 1024, 128, 1, 16, 4.0)])
+def test_ssd_wgmma_bwd(card, with_dh, Bsz, S, H, G, N, dt_shift):
+    """``wgmma_bwd`` against ``ssd_scan_vjp`` on the same inputs: one
+    chunk, ragged S, one position, G 1, 2 and H, state widths 16 to 128
+    (48 and 80 fill part of a tile), mamba2's train layout (B 4, S 1024, H
+    32, N 128) and Jamba's (H 128, N 16), dt ~0.02 where the carry counts,
+    with and without a final-state cotangent; one launch, and bit for bit
+    the same over two."""
+    import importlib
+
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    x, dt, A2, Bm, Cm, dy, dh = ssd_bwd_case(card, 42, Bsz, S, H, G, N, with_dh, dt_shift)
+    assert ssd.select_bwd_variant(64, N, torch.bfloat16) == "wgmma_bwd"
+    before = dict(SSD_LIBRARY.counts)
+    got = ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, dh)
+    assert SSD_LIBRARY.counts["wgmma_bwd"] == before["wgmma_bwd"] + 1
+    assert SSD_LIBRARY.launches == sum(before.values()) + 1
+    want = ssd.ssd_scan_vjp(x, dt, A2, Bm, Cm, dy, dh)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        # one position: A does not reach y, and dA is 0 in both
+        err = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                 1e-30)
+        assert err <= SSD_BWD_TOL, (name, err)
+    again = ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _narrow(arch):
@@ -968,10 +1035,11 @@ def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
             loss, _ = loss_fn(m, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev), remat=True)
             loss.backward()
             if dev == "cuda":  # every layer's kernel launches twice: forward, recompute
-                n_ssm = cfg.n_layers if cfg.family == "ssm" else 0  # (bf16: and mma_bwd)
+                # (bf16: and its backward kernel, mma_bwd or the SSD scan's wgmma_bwd)
+                n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
                 per_layer = 3 if dtype == torch.bfloat16 else 2
                 assert FLASH_LIBRARY.launches == before[0] + per_layer * (cfg.n_layers - n_ssm)
-                assert SSD_LIBRARY.launches == before[1] + 2 * n_ssm
+                assert SSD_LIBRARY.launches == before[1] + per_layer * n_ssm
             grads[dev] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
         for name, g in grads["cuda"].items():
             assert torch.isfinite(g).all() and g.abs().max() > 0, (dtype, name)

@@ -168,7 +168,7 @@ def test_variant_names():
                                             "experts_decode", "experts_cuda_core", "wgmma_bwd",
                                             "experts_wgmma_bwd"}
     assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core", "mma_bwd"}
-    assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core"}
+    assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core", "wgmma_bwd"}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])

@@ -337,7 +337,14 @@ def test_ssd_on_meta(P, N, dtype, variant, return_state):
         1, *ssd.work(Bsz * H, groups, Sq, P, N, xm.element_size(), ssd.CHUNK[variant])]}
     with WorkLog() as log:
         y.sum().backward()
-    assert tuple(Bm.grad.shape) == (Bsz, Sq, G, N) and ("ssd_scan", "vjp") in log.calls
+    # the backward's route for this dtype: the wgmma_bwd kernel's work behind
+    # wgmma (bf16), the VJP's aten FLOPs behind cuda_core
+    route = ssd.select_bwd_variant(P, N, dtype)
+    assert route == ("wgmma_bwd" if variant == "wgmma" else "vjp")
+    assert tuple(Bm.grad.shape) == (Bsz, Sq, G, N) and list(log.calls) == [("ssd_scan", route)]
+    if route == "wgmma_bwd":
+        assert log.calls[("ssd_scan", route)] == [
+            1, *ssd.work_bwd(Bsz * H, Bsz * G, Sq, P, N, xm.element_size())]
 
 
 def test_cpu_calls_record_the_cuda_variant_and_launch_nothing():

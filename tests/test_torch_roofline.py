@@ -145,6 +145,10 @@ TABLE = [
     ("ssd wgmma Jamba layout", ssd.work(128, 1, 1024, 64, 16, 2, 64), BF16, "0.0103", "bytes"),
     ("ssd wgmma train layout", ssd.work(128, 4, 1024, 64, 128, 2, 64), BF16, "0.0121", "bytes"),
     ("ssd cuda_core f32", ssd.work(32, 32, 1024, 64, 128, 4, 32), F32, "0.0191", "operations"),
+    ("ssd wgmma_bwd train layout", ssd.work_bwd(128, 4, 1024, 64, 128, 2), BF16, "0.0166",
+     "bytes"),
+    ("ssd wgmma_bwd Jamba train layout", ssd.work_bwd(256, 2, 1024, 64, 16, 2), BF16, "0.0308",
+     "bytes"),
 ]
 
 

@@ -13,7 +13,9 @@ hides, at dt_shift 4 (dt ~0.02) it shows.
 
 On the card the Function's forward launches a kernel; here the launch is
 stood in for by the plain version under ``no_grad`` (what a kernel returns:
-a tensor with no history), so the backward is the VJP, as on the card.
+a tensor with no history), so the backward is the VJP, as on the card in
+f32 (bf16 at the kernel's shapes takes the ``wgmma_bwd`` kernel there:
+``tests/test_torch_ssd_bwd.py``).
 """
 import importlib
 
