@@ -43,17 +43,19 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              forward) and one decode tick are profiled.
    train   — TinyLlama-1.1B trains at full width and depth (22 layers, bf16,
              AdamW, 2 microbatches of 4 x 1024 tokens, remat): the flash and
-             SwiGLU kernels forward and their backward kernels (``mma_bwd``,
-             ``wgmma_bwd``) backward, no PyTorch VJP.
+             SwiGLU kernels forward and their backward kernels (flash
+             ``wgmma_bwd``, SwiGLU ``wgmma_bwd``) backward, no PyTorch VJP.
              (a) every parameter gets a finite, non-zero gradient (planted
              fault: the kernels' outputs detached); (b) each backward kernel
              at the path's shape, through its Function, against autograd
              through its plain version (faults through the kernels' own
-             launches: the causal flag cleared, dg and du swapped); (c) one
+             launches: the causal flag cleared, dQ's first key tile dropped,
+             dg and du swapped); (c) one
              step at 2 layers on the card against the CPU in f32 (every fault
              of (a) and (b)); (d) one batch as 1 or 2 microbatches; (e) 20
              steps through ``Trainer.run``, counted (88 flash ``mma``, 44
-             ``mma_bwd``, 88 SwiGLU ``wgmma`` and 44 ``wgmma_bwd`` a step; the
+             flash ``wgmma_bwd`` and 0 ``mma_bwd``, 88 SwiGLU ``wgmma`` and 44
+             ``wgmma_bwd`` a step; the
              flash and SwiGLU VJPs called 0 times) and timed, the loss
              falling; (f) the kill-and-resume drill at 2 layers with
              checkpoints in a temporary directory, against an uninterrupted
@@ -526,7 +528,7 @@ def backward_paths(torch, timer, rows, randn) -> None:
     and lse, within BWD_TOL of each gradient's largest magnitude;
     ``swiglu_bwd_ref`` at SWIGLU_TOL), launched twice for bit-identical
     results, and timed into ``rows`` beside their bound (``work_bwd``), the
-    plain version and the library's backward: flash ``mma_bwd`` at
+    plain version and the library's backward: flash ``wgmma_bwd`` at
     TinyLlama's microbatch (BH 128 = 4 x 32 heads, S 1024, D 64, causal),
     MLA's 192/128 (4 x 16 heads, causal), HuBERT's 80 (8 clips x 16 heads
     of 1500 frames, non-causal) and 128 (4 x 32 heads, causal; LLaVA,
@@ -583,7 +585,7 @@ def backward_paths(torch, timer, rows, randn) -> None:
                              what)
         want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
         rel = max(rel_err(g, w) for g, w in zip(got, want))
-        if variant != "mma_bwd" or not rel <= BWD_TOL:
+        if variant != "wgmma_bwd" or not rel <= BWD_TOL:
             raise AssertionError(f"flash_attention[{variant}] {what}: largest error {rel:.3g} "
                                  f"of a gradient's largest magnitude > {BWD_TOL}")
         # the library's backward alone: SDPA's forward once, its gradient timed
@@ -605,8 +607,11 @@ def backward_paths(torch, timer, rows, randn) -> None:
             plain_ms=timer.ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc),
                               reps=5),
             library=lib_name, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        r = rows[("flash_attention", variant, key)]
         log(f"flash_attention[{variant}] {what}: lse max err {lse_err:.3g}; largest error "
-            f"{rel:.3g} of a gradient's largest magnitude; bit-identical over two launches")
+            f"{rel:.3g} of a gradient's largest magnitude; bit-identical over two launches; "
+            f"{r['ms']:.4f} ms ({lib_name} {lib_ms:.4f}, "
+            f"bound {b_ms:.4f})")
         del q, k, v, do, o, lse, got, want
         torch.cuda.empty_cache()
 
@@ -1087,7 +1092,7 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
     flash in each attention layer): ``tcfg.microbatches`` forwards of
     global_batch / microbatches sequences each, twice under remat (the
     forward, then its recompute in the backward), and one backward of each:
-    per attention layer one flash ``mma_bwd``, per mamba2 mixer one SSD
+    per attention layer one flash ``wgmma_bwd``, per mamba2 mixer one SSD
     ``wgmma_bwd``, per SwiGLU call of the forward one ``wgmma_bwd``
     (``experts_wgmma_bwd``), each through the variant ``select_bwd_variant``
     picks (a ``"vjp"`` backward, PyTorch, launches nothing)."""
@@ -2138,10 +2143,11 @@ def hold(name: str, err: float, tol: float, faults: dict) -> None:
 
 def vjp_checks(torch, timer) -> dict:
     """(b) Each backward kernel at the train path's shape, through its
-    kernel's ``autograd.Function`` on the card (one launch of ``mma_bwd`` or
-    ``wgmma_bwd`` and no PyTorch VJP), against autograd through the plain
-    version, bf16; the planted faults, each through the kernel's own launch
-    (the causal flag cleared; dg and du swapped); the backward's times: the
+    kernel's ``autograd.Function`` on the card (one launch of flash's or the
+    SwiGLU's ``wgmma_bwd`` and no PyTorch VJP), against autograd through the
+    plain version, bf16; the planted faults, each through the kernel's own
+    launch (the causal flag cleared; dQ's first key tile dropped, held on dQ
+    alone; dg and du swapped); the backward's times: the
     PyTorch VJP it replaces, the SwiGLU's whole backward (the kernel and its
     four products), the forward + backward beside the plain version's and
     the library's, and the bound.  The flash and SwiGLU backward kernels'
@@ -2184,13 +2190,16 @@ def vjp_checks(torch, timer) -> dict:
     q, k, v = (randn(BH, S, D).requires_grad_(True) for _ in range(3))
     do = randn(BH, S, D)
     fwd = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-    got = grads(FLASH_LIBRARY, "mma_bwd", fwd, (q, k, v), do)
+    got = grads(FLASH_LIBRARY, "wgmma_bwd", fwd, (q, k, v), do)
     want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=True), (q, k, v), do)
     with flash_bwd_without_mask():
-        fault = grads(FLASH_LIBRARY, "mma_bwd", fwd, (q, k, v), do)
-    hold(f"(b) flash mma_bwd BH={BH} S={S} D={D} causal, dq/dk/dv", grads_err(got, want),
-         VJP_TOL, {"causal flag cleared": grads_err(fault, want)})
-    del got, want, fault
+        fault = grads(FLASH_LIBRARY, "wgmma_bwd", fwd, (q, k, v), do)
+    with flash_dq_key_tile_dropped(torch):
+        dropped = grads(FLASH_LIBRARY, "wgmma_bwd", fwd, (q, k, v), do)
+    hold(f"(b) flash wgmma_bwd BH={BH} S={S} D={D} causal, dq/dk/dv", grads_err(got, want),
+         VJP_TOL, {"causal flag cleared": grads_err(fault, want),
+                   "dQ's first key tile dropped (dq)": rel_err(dropped[0], want[0])})
+    del got, want, fault, dropped
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     od = fa._launch(qd, kd, vd, True, sc)[0]
     b_ms, b_by = H100.bound_ms(*fa.work_bwd(BH, S, S, D, True, 2), torch.bfloat16)
@@ -2271,6 +2280,23 @@ def flash_bwd_without_mask():
     launch = fa._launch_bwd
     return patched(fa, "_launch_bwd", lambda q, k, v, o, do, lse, causal, sc: launch(
         q, k, v, o, do, lse, False, sc))
+
+
+def flash_dq_key_tile_dropped(torch):
+    """dQ of the flash backward kernel without its first 64-key tile (a
+    planted fault): one launch on keys 64.. with the rows' own lse, so that
+    when causal each row keeps its diagonal (Sk - Sq falls by 64 with the
+    keys) and rows 0..63 see no key; dk and dv of that launch are not
+    held (zeros)."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    launch = fa._launch_bwd
+
+    def dropped(q, k, v, o, do, lse, causal, sc):
+        dq = launch(q, k[:, 64:].contiguous(), v[:, 64:].contiguous(), o, do, lse, causal, sc)[0]
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    return patched(fa, "_launch_bwd", dropped)
 
 
 def swapped_swiglu_bwd():
@@ -2506,7 +2532,7 @@ def train_path(torch, arch: str) -> dict:
     if arch == TRAIN_ARCH:
         return dict(vjps=vjp_checks, detach=detached_kernels,
                     c_faults=lambda: {"detached outputs": detached_kernels(),
-                                      "flash mma_bwd causal flag cleared":
+                                      "flash wgmma_bwd causal flag cleared":
                                           flash_bwd_without_mask(),
                                       "SwiGLU wgmma_bwd dg and du swapped": swapped_swiglu_bwd()},
                     prepare=None)
@@ -3819,7 +3845,7 @@ def main() -> None:
                  ("flash_attention", "mma", "train", "train", " train BH=128"),
                  ("swiglu_matmul", "wgmma", "train", "train", " train M=4096"),
                  ("ssd_scan", "wgmma", "train", "train_mamba2", " train B=4"),
-                 ("flash_attention", "mma_bwd", "train", "train", " train BH=128"),
+                 ("flash_attention", "wgmma_bwd", "train", "train", " train BH=128"),
                  ("swiglu_matmul", "wgmma_bwd", "train", "train", " train M=4096"),
                  ("swiglu_matmul", "experts_wgmma_bwd", "train_jamba", "train_jamba",
                   " train Jamba E=4"),

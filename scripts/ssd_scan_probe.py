@@ -42,11 +42,12 @@ from __future__ import annotations
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import probe_copies
+from probe_copies import ROOT
+
 WORK = os.path.join(ROOT, "build", "ssd_scan_probe")
 CSRC = os.path.join("repro_torch", "csrc", "ssd_scan.cu")
 
@@ -89,27 +90,11 @@ FAULT_CASES = [(2, 100, 64, 128, 0.0), (3, 256, 64, 128, 0.0), (1, 37, 64, 16, 0
 def copy_with(name: str, subs) -> str:
     """A copy of src/repro_torch with ``subs`` applied to its ssd_scan.cu;
     returns its src directory."""
-    src = os.path.join(WORK, re.sub(r"\W+", "_", name), "src")
-    shutil.rmtree(os.path.dirname(src), ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"), os.path.join(src, "repro_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(src, CSRC)
-    text = open(path).read()
-    for old, new in subs:
-        if old not in text:
-            raise SystemExit(f"{name}: {old!r} not found in {CSRC}")
-        text = text.replace(old, new)
-    open(path, "w").write(text)
-    return src
+    return probe_copies.copy_with(WORK, CSRC, name, subs)
 
 
 def run_child(mode: str, src: str) -> dict:
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", mode, src],
-                         capture_output=True, text=True)
-    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
-    if out.returncode != 0 or not line:
-        raise SystemExit(f"{mode} in {src} failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    return json.loads(line[0][len("RESULT "):])
+    return probe_copies.run_child(__file__, mode, src)
 
 
 # --------------------------------------------------------------------------- #

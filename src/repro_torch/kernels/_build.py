@@ -64,6 +64,7 @@ class KernelLibrary:
         self.source = CSRC / f"{name}.cu"
         self.variants = dict(variants)
         self.counts = {v: 0 for v in variants}
+        self._lib = None
         self._fns: Dict[str, object] = {}
         self._error_string = None
 
@@ -98,7 +99,7 @@ class KernelLibrary:
         err = getattr(lib, f"{self.name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fns, self._error_string = fns, err
+        self._lib, self._fns, self._error_string = lib, fns, err
 
     def launch(self, variant: str, *args) -> None:
         """Call ``variant``'s C entry point; raise if the launch reported an
@@ -111,6 +112,17 @@ class KernelLibrary:
             raise RuntimeError(
                 f"{self.name} ({variant}) kernel launch failed: CUDA error {code} ({msg})")
         self.counts[variant] += 1
+
+    def size(self, entry: str, *args: int) -> int:
+        """The 64-bit integer the C function ``entry`` returns for integer
+        ``args``: a size the kernels decide (a scratch buffer's), which the
+        wrapper allocates.  Builds the library if need be; counts nothing."""
+        if not self._fns:
+            self._load()
+        fn = getattr(self._lib, entry)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_longlong
+        return int(fn(*args))
 
     def account(self, variant: str) -> None:
         """Count the launch of ``variant`` that a call on ``meta`` tensors

@@ -29,15 +29,25 @@ On the card the launch sits in a ``torch.autograd.Function``, so the output
 has a gradient path whenever an input requires grad.  The reference's
 kernel has no custom VJP (its model trains through plain ``jnp``); the
 port's backward is a kernel of its own where the forward is ``mma``:
-:func:`select_bwd_variant` picks ``mma_bwd`` (FA2's backward from the
-forward's output and its per-row logsumexp, which the forward then writes)
-or, behind the ``cuda_core`` forward (f32, other head dims; no train path on
-the card takes it), ``"vjp"``: :func:`flash_attention_vjp`, an explicit VJP
-in PyTorch that recomputes the probabilities in f32.  The choice is made
-from the head dims and the dtype before anything launches; a failed build
-or launch of ``mma_bwd`` raises, nothing tries the VJP instead.  The
-backward records its :func:`work_bwd` as ``("flash_attention",
-"mma_bwd")``; on ``meta`` it returns empty gradients and counts the launch.
+:func:`select_bwd_variant` picks ``wgmma_bwd`` (from the forward's output
+and its per-row logsumexp, which the forward then writes) or, behind the
+``cuda_core`` forward (f32, other head dims; no train path on the card takes
+it), ``"vjp"``: :func:`flash_attention_vjp`, an explicit VJP in PyTorch that
+recomputes the probabilities in f32.  ``wgmma_bwd`` is bound by operations
+(five products over the pairs the mask leaves, 2.5x the forward's); it is
+Hopper's layout, three kernels in one call: delta (rowsum(dO ⊙ O), with
+lse·log2 e, into an f32 scratch whose size the CUDA source gives), dK/dV
+(one CTA per 128 keys) and dQ (one per 128 query rows), each two
+warpgroups on ``wgmma`` whose first thread also keeps TMA loads in flight
+in a ring of stages (no producer warp of its own: it would cap the
+registers), S and dP from shared memory and P, dS fed from registers.  dQ recomputes S and dP
+in its own kernel, so no sum crosses CTAs and no float atomic is used: the
+gradients are the same bits from run to run (the design note is at the top
+of the CUDA source).  The choice is made from the head dims and the dtype
+before anything launches; a failed build or launch of ``wgmma_bwd`` raises,
+nothing tries the VJP instead.  The backward records its :func:`work_bwd`
+as ``("flash_attention", "wgmma_bwd")``; on ``meta`` it returns empty
+gradients and counts the launch.
 """
 from __future__ import annotations
 
@@ -65,8 +75,8 @@ LIBRARY = KernelLibrary("flash_attention", {
     "mma": ("flash_attention_mma_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     # q, k, v, o, bh, sq, sk, d, dv, scale, causal, dtype, stream
     "cuda_core": ("flash_attention_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
-    # q, k, v, o, do, lse, dq, dk, dv, delta, bh, sq, sk, d, dv, scale, causal, stream
-    "mma_bwd": ("flash_attention_mma_bwd", [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, o, do, lse, dq, dk, dv, scratch, bh, sq, sk, d, dv, scale, causal, stream
+    "wgmma_bwd": ("flash_attention_wgmma_bwd", [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P]),
 })
 
 
@@ -81,9 +91,9 @@ def select_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
 
 def select_bwd_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
     """The backward a CUDA call of these head dims and dtype runs:
-    ``"mma_bwd"`` (a kernel launch) behind the ``mma`` forward, otherwise
+    ``"wgmma_bwd"`` (a kernel launch) behind the ``mma`` forward, otherwise
     ``"vjp"`` (:func:`flash_attention_vjp`)."""
-    return "mma_bwd" if select_variant(D, Dv, dtype) == "mma" else "vjp"
+    return "wgmma_bwd" if select_variant(D, Dv, dtype) == "mma" else "vjp"
 
 
 def _causal_pairs(Sq: int, Sk: int) -> int:
@@ -151,7 +161,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                 do: torch.Tensor, lse: torch.Tensor, causal: bool, sc: float):
-    """Launch ``mma_bwd``: (dq, dk, dv) in the inputs' dtype from the
+    """Launch ``wgmma_bwd``: (dq, dk, dv) in the inputs' dtype from the
     forward's o and lse at the cotangent ``do``."""
     BH, Sq, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
@@ -159,11 +169,13 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
     check_cuda_operands("flash_attention", (lse,), (torch.float32,))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.is_meta:
-        LIBRARY.account("mma_bwd")
+        LIBRARY.account("wgmma_bwd")
         return dq, dk, dv
     check_aligned("flash_attention", (q, k, v, o, do))
-    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    LIBRARY.launch("mma_bwd", *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+    # the f32 lse·log2 e and delta rows, laid out as the CUDA source decides
+    scratch = torch.empty(LIBRARY.size("flash_attention_bwd_scratch_floats", BH, Sq),
+                          dtype=torch.float32, device=q.device)
+    LIBRARY.launch("wgmma_bwd", *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, scratch)),
                    BH, Sq, Sk, D, Dv, float(sc), int(causal), stream_handle(q))
     return dq, dk, dv
 
@@ -187,14 +199,14 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's launch forward; backward the ``mma_bwd`` launch or
+    """The kernel's launch forward; backward the ``wgmma_bwd`` launch or
     :func:`flash_attention_vjp`, as :func:`select_bwd_variant` picks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sc: float):
         bwd = select_bwd_variant(q.shape[-1], v.shape[-1], q.dtype)
         o, lse = _launch(q, k, v, causal, sc,
-                         with_lse=bwd == "mma_bwd" and any(ctx.needs_input_grad[:3]))
+                         with_lse=bwd == "wgmma_bwd" and any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sc, ctx.bwd = causal, sc, bwd
         return o

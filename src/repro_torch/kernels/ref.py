@@ -3,7 +3,9 @@
 Port of ``repro/kernels/ref.py``: the same functions with f32 accumulation.
 The kernel wrappers take them for CPU tensors, and ``chip_smoke.py`` holds
 each CUDA kernel against them on the card; :func:`flash_attention_bwd_ref`
-and :func:`swiglu_bwd_ref` are the backward kernels'; the ``"vjp"``
+and :func:`swiglu_bwd_ref` are the backward kernels'
+(:func:`flash_attention_bwd_tiles` emulates ``wgmma_bwd``'s tiling of the
+former, for the tests); the ``"vjp"``
 backward routes (f32, and shapes the kernels do not take) compute through
 the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
@@ -52,7 +54,7 @@ def causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
                             scale: Optional[float] = None):
     """(dq, dk, dv) of :func:`flash_attention_ref` at the cotangent ``do``,
-    from the forward's output ``o`` and its ``lse``, as the ``mma_bwd``
+    from the forward's output ``o`` and its ``lse``, as the ``wgmma_bwd``
     kernel computes them, in f32 (f64 for f64 inputs), returned in the
     inputs' dtypes:
 
@@ -88,6 +90,87 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * sc
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_tiles(q, k, v, o, lse, do, causal: bool = True,
+                              scale: Optional[float] = None, *, bq: int = 64, bk: int = 128,
+                              bkq: int = 64, drop_q_tile: Optional[int] = None):
+    """The ``wgmma_bwd`` kernels' tiling of :func:`flash_attention_bwd_ref`
+    on the CPU, in f32 (f64 for f64 inputs), for the tests: (dq, dk, dv) in
+    the inputs' dtypes.
+
+    q, do, lse and delta are zero-padded to whole 128-row tiles, k and v to
+    whole ``bk``-key tiles, as TMA zero-fills the kernels' loads.  dK/dV:
+    per ``bk`` keys, halves of 64 keys (the two warpgroups) walk the query
+    tiles of ``bq`` rows from the causal diagonal on (when causal and Sq <=
+    Sk), a half skipping a tile whose every pair is masked or whose keys
+    are all past Sk; P = exp2(S·scale·log2 e - lse·log2 e) and dS = P ⊙ (dP
+    - delta) are masked only in tiles that reach past an end or the
+    diagonal (a masked pair dS = 0 and P = 0, or 1/Sk in a row that sees no
+    key).  dQ: per 128 rows, halves of 64 rows each sum dS K over the key
+    tiles of ``bkq`` in order, up to their own diagonal.  ``drop_q_tile``
+    (a planted fault) has the dK/dV walk skip that query tile."""
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    acc = torch.promote_types(q.dtype, F32)
+    log2e = 1.4426950408889634
+    BH, Sq, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    off = Sk - Sq
+    Sqp, Skp = -(-Sq // 128) * 128, -(-Sk // bk) * bk
+
+    def pad(t, n):
+        t = t.to(acc)
+        return F.pad(t, (0, 0) * (t.dim() == 3) + (0, n - t.shape[1]))
+
+    qf, dof = pad(q, Sqp), pad(do, Sqp)
+    kf, vf = pad(k, Skp), pad(v, Skp)
+    delta = pad((do.to(acc) * o.to(acc)).sum(-1), Sqp)
+    lse2 = pad(lse.to(acc) * log2e, Sqp)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+
+    def block(r0, nr, c0, nc):
+        """P and dS [BH, nr, nc] of rows r0.., keys c0.., as a tile computes them."""
+        rows, keys = slice(r0, r0 + nr), slice(c0, c0 + nc)
+        s = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf[:, keys])
+        dp = torch.einsum("bqd,bkd->bqk", dof[:, rows], vf[:, keys])
+        p = torch.exp2(s * (sc * log2e) - lse2[:, rows, None])
+        ds = p * (dp - delta[:, rows, None])
+        row = torch.arange(r0, r0 + nr)[:, None]
+        key = torch.arange(c0, c0 + nc)[None, :]
+        edge = r0 + nr > Sq or c0 + nc > Sk or (causal and r0 + off < c0 + nc - 1)
+        if edge:
+            out = (key >= Sk) | (row >= Sq)
+            hidden = ~out & (key > row + off) if causal else torch.zeros_like(out)
+            blind = hidden & (row + off < 0)
+            p = torch.where(out | hidden, 0.0, p)
+            p = torch.where(blind, 1.0 / Sk, p)
+            ds = torch.where(out | hidden, 0.0, ds)
+        return p, ds
+
+    for k0 in range(0, Skp, bk):
+        t0 = max(0, k0 - off) // bq if causal and off >= 0 else 0
+        for t in range(t0, -(-Sq // bq)):
+            q0 = t * bq
+            if t == drop_q_tile:
+                continue
+            for kw0 in range(k0, k0 + bk, 64):
+                if kw0 >= Sk or (causal and off >= 0 and q0 + bq - 1 + off < kw0):
+                    continue
+                p, ds = block(q0, bq, kw0, 64)
+                rows, keys = slice(q0, q0 + bq), slice(kw0, kw0 + 64)
+                dv[:, keys] += torch.einsum("bqk,bqd->bkd", p, dof[:, rows])
+                dk[:, keys] += torch.einsum("bqk,bqd->bkd", ds, qf[:, rows])
+    n_kt = -(-Sk // bkq)
+    for qw0 in range(0, Sq, 64):
+        n_w = n_kt
+        if causal and off >= 0:
+            n_w = min(n_w, (min(qw0 + 64, Sq) - 1 + off) // bkq + 1)
+        rows = slice(qw0, qw0 + 64)
+        for t in range(n_w):  # the kernel's order
+            _, ds = block(qw0, 64, t * bkq, bkq)
+            dq[:, rows] += torch.einsum("bqk,bkd->bqd", ds, kf[:, t * bkq:(t + 1) * bkq])
+    return ((dq[:, :Sq] * sc).to(q.dtype), (dk[:, :Sk] * sc).to(k.dtype),
+            dv[:, :Sk].to(v.dtype))
 
 
 def ssd_scan_ref(

@@ -14,7 +14,7 @@ the port has no compiler to ask, so it runs the step and counts it:
   ops' FLOPs (``torch.utils.flop_counter``), each kernel call's own
   ``work()`` recorded once at its entry (so a call counts the same work on
   ``meta``, the CPU and the card; backward kernels too, as
-  ``flash_attention[mma_bwd]``, ``swiglu_matmul[wgmma_bwd]``,
+  ``flash_attention[wgmma_bwd]``, ``swiglu_matmul[wgmma_bwd]``,
   ``ssd_scan[wgmma_bwd]``: their ``work_bwd()``), each kernel
   VJP's FLOPs on their own, the launches (``LIBRARY.counts``), the
   operands' bytes and the peak of what the step allocates;
@@ -129,7 +129,7 @@ def tensor_bytes(tree) -> int:
 def count_step(step: Callable, args: tuple) -> Dict[str, Any]:
     """Run ``step(*args)`` once, counted.  Returns ``flops`` (the total),
     ``components`` (FLOPs by aten op, ``"aten.mm"``, ..., by kernel variant,
-    ``"flash_attention[mma]"``, ``"flash_attention[mma_bwd]"``, ..., and by
+    ``"flash_attention[mma]"``, ``"flash_attention[wgmma_bwd]"``, ..., and by
     kernel VJP,
     ``"flash_attention.vjp"``, ...), ``kernels`` (per kernel variant: calls,
     FLOPs, bytes of its ``work()``), ``launches`` (per kernel and variant:

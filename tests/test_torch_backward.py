@@ -1,10 +1,12 @@
 """The backward kernels' plain versions, selectors and ``meta`` route, on the
 CPU, against the JAX package.
 
-The card's backward of flash attention (``mma_bwd``) and of the fused
+The card's backward of flash attention (``wgmma_bwd``) and of the fused
 SwiGLU (``wgmma_bwd``, ``experts_wgmma_bwd``) are CUDA kernels with no CPU
 mode; what they compute is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
-(from the forward's output and per-row logsumexp) and
+(from the forward's output and per-row logsumexp; the flash kernel's
+tiling of it is :func:`repro_torch.kernels.ref.flash_attention_bwd_tiles`,
+held here too, with a skipped query step as its planted fault) and
 :func:`repro_torch.kernels.ref.swiglu_bwd_ref` (dg and du, which
 ``swiglu_matmul.swiglu_grads`` turns into dx, dwg, dwu).  These tests hold
 those plain versions against ``jax.vjp`` of the JAX package's references
@@ -36,7 +38,7 @@ from repro_torch.kernels import (
     swiglu_matmul,
 )
 from repro_torch.kernels._work import WorkLog
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_tiles, flash_attention_ref
 
 from _torch_cnn_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
@@ -120,6 +122,74 @@ def test_flash_bwd_ref_planted_fault():
     assert max(_rel(g.numpy(), w) for g, w in zip(got, vjp(do))) > 0.3
 
 
+# --------------------------------------------------------------------------- #
+# wgmma_bwd's tiling (ref.flash_attention_bwd_tiles) against jax.vjp
+# --------------------------------------------------------------------------- #
+def _bwd_tiles(D, Dv):
+    """(bq, bkq) of the kernel's tile class for these head dims, as
+    ``dispatch_bwd`` in ``csrc/flash_attention.cu`` picks it by the wider
+    one: 64/64 up to 64, 64/128 up to 80 and up to 128, 32/64 above."""
+    w = max(D, Dv)
+    return (64, 64) if w <= 64 else (64, 128) if w <= 128 else (32, 64)
+
+
+def _jax_flash_grads(q, k, v, do, causal, scale):
+    _, vjp = jax.vjp(lambda q, k, v: jax_ref.flash_attention_ref(q, k, v, causal, scale), q, k, v)
+    return vjp(do)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", FLASH_SHAPES)
+def test_flash_bwd_tiles_match_jax_vjp(Sq, Sk, D, Dv, causal):
+    """The kernel's tiles at each shape's tile class (128 keys a dK/dV CTA
+    in halves of 64, query steps of the class's rows from the causal
+    diagonal, ragged ends zero-padded and masked, dQ summed over the
+    class's key tiles in the kernel's order) give ``jax.vjp``'s
+    gradients."""
+    q, k, v = _np(8, (3, Sq, D), (3, Sk, D), (3, Sk, Dv))
+    (do,) = _np(9, (3, Sq, Dv))
+    scale = 0.7 * D ** -0.5
+    o, lse = flash_attention_ref(*_t(q, k, v), causal=causal, scale=scale, return_lse=True)
+    bq, bkq = _bwd_tiles(D, Dv)
+    got = flash_attention_bwd_tiles(*_t(q, k, v), o, lse, torch.from_numpy(do), causal, scale,
+                                    bq=bq, bkq=bkq)
+    for name, g, w in zip(("dq", "dk", "dv"), got, _jax_flash_grads(q, k, v, do, causal, scale)):
+        assert g.dtype == F32 and tuple(g.shape) == w.shape, name
+        assert _rel(g.numpy(), w) <= GRAD_TOL, (name, _rel(g.numpy(), w))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv", [(300, 300, 32, 32), (130, 300, 16, 16),
+                                        (300, 130, 16, 16), (200, 260, 80, 80),
+                                        (300, 300, 128, 128), (260, 200, 192, 128)])
+def test_flash_bwd_tiles_span_tiles(Sq, Sk, D, Dv, causal):
+    """Several dK/dV CTAs, query steps and dQ key tiles (S past 256, Sq
+    above and below Sk), at each shape's tile class: the tiling against the
+    plain version in f64, within 1e-10 of each gradient's largest
+    magnitude."""
+    q, k, v, do = (torch.from_numpy(a).double()
+                   for a in _np(10, (2, Sq, D), (2, Sk, D), (2, Sk, Dv), (2, Sq, Dv)))
+    o, lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    bq, bkq = _bwd_tiles(D, Dv)
+    got = flash_attention_bwd_tiles(q, k, v, o, lse, do, causal, bq=bq, bkq=bkq)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float64, name
+        assert _rel(g.numpy(), w.numpy()) <= 1e-10, (name, _rel(g.numpy(), w.numpy()))
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_flash_bwd_tiles_planted_fault(tile):
+    """A query step the dK/dV walk skips misses jax.vjp by O(1)."""
+    q, k, v, do = _np(11, (2, 100, 64), (2, 100, 64), (2, 100, 64), (2, 100, 64))
+    o, lse = flash_attention_ref(*_t(q, k, v), causal=True, return_lse=True)
+    got = flash_attention_bwd_tiles(*_t(q, k, v), o, lse, torch.from_numpy(do), True,
+                                    drop_q_tile=tile)
+    want = _jax_flash_grads(q, k, v, do, True, 64 ** -0.5)
+    assert _rel(got[0].numpy(), want[0]) <= GRAD_TOL  # dQ's walk is whole
+    assert max(_rel(g.numpy(), w) for g, w in zip(got[1:], want[1:])) > 0.1
+
+
 def _jax_swiglu_grads(x, wg, wu, dout, experts):
     fn = jax.vmap(jax_ref.swiglu_ref) if experts else jax_ref.swiglu_ref
     _, vjp = jax.vjp(fn, x, wg, wu)
@@ -163,10 +233,11 @@ def test_swiglu_bwd_ref_planted_fault():
 # --------------------------------------------------------------------------- #
 # the selectors: the card's train shapes take the kernels, f32 the VJPs
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("D,Dv", [(64, 64), (80, 80), (128, 128), (192, 128), (32, 32),
-                                  (16, 16)])
+@pytest.mark.parametrize("D,Dv", [(D, Dv) for D in range(16, 193, 16) for Dv in range(16, 129, 16)])
 def test_flash_bwd_selector_takes_the_kernel(D, Dv):
-    assert select_flash_bwd_variant(D, Dv, BF16) == "mma_bwd"
+    """Every bf16 head-dim pair the ``mma`` forward takes: D a multiple of
+    16 up to 192, Dv one up to 128."""
+    assert select_flash_bwd_variant(D, Dv, BF16) == "wgmma_bwd"
 
 
 @pytest.mark.parametrize("D,Dv,dtype", [(64, 64, F32), (192, 128, F32), (40, 40, BF16),
@@ -222,10 +293,10 @@ def test_flash_backward_on_meta(Sq, Sk, D, Dv, causal):
         o.sum().backward()
     assert [tuple(t.grad.shape) for t in (q, k, v)] == [(6, Sq, D), (6, Sk, D), (6, Sk, Dv)]
     assert all(t.grad.device.type == "meta" and t.grad.dtype == BF16 for t in (q, k, v))
-    assert log.calls == {("flash_attention", "mma_bwd"): [
+    assert log.calls == {("flash_attention", "wgmma_bwd"): [
         1, *fa.work_bwd(6, Sq, Sk, D, causal, 2, Dv)]}
     assert log.aten == {}  # the kernel's work is its record
-    assert _moved(before) == {("flash_attention", "mma_bwd"): 1}
+    assert _moved(before) == {("flash_attention", "wgmma_bwd"): 1}
 
 
 @pytest.mark.parametrize("M", [8, 100])

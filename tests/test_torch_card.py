@@ -15,9 +15,9 @@ width that is a multiple of 16 up to 128) unless the shapes rule them out.  Tole
 those of ``tests/test_kernels.py`` for flash attention and SwiGLU; ssd_scan
 is held element by element against the exact sequential recurrence, as
 ``chip_smoke.py`` holds it (see ``_ssd_close``).  The backward kernels
-(flash ``mma_bwd``, SwiGLU ``wgmma_bwd`` and ``experts_wgmma_bwd``) are
+(flash ``wgmma_bwd``, SwiGLU ``wgmma_bwd`` and ``experts_wgmma_bwd``) are
 held against their plain versions and launched twice for the same bits
-(``test_flash_mma_bwd``, ``test_swiglu_wgmma_bwd``), and through the
+(``test_flash_wgmma_bwd``, ``test_swiglu_wgmma_bwd``), and through the
 autograd Functions against autograd through the plain versions
 (``test_*_vjp_on_card``).
 """
@@ -754,7 +754,7 @@ def test_flash_vjp_on_card(card, dtype, causal, Sq, Sk, D, Dv):
     assert FLASH_LIBRARY.launches == before + 1 and o.grad_fn is not None
     got = torch.autograd.grad(o, (q, k, v), do)
     want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=causal), (q, k, v), do)
-    # bf16: the backward launches mma_bwd; f32: its VJP is PyTorch
+    # bf16: the backward launches wgmma_bwd; f32: its VJP is PyTorch
     assert FLASH_LIBRARY.launches == before + (2 if dtype == torch.bfloat16 else 1)
     _grads_close(got, want, dtype)
 
@@ -809,10 +809,15 @@ def _rel(got, want) -> float:
                                         (100, 100, 80, 80), (77, 130, 80, 80),
                                         (150, 150, 128, 128), (300, 300, 128, 128),
                                         (100, 100, 192, 128), (256, 256, 192, 128),
-                                        (130, 100, 192, 128)])
-def test_flash_mma_bwd(card, causal, Sq, Sk, D, Dv):
-    """``mma_bwd`` at every tile class (32/32, 64/64, 128/128, 192/128),
-    ragged S, Sq != Sk both ways (rows that see no key): dq, dk, dv against
+                                        (130, 100, 192, 128), (64, 64, 16, 16),
+                                        (200, 260, 48, 48), (130, 130, 96, 96),
+                                        (300, 300, 64, 128), (100, 100, 160, 128),
+                                        (600, 600, 80, 80)])
+def test_flash_wgmma_bwd(card, causal, Sq, Sk, D, Dv):
+    """``wgmma_bwd`` at every tile class (64/64, which D 16 to 64 zero-fill,
+    80/80, 128/128, 192/128) and head dims that fill a class partly or
+    differ (D 64, Dv 128), ragged S, several key and query tiles, Sq != Sk
+    both ways (rows that see no key): dq, dk, dv against
     ``flash_attention_bwd_ref`` from the forward kernel's o and lse (lse
     against the plain version's to 1e-4), and bit for bit the same over two
     calls."""
@@ -829,7 +834,7 @@ def test_flash_mma_bwd(card, causal, Sq, Sk, D, Dv):
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
     before = dict(FLASH_LIBRARY.counts)
     got = fa._launch_bwd(q, k, v, o, do, lse, causal, sc)
-    assert FLASH_LIBRARY.counts["mma_bwd"] == before["mma_bwd"] + 1
+    assert FLASH_LIBRARY.counts["wgmma_bwd"] == before["wgmma_bwd"] + 1
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal, sc)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
@@ -1035,7 +1040,7 @@ def test_every_parameter_gets_a_gradient_on_card(f32_card, arch):
             loss, _ = loss_fn(m, cfg, toks[:, :-1].to(dev), toks[:, 1:].to(dev), remat=True)
             loss.backward()
             if dev == "cuda":  # every layer's kernel launches twice: forward, recompute
-                # (bf16: and its backward kernel, mma_bwd or the SSD scan's wgmma_bwd)
+                # (bf16: and its backward kernel, wgmma_bwd or the SSD scan's wgmma_bwd)
                 n_ssm = cfg.n_layers if cfg.family == "ssm" else 0
                 per_layer = 3 if dtype == torch.bfloat16 else 2
                 assert FLASH_LIBRARY.launches == before[0] + per_layer * (cfg.n_layers - n_ssm)

@@ -167,7 +167,7 @@ def test_variant_names():
     assert set(SWIGLU_LIBRARY.variants) == {"wgmma", "decode", "cuda_core", "experts_wgmma",
                                             "experts_decode", "experts_cuda_core", "wgmma_bwd",
                                             "experts_wgmma_bwd"}
-    assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core", "mma_bwd"}
+    assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core", "wgmma_bwd"}
     assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core", "wgmma_bwd"}
 
 

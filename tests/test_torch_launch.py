@@ -274,7 +274,7 @@ def test_flash_attention_on_meta(D, Dv, dtype, variant):
         o.sum().backward()
     assert [tuple(t.grad.shape) for t in (q, k, v)] == [(6, 100, D), (6, 130, D), (6, 130, Dv)]
     if variant == "mma":  # the backward kernel: its work, recorded once
-        assert log.calls == {("flash_attention", "mma_bwd"): [
+        assert log.calls == {("flash_attention", "wgmma_bwd"): [
             1, *fa.work_bwd(6, 100, 130, D, True, q.element_size(), Dv)]}
     else:  # the explicit VJP: its aten FLOPs
         assert list(log.calls) == [("flash_attention", "vjp")] and log.calls[
@@ -390,8 +390,9 @@ def test_meta_count_equals_cpu_count(family, kind):
 
 def test_train_counts_the_vjps_on_meta_and_the_plain_versions_on_the_cpu():
     """The two counts differ by design: on ``meta`` (as on the card) the
-    flash and SwiGLU backwards are kernels (``[mma_bwd]``, ``[wgmma_bwd]``,
-    ``[experts_wgmma_bwd]``; the SwiGLU's four products around its kernel,
+    flash and SwiGLU backwards are kernels (``flash_attention[wgmma_bwd]``,
+    ``swiglu_matmul[wgmma_bwd]``, ``[experts_wgmma_bwd]``; the SwiGLU's four
+    products around its kernel,
     and the SSD scan's backward, PyTorch, recorded as ``<kernel>.vjp``); on
     the CPU autograd runs through the plain versions, whose backward aten
     ops count as aten ops."""
@@ -399,13 +400,13 @@ def test_train_counts_the_vjps_on_meta_and_the_plain_versions_on_the_cpu():
     shape = ShapeSpec("s", "train", 64, 2)
     meta, cpu = _count(cfg, shape, "meta"), _count(cfg, shape, "cpu")
     bwd = {k: row for k, row in meta["kernels"].items() if k.endswith("_bwd]")}
-    assert set(bwd) == {"flash_attention[mma_bwd]", "swiglu_matmul[wgmma_bwd]",
+    assert set(bwd) == {"flash_attention[wgmma_bwd]", "swiglu_matmul[wgmma_bwd]",
                         "swiglu_matmul[experts_wgmma_bwd]"}
     # the forwards (twice: remat) alike
     assert {k: row for k, row in meta["kernels"].items() if k not in bwd} == cpu["kernels"]
     plan = layer_plan(cfg)
-    assert bwd["flash_attention[mma_bwd]"]["calls"] == sum(s.mixer == "attn" for s in plan)
-    assert meta["launches"]["flash_attention"]["mma_bwd"] == sum(s.mixer == "attn" for s in plan)
+    assert bwd["flash_attention[wgmma_bwd]"]["calls"] == sum(s.mixer == "attn" for s in plan)
+    assert meta["launches"]["flash_attention"]["wgmma_bwd"] == sum(s.mixer == "attn" for s in plan)
     vjps = {k for k in meta["components"] if k.endswith(".vjp")}
     assert vjps == {"swiglu_matmul.vjp", "ssd_scan.vjp"}
     assert not {k for k in cpu["components"] if k.endswith(".vjp")}

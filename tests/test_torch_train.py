@@ -275,7 +275,7 @@ def stand_in_kernels(monkeypatch):
 
     monkeypatch.setattr(flash_mod, "_launch", flash_launch)
     monkeypatch.setattr(flash_mod, "_launch_bwd", flash_launch_bwd)
-    monkeypatch.setattr(flash_mod, "select_bwd_variant", lambda D, Dv, dtype: "mma_bwd")
+    monkeypatch.setattr(flash_mod, "select_bwd_variant", lambda D, Dv, dtype: "wgmma_bwd")
     monkeypatch.setattr(swiglu_mod, "_launch", swiglu_launch)
     monkeypatch.setattr(swiglu_mod, "_launch_bwd", swiglu_launch_bwd)
     monkeypatch.setattr(swiglu_mod, "select_bwd_variant",
