@@ -133,6 +133,7 @@ no result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -2369,10 +2370,44 @@ def ssd_bwd_no_dA(torch):
     return patched(ssd, "_launch_bwd", without_dA)
 
 
+# the on-chip sum of dB and dC over a cluster's ranks in csrc/ssd_scan.cu, and
+# the planted fault that leaves the last rank's share out
+RANK_SUM = ("for (int r = 1; r < ranks; ++r) {", "for (int r = 1; r < ranks - 1; ++r) {")
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_rank_fault_library():
+    """The SSD library built from a copy of csrc/ssd_scan.cu (under build/)
+    whose on-chip sum of dB and dC over a cluster's ranks leaves the last
+    rank's share out: a planted fault in the CUDA source, built beside the
+    real library in the build phase.  One object a run."""
+    import shutil
+
+    from repro_torch.kernels._build import BUILD_DIR, CSRC, KernelLibrary
+
+    text = (CSRC / "ssd_scan.cu").read_text()
+    if RANK_SUM[0] not in text:
+        raise AssertionError(f"csrc/ssd_scan.cu holds no {RANK_SUM[0]!r}")
+    work = BUILD_DIR.parent / "ssd_rank_fault"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "ssd_scan.cu").write_text(text.replace(*RANK_SUM))
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, work / header.name)
+    lib = KernelLibrary("ssd_scan", ssd_module().LIBRARY.variants)
+    lib.source = work / "ssd_scan.cu"
+    return lib
+
+
+def ssd_bwd_rank_dropped(torch):
+    """The SSD kernels launched from ``ssd_rank_fault_library`` (a planted
+    fault: the backward's on-chip head sum without its last rank's share)."""
+    return patched(ssd_module(), "LIBRARY", ssd_rank_fault_library())
+
+
 # each through the kernel's own launch (the VJP's planted faults, which
 # patch its helpers, are the CPU tests': tests/test_torch_ssd_vjp.py)
 SSD_BWD_FAULTS = {"no carry across chunks": ssd_bwd_per_chunk, "dB and dC swapped": ssd_bwd_swapped,
-                  "dA dropped": ssd_bwd_no_dA}
+                  "dA dropped": ssd_bwd_no_dA, "a rank's head sum dropped": ssd_bwd_rank_dropped}
 
 
 def ssd_bwd_checks(torch, timer) -> dict:
@@ -3743,7 +3778,7 @@ def main() -> None:
         from repro_torch.kernels._build import build_all
 
         t0 = time.perf_counter()
-        secs = build_all(LIBRARIES)
+        secs = build_all([*LIBRARIES, ssd_rank_fault_library()])
         log(f"built {', '.join(f'{n} ({s:.1f} s)' for n, s in secs.items())} "
             f"in {time.perf_counter() - t0:.1f} s")
         for lib in LIBRARIES:

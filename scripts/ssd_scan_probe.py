@@ -27,12 +27,13 @@ to chunk counts.
 ``bwd``: the backward ``wgmma_bwd`` at the train layouts (mamba2-370m's
 microbatch: B 4, S 1024, H 32, N 128; the Jamba period's: B 2, H 128, N
 16; views of one conv output): the whole call (CUDA events, median of 30,
-L2 flushed) and each of its six kernels (profiler), as built and without
+L2 flushed) and each of its three kernels (profiler), as built and without
 programmatic dependent launch; then planted faults in copies of the
-source (the reverse state pass without its decay, dC without exp(cs), the
-d T term dropped), each with its largest error over ``ssd_scan_vjp``'s
-gradients as a share of their largest magnitude (``chip_smoke.py`` holds
-the kernel to 1e-2).
+source (the state pass without its decay, dC's state term scaled by
+exp(T - cs) in place of exp(cs), the d T term dropped, the last rank's
+share of the on-chip head sum dropped), each with its largest error over
+``ssd_scan_vjp``'s gradients as a share of their largest magnitude
+(``chip_smoke.py`` holds the kernel to 1e-2).
 
 The copies live under ``build/ssd_scan_probe/`` (listed in ``.gitignore``);
 every copy builds its own library there.  Exits non-zero without a card.
@@ -64,22 +65,25 @@ FAULTS = {
     "lo halves dropped": [
         ("  lo = hopper::pack_bf16(v0 - __low2float(h), v1 - __high2float(h));", "  lo = 0u;")],
 }
-NO_PDL = [("cfg.numAttrs = 1;", "cfg.numAttrs = 0;")]
+# the forward's phases 2-3 and the backward's dA_reduce lose the attribute;
+# the backward's chunk_grad keeps its cluster
+NO_PDL = [("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"), ("cfg.numAttrs = 2;", "cfg.numAttrs = 1;")]
 # the backward's planted faults
 BWD_FAULTS = {
     "none": [],
-    "no decay in the reverse state pass": [
-        (f"dh.{c} = fmaf(d[k], dh.{c}, r[k].{c});", f"dh.{c} = r[k].{c};") for c in "xyzw"],
-    "dC without exp(cs)": [
-        ("for (int v = 0; v < 32; ++v) acc[a][v] *= ecs[r0 + 8 * ((v >> 1) & 1)];",
-         "for (int v = 0; v < 32; ++v) acc[a][v] *= 1.f;")],
-    "d T dropped": [("if (tid == 0) dcs[Q - 1] += s + expf(cs[Q - 1]) * (scr[0] + scr[1] + "
-                     "scr[2] + scr[3]);", "if (tid == 0) dcs[Q - 1] += 0.f;")],
+    "no decay in the state pass": [
+        ("for (int v = 0; v < 32; ++v) st[v] = fmaf(decay, st[v], s[v]);",
+         "for (int v = 0; v < 32; ++v) st[v] = st[v] + s[v];")],
+    "dC's state term by exp(T - cs)": [("const float e0 = V.ecs[r0], e1 = V.ecs[r0 + 8];",
+                                        "const float e0 = V.wexp[r0], e1 = V.wexp[r0 + 8];")],
+    "d T dropped": [("dc[1] += s + expf(v.cs[Q - 1]) * (v.scr[0] + v.scr[1] + v.scr[2] + v.scr[3]);",
+                     "dc[1] += 0.f;")],
+    "the last rank's head sum dropped": [("for (int r = 1; r < ranks; ++r) {",
+                                          "for (int r = 1; r < ranks - 1; ++r) {")],
 }
 # (B, S, H, N): the train layouts of mamba2-370m and of the Jamba period
 BWD_CASES = [(4, 1024, 32, 128), (2, 1024, 128, 16)]
-BWD_KERNELS = ("chunk_state", "state_pass", "chunk_state_rev", "state_pass_bwd", "chunk_grad",
-               "grad_reduce")
+BWD_KERNELS = ("bwd_states", "chunk_grad", "dA_reduce")
 # (BH, S, P, N, dt_shift)
 FAULT_CASES = [(2, 100, 64, 128, 0.0), (3, 256, 64, 128, 0.0), (1, 37, 64, 16, 0.0),
                (2, 64, 64, 64, 0.0), (1, 1, 64, 128, 0.0), (2, 1000, 64, 128, 0.0),
@@ -141,8 +145,7 @@ def child(mode: str, src: str) -> None:
 
     def kernel_ms(fn, pattern, reps=10):
         """Device ms a call of each kernel whose profiler name matches
-        ``pattern`` (group 1 its phase name; a REV template argument marks
-        the reverse chunk_state)."""
+        ``pattern`` (group 1 its phase name)."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush.zero_()
@@ -152,9 +155,7 @@ def child(mode: str, src: str) -> None:
         for e in prof.key_averages():
             m = re.search(pattern, e.key)
             if m:
-                rev = re.search(r"<\d+, (true|\(bool\)1)>", e.key)
-                name = m.group(1) + ("_rev" if rev else "")
-                out[name] = e.self_device_time_total / reps / 1e3
+                out[m.group(1)] = e.self_device_time_total / reps / 1e3
         return out
 
     if mode in ("bwd", "bwd_faults"):
@@ -179,8 +180,7 @@ def child(mode: str, src: str) -> None:
                                      / w.float().abs().max()) for g, w in zip(got, want))
                 continue
             fn = lambda: ssd._launch_bwd(*args)  # noqa: E731
-            phases = kernel_ms(fn, r"ssd_(chunk_state|state_pass_bwd|state_pass|chunk_grad|"
-                                   r"grad_reduce)_kernel")
+            phases = kernel_ms(fn, r"ssd_(bwd_states|chunk_grad|dA_reduce)_kernel")
             res[key] = {"ms": ms(fn), **{k: phases.get(k, 0.0) for k in BWD_KERNELS}}
         print("RESULT " + json.dumps(res), flush=True)
         return

@@ -6,8 +6,10 @@
 // and, for the wgmma kernels, mbarriers, TMA tile loads and wgmma matrix
 // descriptors (128- or 32-byte swizzle), the wgmma shapes the kernels use
 // (both operands from shared memory, or A from registers as FA3 feeds P),
-// 3-D and 4-D TMA loads of strided tensors and 1-D bulk copies.  Included by the .cu sources of this directory; the build
-// hashes it with each of them (kernels/_build.py).
+// 3-D and 4-D TMA loads of strided tensors and 1-D bulk copies, named
+// barriers between warpgroups, and thread-block clusters (barrier and
+// distributed shared memory).  Included by the .cu sources of this
+// directory; the build hashes it with each of them (kernels/_build.py).
 #pragma once
 
 #include <cuda.h>
@@ -134,6 +136,38 @@ __device__ __forceinline__ void griddep_wait() {
 }
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ---- named barriers -------------------------------------------------------- //
+// Barrier `id` (1-15; 0 is __syncthreads) completes when `threads` threads
+// (a multiple of 32) have reached it: sync waits for that, arrive does not.
+// Warpgroups hand work to each other with them.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------- //
+// Every thread of every CTA of the cluster: this thread's earlier writes
+// (shared memory included) are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// The generic address of `p` (a variable in this CTA's shared memory) in the
+// shared memory of the cluster's CTA `rank`: distributed shared memory,
+// read with ordinary loads.
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // ---- TMA ------------------------------------------------------------------ //
@@ -476,6 +510,16 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled needs a current context on the calling thread.  A
+// thread that has made no runtime call yet has none: autograd's backward
+// thread, say, when the caching allocator serves every tensor it makes
+// (CUDA_ERROR_INVALID_CONTEXT otherwise).  cudaSetDevice makes the device's
+// primary context current.
+inline void bind_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) (void)cudaSetDevice(dev);
+}
+
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
@@ -496,6 +540,7 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int rows, int cols
                           int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  bind_context();
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -514,6 +559,7 @@ inline bool make_map_bf16_4d(CUtensorMap* map, const void* base, const long long
                              const long long (&strides)[3], const int (&box)[4]) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  bind_context();
   cuuint64_t d[4], st[3];
   cuuint32_t bx[4], estr[4] = {1, 1, 1, 1};
   for (int i = 0; i < 4; ++i) {
@@ -536,6 +582,7 @@ inline bool make_map_bf16_3d(CUtensorMap* map, const void* base, const long long
                              int swizzle_bytes) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  bind_context();
   cuuint64_t d[3], st[2];
   cuuint32_t bx[3], estr[3] = {1, 1, 1};
   for (int i = 0; i < 3; ++i) {

@@ -64,32 +64,42 @@
 //    _ssd_chunked, which XLA differentiates), so this replaces no TPU kernel:
 //    it computes what jax.vjp of _ssd_chunked gives, (dx, ddt, dA, dB, dC) at
 //    the cotangents dy and dh_final, where kernels/ssd_scan.py::ssd_scan_vjp
-//    (its plain version) computes it in eager PyTorch.  Six kernels, one
-//    count: the forward's chunk_state and state_pass recompute the
-//    chunk-start states h0 (recomputed rather than saved: a saved scratch
-//    would keep 67 MB a layer and microbatch alive at mamba2's train shape
-//    without remat; recomputed, one backward's scratch is alive at a time);
-//    chunk_state<REV> and state_pass_bwd carry the state cotangent dh1 from
-//    the last chunk to the first; chunk_grad computes every gradient of one
-//    (chunk, head) in ~116 m64n64k16 products (f32 operands as hi + lo
-//    pairs, as in the forward; ref.ssd_scan_bwd_phases emulates it); and
-//    grad_reduce sums dB and dC over the heads of a group and dA over
-//    chunks, in a fixed order: no float atomics, so two launches give the
-//    same bits.  What bounds it: at mamba2's train layout (B 4, S 1024, H 32,
-//    N 128, one group) the bytes of x, dy, dx, B, C, dB, dC, dt and ddt, 55.6
-//    MB, ~16.6 us at 3.35 TB/s (kernels/ssd_scan.py::work_bwd); the products,
-//    ~15.2 GFLOP, ~15.4 us at the bf16 peak: bytes, by a little.  The per-head dB and dC partials
-//    (2 x 67 MB written and read there) and the recomputed states are this
-//    design's own traffic beyond that bound.
+//    (its plain version) computes it in eager PyTorch.  Three kernels, one
+//    count (ref.ssd_scan_bwd_phases emulates them):
+//    - bwd_states, grid (64-column atom of N, batch·H, direction): one CTA
+//      walks a head's chunks in order for h0, the state each chunk starts
+//      from, and in reverse for dh1, the cotangent of the state each chunk
+//      ends with, adding each chunk's own term (one wgmma product) to the
+//      state it carries in registers, and writes each state once, as the
+//      bf16 hi and lo tiles the next kernel's products read (recomputed
+//      rather than saved by the forward: a saved state would keep 67 MB a
+//      layer and microbatch alive at mamba2's train shape without remat);
+//    - chunk_grad, grid (rank, chunk, batch·G) in clusters of 1 to 8 CTAs of
+//      two warpgroups (whichever takes the fewest waves times heads on this
+//      card): each CTA walks its run of a group's heads, loads the
+//      group's B and C tiles and computes C B^T once, and keeps dC and dB
+//      summed over its heads in registers (each head's state product scaled
+//      by row into the sum; dCB summed over the heads before its products);
+//      then the cluster sums dB and dC over its ranks in rank order through
+//      distributed shared memory and writes them in bf16;
+//    - dA_reduce: dA over chunks.
+//    No float atomics: two launches give the same bits.  What bounds it: at
+//    mamba2's train layout (B 4, S 1024, H 32, N 128, one group) the bytes
+//    of x, dy, dx, B, C, dB, dC, dt and ddt, 55.6 MB, ~16.6 us at 3.35 TB/s
+//    (kernels/ssd_scan.py::work_bwd); the products, ~15.2 GFLOP, ~15.4 us
+//    at the bf16 peak: bytes, by a little.  This design's own traffic beyond
+//    that is the states, written once and read once (2 x 67 MB at that
+//    layout); nothing is kept per head beyond them.
 //
-// -Xptxas -v (sm_90a, nvcc 12.8), no spills: ssd_chunk_scan_kernel 128 / 113
-// registers (N > 64 / N <= 64; launch bounds of 4 CTAs an SM), 42,760 /
+// -Xptxas -v (sm_90a, nvcc 12.8), no spills but where stated:
+// ssd_chunk_scan_kernel 128 / 113 registers (N > 64 / N <= 64; launch
+// bounds of 4 CTAs an SM), 42,760 /
 // 34,568 bytes of dynamic shared memory; ssd_chunk_state_kernel 122 / 90
 // registers, 26,376 / 18,184 bytes; ssd_state_pass_kernel 141 registers;
 // ssd_scan_kernel 214 registers, ~60 KB of dynamic shared memory.  The
-// backward: ssd_chunk_grad_kernel 255 registers with 24 bytes spilled / 202
-// (N > 64 / N <= 64), 121,640 / 88,872 bytes of dynamic shared memory (one /
-// two CTAs an SM); ssd_state_pass_bwd_kernel 144, ssd_grad_reduce_kernel 32.
+// backward: ssd_bwd_states_kernel 128 registers (4 CTAs an SM), 50,704 bytes;
+// ssd_chunk_grad_kernel 255 registers with 16 bytes spilled / 231 (256
+// threads), 151,608 / 102,456 bytes (one CTA an SM); ssd_dA_reduce_kernel 31.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -406,6 +416,26 @@ __device__ __forceinline__ void chunk_cumsum(float* cs, float* dts, const float*
   __syncthreads();
 }
 
+// The A fragments of the four k16 steps of (u ∘ s)^T [p, j] (M = p, K = j),
+// u a [Q][P] tile (x or dy) and s a per-position scale, as hi + lo halves:
+// register r of step kk holds rows p0 + 8 (r & 1), columns 16 kk + 8 (r >> 1)
+// + 2 (lane % 4) + {0, 1}.
+__device__ __forceinline__ void frags_t(const bf16* u, const float* s, uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int p0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = p0 + 8 * (r & 1);
+      const int j = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
+      split2(__bfloat162float(u[swz(j, p)]) * s[j], __bfloat162float(u[swz(j + 1, p)]) * s[j + 1],
+             hi[kk][r], lo[kk][r]);
+    }
+  }
+}
+
 // The [P, 64 NA] f32 state of one (bh, chunk) in states[] is kept in the
 // order of the wgmma accumulator that phase 1 computes it in: float4 g of
 // thread t at (g NT + t), holding that thread's values 4g .. 4g + 3.  Value v
@@ -420,10 +450,7 @@ __device__ __forceinline__ void chunk_cumsum(float* cs, float* dts, const float*
 // into states[bh, c], and its decay exp(cs_Q) into decay[bh, c].  A is
 // (x∘w)^T, built in registers from the swizzled x tile as hi + lo halves;
 // B is the chunk's B tile, MN-major.
-//
-// With REV (the backward's phase 1) the same kernel computes r_c =
-// (dy ∘ exp(cs))^T C from the dy and C maps, and writes no decay.
-template <int NA, bool REV = false>
+template <int NA>
 __global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
     const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ states,
@@ -449,26 +476,13 @@ __global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
     for (int a = 0; a < NA; ++a) hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
   }
   chunk_cumsum(cs, dts, dt, L, b, h, t0, S, A[b * L.a_b + h * L.a_h]);
-  if (tid < Q) w[tid] = REV ? expf(cs[tid]) : expf(cs[Q - 1] - cs[tid]) * dts[tid];
-  if (!REV && tid == 0) decay[(long long)bh * nch + c] = expf(cs[Q - 1]);
+  if (tid < Q) w[tid] = expf(cs[Q - 1] - cs[tid]) * dts[tid];
+  if (tid == 0) decay[(long long)bh * nch + c] = expf(cs[Q - 1]);
   __syncthreads();
   hopper::mbar_wait(bar, 0);
 
-  // A fragments of (x∘w)^T [p, j] for the four k16 steps along j: register r
-  // of step kk holds rows p0 + 8 (r & 1), columns 16 kk + 8 (r >> 1) + 2 (lane % 4) + {0, 1}
-  const int warp = tid >> 5, lane = tid & 31;
-  const int p0 = warp * 16 + (lane >> 2);
-  uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = p0 + 8 * (r & 1);
-      const int j = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
-      split2(__bfloat162float(sx[swz(j, p)]) * w[j], __bfloat162float(sx[swz(j + 1, p)]) * w[j + 1],
-             ahi[kk][r], alo[kk][r]);
-    }
-  }
+  uint32_t ahi[4][4], alo[4][4];  // (x∘w)^T [p, j]
+  frags_t(sx, w, ahi, alo);
   float acc[32 * NA];
 #pragma unroll
   for (int i = 0; i < 32 * NA; ++i) acc[i] = 0.f;
@@ -703,70 +717,170 @@ __global__ void __launch_bounds__(NT, 4) ssd_chunk_scan_kernel(
 
 // ------------------------------------------------------------------------- //
 // wgmma_bwd: the backward of the wgmma variant (kernels/ssd_scan.py's
-// _SSDScan.backward), six kernels on PyTorch's stream:
-//   1-2. the forward's chunk_state and state_pass again: h0, the state each
-//        chunk starts from (recomputed, not saved: one layer's scratch is
-//        alive at a time);
-//   3.   chunk_state<REV>: r_c = (dy ∘ exp(cs))^T C per chunk;
-//   4.   state_pass_bwd: dh1, the cotangent of each chunk's end state, from
-//        the last chunk to the first (dh1(c-1) = exp(T_c) dh1(c) + r_c);
-//   5.   chunk_grad, grid (chunk, batch·H): every gradient of one head's chunk;
-//   6.   grad_reduce: dB and dC over the heads of a group, dA over chunks.
+// _SSDScan.backward), three kernels on PyTorch's stream:
+//   1. bwd_states, grid (64-column atom, batch·H, direction): the state each
+//      chunk starts from (h0) and the cotangent of the state each chunk ends
+//      with (dh1), one head's chunks walked in order (reverse order for dh1)
+//      with the state carried in registers;
+//   2. chunk_grad, grid (rank, chunk, batch·G) in clusters of the ranks:
+//      every gradient of one chunk of one group's heads, dB and dC summed
+//      over the heads on chip;
+//   3. dA_reduce: dA over chunks.
 // ------------------------------------------------------------------------- //
+constexpr int ST_STAGES = 2;     // bwd_states' ring of (x or dy, B or C atom) tiles
+constexpr int GRAD_NT = 2 * NT;  // chunk_grad: two warpgroups
+constexpr int MAX_RANKS = 8;     // chunk_grad's largest cluster (the portable size)
+// chunk_grad's named barriers: K is in shared memory (warpgroup 0 arrives,
+// 1 waits); warpgroup 1 has read h0 (1 arrives, 0 waits); warpgroup 1 alone
+constexpr int BAR_K = 1, BAR_HDOT = 2, BAR_WG1 = 3;
 
-// Phase 4, grid (P·64 NA / 4 / PASS_NT, batch·H): the backward's only
-// sequential part, the forward's state pass run from the last chunk:
-//   dh1(nch - 1) = dh_final (or 0),  dh1(c - 1) = decay_c dh1(c) + r_c;
-// dstates[bh, c] holds r_c on entry and dh1(c) on exit, in the
-// accumulator's register order.  dh_final is [batch·H, P, N], natural order.
-__global__ void __launch_bounds__(PASS_NT) ssd_state_pass_bwd_kernel(
-    float* __restrict__ dstates, const float* __restrict__ decay,
-    const float* __restrict__ dh_final, int PN4, int N, int nch) {
-  const int e = blockIdx.x * PASS_NT + threadIdx.x;
-  const long long bh = blockIdx.y;
-  hopper::griddep_launch_dependents();
-  hopper::griddep_wait();  // phase 3's r_c
-  if (e >= PN4) return;
-  float4* st = reinterpret_cast<float4*>(dstates) + bh * nch * PN4 + e;
-  const float* dec = decay + bh * nch;
-  float4 dh = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (dh_final != nullptr) {
-    // float4 g of thread t: (row p0, columns n, n + 1) and (row p0 + 8, the same)
-    const int t = e % NT, q = e / NT;
-    const int p0 = 16 * (t >> 5) + ((t & 31) >> 2), n = 8 * q + 2 * (t & 3);
-    if (n < N) {
-      const float* s = dh_final + bh * P * N;
-      dh = make_float4(s[p0 * N + n], s[p0 * N + n + 1], s[(p0 + 8) * N + n],
-                       s[(p0 + 8) * N + n + 1]);
-    }
+// A [64, 64] f32 accumulator (value v of a thread at row r0 + 8 ((v / 2) %
+// 2), column 8 (v / 4) + 2 (lane % 4) + v % 2, r0 = 16 (warp % 4) + lane / 4)
+// into bf16 hi and lo tiles [64][64], swizzled as TMA writes them: a K-major
+// operand with M along the rows, or MN-major with K along them.
+__device__ __forceinline__ void split_tile(const float (&v)[32], bf16* hi, bf16* lo) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int n = 8 * q + 2 * (lane & 3);
+    uint32_t h, l;
+    split2(v[4 * q], v[4 * q + 1], h, l);
+    *reinterpret_cast<uint32_t*>(hi + swz(r0, n)) = h;
+    *reinterpret_cast<uint32_t*>(lo + swz(r0, n)) = l;
+    split2(v[4 * q + 2], v[4 * q + 3], h, l);
+    *reinterpret_cast<uint32_t*>(hi + swz(r0 + 8, n)) = h;
+    *reinterpret_cast<uint32_t*>(lo + swz(r0 + 8, n)) = l;
   }
-  for (int c1 = nch - 1; c1 >= 0; c1 -= PASS_CH) {
-    float4 r[PASS_CH];
-    float d[PASS_CH];
+}
+
+// Phase 1 of the backward, grid (NA, batch·H, 2): one head's states, 64
+// columns of N (atom a) a CTA, carried in registers from chunk to chunk.
+// Direction 0 (x, B): h0(0) = 0, h0(c + 1) = exp(T_c) h0(c) + (x∘w)^T B
+// with w_j = exp(T_c - cs_j) dt_j, each h0(c), c >= 1, into h0s[bh, c].
+// Direction 1 (dy, C), from the last chunk: dh1(nch - 1) = dh_final (or 0),
+// dh1(c - 1) = exp(T_c) dh1(c) + (dy∘exp(cs))^T C, each dh1(c) into
+// dh1s[bh, c].  A chunk's own term is chunk_state's product (A = (u∘w)^T
+// from registers as hi + lo, B the atom MN-major); the tiles come by TMA
+// through a ring of ST_STAGES that thread 0 refills, dt a chunk ahead.
+// Each state is kept as the bf16 hi and lo tiles chunk_grad's products read
+// ([NA hi atoms][NA lo atoms] [P][64] of one (bh, c), swizzled, so that
+// chunk_grad copies them to shared memory as they are), written through
+// shared memory in 16-byte rows: as many bytes as the f32 state.
+__global__ void __launch_bounds__(NT, 4) ssd_bwd_states_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap dymap, const __grid_constant__ CUtensorMap cmap,
+    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ dh_final,
+    bf16* __restrict__ h0s, bf16* __restrict__ dh1s, const Layout L, int S, int H, int G, int N,
+    int NA, int nch) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + pad);  // [ST_STAGES][u tile, atom tile]
+  bf16* out = ring + ST_STAGES * 2 * TILE;               // the state's hi and lo tiles
+  float* cs = reinterpret_cast<float*>(out + 2 * TILE);  // [Q]
+  float* w = cs + Q;                                     // [Q]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(w + Q);    // [ST_STAGES]
+
+  const bool rev = blockIdx.z != 0;
+  const int a = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const CUtensorMap* umap = rev ? &dymap : &xmap;
+  const CUtensorMap* vmap = rev ? &cmap : &bmap;
+  hopper::griddep_launch_dependents();
+  if (tid == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) hopper::mbar_init(&bar[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // the k-th chunk this CTA walks, and its tiles into stage k % ST_STAGES
+  auto chunk = [&](int k) { return rev ? nch - 1 - k : k; };
+  auto issue = [&](int k) {
+    bf16* st = ring + (k % ST_STAGES) * 2 * TILE;
+    uint64_t* br = &bar[k % ST_STAGES];
+    const int t0 = chunk(k) * Q;
+    hopper::mbar_expect_tx(br, 2 * TILE_BYTES);
+    hopper::tma_load_4d(st, umap, br, 0, h, t0, b);
+    hopper::tma_load_4d(st + TILE, vmap, br, a * ATOM, g, t0, b);
+  };
+  if (tid == 0)
+    for (int k = 0; k < ST_STAGES && k < nch; ++k) issue(k);
+  auto dt_of = [&](int k) {  // threads < Q: dt at the k-th chunk's position tid (0 past S)
+    const int t = chunk(k) * Q + tid;
+    return tid < Q && t < S ? dt[b * L.dt_b + t * L.dt_s + h * L.dt_h] : 0.f;
+  };
+  const float a_h = A[b * L.a_b + h * L.a_h];
+  const int r0 = warp * 16 + (lane >> 2);
+  float st[32];  // the carried state's atom, in the accumulator's order
 #pragma unroll
-    for (int k = 0; k < PASS_CH; ++k) {
-      if (c1 - k >= 0) {
-        r[k] = st[(long long)(c1 - k) * PN4];
-        d[k] = dec[c1 - k];
+  for (int v = 0; v < 32; ++v) {
+    const int p = r0 + 8 * ((v >> 1) & 1);
+    const int n = a * ATOM + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+    st[v] = rev && dh_final != nullptr && n < N ? dh_final[((long long)bh * P + p) * N + n] : 0.f;
+  }
+  bf16* dst = (rev ? dh1s : h0s) + (long long)bh * nch * 2 * NA * TILE;
+  float dnext = dt_of(0);
+  for (int k = 0; k < nch; ++k) {
+    const int c = chunk(k);
+    const float d = dnext;
+    if (k + 1 < nch) dnext = dt_of(k + 1);
+    // cs = cumsum(dt·A): two warp scans, the second offset by the first's total
+    if (tid < Q) {
+      float v = d * a_h;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      cs[tid] = v;
+    }
+    // the state chunk c starts from (forward: chunk 0's is 0 and not kept)
+    // or ends with (reverse), split into the out tiles
+    const bool keep = rev || c > 0;
+    if (keep) split_tile(st, out, out + TILE);
+    __syncthreads();
+    if (tid >= 32 && tid < Q) cs[tid] += cs[31];
+    __syncthreads();
+    if (tid < Q) w[tid] = rev ? expf(cs[tid]) : expf(cs[Q - 1] - cs[tid]) * d;
+    const float decay = expf(cs[Q - 1]);
+    if (keep) {  // out -> dst[c] in 16-byte rows, while the stage lands
+      bf16* o = dst + (long long)c * 2 * NA * TILE;
+#pragma unroll
+      for (int e = tid; e < TILE / 8; e += NT) {
+        *reinterpret_cast<uint4*>(o + a * TILE + 8 * e) = *reinterpret_cast<const uint4*>(out + 8 * e);
+        *reinterpret_cast<uint4*>(o + (NA + a) * TILE + 8 * e) =
+            *reinterpret_cast<const uint4*>(out + TILE + 8 * e);
       }
     }
+    __syncthreads();  // w
+    hopper::mbar_wait(&bar[k % ST_STAGES], (k / ST_STAGES) & 1);
+    const bf16* su = ring + (k % ST_STAGES) * 2 * TILE;
+    uint32_t ahi[4][4], alo[4][4];
+    frags_t(su, w, ahi, alo);
+    float s[32];
 #pragma unroll
-    for (int k = 0; k < PASS_CH; ++k) {
-      if (c1 - k >= 0) {
-        st[(long long)(c1 - k) * PN4] = dh;
-        dh.x = fmaf(d[k], dh.x, r[k].x);
-        dh.y = fmaf(d[k], dh.y, r[k].y);
-        dh.z = fmaf(d[k], dh.z, r[k].z);
-        dh.w = fmaf(d[k], dh.w, r[k].w);
-      }
+    for (int v = 0; v < 32; ++v) s[v] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // B: the atom MN-major [j rows][n], 8-row groups 1024 B apart
+      const uint64_t db = hopper::wgmma_desc(su + TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
+      hopper::wgmma_m64n64k16_rs<1>(s, ahi[kk], db, 1);
+      hopper::wgmma_m64n64k16_rs<1>(s, alo[kk], db, 1);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < 32; ++v) st[v] = fmaf(decay, st[v], s[v]);
+    __syncthreads();  // every thread is done with the stage and the out tiles
+    if (tid == 0 && k + ST_STAGES < nch) issue(k + ST_STAGES);
   }
 }
 
 // This warp's share of the column sums of a [64, 64] accumulator (rows
-// 16 warp .. 16 warp + 15) into red[warp * Q + column].
+// 16 w .. 16 w + 15, w the warp in its warpgroup) into red[w * Q + column].
 __device__ __forceinline__ void col_partials(const float (&v)[32], float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
 #pragma unroll
@@ -795,429 +909,582 @@ __device__ __forceinline__ void row_sums(const float (&v)[32], float* out) {
     s1 += __shfl_xor_sync(0xffffffffu, s1, o);
   }
   if ((lane & 3) == 0) {
-    const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+    const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
     out[r0] = s0;
     out[r0 + 8] = s1;
   }
 }
 
-// One (bh, chunk) state in the scratch's register order (src: its float4s,
-// offset by the thread; null for zero) into bf16 hi and lo tiles [P rows]
-// [64 NA columns] (NA swizzled atoms each), whose wgmma reads are K-major A
-// (M = p, K = n) or MN-major B (K = p, N = n).  Returns Σ src ∘ other over
-// the thread's values (other null: 0).
-template <int NA>
-__device__ __forceinline__ float stage_state(const float4* src, const float4* other, bf16* hi,
-                                             bf16* lo) {
+// chunk_grad's shared memory after the NA-dependent tiles: per-head vectors
+// and sums, then the mbarriers.
+struct GradVectors {
+  float cs[Q], dts[Q], ecs[Q], wexp[Q];  // cs, dt, exp(cs), exp(T - cs)
+  float rowm[Q];                         // the row sums of M
+  float colm[4 * Q];                     // [4 warps][Q]: the column sums of M, by warp
+  float inter[Q];                        // Σ_p dy_ip (C h0^T)_ip
+  float xhb[Q], xdu[Q];                  // Σ_p x_jp (B dh1^T)_jp, Σ_p x_jp du_jp
+  float scr[4];                          // Σ dh1∘h0 per warp of warpgroup 1
+  uint64_t bar[5];                       // B and C; x and dy stages 0, 1; h0; dh1
+};
+
+// chunk_grad's per-head vectors, by warp 0 alone (lane: positions lane and
+// lane + 32, their dt d0 and d1, 0 past S; the head's A): cs = cumsum(dt·A)
+// by shuffles, dt, exp(cs) and exp(T - cs).  A barrier follows before any
+// other warp reads them.
+__device__ __forceinline__ void head_vectors(GradVectors& v, float d0, float d1, float a) {
   const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
-  float dot = 0.f;
+  float c0 = d0 * a, c1 = d1 * a;
 #pragma unroll
-  for (int q = 0; q < 8 * NA; ++q) {
-    const float4 f = src != nullptr ? src[q * NT] : make_float4(0.f, 0.f, 0.f, 0.f);
-    if (other != nullptr) {
-      const float4 o = other[q * NT];
-      dot = fmaf(f.x, o.x, fmaf(f.y, o.y, fmaf(f.z, o.z, fmaf(f.w, o.w, dot))));
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, c0, o), u1 = __shfl_up_sync(0xffffffffu, c1, o);
+    if (lane >= o) {
+      c0 += u0;
+      c1 += u1;
     }
-    const int n = 8 * q + 2 * (lane & 3);
-    const int off = (n >> 6) * TILE;
-    uint32_t h, l;
-    split2(f.x, f.y, h, l);
-    *reinterpret_cast<uint32_t*>(hi + off + swz(r0, n & 63)) = h;
-    *reinterpret_cast<uint32_t*>(lo + off + swz(r0, n & 63)) = l;
-    split2(f.z, f.w, h, l);
-    *reinterpret_cast<uint32_t*>(hi + off + swz(r0 + 8, n & 63)) = h;
-    *reinterpret_cast<uint32_t*>(lo + off + swz(r0 + 8, n & 63)) = l;
   }
-  return dot;
+  c1 += __shfl_sync(0xffffffffu, c0, 31);
+  const float T = __shfl_sync(0xffffffffu, c1, 31);
+  v.cs[lane] = c0;
+  v.cs[lane + 32] = c1;
+  v.dts[lane] = d0;
+  v.dts[lane + 32] = d1;
+  v.ecs[lane] = expf(c0);
+  v.ecs[lane + 32] = expf(c1);
+  v.wexp[lane] = expf(T - c0);
+  v.wexp[lane + 32] = expf(T - c1);
 }
 
-// Rows i of an [i, 64 NA] accumulator (atom a's columns in acc[a]) into
-// part[row0 + i H][n] (f32; row0 is (t0, h)'s row of [batch·S·H, N]), rows
-// past S and columns past N left out.
-template <int NA>
-__device__ __forceinline__ void store_rows(const float (&acc)[NA][32], float* __restrict__ part,
-                                           long long row0, int H, int N, int rows) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+// (f) of one head, by warp 0 (positions lane and lane + 32), every thread of
+// the CTA calling: dcs, d T, da (a suffix sum by shuffles), ddt = x·du + A
+// da at row0 + j H, and the chunk's share of dA into *part_a; `inter` says
+// whether the inter-chunk sums count (chunk 0 starts from 0 and computes
+// none).  Then, if `next`, warp 0 puts the next head's vectors in (its dt
+// nd0, nd1 and A na) before the barrier that ends the head.
+__device__ __forceinline__ void grad_tail(GradVectors& v, bool inter, float a_h,
+                                          float* __restrict__ ddt, long long row0, int H,
+                                          int rows, float* __restrict__ part_a, bool next,
+                                          float nd0, float nd1, float na) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  __syncthreads();  // both warpgroups' sums are in
+  if (tid < 32) {
+    float dc[2], W[2];
 #pragma unroll
-  for (int a = 0; a < NA; ++a) {
-#pragma unroll
-    for (int v = 0; v < 32; v += 2) {
-      const int i = r0 + 8 * ((v >> 1) & 1);
-      const int n = 64 * a + 8 * (v >> 2) + 2 * (lane & 3);
-      if (i < rows && n < N)
-        *reinterpret_cast<float2*>(part + (row0 + (long long)i * H) * N + n) =
-            make_float2(acc[a][v], acc[a][v + 1]);
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      const float colm = v.colm[j] + v.colm[Q + j] + v.colm[2 * Q + j] + v.colm[3 * Q + j];
+      W[h] = v.dts[j] * v.wexp[j] * v.xhb[j];
+      dc[h] = v.rowm[j] - colm + (inter ? v.ecs[j] * v.inter[j] : 0.f) - W[h];
     }
-  }
-}
-
-// Phase 5, grid (chunk, batch·H): one head's chunk, every product a 64-row
-// wgmma m64n64k16 from shared memory (each f32 operand as bf16 hi and lo
-// tiles, two products into one f32 accumulator), in this order:
-//   (a) CB = C B^T, G = dy x^T [i, j] -> K = CB ∘ L, dCB = L ∘ G ∘ dt_j (both
-//       split into tiles), M = CB ∘ dCB: its row sums and column sums;
-//   (b) dC = exp(cs_i) (dy h0) + dCB B [i, n], into part_c;
-//   (c) h0 C^T [p, i] -> Σ_p dy_ip (h0 C^T)_pi, the inter-chunk dcs;
-//   (d) dB = dt_j exp(T - cs_j) (x dh1) + dCB^T C [j, n], into part_b;
-//   (e) dh1 B^T and du^T = dy^T K + exp(T - cs_j) dh1 B^T [p, j] -> W_j,
-//       dx = dt du (bf16, through shared memory to 16-byte rows), x·du;
-//   (f) dcs = rowsum M - colsum M + exp(cs) (...) - W, d T onto the last
-//       position, da = reverse cumsum (two warp scans), ddt = x·du + A da,
-//       and this chunk's share of dA, Σ_j dt_j da_j, into part_a.
-// Sums across warps are taken in a fixed order: the bits do not depend on
-// scheduling.
-template <int NA>
-__global__ void __launch_bounds__(NT, 1) ssd_chunk_grad_kernel(
-    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
-    const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap cmap,
-    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ states,
-    const float* __restrict__ dstates, bf16* __restrict__ dx, float* __restrict__ ddt,
-    float* __restrict__ part_b, float* __restrict__ part_c, float* __restrict__ part_a,
-    const Layout L, int S, int H, int G, int N, int nch) {
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
-  bf16* sx = reinterpret_cast<bf16*>(smem_raw + pad);  // [Q][P]
-  bf16* sdy = sx + TILE;                               // [Q][P]
-  bf16* sb = sdy + TILE;                               // NA atoms [Q][64]
-  bf16* sc = sb + NA * TILE;                           // NA atoms [Q][64]
-  bf16* shi = sc + NA * TILE;                          // h0, then dh1 [P][64 NA]: hi
-  bf16* slo = shi + NA * TILE;                         // and lo
-  bf16* skhi = slo + NA * TILE;                        // K [i][j] hi; then dx [j][p]
-  bf16* sklo = skhi + TILE;                            // K lo
-  bf16* sdhi = sklo + TILE;                            // dCB [i][j] hi
-  bf16* sdlo = sdhi + TILE;                            // dCB lo
-  float* cs = reinterpret_cast<float*>(sdlo + TILE);   // [Q]
-  float* dts = cs + Q;                                 // [Q]
-  float* ecs = dts + Q;                                // [Q]: exp(cs)
-  float* wexp = ecs + Q;                               // [Q]: exp(T - cs)
-  float* rowm = wexp + Q;                              // [Q]: row sums of M
-  float* red = rowm + Q;                               // [4 sums][4 warps][Q]
-  float* dcs = red + 16 * Q;                           // [Q]
-  float* tmp = dcs + Q;                                // [Q]
-  float* scr = tmp + Q;                                // [8]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(scr + 8);
-
-  const int c = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, g = h / (H / G);
-  const int t0 = c * Q, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = warp * 16 + (lane >> 2);
-  const int rows = min(Q, S - t0);
-  hopper::griddep_launch_dependents();
-  init_barrier(bar);
-  if (tid == 0) {
-    hopper::mbar_expect_tx(bar, (2 + 2 * NA) * TILE_BYTES);
-    hopper::tma_load_4d(sx, &xmap, bar, 0, h, t0, b);
-    hopper::tma_load_4d(sdy, &dymap, bar, 0, h, t0, b);
+    float s = W[0] + W[1];
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      hopper::tma_load_4d(sb + a * TILE, &bmap, bar, a * ATOM, g, t0, b);
-      hopper::tma_load_4d(sc + a * TILE, &cmap, bar, a * ATOM, g, t0, b);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 31)  // d T onto the last position
+      dc[1] += s + expf(v.cs[Q - 1]) * (v.scr[0] + v.scr[1] + v.scr[2] + v.scr[3]);
+    // da_j = Σ_{i >= j} dcs_i: suffix sums of each half, the upper half's total
+    // added to the lower
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u1 = __shfl_down_sync(0xffffffffu, dc[1], o);
+      const float u0 = __shfl_down_sync(0xffffffffu, dc[0], o);
+      if (lane + o < 32) {
+        dc[1] += u1;
+        dc[0] += u0;
+      }
     }
-  }
-  const float a_h = A[b * L.a_b + h * L.a_h];
-  chunk_cumsum(cs, dts, dt, L, b, h, t0, S, a_h);
-  if (tid < Q) {
-    ecs[tid] = expf(cs[tid]);
-    wexp[tid] = expf(cs[Q - 1] - cs[tid]);
+    dc[0] += __shfl_sync(0xffffffffu, dc[1], 0);
+    float sa = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      if (j < rows) ddt[row0 + (long long)j * H] = fmaf(a_h, dc[h], v.xdu[j]);
+      sa = fmaf(v.dts[j], dc[h], sa);  // dt = 0 past S
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sa += __shfl_xor_sync(0xffffffffu, sa, o);
+    if (lane == 0) *part_a = sa;
+    if (next) head_vectors(v, nd0, nd1, na);  // each lane rewrites only what it read
   }
   __syncthreads();
-  hopper::mbar_wait(bar, 0);
+}
 
-  // (a) value v of a [64, 64] accumulator is row r0 + 8 ((v / 2) % 2),
-  // column 8 (v / 4) + 2 (lane % 4) + v % 2
-  {
-    float cb[32], gx[32], m[32];
+// Phase 2, grid (rank, chunk, batch·G) in clusters of gridDim.x ranks
+// (grad_ranks), two warpgroups a CTA: every gradient of one chunk of group
+// g's heads k0 .. k0 + nh - 1 (ref.bwd_head_ranks: each rank a contiguous
+// run of the group's heads), head by head; every product a 64-row wgmma
+// m64n64k16, each f32 operand as bf16 hi and lo.
+//   Once: the group's B and C tiles; CB = C B^T (warpgroup 0's registers).
+//   Per head: x and dy by TMA (a ring of two, filled a head ahead), h0 and
+//   dh1 as phase 1 wrote them (a bulk copy each, refilled as soon as the
+//   head is done with them), then
+//     warpgroup 0: (a) G = dy x^T [i, j] -> K = CB∘L (hi, lo tiles), dCB =
+//       L∘G∘dt_j (summed over the heads in registers), M = CB∘dCB: its row
+//       and column sums; (b) dC += exp(cs_i) (dy h0) [i, n] (the head's
+//       product, its rows scaled into the sum in registers); (c) C h0^T [i, p]
+//       -> Σ_p dy_ip (C h0^T)_ip, the inter-chunk dcs;
+//     warpgroup 1: Σ dh1∘h0 (d T's state term, from the halves); (d) dB +=
+//       dt_j exp(T - cs_j) (x dh1) [j, n], as (b); (e) B dh1^T [j, p], then
+//       (once K is in) du = K^T dy + exp(T - cs_j) B dh1^T [j, p] -> W_j, x·du
+//       (row sums), dx = dt du (through shared memory to 16-byte rows);
+//     both: (f) grad_tail.
+//   After the last head: dC += (Σ dCB) B, dB += (Σ dCB)^T C; each rank's dC
+//   and dB into its own shared memory; then every rank sums a share of the
+//   elements over the cluster's ranks in rank order (distributed shared
+//   memory) into bf16 dC and dB.  Sums are taken in a fixed order and no
+//   float atomics: two launches give the same bits.
+template <int NA>
+__global__ void __launch_bounds__(GRAD_NT, 1) ssd_chunk_grad_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+    const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap cmap,
+    const float* __restrict__ dt, const float* __restrict__ A, const bf16* __restrict__ h0s,
+    const bf16* __restrict__ dh1s, bf16* __restrict__ dx, float* __restrict__ ddt,
+    bf16* __restrict__ dB, bf16* __restrict__ dC, float* __restrict__ part_a, const Layout L,
+    int S, int H, int G, int N, int nch) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  bf16* sb = reinterpret_cast<bf16*>(smem_raw + pad);  // NA atoms [Q][64] of B
+  bf16* sc = sb + NA * TILE;                           // NA atoms of C
+  bf16* sxy = sc + NA * TILE;                          // [2 stages][x, dy] [Q][P]
+  bf16* sh0 = sxy + 4 * TILE;       // h0: NA hi atoms, NA lo atoms [P][64]; at the end dC
+  bf16* sdh = sh0 + 2 * NA * TILE;  // dh1, the same; at the end dB
+  bf16* skhi = sdh + 2 * NA * TILE;  // K [i][j] hi; then dx [j][p]; at the end Σ dCB hi
+  bf16* sklo = skhi + TILE;          // K lo; at the end Σ dCB lo
+  GradVectors& V = *reinterpret_cast<GradVectors*>(sklo + TILE);
+  uint64_t* bar_bc = &V.bar[0];
+  uint64_t* bar_xy = &V.bar[1];
+  uint64_t* bar_h0 = &V.bar[3];
+  uint64_t* bar_dh = &V.bar[4];
+
+  const int ranks = gridDim.x, rank = blockIdx.x, c = blockIdx.y;
+  const int b = blockIdx.z / G, g = blockIdx.z % G, R = H / G;
+  const int k0 = rank * R / ranks, nh = (rank + 1) * R / ranks - k0;
+  const int t0 = c * Q, tid = threadIdx.x, wg = tid >> 7, wt = tid & (NT - 1);
+  const int warp = wt >> 5, lane = tid & 31, r0 = warp * 16 + (lane >> 2);
+  const int rows = min(Q, S - t0);
+  auto head = [&](int k) { return g * R + k0 + k; };
+  auto state = [&](const bf16* base, int k) {  // (b·H + head, c)'s tiles
+    return base + ((long long)(b * H + head(k)) * nch + c) * 2 * NA * TILE;
+  };
+  auto issue_xy = [&](int k) {
+    bf16* st = sxy + (k & 1) * 2 * TILE;
+    hopper::mbar_expect_tx(&bar_xy[k & 1], 2 * TILE_BYTES);
+    hopper::tma_load_4d(st, &xmap, &bar_xy[k & 1], 0, head(k), t0, b);
+    hopper::tma_load_4d(st + TILE, &dymap, &bar_xy[k & 1], 0, head(k), t0, b);
+  };
+  auto issue_state = [&](bf16* to, const bf16* base, uint64_t* br, int k) {
+    hopper::mbar_expect_tx(br, 2 * NA * TILE_BYTES);
+    hopper::bulk_load(to, state(base, k), 2 * NA * TILE_BYTES, br);
+  };
+  // warp 0: the k-th head's dt at position lane + 32 h (0 past S) and its A
+  auto dt_of = [&](int k, int h) {
+    const int t = t0 + lane + 32 * h;
+    return tid < 32 && k < nh && t < S ? dt[b * L.dt_b + t * L.dt_s + head(k) * L.dt_h] : 0.f;
+  };
+  auto a_of = [&](int k) { return k < nh ? A[b * L.a_b + head(k) * L.a_h] : 0.f; };
+
+  hopper::griddep_launch_dependents();
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) hopper::mbar_init(&V.bar[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_bc, 2 * NA * TILE_BYTES);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      hopper::tma_load_4d(sb + a * TILE, &bmap, bar_bc, a * ATOM, g, t0, b);
+      hopper::tma_load_4d(sc + a * TILE, &cmap, bar_bc, a * ATOM, g, t0, b);
+    }
+    issue_xy(0);
+    if (nh > 1) issue_xy(1);
+    hopper::griddep_wait();  // phase 1's states
+    if (c > 0) issue_state(sh0, h0s, bar_h0, 0);
+    issue_state(sdh, dh1s, bar_dh, 0);
+  }
+  if (tid < 32) head_vectors(V, dt_of(0, 0), dt_of(0, 1), a_of(0));  // the first head's
+  __syncthreads();
+  hopper::mbar_wait(bar_bc, 0);
+
+  if (wg == 0) {
+    float cb[32], dcb[32], acc[NA][32];  // C B^T; Σ dCB; dC over the heads
+#pragma unroll
+    for (int v = 0; v < 32; ++v) dcb[v] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) acc[a][v] = 0.f;
     hopper::wgmma_fence();
+    // C B^T [i, j]: K-major tiles, a k16 step is 32 bytes inside a 128-byte row
 #pragma unroll
     for (int kk = 0; kk < 4 * NA; ++kk) {
       const int o = (kk >> 2) * TILE + (kk & 3) * 16;
       hopper::wgmma_m64n64k16_ss<0, 0>(cb, hopper::wgmma_desc(sc + o, 16, 1024),
                                        hopper::wgmma_desc(sb + o, 16, 1024), kk > 0);
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_ss<0, 0>(gx, hopper::wgmma_desc(sdy + kk * 16, 16, 1024),
-                                       hopper::wgmma_desc(sx + kk * 16, 16, 1024), kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
+    for (int k = 0; k < nh; ++k) {
+      const float a_h = a_of(k), nd0 = dt_of(k + 1, 0), nd1 = dt_of(k + 1, 1), na = a_of(k + 1);
+      if (tid == 0 && k >= 1 && k + 1 < nh) issue_xy(k + 1);  // into head k - 1's stage
+      hopper::mbar_wait(&bar_xy[k & 1], (k >> 1) & 1);
+      const bf16* sx = sxy + (k & 1) * 2 * TILE;
+      const bf16* sdy = sx + TILE;
+      // (a) value v of a [64, 64] accumulator is row r0 + 8 ((v / 2) % 2),
+      // column 8 (v / 4) + 2 (lane % 4) + v % 2
+      {
+        float gx[32];
+        hopper::wgmma_fence();
 #pragma unroll
-    for (int v = 0; v < 32; v += 2) {
-      const int i = r0 + 8 * ((v >> 1) & 1);
-      const int j = 8 * (v >> 2) + 2 * (lane & 3);
-      const float csi = cs[i];
-      const float l0 = j <= i ? expf(csi - cs[j]) : 0.f;
-      const float l1 = j + 1 <= i ? expf(csi - cs[j + 1]) : 0.f;
-      const float d0 = l0 * gx[v] * dts[j], d1 = l1 * gx[v + 1] * dts[j + 1];
-      m[v] = cb[v] * d0;
-      m[v + 1] = cb[v + 1] * d1;
-      uint32_t hi, lo;
-      split2(cb[v] * l0, cb[v + 1] * l1, hi, lo);
-      *reinterpret_cast<uint32_t*>(skhi + swz(i, j)) = hi;
-      *reinterpret_cast<uint32_t*>(sklo + swz(i, j)) = lo;
-      split2(d0, d1, hi, lo);
-      *reinterpret_cast<uint32_t*>(sdhi + swz(i, j)) = hi;
-      *reinterpret_cast<uint32_t*>(sdlo + swz(i, j)) = lo;
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n64k16_ss<0, 0>(gx, hopper::wgmma_desc(sdy + kk * 16, 16, 1024),
+                                           hopper::wgmma_desc(sx + kk * 16, 16, 1024), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int v = 0; v < 32; v += 2) {
+          const int i = r0 + 8 * ((v >> 1) & 1);
+          const int j = 8 * (v >> 2) + 2 * (lane & 3);
+          const float csi = V.cs[i];
+          const float l0 = j <= i ? __expf(csi - V.cs[j]) : 0.f;
+          const float l1 = j + 1 <= i ? __expf(csi - V.cs[j + 1]) : 0.f;
+          const float d0 = l0 * gx[v] * V.dts[j], d1 = l1 * gx[v + 1] * V.dts[j + 1];
+          dcb[v] += d0;
+          dcb[v + 1] += d1;
+          gx[v] = cb[v] * d0;  // M
+          gx[v + 1] = cb[v + 1] * d1;
+          uint32_t hi, lo;
+          split2(cb[v] * l0, cb[v + 1] * l1, hi, lo);
+          *reinterpret_cast<uint32_t*>(skhi + swz(i, j)) = hi;
+          *reinterpret_cast<uint32_t*>(sklo + swz(i, j)) = lo;
+        }
+        row_sums(gx, V.rowm);
+        col_partials(gx, V.colm);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_arrive(BAR_K, GRAD_NT);
+      if (c > 0) {
+        hopper::mbar_wait(bar_h0, k & 1);
+        // (b) dC += exp(cs_i) (dy h0) [i, n]: A = dy (K-major), B = h0 (MN-major,
+        // hi and lo); the head's product, then its rows scaled into the sum
+        {
+          float hd[NA][32];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t da = hopper::wgmma_desc(sdy + kk * 16, 16, 1024);
+              const int o = a * TILE + kk * 16 * ATOM;
+              hopper::wgmma_m64n64k16_ss<0, 1>(hd[a], da, hopper::wgmma_desc(sh0 + o, TILE_BYTES, 1024),
+                                               kk > 0);
+              hopper::wgmma_m64n64k16_ss<0, 1>(
+                  hd[a], da, hopper::wgmma_desc(sh0 + NA * TILE + o, TILE_BYTES, 1024), 1);
+            }
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          const float e0 = V.ecs[r0], e1 = V.ecs[r0 + 8];
+#pragma unroll
+          for (int a = 0; a < NA; ++a)
+#pragma unroll
+            for (int v = 0; v < 32; ++v) acc[a][v] = fmaf((v >> 1) & 1 ? e1 : e0, hd[a][v], acc[a][v]);
+        }
+        // (c) C h0^T [i, p]: A = the C tile (K-major), B = h0 (K-major, hi and
+        // lo); Σ_p dy_ip (C h0^T)_ip, a row sum
+        {
+          float hc[32];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4 * NA; ++kk) {
+            const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+            const uint64_t da = hopper::wgmma_desc(sc + o, 16, 1024);
+            hopper::wgmma_m64n64k16_ss<0, 0>(hc, da, hopper::wgmma_desc(sh0 + o, 16, 1024), kk > 0);
+            hopper::wgmma_m64n64k16_ss<0, 0>(hc, da,
+                                             hopper::wgmma_desc(sh0 + NA * TILE + o, 16, 1024), 1);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+#pragma unroll
+          for (int v = 0; v < 32; v += 2) {
+            const int i = r0 + 8 * ((v >> 1) & 1), p = 8 * (v >> 2) + 2 * (lane & 3);
+            const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(sdy + swz(i, p));
+            hc[v] *= __low2float(d2);
+            hc[v + 1] *= __high2float(d2);
+          }
+          row_sums(hc, V.inter);
+        }
+      }
+      // both warpgroups are done with h0: the next head's comes in
+      hopper::named_sync(BAR_HDOT, GRAD_NT);
+      if (tid == 0 && c > 0 && k + 1 < nh) issue_state(sh0, h0s, bar_h0, k + 1);
+      grad_tail(V, c > 0, a_h, ddt, ((long long)b * S + t0) * H + head(k), H, rows,
+                part_a + (long long)(b * H + head(k)) * nch + c, k + 1 < nh, nd0, nd1, na);
     }
-    row_sums(m, rowm);
-    col_partials(m, red);
-  }
-  // phases 1-4 have written the states by now; h0 is zero in chunk 0
-  hopper::griddep_wait();
-  const long long soff = ((long long)bh * nch + c) * P * ATOM * NA;
-  const float4* h0src = c > 0 ? reinterpret_cast<const float4*>(states + soff) + tid : nullptr;
-  stage_state<NA>(h0src, nullptr, shi, slo);
-  hopper::fence_proxy_async();
-  __syncthreads();
-
-  const long long row0 = ((long long)b * S + t0) * H + h;  // (t0, h)'s row of [batch·S·H, *]
-  float acc[NA][32];
-  // (b) dC [i, n]: A = dy (K-major), B = h0 (MN-major); then A = dCB
-  // (K-major), B = the B tile (MN-major)
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hopper::wgmma_desc(sdy + kk * 16, 16, 1024);
-      const int o = a * TILE + kk * 16 * ATOM;
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(shi + o, TILE_BYTES, 1024),
-                                       kk > 0);
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(slo + o, TILE_BYTES, 1024),
-                                       1);
-    }
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int v = 0; v < 32; ++v) acc[a][v] *= ecs[r0 + 8 * ((v >> 1) & 1)];
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = hopper::wgmma_desc(sb + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(sdhi + kk * 16, 16, 1024), db,
-                                       1);
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(sdlo + kk * 16, 16, 1024), db,
-                                       1);
-    }
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  store_rows<NA>(acc, part_c, row0, H, N, rows);
-
-  // (c) h0 C^T [p, i]: A = h0 (K-major), B = the C tile (K-major)
-  {
-    float hc[32];
+    // Σ dCB into the K tiles (their last reader, the last head's du, is done)
+    split_tile(dcb, skhi, sklo);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    // dC += Σ dCB B: A = Σ dCB (K-major), B = the B tile (MN-major)
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NA; ++kk) {
-      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
-      const uint64_t db = hopper::wgmma_desc(sc + o, 16, 1024);
-      hopper::wgmma_m64n64k16_ss<0, 0>(hc, hopper::wgmma_desc(shi + o, 16, 1024), db, kk > 0);
-      hopper::wgmma_m64n64k16_ss<0, 0>(hc, hopper::wgmma_desc(slo + o, 16, 1024), db, 1);
+    for (int a = 0; a < NA; ++a) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hopper::wgmma_desc(sb + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
+        hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(skhi + kk * 16, 16, 1024), db,
+                                         1);
+        hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], hopper::wgmma_desc(sklo + kk * 16, 16, 1024), db,
+                                         1);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
+    float4* mine = reinterpret_cast<float4*>(sh0);  // dC, in the accumulator's order
 #pragma unroll
-    for (int v = 0; v < 32; ++v)
-      hc[v] *= __bfloat162float(sdy[swz(8 * (v >> 2) + 2 * (lane & 3) + (v & 1),
-                                        r0 + 8 * ((v >> 1) & 1))]);
-    col_partials(hc, red + 4 * Q);
-  }
-  __syncthreads();  // every warp's reads of h0 are done
-  // dh1 in h0's place, and this thread's share of Σ dh1 ∘ h0 (d T's state term)
-  const float hdot = stage_state<NA>(reinterpret_cast<const float4*>(dstates + soff) + tid,
-                                     h0src, shi, slo);
-  hopper::fence_proxy_async();
-  __syncthreads();
-
-  // (d) dB [j, n]: A = x (K-major), B = dh1 (MN-major); then A = dCB^T (the
-  // dCB tiles MN-major), B = the C tile (MN-major)
-  hopper::wgmma_fence();
+    for (int a = 0; a < NA; ++a)
 #pragma unroll
-  for (int a = 0; a < NA; ++a) {
+      for (int q = 0; q < 8; ++q)
+        mine[(8 * a + q) * NT + wt] =
+            make_float4(acc[a][4 * q], acc[a][4 * q + 1], acc[a][4 * q + 2], acc[a][4 * q + 3]);
+  } else {
+    float acc[NA][32];  // dB over the heads
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hopper::wgmma_desc(sx + kk * 16, 16, 1024);
-      const int o = a * TILE + kk * 16 * ATOM;
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(shi + o, TILE_BYTES, 1024),
-                                       kk > 0);
-      hopper::wgmma_m64n64k16_ss<0, 1>(acc[a], da, hopper::wgmma_desc(slo + o, TILE_BYTES, 1024),
-                                       1);
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) acc[a][v] = 0.f;
+    for (int k = 0; k < nh; ++k) {
+      hopper::mbar_wait(&bar_xy[k & 1], (k >> 1) & 1);
+      const bf16* sx = sxy + (k & 1) * 2 * TILE;
+      const bf16* sdy = sx + TILE;
+      hopper::mbar_wait(bar_dh, k & 1);
+      // Σ dh1∘h0 over this thread's 16-byte chunks (the four tiles share a layout)
+      float hd = 0.f;
+      if (c > 0) {
+        hopper::mbar_wait(bar_h0, k & 1);
+        for (int e = wt; e < NA * TILE / 8; e += NT) {
+          const uint4 u[4] = {*reinterpret_cast<const uint4*>(sh0 + 8 * e),
+                              *reinterpret_cast<const uint4*>(sh0 + NA * TILE + 8 * e),
+                              *reinterpret_cast<const uint4*>(sdh + 8 * e),
+                              *reinterpret_cast<const uint4*>(sdh + NA * TILE + 8 * e)};
+          const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(u);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const float2 h0h = __bfloat1622float2(p[m]), h0l = __bfloat1622float2(p[4 + m]);
+            const float2 dhh = __bfloat1622float2(p[8 + m]), dhl = __bfloat1622float2(p[12 + m]);
+            hd = fmaf(h0h.x + h0l.x, dhh.x + dhl.x, hd);
+            hd = fmaf(h0h.y + h0l.y, dhh.y + dhl.y, hd);
+          }
+        }
+      }
+      hopper::named_arrive(BAR_HDOT, GRAD_NT);
+      // (d) dB += dt_j exp(T - cs_j) (x dh1) [j, n]: A = x (K-major), B = dh1
+      // (MN-major, hi and lo); the head's product, then its rows scaled into the sum
+      {
+        float hx[NA][32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t da = hopper::wgmma_desc(sx + kk * 16, 16, 1024);
+            const int o = a * TILE + kk * 16 * ATOM;
+            hopper::wgmma_m64n64k16_ss<0, 1>(hx[a], da, hopper::wgmma_desc(sdh + o, TILE_BYTES, 1024),
+                                             kk > 0);
+            hopper::wgmma_m64n64k16_ss<0, 1>(
+                hx[a], da, hopper::wgmma_desc(sdh + NA * TILE + o, TILE_BYTES, 1024), 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        const float w0 = V.dts[r0] * V.wexp[r0], w1 = V.dts[r0 + 8] * V.wexp[r0 + 8];
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+#pragma unroll
+          for (int v = 0; v < 32; ++v) acc[a][v] = fmaf((v >> 1) & 1 ? w1 : w0, hx[a][v], acc[a][v]);
+      }
+      // (e) B dh1^T [j, p]: A = the B tile (K-major), B = dh1 (K-major, hi and lo)
+      float hb[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NA; ++kk) {
+        const int o = (kk >> 2) * TILE + (kk & 3) * 16;
+        const uint64_t da = hopper::wgmma_desc(sb + o, 16, 1024);
+        hopper::wgmma_m64n64k16_ss<0, 0>(hb, da, hopper::wgmma_desc(sdh + o, 16, 1024), kk > 0);
+        hopper::wgmma_m64n64k16_ss<0, 0>(hb, da, hopper::wgmma_desc(sdh + NA * TILE + o, 16, 1024),
+                                         1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::named_sync(BAR_WG1, NT);  // every warp of this warpgroup is done with dh1
+      if (wt == 0 && k + 1 < nh) issue_state(sdh, dh1s, bar_dh, k + 1);
+      // du = K^T dy + exp(T - cs_j) B dh1^T [j, p]: A = K^T (the K tiles
+      // MN-major), B = dy (MN-major); then W_j's and x·du's row sums, dx = dt du
+      hopper::named_sync(BAR_K, GRAD_NT);
+      {
+        float du[32], t[32], xd[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = hopper::wgmma_desc(sdy + kk * 16 * ATOM, TILE_BYTES, 1024);
+          hopper::wgmma_m64n64k16_ss<1, 1>(
+              du, hopper::wgmma_desc(skhi + kk * 16 * ATOM, TILE_BYTES, 1024), db, kk > 0);
+          hopper::wgmma_m64n64k16_ss<1, 1>(
+              du, hopper::wgmma_desc(sklo + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        const float w0 = V.wexp[r0], w1 = V.wexp[r0 + 8];
+#pragma unroll
+        for (int v = 0; v < 32; v += 2) {
+          const int j = r0 + 8 * ((v >> 1) & 1), p = 8 * (v >> 2) + 2 * (lane & 3);
+          const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(sx + swz(j, p));
+          const float xa = __low2float(x2), xb = __high2float(x2), w = (v >> 1) & 1 ? w1 : w0;
+          t[v] = hb[v] * xa;
+          t[v + 1] = hb[v + 1] * xb;
+          du[v] = fmaf(w, hb[v], du[v]);
+          du[v + 1] = fmaf(w, hb[v + 1], du[v + 1]);
+          xd[v] = du[v] * xa;
+          xd[v + 1] = du[v + 1] * xb;
+        }
+        row_sums(t, V.xhb);   // Σ_p x_jp (B dh1^T)_jp
+        row_sums(xd, V.xdu);  // Σ_p x_jp du_jp
+        hopper::named_sync(BAR_WG1, NT);  // every warp's reads of K are done: dx takes its place
+        const float d0 = V.dts[r0], d1 = V.dts[r0 + 8];
+#pragma unroll
+        for (int v = 0; v < 32; v += 2) {
+          const int j = r0 + 8 * ((v >> 1) & 1), p = 8 * (v >> 2) + 2 * (lane & 3);
+          const float d = (v >> 1) & 1 ? d1 : d0;
+          *reinterpret_cast<uint32_t*>(skhi + swz(j, p)) = hopper::pack_bf16(d * du[v], d * du[v + 1]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
+      if (lane == 0) V.scr[warp] = hd;
+      hopper::named_sync(BAR_WG1, NT);
+      const long long row0 = ((long long)b * S + t0) * H + head(k);  // (t0, head)'s row of [batch·S·H, *]
+#pragma unroll
+      for (int e = wt; e < Q * P / 8; e += NT) {
+        const int i = e >> 3, ch = e & 7;
+        if (i < rows)
+          *reinterpret_cast<uint4*>(dx + (row0 + (long long)i * H) * P + ch * 8) =
+              *reinterpret_cast<const uint4*>(skhi + swz(i, ch * 8));
+      }
+      grad_tail(V, c > 0, 0.f, ddt, row0, H, rows,
+                part_a + (long long)(b * H + head(k)) * nch + c, false, 0.f, 0.f, 0.f);
     }
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      const int j = r0 + 8 * ((v >> 1) & 1);
-      acc[a][v] *= dts[j] * wexp[j];
-    }
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = hopper::wgmma_desc(sc + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
-      hopper::wgmma_m64n64k16_ss<1, 1>(
-          acc[a], hopper::wgmma_desc(sdhi + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
-      hopper::wgmma_m64n64k16_ss<1, 1>(
-          acc[a], hopper::wgmma_desc(sdlo + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
-    }
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  store_rows<NA>(acc, part_b, row0, H, N, rows);
-
-  // (e) dh1 B^T [p, j]: A = dh1 (K-major), B = the B tile (K-major);
-  // dy^T K [p, j]: A = dy^T (the dy tile MN-major), B = K (MN-major)
-  {
-    float hb[32], du[32], t[32], xv[32];
+    __syncthreads();  // warpgroup 0 has put Σ dCB in the K tiles
+    // dB += Σ dCB^T C: A = the Σ dCB tiles MN-major, B = the C tile (MN-major)
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NA; ++kk) {
-      const int o = (kk >> 2) * TILE + (kk & 3) * 16;
-      const uint64_t db = hopper::wgmma_desc(sb + o, 16, 1024);
-      hopper::wgmma_m64n64k16_ss<0, 0>(hb, hopper::wgmma_desc(shi + o, 16, 1024), db, kk > 0);
-      hopper::wgmma_m64n64k16_ss<0, 0>(hb, hopper::wgmma_desc(slo + o, 16, 1024), db, 1);
-    }
+    for (int a = 0; a < NA; ++a) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hopper::wgmma_desc(sdy + kk * 16 * ATOM, TILE_BYTES, 1024);
-      hopper::wgmma_m64n64k16_ss<1, 1>(
-          du, da, hopper::wgmma_desc(skhi + kk * 16 * ATOM, TILE_BYTES, 1024), kk > 0);
-      hopper::wgmma_m64n64k16_ss<1, 1>(
-          du, da, hopper::wgmma_desc(sklo + kk * 16 * ATOM, TILE_BYTES, 1024), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hopper::wgmma_desc(sc + a * TILE + kk * 16 * ATOM, TILE_BYTES, 1024);
+        hopper::wgmma_m64n64k16_ss<1, 1>(
+            acc[a], hopper::wgmma_desc(skhi + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
+        hopper::wgmma_m64n64k16_ss<1, 1>(
+            acc[a], hopper::wgmma_desc(sklo + kk * 16 * ATOM, TILE_BYTES, 1024), db, 1);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
+    float4* mine = reinterpret_cast<float4*>(sdh);  // dB, in the accumulator's order
 #pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      const int j = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-      xv[v] = __bfloat162float(sx[swz(j, r0 + 8 * ((v >> 1) & 1))]);
-      t[v] = hb[v] * xv[v];
-      du[v] = fmaf(wexp[j], hb[v], du[v]);
-    }
-    col_partials(t, red + 8 * Q);  // Σ_p x_jp (dh1 B^T)_pj
+    for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int v = 0; v < 32; ++v) t[v] = du[v] * xv[v];
-    col_partials(t, red + 12 * Q);  // Σ_p x_jp du_jp
-    __syncthreads();  // every warp's reads of K are done: dx takes its place
-#pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      const int j = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-      skhi[swz(j, r0 + 8 * ((v >> 1) & 1))] = __float2bfloat16_rn(dts[j] * du[v]);
-    }
-  }
-  {
-    float s = hdot;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) scr[warp] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int e = tid; e < Q * P / 8; e += NT) {
-    const int i = e >> 3, ch = e & 7;
-    if (i < rows)
-      *reinterpret_cast<uint4*>(dx + (row0 + (long long)i * H) * P + ch * 8) =
-          *reinterpret_cast<const uint4*>(skhi + swz(i, ch * 8));
+      for (int q = 0; q < 8; ++q)
+        mine[(8 * a + q) * NT + wt] =
+            make_float4(acc[a][4 * q], acc[a][4 * q + 1], acc[a][4 * q + 2], acc[a][4 * q + 3]);
   }
 
-  // (f) dcs, d T, da, ddt and dA's share; red[(4 k + w) Q + j] is sum k of warp w
-  if (tid < Q) {
-    const int j = tid;
-    const float colm = red[j] + red[Q + j] + red[2 * Q + j] + red[3 * Q + j];
-    const float inter = red[4 * Q + j] + red[5 * Q + j] + red[6 * Q + j] + red[7 * Q + j];
-    const float xhb = red[8 * Q + j] + red[9 * Q + j] + red[10 * Q + j] + red[11 * Q + j];
-    const float W = dts[j] * wexp[j] * xhb;
-    dcs[j] = rowm[j] - colm + ecs[j] * inter - W;
-    tmp[j] = W;
-  }
-  __syncthreads();
-  if (tid < 32) {
-    float s = tmp[tid] + tmp[tid + 32];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (tid == 0) dcs[Q - 1] += s + expf(cs[Q - 1]) * (scr[0] + scr[1] + scr[2] + scr[3]);
-  }
-  __syncthreads();
-  // da_j = Σ_{i >= j} dcs_i: thread k scans position Q - 1 - k
-  if (tid < Q) {
-    float v = dcs[Q - 1 - tid];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
+  // dC (sh0) and dB (sdh) over the cluster's ranks, in rank order: float4 f
+  // of a sum holds a thread's values 4 q .. 4 q + 3 (q = f / NT, t = f % NT),
+  // rows i and i + 8, columns n and n + 1; the ranks share the float4s out
+  hopper::cluster_sync();
+  constexpr int PER = 8 * NA * NT;  // float4s of one sum
+  for (int e = rank * GRAD_NT + tid; e < 2 * PER; e += ranks * GRAD_NT) {
+    const bool isb = e >= PER;
+    const int f = isb ? e - PER : e;
+    const float4* src = reinterpret_cast<const float4*>(isb ? sdh : sh0) + f;
+    float4 s = *hopper::cluster_map(src, 0);
+    for (int r = 1; r < ranks; ++r) {
+      const float4 u = *hopper::cluster_map(src, r);
+      s.x += u.x;
+      s.y += u.y;
+      s.z += u.z;
+      s.w += u.w;
     }
-    tmp[tid] = v;
+    const int t = f % NT, q = f / NT;
+    const int i = 16 * (t >> 5) + ((t & 31) >> 2), n = 8 * q + 2 * (t & 3);
+    if (n < N) {
+      bf16* o = (isb ? dB : dC) + (((long long)b * S + t0) * G + g) * N + n;
+      if (i < rows) *reinterpret_cast<uint32_t*>(o + (long long)i * G * N) = hopper::pack_bf16(s.x, s.y);
+      if (i + 8 < rows)
+        *reinterpret_cast<uint32_t*>(o + (long long)(i + 8) * G * N) = hopper::pack_bf16(s.z, s.w);
+    }
   }
-  __syncthreads();
-  if (tid < Q) {
-    const int j = Q - 1 - tid;
-    const float da = tid >= 32 ? tmp[tid] + tmp[31] : tmp[tid];
-    const float xdu = red[12 * Q + j] + red[13 * Q + j] + red[14 * Q + j] + red[15 * Q + j];
-    if (j < rows) ddt[row0 + (long long)j * H] = fmaf(a_h, da, xdu);
-    float s = dts[j] * da;  // dt = 0 past S
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) scr[4 + warp] = s;
-  }
-  __syncthreads();
-  if (tid == 0) part_a[(long long)bh * nch + c] = scr[4] + scr[5];
+  hopper::cluster_sync();  // no rank leaves while another still reads its shared memory
 }
 
-// Phase 6: dB and dC [batch·S·G rows, N] in bf16, each the sum over the
-// R = H / G heads of its group in order (part rows row·R + r); the blocks
-// past sum_blocks take dA [batch·H], the sum over chunks in order.
-__global__ void __launch_bounds__(PASS_NT) ssd_grad_reduce_kernel(
-    const float* __restrict__ part_b, const float* __restrict__ part_c,
-    const float* __restrict__ part_a, bf16* __restrict__ dB, bf16* __restrict__ dC,
-    float* __restrict__ dA, long long rows, int R, int N4, int BH, int nch, int sum_blocks) {
-  hopper::griddep_wait();  // phase 5's partials
-  if ((int)blockIdx.x < sum_blocks) {
-    const long long e = (long long)blockIdx.x * PASS_NT + threadIdx.x;
-    if (e >= rows * N4) return;
-    const long long row = e / N4;
-    const int n4 = (int)(e % N4);
-    const float4* pb = reinterpret_cast<const float4*>(part_b) + row * R * N4 + n4;
-    const float4* pc = reinterpret_cast<const float4*>(part_c) + row * R * N4 + n4;
-    float4 sb = pb[0], sc = pc[0];
-    for (int r = 1; r < R; ++r) {
-      const float4 u = pb[(long long)r * N4], v = pc[(long long)r * N4];
-      sb.x += u.x;
-      sb.y += u.y;
-      sb.z += u.z;
-      sb.w += u.w;
-      sc.x += v.x;
-      sc.y += v.y;
-      sc.z += v.z;
-      sc.w += v.w;
-    }
-    *reinterpret_cast<uint2*>(dB + e * 4) =
-        make_uint2(hopper::pack_bf16(sb.x, sb.y), hopper::pack_bf16(sb.z, sb.w));
-    *reinterpret_cast<uint2*>(dC + e * 4) =
-        make_uint2(hopper::pack_bf16(sc.x, sc.y), hopper::pack_bf16(sc.z, sc.w));
-  } else {
-    const int i = (blockIdx.x - sum_blocks) * PASS_NT + threadIdx.x;
-    if (i >= BH) return;
-    const float* p = part_a + (long long)i * nch;
-    float s = p[0];
-    for (int c = 1; c < nch; ++c) s += p[c];
-    dA[i] = s;
-  }
+// Phase 3: dA [batch·H], each the sum of part_a's chunks in order.
+__global__ void __launch_bounds__(PASS_NT) ssd_dA_reduce_kernel(const float* __restrict__ part_a,
+                                                                float* __restrict__ dA, int BH,
+                                                                int nch) {
+  hopper::griddep_wait();  // phase 2's shares
+  const int i = blockIdx.x * PASS_NT + threadIdx.x;
+  if (i >= BH) return;
+  const float* p = part_a + (long long)i * nch;
+  float s = p[0];
+  for (int c = 1; c < nch; ++c) s += p[c];
+  dA[i] = s;
 }
 
 template <int NA>
 constexpr size_t grad_smem() {
-  return (size_t)(2 + 4 * NA + 4) * TILE_BYTES + (23 * Q + 8) * sizeof(float) + 8 + 1024;
+  return (size_t)(6 * NA + 6) * TILE_BYTES + sizeof(GradVectors) + 1024;
+}
+
+// chunk_grad's cluster size for R heads a group and `units` (chunk, batch,
+// group) clusters: of 8 .. 1 ranks (at most R), the one whose waves of
+// clusters (cudaOccupancyMaxActiveClusters on this card, queried once) times
+// the heads its CTAs walk are fewest; ties go to more ranks.  One CTA an SM,
+// so clusters of 8 fill 120 of the H100's 132 SMs and smaller ones more.
+template <int NA>
+int grad_ranks(int R, long long units) {
+  static int active[MAX_RANKS] = {};  // clusters of 8, 7, .., 1 ranks the card holds at once
+  int best = 1;
+  long long best_cost = -1;
+  for (int i = 0; i < MAX_RANKS; ++i) {
+    const int ranks = MAX_RANKS - i;
+    if (ranks > R) continue;
+    if (active[i] == 0) {
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = ranks;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(ranks);
+      cfg.blockDim = dim3(GRAD_NT);
+      cfg.dynamicSmemBytes = grad_smem<NA>();
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, ssd_chunk_grad_kernel<NA>, &cfg) != cudaSuccess) {
+        (void)cudaGetLastError();
+        n = 0;
+      }
+      active[i] = n > 0 ? n : 1;
+    }
+    const long long cost = (units + active[i] - 1) / active[i] * ((R + ranks - 1) / ranks);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = ranks;
+    }
+  }
+  return best;
+}
+constexpr size_t bwd_states_smem() {
+  return (size_t)(2 * ST_STAGES + 2) * TILE_BYTES + 2 * Q * sizeof(float) + ST_STAGES * 8 + 1024;
 }
 
 template <int NA>
@@ -1287,15 +1554,14 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return (int)cudaGetLastError();
 }
 
-// The backward's six kernels (see wgmma_bwd above).  Phases 2, 4, 5 and 6
+// The backward's three kernels (see wgmma_bwd above).  Phases 2 and 3
 // start by programmatic dependent launch while the phase before drains;
-// phase 3 follows phase 2 in stream order.
+// phase 2 runs in clusters of grad_ranks CTAs.
 template <int NA>
 int launch_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                const void* dy, const void* dh_final, void* dx, void* ddt, void* dA, void* dB,
-               void* dC, void* states, void* dstates, void* decay, void* part_b, void* part_c,
-               void* part_a, int batch, int S, int H, int G, int N, const Layout& L,
-               const long long (&dys)[3], cudaStream_t stream) {
+               void* dC, void* h0s, void* dh1s, void* part_a, int batch, int S, int H, int G,
+               int N, const Layout& L, const long long (&dys)[3], cudaStream_t stream) {
   CUtensorMap xm, dym, bm, cm;
   const int box[4] = {ATOM, 1, Q, 1};
   const long long xd[4] = {P, H, S, batch};
@@ -1311,12 +1577,8 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* B, cons
   static bool attributes_set = false;  // per instantiation, once per process
   cudaError_t err = cudaSuccess;
   if (!attributes_set) {
-    err = cudaFuncSetAttribute(ssd_chunk_state_kernel<NA, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem<NA>());
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_chunk_state_kernel<NA, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)state_smem<NA>());
+    err = cudaFuncSetAttribute(ssd_bwd_states_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bwd_states_smem());
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(ssd_chunk_grad_kernel<NA>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)grad_smem<NA>());
@@ -1324,58 +1586,43 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* B, cons
     attributes_set = true;
   }
   const int nch = (S + Q - 1) / Q;
-  const dim3 grid(nch, batch * H);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
-  float* st = static_cast<float*>(states);
-  float* dst = static_cast<float*>(dstates);
-  float* dec = static_cast<float*>(decay);
-  const int PN4 = P * ATOM * NA / 4;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  // 1: h0 and dh1, both directions in one grid
+  ssd_bwd_states_kernel<<<dim3(NA, batch * H, 2), NT, bwd_states_smem(), stream>>>(
+      xm, bm, dym, cm, dtf, Af, static_cast<const float*>(dh_final), static_cast<bf16*>(h0s),
+      static_cast<bf16*>(dh1s), L, S, H, G, N, NA, nch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 2: the chunks' gradients, a cluster of ranks per (chunk, batch, group)
+  const int ranks = grad_ranks<NA>(H / G, (long long)nch * batch * G);
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.stream = stream;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  // 1-2: h0
-  ssd_chunk_state_kernel<NA, false><<<grid, NT, state_smem<NA>(), stream>>>(xm, bm, dtf, Af, st,
-                                                                            dec, L, S, H, G, nch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  cfg.gridDim = dim3((PN4 + PASS_NT - 1) / PASS_NT, batch * H);
-  cfg.blockDim = dim3(PASS_NT);
-  cfg.dynamicSmemBytes = 0;
-  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_kernel, st, static_cast<const float*>(dec),
-                           static_cast<float*>(nullptr), PN4, N, nch);
-  if (err != cudaSuccess) return (int)err;
-  // 3-4: dh1
-  ssd_chunk_state_kernel<NA, true><<<grid, NT, state_smem<NA>(), stream>>>(dym, cm, dtf, Af, dst,
-                                                                           dec, L, S, H, G, nch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_bwd_kernel, dst, static_cast<const float*>(dec),
-                           static_cast<const float*>(dh_final), PN4, N, nch);
-  if (err != cudaSuccess) return (int)err;
-  // 5: the chunks' gradients
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(NT);
+  cfg.gridDim = dim3(ranks, nch, batch * G);
+  cfg.blockDim = dim3(GRAD_NT);
   cfg.dynamicSmemBytes = grad_smem<NA>();
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
   err = cudaLaunchKernelEx(&cfg, ssd_chunk_grad_kernel<NA>, xm, dym, bm, cm, dtf, Af,
-                           static_cast<const float*>(st), static_cast<const float*>(dst),
+                           static_cast<const bf16*>(h0s), static_cast<const bf16*>(dh1s),
                            static_cast<bf16*>(dx), static_cast<float*>(ddt),
-                           static_cast<float*>(part_b), static_cast<float*>(part_c),
+                           static_cast<bf16*>(dB), static_cast<bf16*>(dC),
                            static_cast<float*>(part_a), L, S, H, G, N, nch);
   if (err != cudaSuccess) return (int)err;
-  // 6: the sums over heads and chunks
-  const long long rows = (long long)batch * S * G;
-  const int N4 = N / 4;
-  const int sum_blocks = (int)((rows * N4 + PASS_NT - 1) / PASS_NT);
-  cfg.gridDim = dim3(sum_blocks + (batch * H + PASS_NT - 1) / PASS_NT);
+  // 3: dA over chunks
+  cfg.gridDim = dim3((batch * H + PASS_NT - 1) / PASS_NT);
   cfg.blockDim = dim3(PASS_NT);
   cfg.dynamicSmemBytes = 0;
-  err = cudaLaunchKernelEx(&cfg, ssd_grad_reduce_kernel, static_cast<const float*>(part_b),
-                           static_cast<const float*>(part_c), static_cast<const float*>(part_a),
-                           static_cast<bf16*>(dB), static_cast<bf16*>(dC), static_cast<float*>(dA),
-                           rows, H / G, N4, batch * H, nch, sum_blocks);
+  cfg.attrs = attr + 1;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ssd_dA_reduce_kernel, static_cast<const float*>(part_a),
+                           static_cast<float*>(dA), batch * H, nch);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1432,14 +1679,13 @@ extern "C" int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* A, 
 // contiguous, it starts on 16 bytes and its strides are multiples of 8
 // elements (TMA).  Outputs, contiguous: dx [batch, S, H, P] bf16, ddt
 // [batch, S, H] f32, dA [batch, H] f32, dB and dC [batch, S, G, N] bf16.
-// f32 scratch: states and dstates [batch·H, ceil(S / 64), P·64] (P·128 for
-// N > 64), decay and part_a [batch·H, ceil(S / 64)], part_b and part_c
-// [batch, S, H, N].  P = 64; N a multiple of 16 up to 128.  Enqueues six
-// kernels on `stream`; returns cudaGetLastError() after them (0 on success).
+// Scratch: h0s and dh1s [batch·H, ceil(S / 64), 2·P·64] bf16 (2·P·128 for N
+// > 64: each state's hi and lo halves), part_a [batch·H, ceil(S / 64)] f32.
+// P = 64; N a multiple of 16 up to 128.  Enqueues three kernels on
+// `stream`; returns cudaGetLastError() after them (0 on success).
 extern "C" int ssd_scan_wgmma_bwd(const void* x, const void* dt, const void* A, const void* B,
                                   const void* C, const void* dy, const void* dh_final, void* dx,
-                                  void* ddt, void* dA, void* dB, void* dC, void* states,
-                                  void* dstates, void* decay, void* part_b, void* part_c,
+                                  void* ddt, void* dA, void* dB, void* dC, void* h0s, void* dh1s,
                                   void* part_a, int batch, int S, int H, int G, int P, int N,
                                   const long long* strides, void* stream) {
   if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P != tc::P || N < 16 ||
@@ -1451,10 +1697,10 @@ extern "C" int ssd_scan_wgmma_bwd(const void* x, const void* dt, const void* A, 
   const long long dys[3] = {t[11], t[12], t[13]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= tc::ATOM)
-    return tc::launch_bwd<1>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates,
-                             decay, part_b, part_c, part_a, batch, S, H, G, N, L, dys, s);
-  return tc::launch_bwd<2>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates,
-                           decay, part_b, part_c, part_a, batch, S, H, G, N, L, dys, s);
+    return tc::launch_bwd<1>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, h0s, dh1s,
+                             part_a, batch, S, H, G, N, L, dys, s);
+  return tc::launch_bwd<2>(x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, h0s, dh1s, part_a,
+                           batch, S, H, G, N, L, dys, s);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

@@ -309,6 +309,19 @@ def ssd_scan_three_phase(
     return (y, h) if return_state else y
 
 
+BWD_CLUSTER = 8  # the wgmma_bwd kernel's largest cluster: CTAs that share a group's chunk
+
+
+def bwd_head_ranks(R: int, ranks: int = BWD_CLUSTER) -> list:
+    """The heads of a group (0 .. R - 1) that each CTA of one cluster of the
+    ``wgmma_bwd`` kernel's gradient phase takes, in rank order: min(ranks,
+    R) ranks, rank k the heads [k R // n, (k + 1) R // n).  The kernel picks
+    1 to 8 ranks by what the card holds at once (``grad_ranks`` in
+    csrc/ssd_scan.cu); any choice sums the same terms."""
+    n = min(ranks, R)
+    return [range(k * R // n, (k + 1) * R // n) for k in range(n)]
+
+
 def ssd_scan_bwd_phases(
     x: torch.Tensor,   # [B, S, H, P]
     dt: torch.Tensor,  # [B, S, H]     (f32)
@@ -318,6 +331,8 @@ def ssd_scan_bwd_phases(
     dy: torch.Tensor,  # [B, S, H, P]
     dh_final: Optional[torch.Tensor] = None,  # [B, H, P, N]
     lo: bool = True,
+    dropped_rank: Optional[int] = None,
+    ranks: int = BWD_CLUSTER,
 ):
     """The ``wgmma_bwd`` kernel's arithmetic on the CPU, for the tests (the
     plain version it is held against on the card is
@@ -326,29 +341,39 @@ def ssd_scan_bwd_phases(
     chunks of 64 positions, head h reading group h // (H/G), in the kernel's
     phases:
 
-    0. the chunk-start states h0, as the forward's phases 1 and 2;
-    1. r_c = (dy∘exp(cs))^T C, and the cotangent of each chunk's end state
-       carried backwards: dh1(last) = dh_final, dh1(c-1) = exp(T_c) dh1(c) + r_c;
-    2. per (chunk, head): CB = C B^T, G = dy x^T, L_ij = exp(cs_i - cs_j)
-       (j <= i), K = CB∘L, dCB = L∘G∘dt_j, M = CB∘dCB;
-       dC = exp(cs_i)(dy h0) + dCB B,  dB = dt_j exp(T - cs_j)(x dh1) + dCB^T C;
-       du^T = dy^T K + exp(T - cs_j)(dh1 B^T);
-       dcs_i = Σ_j M_ij - Σ_j M_ji + exp(cs_i) dy_i·(h0 C_i) - W_i with
-       W_j = dt_j exp(T - cs_j) x_j·(dh1 B_j), and d T = Σ W + exp(T) Σ dh1∘h0
-       added to the last position; da = the reverse cumsum of dcs;
-       dx = dt du, ddt = x·du + A da, the chunk's share of dA = Σ dt da;
-    3. dB and dC summed over the heads of a group, head by head in order;
-       dA over the chunks in order.
+    1. the state pass, both directions: the chunk-start states h0 (h0(0) =
+       0, h0(c+1) = exp(T_c) h0(c) + (x∘w)^T B with w_j = exp(T - cs_j) dt_j)
+       and the cotangents of the chunk-end states (dh1(last) = dh_final,
+       dh1(c-1) = exp(T_c) dh1(c) + (dy∘exp(cs))^T C), each carried in f32
+       and kept as its bf16 hi and lo halves;
+    2. per (chunk, group) a cluster of ``bwd_head_ranks(H/G, ranks)`` CTAs,
+       each walking its heads in order: CB = C B^T once; per head G = dy x^T,
+       L_ij = exp(cs_i - cs_j) (j <= i), K = CB∘L, dCB = L∘G∘dt_j, M =
+       CB∘dCB; the state terms of dC and dB summed over the CTA's heads,
+       dC_s += exp(cs_i) (dy h0)_i and dB_s += dt_j exp(T - cs_j) (x dh1)_j
+       (each head's product, then its rows scaled into the sum); dCB summed
+       over the CTA's heads; du^T = dy^T
+       K + exp(T - cs_j)(dh1 B^T); dcs_i = Σ_j M_ij - Σ_j M_ji + exp(cs_i)
+       dy_i·(h0 C_i) - W_i with W_j = dt_j exp(T - cs_j) x_j·(dh1 B_j), and
+       d T = Σ W + exp(T) Σ dh1∘h0 (from the halves) added to the last
+       position; da = the reverse cumsum of dcs; dx = dt du, ddt = x·du +
+       A da, the chunk's share of dA = Σ dt da.  Then each CTA's dC = dC_s +
+       (Σ dCB) B and dB = dB_s + (Σ dCB)^T C;
+    3. dB and dC summed over the cluster's ranks in rank order; dA over the
+       chunks in order.
 
     In f32 every f32 operand of a product enters as hi + lo bf16 halves, as
     the kernel feeds the tensor cores (``lo=False`` drops the lo halves: a
     planted fault); f64 inputs compute in f64 with no split (the phases'
-    algebra, exact).  Returns dx in x's dtype, ddt and dA ([B, H]) in f32
+    algebra, exact).  ``dropped_rank`` leaves that rank's share out of the
+    sum over ranks (a planted fault; the kernel's own is in
+    ``chip_smoke.py``).  Returns dx in x's dtype, ddt and dA ([B, H]) in f32
     (f64), dB and dC in B's dtype."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     R = H // G
     acc = torch.promote_types(x.dtype, F32)
+    exact = acc == torch.float64
     Q = 64
     nc = -(-S // Q)
     pad = nc * Q - S
@@ -358,10 +383,14 @@ def ssd_scan_bwd_phases(
         return t.reshape(Bsz, nc, Q, *t.shape[2:]).movedim(2, 3)
 
     def parts(t):
-        if acc == torch.float64:
+        if exact:
             return (t,)
         hi, low = _split_bf16(t)
         return (hi, low) if lo else (hi,)
+
+    def whole(t):
+        """The value the kernel holds of a state kept as its halves."""
+        return sum(parts(t))
 
     def mm(eq, a, b):
         """einsum with whichever of a, b is a tuple of halves summed over."""
@@ -374,54 +403,60 @@ def ssd_scan_bwd_phases(
     gidx = torch.arange(H, device=x.device) // R
     xc, dyc = chunks(x), chunks(dy)                    # [B,nc,H,Q,P]
     dtc = chunks(dt[..., None])[..., 0]                # [B,nc,H,Q]
-    Bc, Cc = chunks(Bm)[:, :, gidx], chunks(Cm)[:, :, gidx]  # [B,nc,H,Q,N]
+    Bg, Cg = chunks(Bm), chunks(Cm)                    # [B,nc,G,Q,N]
+    Bc, Cc = Bg[:, :, gidx], Cg[:, :, gidx]            # [B,nc,H,Q,N]
     Ah = A.to(acc).expand(Bsz, H)[:, None, :, None]    # [B,1,H,1]
     cs = torch.cumsum(dtc * Ah, dim=-1)
     T = cs[..., -1:]
     decay = torch.exp(T[..., 0])                       # [B,nc,H]
     ecs, wexp = torch.exp(cs), torch.exp(T - cs)
-    # phase 0: the states the chunks start from
+    # phase 1: the states the chunks start from, and the cotangents of the
+    # states they end with
     s = mm("bchjp,bchjn->bchpn", parts(xc * (wexp * dtc)[..., None]), Bc)
     h = torch.zeros_like(s[:, 0])
     h0 = torch.empty_like(s)
     for c in range(nc):
         h0[:, c] = h
         h = decay[:, c, :, None, None] * h + s[:, c]
-    # phase 1: the cotangents of the states they end with
     r = mm("bchip,bchin->bchpn", parts(dyc * ecs[..., None]), Cc)
     dh = torch.zeros_like(r[:, 0]) if dh_final is None else dh_final.to(acc)
     dh1 = torch.empty_like(r)
     for c in reversed(range(nc)):
         dh1[:, c] = dh
         dh = decay[:, c, :, None, None] * dh + r[:, c]
-    # phase 2: within each chunk
+    # phase 2: within each chunk, per head
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     L = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(~causal, float("-inf")))
     CB = torch.einsum("bchin,bchjn->bchij", Cc, Bc)
     K = CB * L
     dCB = L * torch.einsum("bchip,bchjp->bchij", dyc, xc) * dtc[..., None, :]
     M = CB * dCB
-    dCh = (ecs[..., None] * mm("bchip,bchpn->bchin", dyc, parts(h0))
-           + mm("bchij,bchjn->bchin", parts(dCB), Bc))
-    dBh = ((dtc * wexp)[..., None] * mm("bchjp,bchpn->bchjn", xc, parts(dh1))
-           + mm("bchij,bchin->bchjn", parts(dCB), Cc))
+    dCs = ecs[..., None] * mm("bchip,bchpn->bchin", dyc, parts(h0))
+    dBs = (dtc * wexp)[..., None] * mm("bchjp,bchpn->bchjn", xc, parts(dh1))
     h0C = mm("bchpn,bchin->bchpi", parts(h0), Cc)
     dhB = mm("bchpn,bchjn->bchpj", parts(dh1), Bc)
     W = dtc * wexp * torch.einsum("bchjp,bchpj->bchj", xc, dhB)
     duT = mm("bchip,bchij->bchpj", dyc, parts(K)) + wexp[..., None, :] * dhB
     dcs = M.sum(-1) - M.sum(-2) + ecs * torch.einsum("bchip,bchpi->bchi", dyc, h0C) - W
-    dcs[..., -1] += W.sum(-1) + decay * (dh1 * h0).sum((-1, -2))
+    dcs[..., -1] += W.sum(-1) + decay * (whole(dh1) * whole(h0)).sum((-1, -2))
     da = dcs.flip(-1).cumsum(-1).flip(-1)
     ddt = torch.einsum("bchjp,bchpj->bchj", xc, duT) + Ah * da
     dx = dtc[..., None] * duT.transpose(-1, -2)
-    # phase 3: fixed-order sums over the heads of a group and over chunks
+    # each CTA's sums over its heads in order, then over the ranks in order
+    dCs, dBs, dCB = (t.reshape(Bsz, nc, G, R, *t.shape[3:]) for t in (dCs, dBs, dCB))
+    dB = dC = 0
+    for k, heads in enumerate(bwd_head_ranks(R, ranks)):
+        dcb, dc, db = dCB[:, :, :, heads[0]], dCs[:, :, :, heads[0]], dBs[:, :, :, heads[0]]
+        for rr in heads[1:]:
+            dcb, dc, db = dcb + dCB[:, :, :, rr], dc + dCs[:, :, :, rr], db + dBs[:, :, :, rr]
+        dc = dc + mm("bcgij,bcgjn->bcgin", parts(dcb), Bg)
+        db = db + mm("bcgij,bcgin->bcgjn", parts(dcb), Cg)
+        if k != dropped_rank:
+            dB, dC = dB + db, dC + dc
+    # phase 3: dA over the chunks in order
     dA = torch.zeros((Bsz, H), dtype=acc, device=x.device)
     for c in range(nc):
         dA = dA + (dtc[:, c] * da[:, c]).sum(-1)
-    dBh, dCh = (t.reshape(Bsz, nc, G, R, Q, N) for t in (dBh, dCh))
-    dB, dC = dBh[:, :, :, 0], dCh[:, :, :, 0]
-    for rr in range(1, R):  # head h = g·R + r of group g
-        dB, dC = dB + dBh[:, :, :, rr], dC + dCh[:, :, :, rr]
 
     def unchunks(t):  # [B, nc, k, Q, ...] -> [B, S, k, ...]
         t = t.movedim(3, 2)

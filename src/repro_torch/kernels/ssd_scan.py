@@ -36,12 +36,13 @@ the backward computes what ``jax.vjp`` of ``_ssd_chunked`` gives;
 :func:`select_bwd_variant` picks how:
 
 - ``wgmma_bwd`` behind the ``wgmma`` forward: a backward kernel in the same
-  source (six kernels, one launch of the variant: the chunk-start states
-  recomputed with the forward's first two phases, the state cotangents
-  carried from the last chunk to the first, every gradient of a (chunk,
-  head) on the tensor cores, then fixed-order sums over the heads of a group
-  and over chunks, no float atomics).  It records :func:`work_bwd`; a failed
-  build or launch raises, nothing tries the VJP instead.
+  source (three kernels, one launch of the variant: the chunk-start states
+  and the state cotangents carried over the chunks in registers and written
+  once as bf16 hi + lo tiles; every gradient of a chunk of a group's heads
+  on the tensor cores, in clusters of CTAs that sum dB and dC over the heads
+  on chip in a fixed order; dA over chunks; no float atomics).  It records
+  :func:`work_bwd`; a failed build or launch raises, nothing tries the VJP
+  instead.
 - ``"vjp"`` behind ``cuda_core`` (f32, other shapes): :func:`ssd_scan_vjp`,
   the chunked form's VJP in PyTorch, recorded as ``("ssd_scan", "vjp")``.
   It is also the plain version the backward kernel is held against.
@@ -74,10 +75,10 @@ LIBRARY = KernelLibrary("ssd_scan", {
               [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
     # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
     "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates, decay,
-    # part_b, part_c, part_a, batch, S, H, G, P, N, strides, stream
+    # x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, h0s, dh1s, part_a,
+    # batch, S, H, G, P, N, strides, stream
     "wgmma_bwd": ("ssd_scan_wgmma_bwd",
-                  [_P] * 18 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
+                  [_P] * 15 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
 })
 
 
@@ -216,19 +217,25 @@ def _launch_bwd(x, dt, A2, Bm, Cm, dy, dh_final):
         return dx, ddt, dA, dB, dC
     if dh_final is not None:
         dh_final = dh_final.to(f32).contiguous()
-    nch = -(-S // CHUNK["wgmma"])
-    # chunk states as the forward keeps them (padded to 64 or 128 columns),
-    # per-chunk decays and dA shares, per-head dB and dC
-    states, dstates = (torch.empty((Bsz * H, nch, P * (64 if N <= 64 else 128)), dtype=f32,
-                                   device=dev) for _ in range(2))
-    decay, part_a = (torch.empty((Bsz * H, nch), dtype=f32, device=dev) for _ in range(2))
-    part_b, part_c = (torch.empty((Bsz, S, H, N), dtype=f32, device=dev) for _ in range(2))
+    h0s, dh1s, part_a = bwd_scratch(Bsz, S, H, P, N, dev)
     strides = strides[:11] + _tma_strides(dy)[:3]
     LIBRARY.launch("wgmma_bwd", *(t.data_ptr() if t is not None else None for t in (
-        x, dt, A2, Bm, Cm, dy, dh_final, dx, ddt, dA, dB, dC, states, dstates, decay, part_b,
-        part_c, part_a)), Bsz, S, H, G, P, N, (ctypes.c_longlong * 14)(*strides),
-        stream_handle(x))
+        x, dt, A2, Bm, Cm, dy, dh_final, dx, ddt, dA, dB, dC, h0s, dh1s, part_a)),
+        Bsz, S, H, G, P, N, (ctypes.c_longlong * 14)(*strides), stream_handle(x))
     return dx, ddt, dA, dB, dC
+
+
+def bwd_scratch(Bsz: int, S: int, H: int, P: int, N: int, device) -> tuple:
+    """The scratch of one ``wgmma_bwd`` launch: the states the chunks start
+    from (h0s) and the cotangents of the states they end with (dh1s), each
+    [B·H, chunks, 2·P·64] bf16 (2·P·128 for N > 64: a state's bf16 hi and lo
+    halves, in the tiles the gradient phase reads, as many bytes as the f32
+    state), and each (head, chunk)'s share of dA ([B·H, chunks] f32).  dB and
+    dC are summed over the heads of a group on chip: nothing per head."""
+    nch = -(-S // CHUNK["wgmma"])
+    h0s, dh1s = (torch.empty((Bsz * H, nch, 2 * P * (64 if N <= 64 else 128)),
+                             dtype=torch.bfloat16, device=device) for _ in range(2))
+    return h0s, dh1s, torch.empty((Bsz * H, nch), dtype=torch.float32, device=device)
 
 
 def _launch_cuda_core(x, dt, A2, Bm, Cm, return_state):

@@ -962,14 +962,17 @@ def ssd_bwd_case(card, seed, Bsz, S, H, G, N, with_dh, dt_shift):
 @pytest.mark.parametrize("Bsz,S,H,G,N,dt_shift", [
     (1, 64, 1, 1, 128, 0.0), (2, 100, 4, 2, 128, 4.0), (1, 300, 4, 1, 16, 4.0),
     (2, 1, 2, 1, 128, 4.0), (1, 200, 4, 4, 64, 4.0), (2, 130, 8, 2, 48, 4.0),
-    (1, 257, 2, 1, 80, 4.0), (4, 1024, 32, 1, 128, 4.0), (2, 1024, 128, 1, 16, 4.0)])
+    (1, 257, 2, 1, 80, 4.0), (4, 1024, 32, 1, 128, 4.0), (2, 1024, 128, 1, 16, 4.0),
+    (1, 200, 12, 1, 128, 4.0), (2, 150, 20, 2, 64, 4.0), (1, 130, 9, 3, 32, 4.0),
+    (2, 300, 32, 1, 128, 4.0)])
 def test_ssd_wgmma_bwd(card, with_dh, Bsz, S, H, G, N, dt_shift):
     """``wgmma_bwd`` against ``ssd_scan_vjp`` on the same inputs: one
-    chunk, ragged S, one position, G 1, 2 and H, state widths 16 to 128
+    chunk, ragged S, one position, G 1, 2, 3 and H, state widths 16 to 128
     (48 and 80 fill part of a tile), mamba2's train layout (B 4, S 1024, H
-    32, N 128) and Jamba's (H 128, N 16), dt ~0.02 where the carry counts,
-    with and without a final-state cotangent; one launch, and bit for bit
-    the same over two."""
+    32, N 128) and Jamba's (H 128, N 16), 12, 10 and 3 heads a group (runs
+    of heads the gradient phase's clusters do not divide), dt ~0.02 where
+    the carry counts, with and without a final-state cotangent; one launch,
+    and bit for bit the same over two."""
     import importlib
 
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
@@ -989,6 +992,50 @@ def test_ssd_wgmma_bwd(card, with_dh, Bsz, S, H, G, N, dt_shift):
         assert err <= SSD_BWD_TOL, (name, err)
     again = ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, dh)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention"])
+def test_backward_on_a_fresh_thread(card, kernel):
+    """The TMA kernels build their tensor maps with a driver call, which
+    needs a context current on the calling thread.  Autograd runs a backward
+    on a thread of its own, which has made no runtime call yet when the
+    caching allocator serves every tensor the launch makes: the maps were
+    refused there (CUDA_ERROR_INVALID_CONTEXT, an `invalid argument` launch
+    error that came and went with the order of the tests) until the map
+    helpers bound the context.  A launch from a fresh thread, once two on
+    this one have warmed the cache, gives the same bits."""
+    import importlib
+    import threading
+
+    if kernel == "ssd_scan":
+        ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+        args = ssd_bwd_case(card, 43, 2, 300, 32, 1, 128, True, 4.0)
+
+        def call():
+            return ssd._launch_bwd(*args)
+    else:
+        fa = importlib.import_module("repro_torch.kernels.flash_attention")
+        q, k, v, do = _inputs(card, 41, [(4, 300, 64)] * 4, torch.bfloat16)
+        o, lse = fa._launch(q, k, v, True, 0.125, with_lse=True)
+
+        def call():
+            return fa._launch_bwd(q, k, v, o, do, lse, True, 0.125)
+    want = call()
+    call()  # a second launch, whose tensors go straight back to the cache
+    torch.cuda.synchronize()
+    out = {}
+
+    def fresh():
+        try:
+            out["got"] = call()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below, on this thread)
+            out["error"] = repr(e)
+    thread = threading.Thread(target=fresh)
+    thread.start()
+    thread.join()
+    assert "error" not in out, out["error"]
+    assert all(torch.equal(g, w) for g, w in zip(out["got"], want))
 
 
 def _narrow(arch):

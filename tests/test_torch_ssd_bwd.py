@@ -4,9 +4,11 @@ the dispatch of ``_SSDScan.backward``.
 
 The kernel itself runs only on the card (``tests/test_torch_card.py::
 test_ssd_wgmma_bwd``, ``chip_smoke.py --only kernels,train_mamba2``).  Here
-its arithmetic is emulated phase by phase (the same chunk-start states, the
-same hi + lo bf16 splits of every f32 operand, the same fixed-order sums)
-and held against ``jax.vjp`` of the reference's ``_ssd_chunked`` in f32.
+its arithmetic is emulated phase by phase (the same chunk-start states and
+state cotangents kept as hi + lo bf16 halves, the same splits of every f32
+operand, the same fixed-order sums: over the heads of a cluster rank, then
+over the ranks) and held against ``jax.vjp`` of the reference's
+``_ssd_chunked`` in f32.
 The splits keep ~16 bits of each operand (2**-17 relative) and the two
 differ in summation order: measured <= 6e-6 of each gradient's largest
 magnitude over the cases below, bound 2e-5 (``test_torch_ssd_vjp.py`` holds
@@ -27,7 +29,7 @@ import torch
 from repro.models import ssm as jax_ssm
 from repro_torch.kernels import select_ssd_bwd_variant
 from repro_torch.kernels._work import WorkLog
-from repro_torch.kernels.ref import ssd_scan_bwd_phases, ssd_scan_ref
+from repro_torch.kernels.ref import BWD_CLUSTER, bwd_head_ranks, ssd_scan_bwd_phases, ssd_scan_ref
 
 ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
@@ -50,10 +52,11 @@ def _draw(seed, Bsz, S, H, G, N, dt_shift, dtype=np.float32):
     return [a.astype(dtype) for a in (x, dt, A, Bm, Cm, dy, dh)]
 
 
-def _phases(x, dt, A, Bm, Cm, dy, dh, lo=True):
+def _phases(x, dt, A, Bm, Cm, dy, dh, lo=True, dropped_rank=None, ranks=BWD_CLUSTER):
     """The emulation with dA summed over the batch (A is [H] here)."""
     t = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, dy)]
-    out = ssd_scan_bwd_phases(*t, None if dh is None else torch.from_numpy(dh), lo=lo)
+    out = ssd_scan_bwd_phases(*t, None if dh is None else torch.from_numpy(dh), lo=lo,
+                              dropped_rank=dropped_rank, ranks=ranks)
     return out[0], out[1], out[2].sum(0), out[3], out[4]
 
 
@@ -123,6 +126,60 @@ def test_dropped_lo_halves_break_the_bound(N):
     assert max(_errs(_phases(x, dt, A, Bm, Cm, dy, dh, lo=False), want).values()) > 10 * JAX_TOL
 
 
+# the gradient phase's clusters: heads of a group the cluster size does not
+# divide (12 = 8 ranks of 1 or 2, 10 = 8 of 1 or 2), G > 1 (3 groups of 3
+# heads: 3 ranks of one), Jamba's N 16 with 24 heads of one group (8 ranks of 3)
+RANK_SHAPES = [(12, 1, 64), (20, 2, 128), (9, 3, 16), (24, 1, 16)]
+RANK_IDS = [f"H{h}-G{g}-N{n}" for h, g, n in RANK_SHAPES]
+
+
+@pytest.mark.parametrize("ranks", [8, 7, 4])
+@pytest.mark.parametrize("dt_shift", [0.0, 4.0])
+@pytest.mark.parametrize("H,G,N", RANK_SHAPES, ids=RANK_IDS)
+def test_phases_match_jax_vjp_over_cluster_ranks(H, G, N, dt_shift, ranks):
+    """dB and dC summed within each rank's heads, then over the ranks (8, 7
+    or 4 of them, as the kernel may pick by occupancy)."""
+    x, dt, A, Bm, Cm, dy, dh = _draw(13, 1, 130, H, G, N, dt_shift)
+    errs = _errs(_phases(x, dt, A, Bm, Cm, dy, dh, ranks=ranks),
+                 _jax_vjp(x, dt, A, Bm, Cm, dy, dh))
+    assert max(errs.values()) <= JAX_TOL, errs
+
+
+@pytest.mark.parametrize("H,G,N", RANK_SHAPES, ids=RANK_IDS)
+def test_rank_order_equals_the_vjp_in_f64(H, G, N):
+    """The new summation order (heads within a rank, dCB summed before its
+    products, then the ranks) is the VJP's algebra: equal in f64."""
+    x, dt, A, Bm, Cm, dy, dh = _draw(14, 2, 100, H, G, N, 4.0, np.float64)
+    got = _phases(x, dt, A, Bm, Cm, dy, dh)
+    t = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, dy)]
+    want = list(ssd.ssd_scan_vjp(t[0], t[1], t[2][None].expand(2, -1), *t[3:],
+                                 torch.from_numpy(dh)))
+    want[2] = want[2].sum(0)
+    errs = _errs(got, want)
+    assert max(errs.values()) <= F64_TOL, errs
+
+
+@pytest.mark.parametrize("n", [8, 7, 4, 3, 1])
+@pytest.mark.parametrize("R", [1, 2, 3, 7, 8, 9, 12, 32, 128])
+def test_head_ranks_cover_each_head_once(R, n):
+    """min(n, R) ranks of contiguous runs, in order, none empty, sizes
+    within one of each other."""
+    ranks = bwd_head_ranks(R, n)
+    assert len(ranks) == min(n, R)
+    assert [h for r in ranks for h in r] == list(range(R))
+    assert min(len(r) for r in ranks) >= max(1, max(len(r) for r in ranks) - 1)
+
+
+@pytest.mark.parametrize("H,N", [(32, 128), (24, 16)])
+def test_dropped_rank_breaks_the_bound(H, N):
+    """Planted fault: one rank's share of the on-chip head sum left out of
+    dB and dC (the kernel's own is in ``chip_smoke.py``)."""
+    x, dt, A, Bm, Cm, dy, dh = _draw(15, 1, 100, H, 1, N, 4.0)
+    want = _jax_vjp(x, dt, A, Bm, Cm, dy, dh)
+    errs = _errs(_phases(x, dt, A, Bm, Cm, dy, dh, dropped_rank=BWD_CLUSTER - 1), want)
+    assert errs["dx"] <= JAX_TOL and min(errs["dB"], errs["dC"]) > 100 * JAX_TOL, errs
+
+
 # --------------------------------------------------------------------------- #
 # the selector, the meta route, the dispatch
 # --------------------------------------------------------------------------- #
@@ -157,6 +214,38 @@ def test_meta_backward_counts_one_launch_and_records_its_work(G, N):
     assert [tuple(t.grad.shape) for t in (x, dt, A, Bm, Cm)] == [
         (Bsz, S, H, P), (Bsz, S, H), (H,), (Bsz, S, G, N), (Bsz, S, G, N)]
     assert x.grad.dtype == Bm.grad.dtype == torch.bfloat16 and dt.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("Bsz,S,H,G,N", [(4, 1024, 32, 1, 128), (2, 1024, 128, 1, 16),
+                                         (2, 100, 12, 2, 32)])
+def test_no_per_head_partials(monkeypatch, Bsz, S, H, G, N):
+    """``_launch_bwd`` on ``meta`` allocates its outputs alone, and the CUDA
+    route's scratch (``bwd_scratch``) is the states' halves (as many bytes as
+    f32 states) and dA's per-chunk shares: nothing of [B, S, H, N], since dB
+    and dC are summed over the heads on chip."""
+    P = 64
+    x, dy = (torch.zeros((Bsz, S, H, P), dtype=torch.bfloat16, device="meta") for _ in range(2))
+    dt = torch.zeros((Bsz, S, H), device="meta")
+    A2 = torch.zeros((Bsz, H), device="meta")
+    Bm, Cm = (torch.zeros((Bsz, S, G, N), dtype=torch.bfloat16, device="meta") for _ in range(2))
+    made = []
+    empty = torch.empty
+
+    def recording(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append((tuple(t.shape), t.dtype))
+        return t
+    monkeypatch.setattr(torch, "empty", recording)
+    ssd._launch_bwd(x, dt, A2, Bm, Cm, dy, None)
+    assert sorted(made, key=str) == sorted([
+        ((Bsz, S, H, P), torch.bfloat16), ((Bsz, S, H), torch.float32), ((Bsz, H), torch.float32),
+        ((Bsz, S, G, N), torch.bfloat16), ((Bsz, S, G, N), torch.bfloat16)], key=str)
+    scratch = ssd.bwd_scratch(Bsz, S, H, P, N, "meta")
+    nch, W = -(-S // 64), 2 * P * (64 if N <= 64 else 128)
+    assert [(tuple(t.shape), t.dtype) for t in scratch] == [
+        ((Bsz * H, nch, W), torch.bfloat16), ((Bsz * H, nch, W), torch.bfloat16),
+        ((Bsz * H, nch), torch.float32)]
+    assert all(t.shape != (Bsz, S, H, N) for t in scratch)
 
 
 def test_launch_bwd_raises_on_cpu_tensors():
