@@ -50,7 +50,8 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              at the path's shape, through its Function, against autograd
              through its plain version (faults through the kernels' own
              launches: the causal flag cleared, dQ's first key tile dropped,
-             dg and du swapped); (c) one
+             dg and du swapped, the SwiGLU epilogue reading dout from the
+             other box of its buffer, built from a copy of its source); (c) one
              step at 2 layers on the card against the CPU in f32 (every fault
              of (a) and (b)); (d) one batch as 1 or 2 microbatches; (e) 20
              steps through ``Trainer.run``, counted (88 flash ``mma``, 44
@@ -135,6 +136,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import importlib
 import json
 import math
 import os
@@ -534,10 +536,11 @@ def backward_paths(torch, timer, rows, randn) -> None:
     MLA's 192/128 (4 x 16 heads, causal), HuBERT's 80 (8 clips x 16 heads
     of 1500 frames, non-causal) and 128 (4 x 32 heads, causal; LLaVA,
     Jamba, Qwen); ``wgmma_bwd`` at TinyLlama's microbatch (M 4096, D 2048,
-    F 5632), ``experts_wgmma_bwd`` at DeepSeek's experts (E 64, M 120,
-    D 2048, F 1408) and at the Jamba train period's (``hybrid_expert_rows``:
-    E 4, M 1280, D 4096, F 14336), the path that launches it.  The
-    library's backward is SDPA's (under the forward's forced backend), and
+    F 5632) and at the Jamba train period's dense FFN (M 2048 = 2 x 1024,
+    D 4096, F 14336), ``experts_wgmma_bwd`` at DeepSeek's experts (E 64, M
+    120, D 2048, F 1408) and at the Jamba train period's
+    (``hybrid_expert_rows``: E 4, M 1280, D 4096, F 14336), the path that
+    launches it.  The library's backward is SDPA's (under the forward's forced backend), and
     for the SwiGLU the two cuBLAS products with autograd's derivative of
     ``F.silu(g) * u``.  Then the SSD scan's ``wgmma_bwd`` at mamba2's train
     layout (B 4, S 1024, H 32, N 128) and the Jamba period's (B 2, H 128,
@@ -618,8 +621,10 @@ def backward_paths(torch, timer, rows, randn) -> None:
 
     tol = SWIGLU_TOL[str(bf16)]
     E_jamba, M_jamba = hybrid_expert_rows()
+    M_dense = HYBRID_TRAIN_BATCH // HYBRID_TRAIN_MICROBATCHES * TRAIN_SEQ
     for key, E, M, D, Fd in (("train", None, 4 * TRAIN_SEQ, 2048, 5632), (120, 64, 120, 2048, 1408),
-                             ("train_jamba", E_jamba, M_jamba, 4096, 14336)):
+                             ("train_jamba", E_jamba, M_jamba, 4096, 14336),
+                             ("train_jamba_dense", None, M_dense, 4096, 14336)):
         lead = () if E is None else (E,)
         x, dout = randn(*lead, M, D, dtype=bf16), randn(*lead, M, Fd, dtype=bf16)
         wg, wu = (randn(*lead, D, Fd, dtype=bf16, scale=D ** -0.5) for _ in range(2))
@@ -2148,10 +2153,11 @@ def vjp_checks(torch, timer) -> dict:
     SwiGLU's ``wgmma_bwd`` and no PyTorch VJP), against autograd through the
     plain version, bf16; the planted faults, each through the kernel's own
     launch (the causal flag cleared; dQ's first key tile dropped, held on dQ
-    alone; dg and du swapped); the backward's times: the
-    PyTorch VJP it replaces, the SwiGLU's whole backward (the kernel and its
-    four products), the forward + backward beside the plain version's and
-    the library's, and the bound.  The flash and SwiGLU backward kernels'
+    alone; dg and du swapped; the SwiGLU epilogue reading dout from the
+    other box of its buffer, from ``swiglu_box_fault_library``, caught by >=
+    0.1); the backward's times: the PyTorch VJP it replaces, the SwiGLU's
+    whole backward (the kernel and its four products), the forward +
+    backward beside the plain version's and the library's, and the bound.  The flash and SwiGLU backward kernels'
     own times are the kernels phase's (``backward_paths``, rows "train")."""
     import importlib
 
@@ -2231,9 +2237,15 @@ def vjp_checks(torch, timer) -> dict:
     want = torch.autograd.grad(swiglu_ref(x, wg, wu), (x, wg, wu), dout)
     with swapped_swiglu_bwd():
         fault = grads(SWIGLU_LIBRARY, "wgmma_bwd", fwd, (x, wg, wu), dout)
+    with swiglu_bwd_other_box():
+        other = grads(swiglu_box_fault_library(), "wgmma_bwd", fwd, (x, wg, wu), dout)
     hold(f"(b) SwiGLU wgmma_bwd M={M} D={D} F={Fd}, dx/dwg/dwu", grads_err(got, want), VJP_TOL,
-         {"dg and du swapped": grads_err(fault, want)})
-    del got, want, fault
+         {"dg and du swapped": grads_err(fault, want),
+          "the epilogue reads dout from the other box": grads_err(other, want)})
+    if not grads_err(other, want) >= 0.1:
+        raise AssertionError(f"(b) the SwiGLU epilogue reading the other box is off by only "
+                             f"{grads_err(other, want):.4g} (< 0.1)")
+    del got, want, fault, other
     xd, wgd, wud = x.detach(), wg.detach(), wu.detach()
     # the backward's work: the kernel's two products and the four around it
     ops, _ = sw.work_bwd(M, D, Fd, 2)
@@ -2373,29 +2385,57 @@ def ssd_bwd_no_dA(torch):
 # the on-chip sum of dB and dC over a cluster's ranks in csrc/ssd_scan.cu, and
 # the planted fault that leaves the last rank's share out
 RANK_SUM = ("for (int r = 1; r < ranks; ++r) {", "for (int r = 1; r < ranks - 1; ++r) {")
+# the read of columns 0-63's dout in csrc/swiglu_matmul.cu's backward
+# epilogue, and the planted fault that reads it from the buffer's other box
+# (columns 64-127's dout), as ref.swiglu_bwd_tiles(read_other=True) models it
+OTHER_BOX = ("grads(i, word(din + at(i)), word(din + at(i)), word(din + C::BOX_BYTES + at(i)));",
+             "grads(i, word(din + C::BOX_BYTES + at(i)), word(din + at(i)), "
+             "word(din + C::BOX_BYTES + at(i)));")
 
 
 @functools.lru_cache(maxsize=None)
-def ssd_rank_fault_library():
-    """The SSD library built from a copy of csrc/ssd_scan.cu (under build/)
-    whose on-chip sum of dB and dC over a cluster's ranks leaves the last
-    rank's share out: a planted fault in the CUDA source, built beside the
-    real library in the build phase.  One object a run."""
+def source_fault_library(name: str, work: str, subs: tuple):
+    """Library ``name`` built from a copy of csrc/<name>.cu under
+    build/<work> with each (old, new) of ``subs`` replaced: a planted fault
+    in the CUDA source, built beside the real library in the build phase.
+    One object a run."""
     import shutil
 
     from repro_torch.kernels._build import BUILD_DIR, CSRC, KernelLibrary
 
-    text = (CSRC / "ssd_scan.cu").read_text()
-    if RANK_SUM[0] not in text:
-        raise AssertionError(f"csrc/ssd_scan.cu holds no {RANK_SUM[0]!r}")
-    work = BUILD_DIR.parent / "ssd_rank_fault"
-    work.mkdir(parents=True, exist_ok=True)
-    (work / "ssd_scan.cu").write_text(text.replace(*RANK_SUM))
+    text = (CSRC / f"{name}.cu").read_text()
+    for old, new in subs:
+        if old not in text:
+            raise AssertionError(f"csrc/{name}.cu holds no {old!r}")
+        text = text.replace(old, new)
+    folder = BUILD_DIR.parent / work
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / f"{name}.cu").write_text(text)
     for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, work / header.name)
-    lib = KernelLibrary("ssd_scan", ssd_module().LIBRARY.variants)
-    lib.source = work / "ssd_scan.cu"
+        shutil.copy(header, folder / header.name)
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    lib = KernelLibrary(name, module.LIBRARY.variants)
+    lib.source = folder / f"{name}.cu"
     return lib
+
+
+def ssd_rank_fault_library():
+    """The SSD library whose on-chip sum of dB and dC over a cluster's ranks
+    leaves the last rank's share out."""
+    return source_fault_library("ssd_scan", "ssd_rank_fault", (RANK_SUM,))
+
+
+def swiglu_box_fault_library():
+    """The SwiGLU library whose backward epilogue reads columns 0-63's dout
+    from the other box of its buffer."""
+    return source_fault_library("swiglu_matmul", "swiglu_box_fault", (OTHER_BOX,))
+
+
+def swiglu_bwd_other_box():
+    """The SwiGLU kernels launched from ``swiglu_box_fault_library`` (a
+    planted fault: the backward's epilogue reads dout from the other box)."""
+    return patched(importlib.import_module("repro_torch.kernels.swiglu_matmul"), "LIBRARY",
+                   swiglu_box_fault_library())
 
 
 def ssd_bwd_rank_dropped(torch):
@@ -3778,7 +3818,7 @@ def main() -> None:
         from repro_torch.kernels._build import build_all
 
         t0 = time.perf_counter()
-        secs = build_all([*LIBRARIES, ssd_rank_fault_library()])
+        secs = build_all([*LIBRARIES, ssd_rank_fault_library(), swiglu_box_fault_library()])
         log(f"built {', '.join(f'{n} ({s:.1f} s)' for n, s in secs.items())} "
             f"in {time.perf_counter() - t0:.1f} s")
         for lib in LIBRARIES:
@@ -3882,6 +3922,8 @@ def main() -> None:
                  ("ssd_scan", "wgmma", "train", "train_mamba2", " train B=4"),
                  ("flash_attention", "wgmma_bwd", "train", "train", " train BH=128"),
                  ("swiglu_matmul", "wgmma_bwd", "train", "train", " train M=4096"),
+                 ("swiglu_matmul", "wgmma_bwd", "train_jamba_dense", "train_jamba",
+                  " train Jamba dense M=2048"),
                  ("swiglu_matmul", "experts_wgmma_bwd", "train_jamba", "train_jamba",
                   " train Jamba E=4"),
                  ("ssd_scan", "wgmma_bwd", "train", "train_mamba2", " train B=4"),

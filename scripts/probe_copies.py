@@ -1,6 +1,7 @@
 """Copies of the port's source with text replaced in one CUDA file, and the
 child processes that run in them: the shared machinery of
-``scripts/ssd_scan_probe.py`` and ``scripts/flash_bwd_probe.py``.
+``scripts/ssd_scan_probe.py``, ``scripts/flash_bwd_probe.py`` and
+``scripts/swiglu_bwd_probe.py``.
 
 A copy is the whole of ``src/repro_torch`` under a work directory of the
 probe's (under ``build/``, listed in ``.gitignore``), so that it builds its
@@ -19,14 +20,14 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def copy_with(work: str, csrc: str, name: str, subs) -> str:
-    """A copy of src/repro_torch in ``work``/<name> with each ``(old, new)``
-    of ``subs`` replaced in ``csrc`` (a path under src/, such as
-    ``repro_torch/csrc/ssd_scan.cu``); returns the copy's src directory.
-    Exits if a text to replace is not there."""
+def copy_with(work: str, csrc: str, name: str, subs, root: str = ROOT) -> str:
+    """A copy of ``root``'s src/repro_torch (this checkout's by default) in
+    ``work``/<name> with each ``(old, new)`` of ``subs`` replaced in ``csrc``
+    (a path under src/, such as ``repro_torch/csrc/ssd_scan.cu``); returns
+    the copy's src directory.  Exits if a text to replace is not there."""
     src = os.path.join(work, re.sub(r"\W+", "_", name), "src")
     shutil.rmtree(os.path.dirname(src), ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"), os.path.join(src, "repro_torch"),
+    shutil.copytree(os.path.join(root, "src", "repro_torch"), os.path.join(src, "repro_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     path = os.path.join(src, csrc)
     text = open(path).read()

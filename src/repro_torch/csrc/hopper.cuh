@@ -6,7 +6,8 @@
 // and, for the wgmma kernels, mbarriers, TMA tile loads and wgmma matrix
 // descriptors (128- or 32-byte swizzle), the wgmma shapes the kernels use
 // (both operands from shared memory, or A from registers as FA3 feeds P),
-// 3-D and 4-D TMA loads of strided tensors and 1-D bulk copies, named
+// 3-D and 4-D TMA loads of strided tensors and 1-D bulk copies, 2-D and 4-D
+// TMA stores with their bulk async-group commit and waits, named
 // barriers between warpgroups, and thread-block clusters (barrier and
 // distributed shared memory).  Included by the .cu sources of this
 // directory; the build hashes it with each of them (kernels/_build.py).
@@ -201,6 +202,47 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// A 2-D box of shared memory, laid out as `map`'s box in its swizzle, to
+// the tensor at (c0 innermost, c1); elements past the tensor's edge are not
+// written.  The store joins this thread's bulk async-group (bulk_commit);
+// the box must stay unchanged until bulk_wait_read says it has been read.
+// Ordinary stores that filled the box need fence_proxy_async first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 4-D box at (c0 innermost, c1, c2, c3), as tma_store_2d.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes this thread's bulk async-group of the stores issued since the last.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk async-groups still read their
+// shared memory: the boxes of the others may be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk async-groups are unfinished,
+// their writes to global memory included.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte

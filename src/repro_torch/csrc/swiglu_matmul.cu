@@ -67,13 +67,38 @@
 //    that reads the dout tile and writes, from the f32 accumulators, dg = dout
 //    u σ(g)(1 + g(1 - σ(g))) and du = dout g σ(g) in bf16.  g and u are
 //    never rounded or stored: the only [M, F] intermediates are dg and du.
-//    It recomputes the two forward products (bound by operations as the
-//    forward is) and moves dout, dg and du besides; the wrapper then forms
-//    dx = dg wgᵀ + du wuᵀ, dwg = xᵀ dg and dwu = xᵀ du as plain cuBLAS
-//    products, as the reference leaves them to XLA.  Any M: the mainloop
-//    takes ragged tiles, so the backward of a decode-sized forward (an
-//    expert's few rows) runs here too.
-//
+//    The wrapper then forms dx = dg wgᵀ + du wuᵀ, dwg = xᵀ dg and dwu = xᵀ
+//    du as plain cuBLAS products, as the reference leaves them to XLA.  Any
+//    M: the mainloop takes ragged tiles, so the backward of a decode-sized
+//    forward (an expert's few rows) runs here too.
+//    Bound: operations, as the forward (the two products again; dout, dg
+//    and du are 3 M F bf16 besides): 0.1911 ms at TinyLlama's train shape
+//    (M 4096, D 2048, F 5632) on an H100.  What held it back (PERF.md): an
+//    epilogue that loaded dout from device memory only after the
+//    mainloop and stored dg and du with 4-byte scattered stores, the tensor
+//    cores idle meanwhile: 0.4143 ms, of which 0.1301 went to the
+//    epilogue (0.2842 with the forward's epilogue in its place).
+//    The epilogue now: the producer brings each warpgroup's dout tile by
+//    TMA (two [64, 64] boxes, 128-byte swizzle, their own mbarrier) during
+//    the tile's mainloop, once the consumers are past the last tile's
+//    epilogue; each thread reads its dout pairs from shared memory, writes
+//    dg and du back in the boxes' swizzle, and one thread of the warpgroup
+//    issues TMA stores (which clip the ragged edge of M, F and each expert)
+//    without a barrier with the other warpgroup; it waits for them to have
+//    read shared memory only after issuing the next tile's first products.
+//    Shared memory: the 4-stage ring (192 KB) leaves room for one buffer of
+//    a tile (32 KB), so columns 0-63's dg goes over their dout and their du
+//    over columns 64-127's dout (kept in registers); those boxes leave while
+//    columns 64-127's derivative is computed.  σ(g) takes the approximate
+//    reciprocal (__fdividef): the correctly rounded division costs the call
+//    a quarter of its time (0.3420 against 0.2689 ms), so dg and du differ
+//    from the exact division's by bf16 rounding, within the same tolerance.
+//    0.2689 ms at TinyLlama's shape (71% of the bound); tried and left out:
+//    a 3-stage ring beside two buffers (dout then dg; du), 0.2953 ms (the
+//    ring's third stage costs the mainloop ~4%), and one buffer without the
+//    split (dg, wait for its stores to read, then du), 0.3050 with exact
+//    division against 0.3257 for two buffers (H100 80GB HBM3 at 700 W,
+//    scripts/swiglu_bwd_probe.py).
 // The expert entries (swiglu_experts_{wgmma,decode,}fwd):
 // - wgmma: the expert is the outermost coordinate of the persistent walk
 //   (m fastest, then n, then e: the CTAs at work share an expert's weight
@@ -87,13 +112,16 @@
 //   704 slabs, no split).
 // - cuda_core: the expert is the grid's z axis.
 //
-// -Xptxas -v (sm_90a, nvcc 12.8), no spills anywhere: swiglu_wgmma_kernel
-// 168 registers at launch (2 consumers, one product or experts, forward or
-// backward epilogue; 3 consumers: 128) before setmaxnreg (producer 40 and consumers 232; 24 and 160),
-// 197,696 and 164,928 bytes of dynamic shared memory; swiglu_decode_kernel
-// 48 / 96 / 121 registers for 16 / 32 / 64 rows of x, 87,040 to 102,400
-// bytes of dynamic shared memory; swiglu_kernel 32 to 64 registers, 10-12 KB
-// of static shared memory.
+// -Xptxas -v (sm_90a, nvcc 12.8): swiglu_wgmma_kernel 168 registers at
+// launch (2 consumers, one product or experts, forward or backward
+// epilogue; 3 consumers: 128) before setmaxnreg (producer 40 and consumers
+// 232; 24 and 160), no spills but 16 bytes in the 3-consumer backward (off
+// the train paths: M 4096 and 2048 take 2 consumers); dynamic shared memory
+// 197,696 bytes (2 consumers) and 164,928 (3) forward, 230,496 and 214,128
+// backward (swiglu_matmul_bwd_layout); swiglu_decode_kernel 48 / 96 / 121
+// registers for 16 / 32 / 64 rows of x, 87,040 to 102,400 bytes of dynamic
+// shared memory; swiglu_kernel 32 to 64 registers, 10-12 KB of static shared
+// memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -215,13 +243,21 @@ namespace prefill {
 constexpr int BK = 64;      // one 128-byte swizzle atom of bf16 along K
 constexpr int ATOM = 64;    // bf16 columns of one 128-byte swizzle atom
 constexpr int STAGES = 4;
+// The backward's epilogue buffers (item 4 of the header), each a tile's
+// [BM, BN] of bf16: two where they fit beside the ring (dout, then dg over
+// it; du), else one (dout, then dg and du through it by halves).
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a CTA may have
+constexpr int DOUT_BUF = 0;      // the epilogue buffer every tile's dout lands in
+constexpr int BOX_ROWS = 64;     // an epilogue box: one warpgroup's rows ..
+constexpr int BOX_COLS = ATOM;   // .. by one 128-byte swizzle atom of columns
 
 // CONS consumer warpgroups of 64 rows each (BM = 64 CONS), then one producer
 // warpgroup; setmaxnreg hands the producer's registers to the consumers.
 // BN columns of each product per tile: 128 with two consumers (n256, 128
 // accumulators a thread), 64 with three (n128: ptxas caps a 512-thread
-// kernel at 128 registers a thread).
-template <int CONS, int BN>
+// kernel at 128 registers a thread).  BWD: the backward's epilogue buffers
+// ([EPI_BUFS][CONS][NA] boxes of [64 rows, 64 columns]).
+template <int CONS, int BN, bool BWD = false>
 struct Cfg {
   static constexpr int NA = BN / ATOM;  // swizzle atoms per product
   static constexpr int BM = 64 * CONS;
@@ -229,9 +265,24 @@ struct Cfg {
   static constexpr int A_ELEMS = BM * BK;       // x tile, K-major
   static constexpr int B_ELEMS = 2 * BK * BN;   // gate atoms, then up atoms
   static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * 2;
-  static constexpr size_t BYTES = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static constexpr int BOX_BYTES = BOX_ROWS * BOX_COLS * 2;
+  static constexpr int EPI_ELEMS = CONS * NA * BOX_ROWS * BOX_COLS;  // one epilogue buffer
+  static constexpr int NBARS = 2 * STAGES + (BWD ? 2 * CONS : 0);
+  static constexpr size_t bytes(int bufs) {
+    return (size_t)STAGES * STAGE_BYTES + (size_t)bufs * EPI_ELEMS * 2 + NBARS * 8 + 1024;
+  }
+  static constexpr int EPI_BUFS = !BWD ? 0 : bytes(2) <= SMEM_MAX ? 2 : 1;
+  static constexpr size_t BYTES = bytes(EPI_BUFS);
+  static_assert(BYTES <= SMEM_MAX && (EPI_BUFS != 1 || NA == 2), "shared memory");
   static constexpr int PRODUCER_REGS = CONS == 2 ? 40 : 24;
   static constexpr int CONSUMER_REGS = CONS == 2 ? 232 : 160;
+};
+
+// The backward's epilogue maps: dout read, dg and du written, each in boxes
+// of [BOX_ROWS, BOX_COLS] with the 128-byte swizzle (2-D {F, M}; the expert
+// entry's 4-D {F, M, E, 1}).  The forward passes them zeroed and unread.
+struct BwdMaps {
+  CUtensorMap dout, dg, du;
 };
 
 template <int BN>
@@ -243,23 +294,70 @@ __device__ __forceinline__ void mma_tile(float (&acc)[BN], uint64_t da, uint64_t
   }
 }
 
+// One epilogue box to or from the tensor of `map` at column c, row r (of
+// expert e: EXPERTS).
+template <bool EXPERTS>
+__device__ __forceinline__ void box_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int r, int e) {
+  if constexpr (EXPERTS) {
+    hopper::tma_load_4d(dst, map, bar, c, r, e, 0);
+  } else {
+    hopper::tma_load_2d(dst, map, bar, c, r);
+  }
+}
+template <bool EXPERTS>
+__device__ __forceinline__ void box_store(const CUtensorMap* map, const void* src, int c, int r,
+                                          int e) {
+  if constexpr (EXPERTS) {
+    hopper::tma_store_4d(map, src, c, r, e, 0);
+  } else {
+    hopper::tma_store_2d(map, src, c, r);
+  }
+}
+
+// Byte offset of a consumer thread's accumulator pair i (row 16 warp +
+// lane/4 + 8 ((i/2) % 2), columns 8 (i/4) + 2 (lane % 4) + {0, 1} of its
+// warpgroup's tile) in the warpgroup's epilogue boxes of BOX_BYTES each,
+// [64 rows, 64 columns] of bf16 in the 128-byte swizzle.
+template <int BOX_BYTES>
+__device__ __forceinline__ int epi_offset(int i, int warp, int lane) {
+  const int r8 = lane >> 2, rr = warp * 16 + r8 + 8 * ((i >> 1) & 1), cc = i >> 2;
+  return (cc / 8) * BOX_BYTES + rr * 128 + (((cc & 7) ^ r8) << 4) + (lane & 3) * 4;
+}
+
+// dg and du (bf16 pairs) of one pair of g = (g0, g1), u = (u0, u1) at dout
+// `dbits` (a bf16 pair), in f32: s = σ(g); du = dout g s; dg = dout u s
+// (1 + g (1 - s)).
+__device__ __forceinline__ void grad_pair(float g0, float g1, float u0, float u1, uint32_t dbits,
+                                          uint32_t& dg, uint32_t& du) {
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dbits));
+  const float s0 = __fdividef(1.f, 1.f + __expf(-g0)), s1 = __fdividef(1.f, 1.f + __expf(-g1));
+  du = hopper::pack_bf16(d.x * g0 * s0, d.y * g1 * s1);
+  dg = hopper::pack_bf16(d.x * u0 * s0 * (1.f + g0 * (1.f - s0)),
+                         d.y * u1 * s1 * (1.f + g1 * (1.f - s1)));
+}
+
 // EXPERTS: E products, 4-D maps with the expert as their third coordinate.
-// BWD: the backward's epilogue (the derivative at dout, into out = dg and du)
-// in place of the forward's (silu(g) u into out); dout and du are null
-// without it.
+// BWD: the backward's epilogue (the derivative at dout, into dg and du, by
+// TMA both ways) in place of the forward's (silu(g) u into out by direct
+// stores); bmaps is read only with it.
 template <int CONS, int BN, bool EXPERTS, bool BWD>
-__global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
+__global__ void __launch_bounds__(Cfg<CONS, BN, BWD>::NT, 1) swiglu_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
     const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out,
-    const bf16* __restrict__ dout, bf16* __restrict__ du, int E, int M, int D, int F) {
-  using C = Cfg<CONS, BN>;
+    const __grid_constant__ BwdMaps bmaps, int E, int M, int D, int F) {
+  using C = Cfg<CONS, BN, BWD>;
   constexpr int NA = C::NA;
+  constexpr bool TMA_EPI = BWD;  // dout in and dg, du out by TMA
   extern __shared__ __align__(128) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
   bf16* sa = reinterpret_cast<bf16*>(smem_raw + pad);  // [STAGES][A_ELEMS]
   bf16* sb = sa + STAGES * C::A_ELEMS;                 // [STAGES][B_ELEMS]
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * C::B_ELEMS);
+  bf16* epi = sb + STAGES * C::B_ELEMS;                // [EPI_BUFS][CONS][NA][64 x 64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + C::EPI_BUFS * C::EPI_ELEMS);
   uint64_t* empty = full + STAGES;
+  uint64_t* epi_full = empty + STAGES;    // [CONS]: a warpgroup's dout has landed
+  uint64_t* epi_empty = epi_full + CONS;  // [CONS]: its stores have read the buffers
 
   // persistent: CTA b takes tiles b, b + gridDim.x, ...; tile t is
   // (m tile t % mtiles, n tile t / mtiles % ncols, expert t / (mtiles ncols)),
@@ -276,6 +374,12 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], CONS * 4);  // one arrival per consumer warp
     }
+    if constexpr (TMA_EPI) {
+      for (int w = 0; w < CONS; ++w) {
+        hopper::mbar_init(&epi_full[w], 1);
+        hopper::mbar_init(&epi_empty[w], 1);  // the warpgroup's storing thread
+      }
+    }
     hopper::fence_barrier_init();
   }
   __syncthreads();
@@ -284,8 +388,13 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     // producer: one thread issues every TMA load
     hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
     if (threadIdx.x == CONS * 128) {
+      // a tile's dout goes out once the consumers have freed this tile's
+      // first stage (so they are past the last tile's epilogue), or at its
+      // last k block when it has fewer
+      const int dout_kb = kblocks - 1 < STAGES ? kblocks - 1 : STAGES;
       int it = 0;  // stage uses so far
-      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      int j = 0;   // this CTA's tiles so far
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++j) {
         const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles % ncols) * BN;
         const int e = t / (mtiles * ncols);
         for (int kb = 0; kb < kblocks; ++kb, ++it) {
@@ -310,6 +419,19 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
               hopper::tma_load_2d(b + (NA + a) * BK * ATOM, &umap, &full[s], n0 + a * ATOM, k0);
             }
           }
+          if constexpr (TMA_EPI) {
+            if (kb == dout_kb) {
+              for (int w = 0; w < CONS; ++w) {
+                hopper::mbar_wait(&epi_empty[w], (j & 1) ^ 1);
+                hopper::mbar_expect_tx(&epi_full[w], NA * C::BOX_BYTES);
+                bf16* dst = epi + DOUT_BUF * C::EPI_ELEMS + w * NA * BOX_ROWS * BOX_COLS;
+#pragma unroll
+                for (int a = 0; a < NA; ++a)
+                  box_load<EXPERTS>(dst + a * BOX_ROWS * BOX_COLS, &bmaps.dout, &epi_full[w],
+                                    n0 + a * BOX_COLS, m0 + w * BOX_ROWS, e);
+              }
+            }
+          }
         }
       }
     }
@@ -317,11 +439,11 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
     // consumers: warpgroup `group` owns rows 64 group .. 64 group + 63
     hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-    int it = 0;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const bool storer = threadIdx.x % 128 == 0;  // issues the warpgroup's TMA stores
+    int it = 0, j = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++j) {
       const int m0 = (t % mtiles) * C::BM, n0 = (t / mtiles % ncols) * BN;
-      const long long eoff = (long long)(t / (mtiles * ncols)) * M * F;  // this tile's expert
-      bf16* oe = out + eoff;
+      const int e = t / (mtiles * ncols);
       float acc[BN];  // 64 x 2 BN f32 over 128 threads: gate in [0, BN/2), up in [BN/2, BN)
 #pragma unroll
       for (int i = 0; i < BN; ++i) acc[i] = 0.f;
@@ -342,39 +464,113 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
           mma_tile<BN>(acc, da, db);
         }
         hopper::wgmma_commit();
+        if constexpr (TMA_EPI) {
+          // the last tile's stores were issued just before this k block's
+          // products: once they have read the buffers, the producer may
+          // bring this tile's dout
+          if (kb == 0 && j > 0 && storer) {
+            hopper::bulk_wait_read<0>();
+            hopper::mbar_arrive(&epi_empty[group]);
+          }
+        }
         hopper::wgmma_wait<1>();  // the previous stage's products are done: free it
         if (kb > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % STAGES]);
       }
       hopper::wgmma_wait<0>();
       if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last stage
 
-      // fused epilogue straight from the accumulators: value i of a thread is
-      // row 16 warp + lane/4 + 8 ((i/2) % 2), column 8 (i/4) + 2 (lane % 4) + i % 2
+      // value i of a thread is row 16 warp + lane/4 + 8 ((i/2) % 2), column
+      // 8 (i/4) + 2 (lane % 4) + i % 2 of the warpgroup's [64, 2 BN]
+      if constexpr (TMA_EPI) {
+        // dg and du from the f32 accumulators (grad_pair): g and u are never
+        // rounded or stored.  Pair i of a thread sits at the same place
+        // at(i) in the warpgroup's boxes of every buffer; a thread reads its
+        // own dout and writes its dg over it, so no thread waits for another
+        // before the stores, and the warpgroup's boxes go out as soon as its
+        // own threads are done: no barrier with the other consumers.
+        uint8_t* const din = reinterpret_cast<uint8_t*>(epi + DOUT_BUF * C::EPI_ELEMS +
+                                                        group * NA * BOX_ROWS * BOX_COLS);
+        uint8_t* const dub = reinterpret_cast<uint8_t*>(epi + (C::EPI_BUFS - 1) * C::EPI_ELEMS +
+                                                        group * NA * BOX_ROWS * BOX_COLS);
+        auto at = [&](int i) { return epi_offset<C::BOX_BYTES>(i, warp, lane); };
+        auto grads = [&](int i, uint32_t dbits, uint32_t& dgb, uint32_t& dub_) {
+          grad_pair(acc[i], acc[i + 1], acc[i + BN / 2], acc[i + 1 + BN / 2], dbits, dgb, dub_);
+        };
+        auto word = [](uint8_t* p) -> uint32_t& { return *reinterpret_cast<uint32_t*>(p); };
+        auto store = [&](const CUtensorMap* map, const uint8_t* box, int a) {
+          box_store<EXPERTS>(map, box, n0 + a * BOX_COLS, m0 + group * BOX_ROWS, e);
+        };
+        hopper::mbar_wait(&epi_full[group], j & 1);
+        if constexpr (C::EPI_BUFS == 2) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; i += 2) {
-        const int r = m0 + group * 64 + warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
-        const int c = n0 + (i >> 2) * 8 + (lane & 3) * 2;
-        if (r < M && c < F) {  // F is a multiple of 8, so c + 1 < F too
-          const float g0 = acc[i], g1 = acc[i + 1];
-          const float u0 = acc[i + BN / 2], u1 = acc[i + 1 + BN / 2];
-          const long long at = (long long)r * F + c;
-          if constexpr (BWD) {
-            // s = σ(g); du = dout g s; dg = dout u s (1 + g (1 - s)), in f32
-            // from the accumulators: g and u are never rounded or stored
-            const float2 d = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(dout + eoff + at));
-            const float s0 = 1.f / (1.f + __expf(-g0)), s1 = 1.f / (1.f + __expf(-g1));
-            *reinterpret_cast<__nv_bfloat162*>(du + eoff + at) =
-                __floats2bfloat162_rn(d.x * g0 * s0, d.y * g1 * s1);
-            *reinterpret_cast<__nv_bfloat162*>(oe + at) =
-                __floats2bfloat162_rn(d.x * u0 * s0 * (1.f + g0 * (1.f - s0)),
-                                      d.y * u1 * s1 * (1.f + g1 * (1.f - s1)));
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(oe + at) = __floats2bfloat162_rn(
+          for (int i = 0; i < BN / 2; i += 2) grads(i, word(din + at(i)), word(din + at(i)),
+                                                    word(dub + at(i)));
+          hopper::fence_proxy_async();
+          hopper::named_sync(1 + group, 128);
+          if (storer) {
+#pragma unroll
+            for (int a = 0; a < NA; ++a) {
+              store(&bmaps.dg, din + a * C::BOX_BYTES, a);
+              store(&bmaps.du, dub + a * C::BOX_BYTES, a);
+            }
+            hopper::bulk_commit();
+          }
+        } else {
+          // one buffer, two boxes a warpgroup: columns 0-63's dg over their
+          // dout (box 0) and their du over columns 64-127's dout (box 1),
+          // which waits in registers; those boxes leave while columns
+          // 64-127's derivative is computed, then go through the same boxes
+          constexpr int HALF = BN / 4;  // a box's pairs: i < HALF in box 0
+          uint32_t d1[HALF / 2], dg1[HALF / 2], du1[HALF / 2];
+#pragma unroll
+          for (int i = HALF; i < BN / 2; i += 2) d1[(i - HALF) / 2] = word(din + at(i));
+#pragma unroll
+          for (int i = 0; i < HALF; i += 2)
+            grads(i, word(din + at(i)), word(din + at(i)), word(din + C::BOX_BYTES + at(i)));
+          hopper::fence_proxy_async();
+          hopper::named_sync(1 + group, 128);
+          if (storer) {
+            store(&bmaps.dg, din, 0);
+            store(&bmaps.du, din + C::BOX_BYTES, 0);
+            hopper::bulk_commit();
+          }
+#pragma unroll
+          for (int i = HALF; i < BN / 2; i += 2)
+            grads(i, d1[(i - HALF) / 2], dg1[(i - HALF) / 2], du1[(i - HALF) / 2]);
+          if (storer) hopper::bulk_wait_read<0>();
+          hopper::named_sync(1 + group, 128);
+#pragma unroll
+          for (int i = HALF; i < BN / 2; i += 2) {
+            word(din + at(i) - C::BOX_BYTES) = dg1[(i - HALF) / 2];
+            word(din + at(i)) = du1[(i - HALF) / 2];
+          }
+          hopper::fence_proxy_async();
+          hopper::named_sync(1 + group, 128);
+          if (storer) {
+            store(&bmaps.dg, din, 1);
+            store(&bmaps.du, din + C::BOX_BYTES, 1);
+            hopper::bulk_commit();
+          }
+        }
+      } else {
+        // the forward: silu(g) u straight from the accumulators
+        bf16* oe = out + (long long)e * M * F;
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 2) {
+          const int r = m0 + group * 64 + warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+          const int c = n0 + (i >> 2) * 8 + (lane & 3) * 2;
+          if (r < M && c < F) {  // F is a multiple of 8, so c + 1 < F too
+            const float g0 = acc[i], g1 = acc[i + 1];
+            const float u0 = acc[i + BN / 2], u1 = acc[i + 1 + BN / 2];
+            *reinterpret_cast<__nv_bfloat162*>(oe + (long long)r * F + c) = __floats2bfloat162_rn(
                 g0 / (1.f + __expf(-g0)) * u0, g1 / (1.f + __expf(-g1)) * u1);
           }
         }
       }
+    }
+    // the shared memory the last stores read lives as long as the CTA
+    if constexpr (TMA_EPI) {
+      if (storer) hopper::bulk_wait<0>();
     }
   }
 }
@@ -382,21 +578,32 @@ __global__ void __launch_bounds__(Cfg<CONS, BN>::NT, 1) swiglu_wgmma_kernel(
 template <int CONS, int BN, bool EXPERTS, bool BWD>
 int launch(const void* x, const void* wgt, const void* wup, void* out, const void* dout,
            void* du, int E, int M, int D, int F, cudaStream_t stream) {
-  using C = Cfg<CONS, BN>;
+  using C = Cfg<CONS, BN, BWD>;
   CUtensorMap xm, gm, um;
+  BwdMaps bm{};
   if constexpr (EXPERTS) {
-    const long long xd[4] = {D, M, E, 1}, wd[4] = {F, D, E, 1};
+    const long long xd[4] = {D, M, E, 1}, wd[4] = {F, D, E, 1}, od[4] = {F, M, E, 1};
     const long long xs[3] = {2LL * D, 2LL * M * D, 2LL * E * M * D};
     const long long ws[3] = {2LL * F, 2LL * D * F, 2LL * E * D * F};
+    const long long os[3] = {2LL * F, 2LL * M * F, 2LL * E * M * F};
     const int xbox[4] = {BK, C::BM, 1, 1}, wbox[4] = {ATOM, BK, 1, 1};
+    const int obox[4] = {BOX_COLS, BOX_ROWS, 1, 1};
     if (!hopper::make_map_bf16_4d(&xm, x, xd, xs, xbox) ||
         !hopper::make_map_bf16_4d(&gm, wgt, wd, ws, wbox) ||
         !hopper::make_map_bf16_4d(&um, wup, wd, ws, wbox))
+      return (int)cudaErrorInvalidValue;
+    if (BWD && (!hopper::make_map_bf16_4d(&bm.dout, dout, od, os, obox) ||
+                !hopper::make_map_bf16_4d(&bm.dg, out, od, os, obox) ||
+                !hopper::make_map_bf16_4d(&bm.du, du, od, os, obox)))
       return (int)cudaErrorInvalidValue;
   } else {
     if (!hopper::make_map_bf16(&xm, x, M, D, C::BM, BK) ||
         !hopper::make_map_bf16(&gm, wgt, D, F, BK, ATOM) ||
         !hopper::make_map_bf16(&um, wup, D, F, BK, ATOM))
+      return (int)cudaErrorInvalidValue;
+    if (BWD && (!hopper::make_map_bf16(&bm.dout, dout, M, F, BOX_ROWS, BOX_COLS) ||
+                !hopper::make_map_bf16(&bm.dg, out, M, F, BOX_ROWS, BOX_COLS) ||
+                !hopper::make_map_bf16(&bm.du, du, M, F, BOX_ROWS, BOX_COLS)))
       return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(swiglu_wgmma_kernel<CONS, BN, EXPERTS, BWD>,
@@ -406,8 +613,7 @@ int launch(const void* x, const void* wgt, const void* wup, void* out, const voi
   const long long tiles = (long long)E * ((M + C::BM - 1) / C::BM) * ((F + BN - 1) / BN);
   const int grid = tiles < hopper::num_sms() ? (int)tiles : hopper::num_sms();  // one CTA per SM
   swiglu_wgmma_kernel<CONS, BN, EXPERTS, BWD><<<grid, C::NT, C::BYTES, stream>>>(
-      xm, gm, um, static_cast<bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(du), E, M, D, F);
+      xm, gm, um, static_cast<bf16*>(out), bm, E, M, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -677,6 +883,24 @@ extern "C" int swiglu_experts_wgmma_bwd(const void* x, const void* wg, const voi
   if (E <= 0 || M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
   return prefill::dispatch_experts<true>(x, wg, wu, dg, dout, du, E, M, D, F,
                                          static_cast<cudaStream_t>(stream));
+}
+
+// The backward's tile, stage and buffer constants, which the CPU model of
+// its walk (kernels/ref.py::swiglu_bwd_tiles) repeats and a card test holds
+// equal: key 0 the ring's stages, 1 and 2 the epilogue buffers of the two-
+// and the three-consumer tile, 3 the buffer dout lands in, 4 and 5 an
+// epilogue box's rows and columns, 6 and 7 the two-consumer tile's rows and
+// columns (the expert entry's too), 8 and 9 the three-consumer tile's, 10
+// the two-consumer backward's dynamic shared memory in bytes; -1 for any
+// other key.
+extern "C" long long swiglu_matmul_bwd_layout(int key) {
+  using C2 = prefill::Cfg<2, 128, true>;
+  using C3 = prefill::Cfg<3, 64, true>;
+  const long long v[] = {prefill::STAGES,    C2::EPI_BUFS,      C3::EPI_BUFS,
+                         prefill::DOUT_BUF,  prefill::BOX_ROWS, prefill::BOX_COLS,
+                         C2::BM,             128,               C3::BM,
+                         64,                 (long long)C2::BYTES};
+  return key >= 0 && key < (int)(sizeof(v) / sizeof(v[0])) ? v[key] : -1;
 }
 
 extern "C" int swiglu_experts_decode_fwd(const void* x, const void* wg, const void* wu, void* out,

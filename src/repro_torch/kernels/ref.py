@@ -5,7 +5,8 @@ The kernel wrappers take them for CPU tensors, and ``chip_smoke.py`` holds
 each CUDA kernel against them on the card; :func:`flash_attention_bwd_ref`
 and :func:`swiglu_bwd_ref` are the backward kernels'
 (:func:`flash_attention_bwd_tiles` emulates ``wgmma_bwd``'s tiling of the
-former, for the tests); the ``"vjp"``
+former, :func:`swiglu_bwd_tiles` the SwiGLU ``wgmma_bwd``'s walk and
+epilogue buffers, for the tests); the ``"vjp"``
 backward routes (f32, and shapes the kernels do not take) compute through
 the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
@@ -491,6 +492,114 @@ def swiglu_bwd_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: to
     xf = x.to(acc)
     return swiglu_derivative(torch.matmul(xf, wg.to(acc)), torch.matmul(xf, wu.to(acc)), dout,
                              x.dtype)
+
+
+# The SwiGLU backward kernel's layout (csrc/swiglu_matmul.cu, namespace
+# prefill), in the key order of its C function swiglu_matmul_bwd_layout,
+# which a card test holds equal to this: the ring's stages; the epilogue
+# buffers beside them of the two- and of the three-consumer tile (two where
+# they fit: dout then dg over it, and du; else one); the buffer dout lands
+# in; an epilogue box's rows (a warpgroup's) and columns (a 128-byte swizzle
+# atom); the two-consumer tile (the expert entry's too); the three-consumer
+# tile; the two-consumer backward's dynamic shared memory in bytes.
+SWIGLU_BWD_LAYOUT = {"stages": 4, "epi_bufs2": 1, "epi_bufs3": 2, "dout_buf": 0, "box_rows": 64,
+                     "box_cols": 64, "bm2": 128, "bn2": 128, "bm3": 192, "bn3": 64,
+                     "smem2": 230496}
+
+
+def swiglu_bwd_tile_shape(M: int, F: int, experts: bool, sms: int = 132) -> tuple:
+    """(BM, BN) of the backward's tiles: the expert entry's two-consumer
+    tile, else the dispatcher's choice between the two (waves of one CTA an
+    SM times the tile's area, the larger tile on a tie)."""
+    L = SWIGLU_BWD_LAYOUT
+    two, three = (L["bm2"], L["bn2"]), (L["bm3"], L["bn3"])
+    if experts:
+        return two
+
+    def cost(bm, bn):
+        return -(-(-(-M // bm) * -(-F // bn)) // sms) * bm * bn
+    return three if cost(*three) < cost(*two) else two
+
+
+def swiglu_bwd_tiles(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, dout: torch.Tensor, *,
+                     sms: int = 132, read_other: bool = False):
+    """The ``wgmma_bwd`` kernel's walk and epilogue on the CPU, for the
+    tests: (dg, du, writes, walk).  x [M, D] (or [E, M, D] for the expert
+    entry), wg, wu [D, F] ([E, D, F]), dout [M, F] ([E, M, F]).
+
+    The grid is min(tiles, ``sms``) CTAs; CTA b takes tiles b, b + grid, ...
+    in order, tile t at m tile t % mtiles, n tile t / mtiles % ncols, expert
+    t / (mtiles ncols).  Each tile's g = x wg and u = x wu are computed in
+    f32 (f64 for f64 inputs) from operands zero-padded to whole tiles, as
+    TMA zero-fills the kernel's loads.  Each consumer warpgroup (64 rows)
+    keeps its own boxes of [64 rows, 64 columns] in the CTA's epilogue
+    buffers; its dout lands in buffer ``dout_buf`` (zero-filled past M and
+    F) and :func:`swiglu_derivative` gives dg and du.  With two buffers dg
+    goes over dout and du into the second, and every box is stored; with
+    one (two boxes a warpgroup), box 0 takes dg and box 1 du of columns
+    0-63 (box 1's dout waits in registers), both are stored, then the two
+    boxes take columns 64-127's dg and du and are stored again.  A store
+    writes the part of its box inside M, F and its expert.  ``read_other``
+    (a planted fault, one-buffer tiles only) reads columns 0-63's dout from
+    box 1, the other box of the buffer.
+
+    ``writes`` [2, E, M, F] counts the stores into each element of dg and
+    du; ``walk`` lists each tile as a dict: CTA, its index j on the CTA, the
+    tile, expert, m0, n0, the buffer its dout lands in, the parity of the
+    mbarrier phase it waits on (j % 2), and its store boxes (warpgroup,
+    rows, columns), each box once for dg and once for du."""
+    L = SWIGLU_BWD_LAYOUT
+    experts = x.dim() == 3
+    xs, wgs, wus, ds = (t if experts else t[None] for t in (x, wg, wu, dout))
+    E, M, D = xs.shape
+    Fd = wgs.shape[-1]
+    acc = torch.promote_types(x.dtype, F32)
+    BM, BN = swiglu_bwd_tile_shape(M, Fd, experts, sms)
+    R, C = L["box_rows"], L["box_cols"]
+    cons, na = BM // R, BN // C
+    nbufs = L["epi_bufs2"] if BM == L["bm2"] else L["epi_bufs3"]
+    if read_other and nbufs != 1:
+        raise ValueError("read_other: a one-buffer tile's fault")
+    mtiles, ncols = -(-M // BM), -(-Fd // BN)
+    ntiles = E * mtiles * ncols
+    grid = min(ntiles, sms)
+    Mp, Fp = mtiles * BM, ncols * BN
+    xp = F.pad(xs.to(acc), (0, 0, 0, Mp - M))
+    wgp, wup = (F.pad(w.to(acc), (0, Fp - Fd)) for w in (wgs, wus))
+    dp = F.pad(ds, (0, Fp - Fd, 0, Mp - M))
+    dg, du = torch.zeros_like(ds), torch.zeros_like(ds)
+    writes = torch.zeros((2, E, M, Fd), dtype=torch.int32)
+    walk = []
+
+    def store(box, out, which, e, r0, c0):
+        """The part of ``box`` inside M and F, at row r0 and column c0."""
+        r1, c1 = min(r0 + R, M), min(c0 + C, Fd)
+        if r1 > r0 and c1 > c0:  # a box wholly past M or F writes nothing
+            out[e, r0:r1, c0:c1] = box[:r1 - r0, :c1 - c0]
+            writes[which, e, r0:r1, c0:c1] += 1
+
+    for b in range(grid):
+        for j, t in enumerate(range(b, ntiles, grid)):
+            m0, n0, e = t % mtiles * BM, t // mtiles % ncols * BN, t // (mtiles * ncols)
+            xt = xp[e, m0:m0 + BM]
+            g, u = xt @ wgp[e][:, n0:n0 + BN], xt @ wup[e][:, n0:n0 + BN]
+            boxes = []
+            for w in range(cons):
+                rows, r0 = slice(w * R, (w + 1) * R), m0 + w * R
+                d = dp[e, r0:r0 + R, n0:n0 + BN]  # the warpgroup's dout boxes, side by side
+                if read_other:
+                    d = torch.cat([d[:, C:], d[:, C:]], dim=1)
+                dgw, duw = swiglu_derivative(g[rows], u[rows], d, x.dtype)
+                for a in range(na):
+                    cols = slice(a * C, (a + 1) * C)
+                    store(dgw[:, cols], dg, 0, e, r0, n0 + a * C)
+                    store(duw[:, cols], du, 1, e, r0, n0 + a * C)
+                    boxes.append((w, (r0, min(r0 + R, M)), (n0 + a * C, min(n0 + (a + 1) * C, Fd))))
+            walk.append(dict(cta=b, j=j, tile=t, expert=e, m0=m0, n0=n0,
+                             dout_buf=L["dout_buf"], parity=j % 2, boxes=boxes))
+    if not experts:
+        dg, du = dg[0], du[0]
+    return dg, du, writes, walk
 
 
 def swiglu_experts_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ mode; what they compute is :func:`repro_torch.kernels.ref.flash_attention_bwd_re
 tiling of it is :func:`repro_torch.kernels.ref.flash_attention_bwd_tiles`,
 held here too, with a skipped query step as its planted fault) and
 :func:`repro_torch.kernels.ref.swiglu_bwd_ref` (dg and du, which
-``swiglu_matmul.swiglu_grads`` turns into dx, dwg, dwu).  These tests hold
+``swiglu_matmul.swiglu_grads`` turns into dx, dwg, dwu; the SwiGLU kernel's
+persistent walk and epilogue boxes are :func:`repro_torch.kernels.ref.
+swiglu_bwd_tiles`, held here too, with dout read from the other box as its
+planted fault).  These tests hold
 those plain versions against ``jax.vjp`` of the JAX package's references
 (``repro.kernels.ref``), the same numpy inputs on both sides in f32; the
 kernels themselves are held against the plain versions on the card
@@ -21,7 +24,7 @@ softmax's own max and sum), which moves a gradient by a few f32 ulps of the
 largest one (measured: <= 1.1e-6 for flash, 3.5e-7 for SwiGLU): 2e-5
 (``GRAD_TOL``).  The logsumexp itself is held to 1e-6 of its magnitude
 (measured 1.1e-7).  Every planted fault of ``chip_smoke.py`` (the causal flag
-cleared, dg and du swapped) misses by O(1).
+cleared, dg and du swapped, dout read from the other box) misses by O(1).
 """
 import importlib
 
@@ -38,7 +41,10 @@ from repro_torch.kernels import (
     swiglu_matmul,
 )
 from repro_torch.kernels._work import WorkLog
-from repro_torch.kernels.ref import flash_attention_bwd_tiles, flash_attention_ref
+from repro_torch.kernels.ref import (
+    SWIGLU_BWD_LAYOUT, flash_attention_bwd_tiles, flash_attention_ref, swiglu_bwd_tile_shape,
+    swiglu_bwd_tiles,
+)
 
 from _torch_cnn_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
@@ -228,6 +234,119 @@ def test_swiglu_bwd_ref_planted_fault():
     got = sw.swiglu_grads(tx, twg, twu, du, dg)
     want = _jax_swiglu_grads(x, wg, wu, dout, False)
     assert max(_rel(g.numpy(), w) for g, w in zip(got, want)) > 0.3
+
+
+# the SwiGLU backward kernel's walk (ref.swiglu_bwd_tiles) at small shapes
+# and few CTAs, so that its edges show: (E, M, D, F, CTAs)
+BWD_WALKS = [
+    (None, 300, 48, 200, 2),  # 3 and 3 tiles a CTA: the barrier parity flips; F % 64 = 8
+    (None, 200, 32, 64, 1),   # the three-consumer tile (192 x 64): one CTA, 2 tiles
+    (None, 130, 40, 72, 3),   # three-consumer tiles, ragged M: 2 tiles, a grid of 2
+    (3, 40, 32, 88, 2),       # M < 64 with E > 1; CTA 0 takes experts 0 and 2
+    (5, 70, 24, 136, 3),      # 4, 3, 3 tiles a CTA across expert boundaries, ragged F
+]
+
+
+def _walk_inputs(E, M, D, F, seed=21):
+    lead = () if E is None else (E,)
+    x, wg, wu, dout = _np(seed, (*lead, M, D), (*lead, D, F), (*lead, D, F), (*lead, M, F))
+    return x, wg * D ** -0.5, wu * D ** -0.5, dout
+
+
+@pytest.mark.parametrize("E,M,D,F,sms", BWD_WALKS)
+def test_swiglu_bwd_tiles_write_each_element_once(E, M, D, F, sms):
+    """Every element of dg and du is stored exactly once, by a box inside
+    M, F and its expert; the CTAs take tiles b, b + grid, ... and each tile's
+    dout lands in the layout's buffer, on the phase of its index on the CTA."""
+    x, wg, wu, dout = _t(*_walk_inputs(E, M, D, F))
+    dg, du, writes, walk = swiglu_bwd_tiles(x, wg, wu, dout, sms=sms)
+    assert bool((writes == 1).all())
+    BM, BN = swiglu_bwd_tile_shape(M, F, E is not None, sms)
+    ntiles = (E or 1) * -(-M // BM) * -(-F // BN)
+    grid = min(ntiles, sms)
+    assert sorted(w["tile"] for w in walk) == list(range(ntiles))
+    for w in walk:
+        assert w["tile"] == w["cta"] + w["j"] * grid
+        assert w["dout_buf"] == SWIGLU_BWD_LAYOUT["dout_buf"] and w["parity"] == w["j"] % 2
+        for _, (r0, r1), (c0, c1) in w["boxes"]:
+            assert r1 <= M and c1 <= F and r0 - w["m0"] < BM and c0 - w["n0"] < BN
+
+
+def test_swiglu_bwd_walks_cover_the_edges():
+    """The cases above hold a CTA with an odd number of tiles (the parity
+    flips and ends on 0), a CTA whose run crosses an expert boundary, both
+    tile shapes, and an F that is a multiple of 8 but not of 64."""
+    seen = set()
+    for E, M, D, F, sms in BWD_WALKS:
+        _, _, _, walk = swiglu_bwd_tiles(*_t(*_walk_inputs(E, M, D, F)), sms=sms)
+        runs = {}
+        for w in walk:
+            runs.setdefault(w["cta"], []).append(w)
+        if any(len(r) % 2 == 1 and len(r) > 1 for r in runs.values()):
+            seen.add("odd run")
+        if any(len({w["expert"] for w in r}) > 1 for r in runs.values()):
+            seen.add("expert boundary")
+        seen.add(swiglu_bwd_tile_shape(M, F, E is not None, sms))
+        if F % 8 == 0 and F % 64:
+            seen.add("ragged F")
+    assert seen >= {"odd run", "expert boundary", "ragged F", (128, 128), (192, 64)}
+
+
+@pytest.mark.parametrize("E,M,D,F,sms", BWD_WALKS)
+def test_swiglu_bwd_tiles_match_jax_vjp(E, M, D, F, sms):
+    """The walk's dg and du, assembled by ``swiglu_grads``, against
+    ``jax.vjp`` of the reference's SwiGLU (f32 on both sides)."""
+    x, wg, wu, dout = _walk_inputs(E, M, D, F)
+    tx, twg, twu, tdout = _t(x, wg, wu, dout)
+    dg, du, _, _ = swiglu_bwd_tiles(tx, twg, twu, tdout, sms=sms)
+    got = sw.swiglu_grads(tx, twg, twu, dg, du)
+    want = _jax_swiglu_grads(x, wg, wu, dout, E is not None)
+    for name, g, w in zip(("dx", "dwg", "dwu"), got, want):
+        assert _rel(g.numpy(), w) <= GRAD_TOL, (name, _rel(g.numpy(), w))
+
+
+ONE_BUFFER_WALKS = [c for c in BWD_WALKS if swiglu_bwd_tile_shape(c[1], c[3], c[0] is not None,
+                                                                   c[4]) == (128, 128)]
+
+
+@pytest.mark.parametrize("E,M,D,F,sms", ONE_BUFFER_WALKS)
+def test_swiglu_bwd_tiles_planted_fault(E, M, D, F, sms):
+    """The epilogue reading columns 0-63's dout from the buffer's other box
+    (the planted fault of ``chip_smoke.py``'s check (b)) misses jax.vjp by
+    O(1), though every element is still stored once."""
+    x, wg, wu, dout = _walk_inputs(E, M, D, F)
+    tx, twg, twu, tdout = _t(x, wg, wu, dout)
+    dg, du, writes, _ = swiglu_bwd_tiles(tx, twg, twu, tdout, sms=sms, read_other=True)
+    assert bool((writes == 1).all())
+    got = sw.swiglu_grads(tx, twg, twu, dg, du)
+    want = _jax_swiglu_grads(x, wg, wu, dout, E is not None)
+    assert max(_rel(g.numpy(), w) for g, w in zip(got, want)) > 0.1
+
+
+def test_swiglu_bwd_tiles_fault_needs_one_buffer():
+    """The three-consumer tile has two buffers and no other box to misread."""
+    x, wg, wu, dout = _t(*_walk_inputs(None, 200, 32, 64))
+    with pytest.raises(ValueError):
+        swiglu_bwd_tiles(x, wg, wu, dout, sms=1, read_other=True)
+
+
+@pytest.mark.parametrize("cons,bn,bufs", [(2, 128, "epi_bufs2"), (3, 64, "epi_bufs3")])
+def test_swiglu_bwd_layout_fits_shared_memory(cons, bn, bufs):
+    """Each tile takes two epilogue buffers where they fit beside the ring's
+    stages of x and both weight tiles and the barriers, else one, within an
+    SM's 232,448 bytes; a buffer holds the tile in bf16, in boxes."""
+    L = SWIGLU_BWD_LAYOUT
+    bm = 64 * cons
+    assert (bm, bn) in ((L["bm2"], L["bn2"]), (L["bm3"], L["bn3"]))
+
+    def smem(n):
+        stage = (bm * 64 + 2 * 64 * bn) * 2
+        return L["stages"] * stage + n * bm * bn * 2 + (2 * L["stages"] + 2 * cons) * 8 + 1024
+    want = 2 if smem(2) <= 232448 else 1
+    assert L[bufs] == want and smem(want) <= 232448
+    if cons == 2:
+        assert L["smem2"] == smem(want)
+    assert bn % L["box_cols"] == 0 and bm % L["box_rows"] == 0
 
 
 # --------------------------------------------------------------------------- #

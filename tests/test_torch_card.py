@@ -848,13 +848,19 @@ def test_flash_wgmma_bwd(card, causal, Sq, Sk, D, Dv):
                                      (None, 79, 2056, 200), (None, 4096, 2048, 512),
                                      (None, 1, 64, 64), (5, 64, 256, 96), (3, 24, 256, 96),
                                      (4, 120, 2048, 1408), (3, 7, 64, 64),
-                                     (4, 1280, 4096, 14336)])
+                                     (4, 1280, 4096, 14336), (None, 2048, 256, 2560),
+                                     (150, 64, 128, 128), (3, 130, 256, 1000),
+                                     (6, 40, 128, 136), (None, 2048, 4096, 14336)])
 def test_swiglu_wgmma_bwd(card, E, M, D, F):
     """``wgmma_bwd`` and ``experts_wgmma_bwd`` at rows below and above 64,
-    ragged M and F tiles, a K tail (D = 2056), DeepSeek's experts and the
-    Jamba train period's (4 kept of 16, 1280 rows each): dg and du against
-    ``swiglu_bwd_ref`` (the forward's tolerance: 5e-2 + 2e-2·|ref|), and
-    bit for bit the same over two calls."""
+    ragged M and F tiles, a K tail (D = 2056), DeepSeek's experts, the
+    Jamba train period's (4 kept of 16, 1280 rows each) and its dense FFN;
+    the epilogue's edges: 320 tiles on 132 CTAs (runs of 3: the dout
+    barrier's parity flips across the walk), 150 experts of one tile (a
+    CTA's run crosses an expert), F = 1000 and 136 (multiples of 8, not of
+    64: the TMA boxes clip), M 40 below a warpgroup's 64 rows with E 6: dg
+    and du against ``swiglu_bwd_ref`` (the forward's tolerance: 5e-2 +
+    2e-2·|ref|), and bit for bit the same over two calls."""
     import importlib
 
     from repro_torch.kernels import swiglu_bwd_ref
@@ -873,6 +879,18 @@ def test_swiglu_wgmma_bwd(card, E, M, D, F):
         torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=2e-2)
     again = sw._launch_bwd(x, wg, wu, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_swiglu_bwd_layout_matches_the_model(card):
+    """The backward kernel's tile, stage and buffer constants, as its C
+    function ``swiglu_matmul_bwd_layout`` gives them, equal the CPU model's
+    (``ref.SWIGLU_BWD_LAYOUT``, which ``ref.swiglu_bwd_tiles`` walks)."""
+    from repro_torch.kernels.ref import SWIGLU_BWD_LAYOUT
+
+    got = {k: SWIGLU_LIBRARY.size("swiglu_matmul_bwd_layout", i)
+           for i, k in enumerate(SWIGLU_BWD_LAYOUT)}
+    assert got == SWIGLU_BWD_LAYOUT
+    assert SWIGLU_LIBRARY.size("swiglu_matmul_bwd_layout", len(SWIGLU_BWD_LAYOUT)) == -1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
