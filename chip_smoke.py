@@ -20,7 +20,11 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              views under a forced, named fused backend; cuBLAS for SwiGLU);
              the backward kernels at the train paths' shapes, each launched
              twice for the same bits, beside SDPA's backward and cuBLAS (the
-             SSD scan's beside ``ssd_scan_vjp``).
+             SSD scan's beside ``ssd_scan_vjp``).  The SwiGLU sweep reaches
+             every tile class and load path of its f32 CUDA-core kernel
+             (asserted), and three faults planted in copies of its source
+             (the last k-stage dropped, a ring stage read one step early,
+             the ragged-F store unmasked) must each fail it.
 4. serve   — the LM paths, each at full width, random weights from a
              seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
              attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
@@ -687,6 +691,115 @@ def backward_paths(torch, timer, rows, randn) -> None:
         torch.cuda.empty_cache()
 
 
+# (M, D, F): the CPU tests' sweep, then a K tail (D = 2056) with F not a
+# multiple of the column tiles at both ends of the bf16 row range; bf16 goes
+# to the decode kernel below 64 rows and to wgmma from 64, f32 and unaligned
+# bf16 (5, 100, 70) to the CUDA cores; then the CUDA-core kernel's classes
+# and paths: 576 rows on the 64-row class (f32; bf16 on wgmma), F % 4 != 0
+# on the general path of each class (bf16 there too: D % 8 != 0), and a K
+# tail (D = 2050) that is not a multiple of a stage's 8 or 32 k rows
+SWIGLU_CASES = [(64, 128, 256), (128, 256, 128), (32, 64, 64), (5, 100, 70), (24, 64, 96),
+                (1, 2056, 200), (79, 2056, 200), (576, 512, 5632), (576, 300, 5630),
+                (200, 2050, 98), (8, 2050, 5630)]
+# (E, M, D, F): the expert entries, M rows an expert: both sides of 64 rows,
+# ragged M (a tile past an expert's rows), a K tail, one row, E = 1,
+# unaligned D and F (the CUDA cores in bf16); the CUDA-core kernel's 64-row
+# class (64 experts of 64 rows) and its general path on the 128-row class
+SWIGLU_EXPERT_CASES = [(3, 64, 256, 96), (5, 79, 2056, 200), (3, 63, 256, 96), (4, 1, 256, 96),
+                       (1, 200, 256, 96), (1, 8, 256, 96), (3, 7, 100, 70), (3, 24, 256, 96),
+                       (64, 64, 256, 1408), (4, 130, 2050, 98)]
+# every (tile class, load path) of the CUDA-core kernel, as its C plan
+# (swiglu_cuda_core_plan) numbers them: class 2 c + 1 on the fast path
+CUDA_CORE_PLANS = {(c, p) for c in ("small", "r64", "r128") for p in ("fast", "general")}
+# planted faults in copies of csrc/swiglu_matmul.cu's CUDA-core kernel, each
+# of which the sweep must see: (name, ((old, new), ...))
+CUDA_CORE_FAULTS = (
+    ("the last k-stage dropped", (("for (int i = 0; i < nk; ++i) {",
+                                   "for (int i = 0; i < nk - 1; ++i) {"),)),
+    ("a ring stage read one step early", (
+        ("const float* cur = sm + (i % C::STAGES) * C::STAGE;",
+         "const float* cur = sm + ((i + 1) % C::STAGES) * C::STAGE;"),)),
+    ("the ragged-F store unmasked", (
+        ("if (n < F) *reinterpret_cast<float4*>(o)", "*reinterpret_cast<float4*>(o)"),
+        ("if (n + j < F) store(o + j, v[j]);", "store(o + j, v[j]);"),
+        ("if (m < M && n < F) store(out", "if (m < M) store(out"))),
+)
+
+
+def cuda_core_plan_of(torch, lib, x, wg, wu, out) -> tuple:
+    """(tile class, load path) the C side picked for a CUDA-core launch on
+    these operands (``swiglu_cuda_core_plan``)."""
+    *lead, M, D = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (wg, wu, out))
+    code = lib.size("swiglu_cuda_core_plan", *(lead or [1]), M, D, wg.shape[-1],
+                    int(x.dtype == torch.bfloat16), int(aligned))
+    return ("small", "r64", "r128")[code // 2], ("general", "fast")[code % 2]
+
+
+def swiglu_sweep(torch, randn, hit: set) -> set:
+    """Every case of SWIGLU_CASES and SWIGLU_EXPERT_CASES in f32 and bf16
+    through the wrappers, held against the plain versions; the variants
+    reached go into ``hit``.  Returns the CUDA-core kernel's (class, path)
+    pairs the sweep reached."""
+    from repro_torch.kernels import SWIGLU_LIBRARY, swiglu_experts, swiglu_matmul
+    from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
+
+    reached = set()
+    cases = [(None, *c) for c in SWIGLU_CASES] + list(SWIGLU_EXPERT_CASES)
+    for E, M, D, Fd in cases:
+        lead = () if E is None else (E,)
+        entry, ref = (swiglu_matmul, swiglu_ref) if E is None else (swiglu_experts,
+                                                                    swiglu_experts_ref)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(*lead, M, D, dtype=dtype)
+            wg = randn(*lead, D, Fd, dtype=dtype, scale=D ** -0.5)
+            wu = randn(*lead, D, Fd, dtype=dtype, scale=D ** -0.5)
+            o, variant = launched(SWIGLU_LIBRARY, lambda: entry(x, wg, wu))
+            hit.add(variant)
+            if variant.endswith("cuda_core"):
+                reached.add(cuda_core_plan_of(torch, SWIGLU_LIBRARY, x, wg, wu, o))
+            r = ref(x, wg, wu)
+            tol = SWIGLU_TOL[str(dtype)]
+            if o.shape != r.shape or not within(o, r, tol):
+                raise AssertionError(f"{entry.__name__}[{variant}] {(E, M, D, Fd)} {dtype}: "
+                                     f"max err {max_err(o, r):.3g} > tol {tol}")
+    return reached
+
+
+def cuda_core_fault_sweep(torch, randn, lib) -> tuple:
+    """The sweep's CUDA-core cases launched from ``lib`` (a copy of the
+    library with a planted fault), each into an output with 4 KB of slack
+    behind it (a store past F must not leave the allocation): (cases
+    outside tolerance, cases, largest error)."""
+    from repro_torch.kernels._build import stream_handle
+    from repro_torch.kernels.ref import swiglu_experts_ref, swiglu_ref
+    from repro_torch.kernels.swiglu_matmul import select_variant
+
+    failed = total = 0
+    worst = 0.0
+    cases = [(None, *c) for c in SWIGLU_CASES] + list(SWIGLU_EXPERT_CASES)
+    for E, M, D, Fd in cases:
+        lead = () if E is None else (E,)
+        for dtype in (torch.float32, torch.bfloat16):
+            if select_variant(M, D, Fd, dtype) != "cuda_core":
+                continue
+            x = randn(*lead, M, D, dtype=dtype)
+            wg = randn(*lead, D, Fd, dtype=dtype, scale=D ** -0.5)
+            wu = randn(*lead, D, Fd, dtype=dtype, scale=D ** -0.5)
+            n = (E or 1) * M * Fd
+            buf = torch.zeros(n + 4096 // x.element_size(), dtype=dtype, device="cuda")
+            o = buf[:n].view(*lead, M, Fd)
+            variant = "cuda_core" if E is None else "experts_cuda_core"
+            lib.launch(variant, x.data_ptr(), wg.data_ptr(), wu.data_ptr(), o.data_ptr(),
+                       *lead, M, D, Fd, int(dtype == torch.bfloat16), stream_handle(x))
+            torch.cuda.synchronize()
+            r = (swiglu_ref if E is None else swiglu_experts_ref)(x, wg, wu)
+            total += 1
+            worst = max(worst, max_err(o, r))
+            failed += not within(o, r, SWIGLU_TOL[str(dtype)])
+    return failed, total, worst
+
+
 def check_kernels(torch, timer):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -793,50 +906,27 @@ def check_kernels(torch, timer):
         plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
         library=lib_name, library_ms=timer.ms(lib_call), bound_ms=b_ms, bound_by=b_by)
 
-    # (M, D, F): the CPU tests' sweep, then a K tail (D = 2056) with F not a
-    # multiple of the column tiles at both ends of the bf16 row range; bf16
-    # goes to the decode kernel below 64 rows and to wgmma from 64, f32 and
-    # unaligned bf16 (5, 100, 70) to the CUDA cores
-    swiglu_cases = [(64, 128, 256), (128, 256, 128), (32, 64, 64), (5, 100, 70), (24, 64, 96),
-                    (1, 2056, 200), (79, 2056, 200)]
-    for (M, D, Fd) in swiglu_cases:
-        for dtype in (f32, bf16):
-            x = randn(M, D, dtype=dtype)
-            wg = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
-            wu = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
-            o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_matmul(x, wg, wu))
-            hit[SWIGLU_LIBRARY.name].add(variant)
-            r = swiglu_ref(x, wg, wu)
-            tol = SWIGLU_TOL[str(dtype)]
-            if not within(o, r, tol):
-                raise AssertionError(f"swiglu_matmul[{variant}] {(M, D, Fd)} {dtype}: "
-                                     f"max err {max_err(o, r):.3g} > tol {tol}")
-    # (E, M, D, F): the expert entries, M rows an expert: both sides of 64
-    # rows, ragged M (a tile past an expert's rows), a K tail, one row, E = 1,
-    # unaligned D and F (the CUDA cores in bf16)
-    expert_cases = [(3, 64, 256, 96), (5, 79, 2056, 200), (3, 63, 256, 96), (4, 1, 256, 96),
-                    (1, 200, 256, 96), (1, 8, 256, 96), (3, 7, 100, 70), (3, 24, 256, 96)]
-    for (E, M, D, Fd) in expert_cases:
-        for dtype in (f32, bf16):
-            x = randn(E, M, D, dtype=dtype)
-            wg = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
-            wu = randn(E, D, Fd, dtype=dtype, scale=D ** -0.5)
-            o, variant = launched(SWIGLU_LIBRARY, lambda: swiglu_experts(x, wg, wu))
-            hit[SWIGLU_LIBRARY.name].add(variant)
-            r = swiglu_experts_ref(x, wg, wu)
-            tol = SWIGLU_TOL[str(dtype)]
-            if o.shape != r.shape or not within(o, r, tol):
-                raise AssertionError(f"swiglu_experts[{variant}] {(E, M, D, Fd)} {dtype}: "
-                                     f"max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"swiglu_matmul: {len(swiglu_cases) * 2} sweep cases and {len(expert_cases) * 2} expert "
-        f"cases within tolerance (variants {sorted(hit[SWIGLU_LIBRARY.name])})")
+    reached = swiglu_sweep(torch, randn, hit[SWIGLU_LIBRARY.name])
+    if reached != CUDA_CORE_PLANS:
+        raise AssertionError(f"the f32 and unaligned sweep reached the CUDA-core kernel's "
+                             f"(class, path) {sorted(reached)}, not {sorted(CUDA_CORE_PLANS)}")
+    log(f"swiglu_matmul: {len(SWIGLU_CASES) * 2} sweep cases and {len(SWIGLU_EXPERT_CASES) * 2} "
+        f"expert cases within tolerance (variants {sorted(hit[SWIGLU_LIBRARY.name])}; "
+        f"cuda_core classes and load paths {sorted(reached)})")
+    for name, lib in cuda_core_fault_libraries().items():
+        failed, cases, worst = cuda_core_fault_sweep(torch, randn, lib)
+        log(f"cuda_core planted fault ({name}): {failed} of {cases} CUDA-core sweep cases "
+            f"outside tolerance (largest error {worst:.3g})")
+        if not failed:
+            raise AssertionError(f"the sweep does not see the planted fault: {name}")
     for lib in (FLASH_LIBRARY, SWIGLU_LIBRARY):  # the backward kernels: backward_paths
         if hit[lib.name] != {v for v in lib.variants if not v.endswith("_bwd")}:
             raise AssertionError(f"{lib.name}: the sweep reached {sorted(hit[lib.name])}, "
                                  f"not every variant of {sorted(lib.variants)}")
     # the serving path's shapes: decode (8 slots) and prefill rows, bf16;
-    # the CUDA-core kernel on the prefill shape in f32 (its route)
-    for M, dtype in ((8, bf16), (512, bf16), (1024, bf16), (512, f32)):
+    # the CUDA-core kernel on the prefill shape and on 8 rows (its small
+    # class, bound by the weights' bytes) in f32 (its route)
+    for M, dtype in ((8, bf16), (512, bf16), (1024, bf16), (512, f32), (8, f32)):
         D, Fd = 2048, 5632
         x = randn(M, D, dtype=dtype)
         wg = randn(D, Fd, dtype=dtype, scale=D ** -0.5)
@@ -849,6 +939,7 @@ def check_kernels(torch, timer):
                                  f"max err {max_err(o, r):.3g} > {tol}")
         ops, nbytes = swiglu_work(M, D, Fd, x.element_size())
         b_ms, b_by = H100.bound_ms(ops, nbytes, dtype)
+        assert not torch.backends.cuda.matmul.allow_tf32  # cuBLAS's f32 yardstick in full f32
         rows[("swiglu_matmul", variant, M)] = dict(
             shape=f"M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
             tol=list(tol), ms=timer.ms(lambda: swiglu_matmul(x, wg, wu)),
@@ -903,6 +994,7 @@ def check_kernels(torch, timer):
             raise AssertionError(f"swiglu_experts[{variant}] path M={M} {dtype}: "
                                  f"max err {max_err(o, r):.3g} > {tol}")
         b_ms, b_by = H100.bound_ms(*swiglu_work(M, D, Fd, x.element_size(), E=E), dtype)
+        assert not torch.backends.cuda.matmul.allow_tf32  # cuBLAS's f32 yardstick in full f32
         rows[("swiglu_matmul", variant, M)] = dict(
             shape=f"E={E} M={M} D={D} F={Fd} {str(dtype)[6:]}", max_abs_err=max_err(o, r),
             tol=list(tol), ms=timer.ms(lambda: swiglu_experts(x, wg, wu)),
@@ -2431,6 +2523,13 @@ def swiglu_box_fault_library():
     return source_fault_library("swiglu_matmul", "swiglu_box_fault", (OTHER_BOX,))
 
 
+def cuda_core_fault_libraries() -> dict:
+    """The SwiGLU libraries built from copies of its source with each of
+    CUDA_CORE_FAULTS planted in the CUDA-core kernel, by fault."""
+    return {name: source_fault_library("swiglu_matmul", "swiglu_cuda_core_fault_" + str(i), subs)
+            for i, (name, subs) in enumerate(CUDA_CORE_FAULTS)}
+
+
 def swiglu_bwd_other_box():
     """The SwiGLU kernels launched from ``swiglu_box_fault_library`` (a
     planted fault: the backward's epilogue reads dout from the other box)."""
@@ -3818,7 +3917,8 @@ def main() -> None:
         from repro_torch.kernels._build import build_all
 
         t0 = time.perf_counter()
-        secs = build_all([*LIBRARIES, ssd_rank_fault_library(), swiglu_box_fault_library()])
+        secs = build_all([*LIBRARIES, ssd_rank_fault_library(), swiglu_box_fault_library(),
+                          *cuda_core_fault_libraries().values()])
         log(f"built {', '.join(f'{n} ({s:.1f} s)' for n, s in secs.items())} "
             f"in {time.perf_counter() - t0:.1f} s")
         for lib in LIBRARIES:
@@ -3895,6 +3995,7 @@ def main() -> None:
                  ("swiglu_matmul", "wgmma", 512, "tinyllama", ""),
                  ("swiglu_matmul", "decode", 8, "tinyllama", ""),
                  ("swiglu_matmul", "cuda_core", 512, "tinyllama", ""),
+                 ("swiglu_matmul", "cuda_core", 8, "tinyllama", " M=8"),
                  ("swiglu_matmul", "experts_wgmma", 120, "deepseek", ""),
                  ("swiglu_matmul", "experts_decode", 8, "deepseek", ""),
                  ("swiglu_matmul", "experts_cuda_core", 120, "deepseek", ""),
@@ -3953,8 +4054,8 @@ def main() -> None:
         # the CUDA-core kernels serve f32 (and shapes the tensor-core ones do
         # not take), which no serving run here uses: every other variant
         # must have been launched on its path
-        idle = [k["name"] for k in kernels if k["launches"] <= 0
-                and not k["name"].endswith("cuda_core]")]
+        idle = [k["name"] for k, (_, variant, *_) in zip(kernels, picks)
+                if k["launches"] <= 0 and not variant.endswith("cuda_core")]
         if idle:
             raise AssertionError(f"not launched on their serving paths: {idle} ({launches})")
 

@@ -1,6 +1,6 @@
-// PTX helpers shared by the port's tensor-core kernels (sm_90a).
+// PTX helpers shared by the port's kernels (sm_90a).
 //
-// cp.async (16-byte copies to shared memory, zero fill past an edge),
+// cp.async (4- and 16-byte copies to shared memory, zero fill past an edge),
 // ldmatrix and mma.sync.m16n8k16 (bf16 in, f32 accumulate), the B128
 // shared-memory swizzle the mma.sync kernels use against bank conflicts,
 // and, for the wgmma kernels, mbarriers, TMA tile loads and wgmma matrix
@@ -30,6 +30,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from global to shared (through L1, as cp.async of less than 16
+// bytes must); zero-filled when !valid.  The copy may land anywhere in
+// shared memory, so a tile can be transposed on its way in.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

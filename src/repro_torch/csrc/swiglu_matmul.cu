@@ -55,10 +55,47 @@
 //    44 slabs x 3 = 132 CTAs at F = 5632, one wave); the s CTAs of a slab form
 //    a thread-block cluster and sum their partial g and u through
 //    distributed shared memory before the (nonlinear) epilogue, in one launch.
-// 3. `swiglu_kernel` (entry swiglu_matmul_fwd): f32, and bf16 with D or F
-//    not a multiple of 8.  A tiled f32 GEMM on the CUDA cores: each block
-//    computes one [BM, BN] tile of both products from one shared x tile;
-//    16 x 32 tiles for M <= 16, 64 x 64 otherwise; any M, D, F.
+// 3. `swiglu_cuda_core_kernel` (entries swiglu_matmul_fwd,
+//    swiglu_experts_fwd; namespace simt): f32, and bf16 with D or F not a
+//    multiple of 8, any M, D, F.  It replaces the TPU kernel on its f32 and
+//    unaligned route (src/repro/kernels/swiglu_matmul.py:50) in IEEE f32:
+//    FFMA on the CUDA cores, nothing rounded to TF32 or bf16, so it is bound
+//    by f32 operations (M = 512, D = 2048, F = 5632: 23.6 GFLOP, 0.3526 ms at
+//    67 TFLOP/s); the small-M class by the weights' bytes (M = 8: 92 MB,
+//    0.0276 ms).  The earlier kernel (64 x 64 tiles, 4 x 4 outputs of each
+//    product a thread, scalar global loads between two __syncthreads a
+//    16-row k-step) ran at 1.1069 ms, 32% of the bound: its inner loop alone
+//    at 45% (1.5 bytes of shared memory an FFMA), and nothing in flight
+//    while the FFMAs ran (the loads cost 0.33 ms more).  The design:
+//    - each thread holds 8 x 8 outputs of both products (128 accumulators):
+//      8 x values and 8 + 8 weights, six 16-byte reads of shared memory,
+//      feed 128 FFMA (0.75 byte an FFMA); the gate's FFMAs run, then the up
+//      product's with its weights in the gate's registers;
+//    - a ring of 4 shared-memory stages of 8 k rows, filled by cp.async
+//      (x 4 bytes at a time, transposed to [k][m] on the way in; the
+//      weights 16 bytes at a time), one barrier a stage;
+//    - tile classes by a wave-count model (simt::tile_class): 128 x 64 or
+//      64 x 64 tiles at 3 or 6 CTAs an SM (168 registers a thread: 12 warps
+//      an SM), so M = 512's 352 tiles fill 89% of one wave of 396 slots; M
+//      <= 16 on 16 x 32 tiles (176 CTAs stream the weights at F = 5632),
+//      four k groups a CTA whose partial sums are added in group order;
+//    - two load paths picked before the launch: 16-byte weight copies for f32
+//      with F % 4 == 0 and 16-byte aligned wg, wu and out, element loads
+//      converted to f32 otherwise (any F, any alignment, bf16);
+//    - every output one FFMA chain over k in order (or four such chains
+//      added in a fixed order), the epilogue g / (1 + expf(-g)) u with a
+//      correctly rounded division: two launches give the same bits, and M >
+//      16 the same bits as the earlier kernel.
+//    On an H100 80GB HBM3 at 700 W (SM clock 1980 MHz throughout;
+//    scripts/swiglu_f32_probe.py --earlier, both in one session): 0.5762
+//    ms at M = 512 (61% of the bound; the earlier kernel 1.1069, cuBLAS's two
+//    SGEMMs and silu·mul 0.5300), 2.0234 at the experts E 64, M 120, F 1408
+//    (65%; 4.0925, cuBLAS 2.0364), 0.0499 at M = 8 (55% of the byte bound;
+//    0.1682, cuBLAS 0.1031).  What is left at M = 512: without its loads
+//    0.5354, its FFMAs alone 0.4790 (83% of the issue rate after the 89%
+//    wave).  Tried and left out: double-buffered fragments (220 registers,
+//    so 2 CTAs an SM: 0.7450), 16 k rows a stage (0.6697), the copy loops
+//    rolled (~10% slower), the 64-row class at M = 512 (0.5878).
 //
 // 4. The backward of both entries (swiglu_matmul_wgmma_bwd,
 //    swiglu_experts_wgmma_bwd; the TPU kernel has no VJP, its model trains
@@ -120,8 +157,9 @@
 // 197,696 bytes (2 consumers) and 164,928 (3) forward, 230,496 and 214,128
 // backward (swiglu_matmul_bwd_layout); swiglu_decode_kernel 48 / 96 / 121
 // registers for 16 / 32 / 64 rows of x, 87,040 to 102,400 bytes of dynamic
-// shared memory; swiglu_kernel 32 to 64 registers, 10-12 KB of static shared
-// memory.
+// shared memory; swiglu_cuda_core_kernel 168 registers (the 128- and the
+// 64-row classes, 3 and 6 CTAs an SM), 93 to 104 (the small class), no
+// spills, 33,280, 25,088 and 43,008 bytes of dynamic shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -137,22 +175,210 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// EXPERTS: E products, the expert on the grid's z axis
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool EXPERTS>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN)) swiglu_kernel(
+// ------------------------------------------------------------------------- //
+// 3. cuda_core: f32 FFMA fed by a cp.async ring, both products a thread
+// ------------------------------------------------------------------------- //
+namespace simt {
+constexpr int SMALL_M = 16;  // rows up to which the small class runs
+
+// A tile class.  A CTA computes [BM rows, BN columns] of both products.  Its
+// threads form KSPLIT groups: group s takes k rows [s KG, (s + 1) KG) of
+// every stage of BK rows, and the groups' partial sums are added in group
+// order after the mainloop (KSPLIT = 1: one FFMA chain an output).  Thread
+// (ty, tx) of a group holds TM x TN outputs of each product: rows ty 4 + i
+// (i < 4) of each of the tile's TM / 4 row blocks (RH rows apart) and
+// columns tx 4 + j of each of its TN / 4 column blocks (CH apart), so that
+// each of its fragment reads is one 16-byte float4 and a warp's reads of a k
+// row cover consecutive addresses.  CTAS: the CTAs an SM the class is built
+// for, at least (__launch_bounds__ caps the registers so that they fit; the
+// wave model counts on it).  DB: the next
+// k row's fragments are read into a second set of registers while this
+// row's FFMAs run (else the CTA's other warps hide the reads' latency).
+template <int BM_, int BN_, int BK_, int TM_, int TN_, int KSPLIT_, int STAGES_, int CTAS_,
+          bool DB_>
+struct Cls {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_, KSPLIT = KSPLIT_;
+  static constexpr int STAGES = STAGES_;  // the ring's stages
+  static constexpr int CTAS = CTAS_;
+  static constexpr bool DB = DB_;
+  static constexpr int NTY = BM / TM, NTX = BN / TN;
+  static constexpr int GROUP = NTY * NTX;  // threads of a k group
+  static constexpr int NT = GROUP * KSPLIT;
+  static constexpr int KG = BK / KSPLIT;  // k rows of a stage a group takes
+  static constexpr int RH = BM / (TM / 4), CH = BN / (TN / 4);
+  static constexpr int XLD = BM + 4;  // the x tile transposed, [BK][XLD] (padded: below)
+  static constexpr int X_ELEMS = BK * XLD, W_ELEMS = BK * BN;
+  static constexpr int STAGE = X_ELEMS + 2 * W_ELEMS;  // floats: x, wg, wu
+  static constexpr int RED = KSPLIT > 1 ? KSPLIT * 2 * BM * BN : 0;  // the groups' partials
+  static constexpr int FLOATS = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && BK % 8 == 0 && KG % 2 == 0, "tile");
+  static_assert(NT % 32 == 0, "whole warps");
+  static_assert(STAGE % 4 == 0 && X_ELEMS % 4 == 0, "16-byte fragment reads");
+  static constexpr int BYTES = FLOATS * 4;  // dynamic shared memory
+  static_assert(BYTES <= 232448, "shared memory");
+};
+// M <= SMALL_M, bound by the weights' bytes: narrow column slabs (176 CTAs
+// at F = 5632), each warp a quarter of every stage's k rows
+using Small = Cls<16, 32, 32, 4, 4, 4, 4, 4, true>;
+// M > SMALL_M, bound by operations: 8 x 8 outputs of each product a thread
+// (8 + 8 + 8 floats of fragments feed 128 FFMA: 0.75 byte of shared memory
+// an FFMA), 168 registers a thread so that 12 warps fit an SM
+using R64 = Cls<64, 64, 8, 8, 8, 1, 4, 6, false>;
+using R128 = Cls<128, 64, 8, 8, 8, 1, 4, 3, false>;
+
+__device__ __forceinline__ void put4(float* f, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// Copy t of a thread's share of a stage (k rows k0 .. k0 + BK - 1) into the
+// ring slot at sm, zero past M, D and F.  x goes transposed, [BK][XLD]:
+// element e = tid + t NT of the x tile is row (e / 8) % BM, k 8 (e / (8 BM))
+// + e % 8, so 8 threads read one 32-byte sector of a row and a warp's 4 rows
+// x 8 k land on 32 different banks (XLD = 4 mod 32).  The weights go as they
+// lie, [BK][BN] each: copy c = tid + t NT is k row c / BN, column c % BN.
+// These are the general path's copies: element loads converted to f32 and
+// stored (any F, any alignment, bf16).  The fast path (load) copies the same
+// x elements by 4-byte cp.async, and the weights 16 bytes at a time.
+template <class C, typename T>
+__device__ __forceinline__ void copy_x(float* sm, const T* x, int t, int k0, int m0, int M, int D,
+                                       int tid) {
+  const int e = tid + t * C::NT, r = e / 8 % C::BM, kk = e / (8 * C::BM) * 8 + e % 8;
+  const bool ok = m0 + r < M && k0 + kk < D;
+  sm[kk * C::XLD + r] = ok ? to_f32(x[(long long)(m0 + r) * D + k0 + kk]) : 0.f;
+}
+template <class C, typename T>
+__device__ __forceinline__ void copy_w(float* sm, const T* wg, const T* wu, int t, int k0, int n0,
+                                       int D, int F, int tid) {
+  static_assert(C::NT % C::BN == 0, "weight copies");
+  const int kk = tid / C::BN + t * (C::NT / C::BN), n = tid % C::BN;
+  const bool ok = k0 + kk < D && n0 + n < F;
+  const long long off = (long long)(k0 + kk) * F + n0 + n;
+  sm[C::X_ELEMS + kk * C::BN + n] = ok ? to_f32(wg[off]) : 0.f;
+  sm[C::X_ELEMS + C::W_ELEMS + kk * C::BN + n] = ok ? to_f32(wu[off]) : 0.f;
+}
+// The stage of k rows k0 .. into the ring slot at sm, zero past M, D and F.
+// The general path runs copy_x and copy_w in loops that are not unrolled:
+// its element loads' addresses then stay out of the registers the 8 x 8
+// classes are short of.  The fast path (f32; F % 4 == 0 and 16-byte aligned
+// weights, so each 16 bytes lie in one row, inside F or past it) copies by
+// cp.async, unrolled and walked by pointer increments from one address a
+// thread: the rolled loops' control cost ~10% at M = 512, and addresses
+// computed apart from the thread and copy index spill.
+template <class C, bool FAST, typename T>
+__device__ __forceinline__ void load(float* sm, const T* x, const T* wg, const T* wu, int k0,
+                                     int m0, int n0, int M, int D, int F, int tid) {
+  static_assert(!FAST || sizeof(T) == 4, "the fast path copies f32");
+  constexpr int XN = C::BM * C::BK / C::NT, WN = C::BK * C::BN / (FAST ? 4 : 1) / C::NT;
+  static_assert(XN * C::NT == C::BM * C::BK && WN * C::NT * (FAST ? 4 : 1) == C::BK * C::BN,
+                "copies");
+  if constexpr (FAST) {
+    // x: thread tid starts at row tid / 8, k tid % 8, and walks NT / 8 rows
+    // down, then 8 k on (the same copies as copy_x's)
+    constexpr int XR = C::NT / 8;
+    static_assert(C::BM % XR == 0, "x copies walk down the rows");
+#pragma unroll
+    for (int c = 0; c < C::BK / 8; ++c) {
+      const int kk = tid % 8 + 8 * c;
+      const bool kin = k0 + kk < D;
+      int r = tid / 8;
+      const T* src = x + (long long)(m0 + r) * D + k0 + kk;
+      float* dst = sm + kk * C::XLD + r;
+#pragma unroll
+      for (int j = 0; j < C::BM / XR; ++j) {
+        const bool ok = kin && m0 + r < M;
+        hopper::cp_async4(dst, ok ? src : x, ok);
+        r += XR;
+        src += (long long)XR * D;
+        dst += XR;
+      }
+    }
+    // the weights: 16 bytes a copy, thread tid at k row tid / (BN / 4),
+    // columns 4 (tid % (BN / 4)), walking NT / (BN / 4) rows down
+    constexpr int WC = C::BN / 4, WR = C::NT / WC;
+    static_assert(C::NT % WC == 0, "weight copies");
+    const int n = tid % WC * 4;
+    const bool nin = n0 + n < F;
+    int kw = tid / WC;
+    long long off = (long long)(k0 + kw) * F + n0 + n;
+    float* g = sm + C::X_ELEMS + kw * C::BN + n;
+#pragma unroll
+    for (int t = 0; t < WN; ++t) {
+      const bool ok = nin && k0 + kw < D;
+      hopper::cp_async16(g, wg + (ok ? off : 0), ok);
+      hopper::cp_async16(g + C::W_ELEMS, wu + (ok ? off : 0), ok);
+      kw += WR;
+      off += (long long)WR * F;
+      g += WR * C::BN;
+    }
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < XN; ++t) copy_x<C>(sm, x, t, k0, m0, M, D, tid);
+#pragma unroll 1
+    for (int t = 0; t < WN; ++t) copy_w<C>(sm, wg, wu, t, k0, n0, D, F, tid);
+  }
+}
+
+// A thread's fragments of k row kk of a stage: its TM x values (frag_x),
+// its TN weights of product p (frag_w), each four by one float4
+template <class C>
+__device__ __forceinline__ void frag_x(float (&a)[C::TM], const float* stage, int kk, int ty) {
+  const float* xs = stage + kk * C::XLD + ty * 4;
+#pragma unroll
+  for (int h = 0; h < C::TM / 4; ++h) put4(a + 4 * h, xs + h * C::RH);
+}
+template <class C>
+__device__ __forceinline__ void frag_w(float (&b)[C::TN], const float* stage, int kk, int tx,
+                                       int p) {
+  const float* ws = stage + C::X_ELEMS + p * C::W_ELEMS + kk * C::BN + tx * 4;
+#pragma unroll
+  for (int h = 0; h < C::TN / 4; ++h) put4(b + 4 * h, ws + h * C::CH);
+}
+
+template <class C>
+__device__ __forceinline__ void fma_tile(float (&acc)[C::TM][C::TN], const float (&a)[C::TM],
+                                         const float (&b)[C::TN]) {
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+// One k row's fragments of both products, for the double-buffered mainloop
+template <class C>
+struct Frag {
+  float a[C::TM], g[C::TN], u[C::TN];
+  __device__ __forceinline__ void load(const float* stage, int kk, int ty, int tx) {
+    frag_x<C>(a, stage, kk, ty);
+    frag_w<C>(g, stage, kk, tx, 0);
+    frag_w<C>(u, stage, kk, tx, 1);
+  }
+};
+template <class C>
+__device__ __forceinline__ void fma_frag(float (&acc)[2][C::TM][C::TN], const Frag<C>& f) {
+  fma_tile<C>(acc[0], f.a, f.g);
+  fma_tile<C>(acc[1], f.a, f.u);
+}
+
+// out = silu(x wg) (x wu) on the CUDA cores, tile class C.  EXPERTS: E
+// products, the expert on the grid's z axis.  The grid's x axis walks the
+// row tiles, so the CTAs that share a slab of the weights run together and
+// read it from L2.  Every output is one thread's FFMA chain over k in order
+// (or KSPLIT such chains added in group order): two launches give the same
+// bits.  The epilogue is IEEE f32: g / (1 + expf(-g)) u, the division
+// correctly rounded.
+template <class C, bool FAST, bool EXPERTS, typename T>
+__global__ void __launch_bounds__(C::NT, C::CTAS) swiglu_cuda_core_kernel(
     const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
     T* __restrict__ out, int M, int D, int F) {
-  constexpr int NTX = BN / TN;  // threads along F
-  constexpr int NTY = BM / TM;  // threads along M
-  constexpr int NT = NTX * NTY;
-  __shared__ float xs[BK][BM + 1];  // x tile, transposed; padded against bank conflicts
-  __shared__ float gs[BK][BN];
-  __shared__ float us[BK][BN];
-
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x;
-  const int tx = tid % NTX, ty = tid / NTX;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int grp = tid / C::GROUP, tx = tid % C::GROUP % C::NTX, ty = tid % C::GROUP / C::NTX;
+  const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
   if constexpr (EXPERTS) {
     const long long e = blockIdx.z;
     x += e * M * D;
@@ -160,79 +386,209 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) swiglu_kernel(
     wu += e * D * F;
     out += e * M * F;
   }
+  const int nk = (D + C::BK - 1) / C::BK;
+  const int kg0 = grp * C::KG;  // the group's first k row of a stage
+  float acc[2][C::TM][C::TN];   // gate, up
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[0][i][j] = acc[1][i][j] = 0.f;
 
-  float accg[TM][TN], accu[TM][TN];
+  // the ring: stage i lives in slot i % STAGES; stages i + 1 .. i + STAGES -
+  // 2 are in flight while stage i is read; one barrier a stage
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < nk) load<C, FAST>(sm + s * C::STAGE, x, wg, wu, s * C::BK, m0, n0, M, D, F, tid);
+    hopper::cp_async_commit();
+  }
+  hopper::cp_async_wait<C::STAGES - 2>();  // stage 0 has landed ...
+  __syncthreads();                      // ... for every thread
+  if constexpr (C::DB) {
+    Frag<C> frag[2];
+    frag[0].load(sm, kg0, ty, tx);
+    for (int i = 0; i < nk; ++i) {
+      const float* cur = sm + (i % C::STAGES) * C::STAGE;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) accg[i][j] = accu[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, kk = i % BK;  // consecutive threads: consecutive k
-      const int m = m0 + r, kd = k0 + kk;
-      xs[kk][r] = (m < M && kd < D) ? to_f32(x[(long long)m * D + kd]) : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, c = i % BN;  // consecutive threads: consecutive f
-      const int kd = k0 + kk, n = n0 + c;
-      const bool in = kd < D && n < F;
-      const long long g = (long long)kd * F + n;
-      gs[kk][c] = in ? to_f32(wg[g]) : 0.f;
-      us[kk][c] = in ? to_f32(wu[g]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bg[TN], bu[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + NTY * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bg[j] = gs[kk][tx + NTX * j];
-        bu[j] = us[kk][tx + NTX * j];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          accg[i][j] = fmaf(a[i], bg[j], accg[i][j]);
-          accu[i][j] = fmaf(a[i], bu[j], accu[i][j]);
+      for (int q = 0; q < C::KG; ++q) {
+        if (q == C::KG - 1) {
+          hopper::cp_async_wait<C::STAGES - 2>();  // stage i + 1 has landed, and every
+          __syncthreads();                      // thread has read its last of stage i - 1
+          frag[(q + 1) & 1].load(sm + ((i + 1) % C::STAGES) * C::STAGE, kg0, ty, tx);
+        } else {
+          frag[(q + 1) & 1].load(cur, kg0 + q + 1, ty, tx);
         }
+        if (q == 0) {  // into the slot stage i - 1 left
+          if (i + C::STAGES - 1 < nk)
+            load<C, FAST>(sm + ((i + C::STAGES - 1) % C::STAGES) * C::STAGE, x, wg, wu,
+                          (i + C::STAGES - 1) * C::BK, m0, n0, M, D, F, tid);
+          hopper::cp_async_commit();
+        }
+        fma_frag<C>(acc, frag[q & 1]);
+      }
     }
-    __syncthreads();
+  } else {
+    // no second set of fragments: the gate's FFMAs run on x and wg, then the
+    // up product's on x and wu in wg's registers (16 live, not 24)
+    for (int i = 0; i < nk; ++i) {
+      if (i + C::STAGES - 1 < nk)  // into the slot stage i - 1 left
+        load<C, FAST>(sm + ((i + C::STAGES - 1) % C::STAGES) * C::STAGE, x, wg, wu,
+                      (i + C::STAGES - 1) * C::BK, m0, n0, M, D, F, tid);
+      hopper::cp_async_commit();
+      const float* cur = sm + (i % C::STAGES) * C::STAGE;
+#pragma unroll
+      for (int q = 0; q < C::KG; ++q) {
+        float a[C::TM], b[C::TN];
+        frag_x<C>(a, cur, kg0 + q, ty);
+        frag_w<C>(b, cur, kg0 + q, tx, 0);
+        fma_tile<C>(acc[0], a, b);
+        frag_w<C>(b, cur, kg0 + q, tx, 1);
+        fma_tile<C>(acc[1], a, b);
+      }
+      hopper::cp_async_wait<C::STAGES - 2>();  // stage i + 1 has landed, and every
+      __syncthreads();                      // thread is done with stage i
+    }
   }
 
+  auto silu_mul = [](float g, float u) { return g / (1.f + expf(-g)) * u; };
+  if constexpr (C::KSPLIT == 1) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + NTY * i;
-    if (m >= M) continue;
+    for (int i = 0; i < C::TM; ++i) {
+      const int m = m0 + i / 4 * C::RH + ty * 4 + i % 4;
+      if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + NTX * j;
-      if (n >= F) continue;
-      const float g = accg[i][j];
-      store(out + (long long)m * F + n, g / (1.f + expf(-g)) * accu[i][j]);
+      for (int h = 0; h < C::TN / 4; ++h) {
+        const int n = n0 + h * C::CH + tx * 4;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = silu_mul(acc[0][i][4 * h + j], acc[1][i][4 * h + j]);
+        T* o = out + (long long)m * F + n;
+        if constexpr (FAST) {
+          if (n < F) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n + j < F) store(o + j, v[j]);
+        }
+      }
+    }
+  } else {
+    // the ring's memory takes the groups' partials, [KSPLIT][gate, up][BM][BN]
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // every group is done with the ring
+    constexpr int TILE = C::BM * C::BN;
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        const int o = (i / 4 * C::RH + ty * 4 + i % 4) * C::BN + j / 4 * C::CH + tx * 4 + j % 4;
+        sm[2 * grp * TILE + o] = acc[0][i][j];
+        sm[(2 * grp + 1) * TILE + o] = acc[1][i][j];
+      }
+    __syncthreads();
+    for (int o = tid; o < TILE; o += C::NT) {
+      const int m = m0 + o / C::BN, n = n0 + o % C::BN;
+      float g = sm[o], u = sm[TILE + o];
+#pragma unroll
+      for (int s = 1; s < C::KSPLIT; ++s) {
+        g += sm[2 * s * TILE + o];
+        u += sm[(2 * s + 1) * TILE + o];
+      }
+      if (m < M && n < F) store(out + (long long)m * F + n, silu_mul(g, u));
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool EXPERTS>
+template <class C, bool FAST, bool EXPERTS, typename T>
 int launch(const void* x, const void* wg, const void* wu, void* out, int E, int M, int D, int F,
            cudaStream_t stream) {
-  const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM, E);
-  swiglu_kernel<T, BM, BN, BK, TM, TN, EXPERTS><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+  const dim3 grid((M + C::BM - 1) / C::BM, (F + C::BN - 1) / C::BN, E);
+  if (C::BYTES > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(swiglu_cuda_core_kernel<C, FAST, EXPERTS, T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  swiglu_cuda_core_kernel<C, FAST, EXPERTS, T><<<grid, C::NT, C::BYTES, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
       static_cast<T*>(out), M, D, F);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool EXPERTS>
-int dispatch_m(const void* x, const void* wg, const void* wu, void* out, int E, int M, int D,
-               int F, cudaStream_t stream) {
-  if (M <= 16) return launch<T, 16, 32, 32, 2, 1, EXPERTS>(x, wg, wu, out, E, M, D, F, stream);
-  return launch<T, 64, 64, 16, 4, 4, EXPERTS>(x, wg, wu, out, E, M, D, F, stream);
+// The tile class of a call: 0 (Small) for M <= SMALL_M; else 1 (R64) or 2
+// (R128), whichever costs less in a wave-count model, the larger tile on a
+// tie: a wave is one CTA on each of the CTAS slots of every SM, and takes as
+// long as an SM needs for CTAS x BM x BN outputs of each product; the tiles
+// take ceil(tiles / (SMs x CTAS)) waves.  M = 512, F = 5632: 352 tiles of
+// R128 fill one wave of 396 slots (89%), as 704 of R64 fill 792; R128's
+// larger tile reads less of L2 for the same outputs.
+// kernels/swiglu_matmul.py::cuda_core_plan repeats it.
+int tile_class(long long E, long long M, long long F, long long sms) {
+  if (M <= SMALL_M) return 0;
+  auto cost = [&](long long bm, long long bn, long long ctas) {
+    const long long tiles = E * ((M + bm - 1) / bm) * ((F + bn - 1) / bn), slots = sms * ctas;
+    return (tiles + slots - 1) / slots * ctas * bm * bn;
+  };
+  return cost(R64::BM, R64::BN, R64::CTAS) < cost(R128::BM, R128::BN, R128::CTAS) ? 1 : 2;
 }
+
+// The fast load path: f32, F % 4 == 0, and wg, wu and out on 16-byte
+// boundaries (x goes 4 bytes at a time: D and x's alignment are free).
+bool fast_path(int dtype, int F, bool aligned) { return dtype == 0 && F % 4 == 0 && aligned; }
+
+bool aligned16(const void* wg, const void* wu, const void* out) {
+  return ((reinterpret_cast<uintptr_t>(wg) | reinterpret_cast<uintptr_t>(wu) |
+           reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+}
+
+template <class C, bool EXPERTS>
+int launch_path(bool fast, int dtype, const void* x, const void* wg, const void* wu, void* out,
+                int E, int M, int D, int F, cudaStream_t s) {
+  if (dtype == 1) return launch<C, false, EXPERTS, __nv_bfloat16>(x, wg, wu, out, E, M, D, F, s);
+  if (fast) return launch<C, true, EXPERTS, float>(x, wg, wu, out, E, M, D, F, s);
+  return launch<C, false, EXPERTS, float>(x, wg, wu, out, E, M, D, F, s);
+}
+
+template <bool EXPERTS>
+int dispatch(const void* x, const void* wg, const void* wu, void* out, int E, int M, int D, int F,
+             int dtype, cudaStream_t s) {
+  const bool fast = fast_path(dtype, F, aligned16(wg, wu, out));
+  switch (tile_class(E, M, F, hopper::num_sms())) {
+    case 0:
+      return launch_path<Small, EXPERTS>(fast, dtype, x, wg, wu, out, E, M, D, F, s);
+    case 1:
+      return launch_path<R64, EXPERTS>(fast, dtype, x, wg, wu, out, E, M, D, F, s);
+    default:
+      return launch_path<R128, EXPERTS>(fast, dtype, x, wg, wu, out, E, M, D, F, s);
+  }
+}
+
+// A class's constants (layout keys 8 c + f, below); f = 6: the CTAs an SM
+// the card gives its f32 fast-path kernel
+template <class C>
+long long constant(int f) {
+  switch (f) {
+    case 0: return C::BM;
+    case 1: return C::BN;
+    case 2: return C::BK;
+    case 3: return C::KSPLIT;
+    case 4: return C::NT;
+    case 5: return C::CTAS;
+    case 6: {
+      int n = -1;
+      auto kernel = swiglu_cuda_core_kernel<C, true, false, float>;
+      if ((C::BYTES > 48 * 1024 &&
+           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                C::BYTES) != cudaSuccess) ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, C::NT, C::BYTES) !=
+              cudaSuccess)
+        return -1;
+      return n;
+    }
+    case 7: return C::STAGES;
+    default: return -1;
+  }
+}
+}  // namespace simt
 
 // ------------------------------------------------------------------------- //
 // 1. prefill: wgmma fed by TMA, warp-specialised
@@ -826,10 +1182,9 @@ int dispatch(const void* x, const void* wgt, const void* wup, void* out, int E, 
 extern "C" int swiglu_matmul_fwd(const void* x, const void* wg, const void* wu, void* out,
                                  int M, int D, int F, int dtype, void* stream) {
   if (M <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_m<float, false>(x, wg, wu, out, 1, M, D, F, s);
-  if (dtype == 1) return dispatch_m<__nv_bfloat16, false>(x, wg, wu, out, 1, M, D, F, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return simt::dispatch<false>(x, wg, wu, out, 1, M, D, F, dtype,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 tensor-core variants: same operands, bf16 only; D and F must be
@@ -852,10 +1207,38 @@ extern "C" int swiglu_matmul_decode_fwd(const void* x, const void* wg, const voi
 extern "C" int swiglu_experts_fwd(const void* x, const void* wg, const void* wu, void* out, int E,
                                   int M, int D, int F, int dtype, void* stream) {
   if (E <= 0 || E > 65535 || M <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_m<float, true>(x, wg, wu, out, E, M, D, F, s);
-  if (dtype == 1) return dispatch_m<__nv_bfloat16, true>(x, wg, wu, out, E, M, D, F, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return simt::dispatch<true>(x, wg, wu, out, E, M, D, F, dtype,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The CUDA-core entries' plan for E products of M rows (E = 1: one product),
+// D, F, dtype (0 = f32, 1 = bf16) and whether wg, wu and out lie on 16-byte
+// boundaries, on this card: its tile class (0 Small, 1 R64, 2 R128) times 2,
+// plus 1 on the fast load path; -1 for shapes the entries refuse.
+// kernels/swiglu_matmul.py::cuda_core_plan repeats it; a card test holds the
+// two equal.
+extern "C" long long swiglu_cuda_core_plan(int E, int M, int D, int F, int dtype, int aligned) {
+  if (E <= 0 || M <= 0 || D <= 0 || F <= 0 || (dtype != 0 && dtype != 1)) return -1;
+  return 2LL * simt::tile_class(E, M, F, hopper::num_sms()) +
+         (simt::fast_path(dtype, F, aligned != 0) ? 1 : 0);
+}
+
+// The CUDA-core kernel's constants, which kernels/swiglu_matmul.py repeats
+// (CUDA_CORE_CLASSES, CUDA_CORE_SMALL_M) and a card test holds equal: key 8
+// c + f for tile class c (0 Small, 1 R64, 2 R128), f = 0 its rows, 1 its
+// columns, 2 the k rows of a stage, 3 its k groups, 4 its threads, 5 the
+// CTAs an SM it is built for, 6 the CTAs an SM this card gives its f32
+// kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 7 its ring's
+// stages; key 24 the small class's largest M; -1 for any other.
+extern "C" long long swiglu_cuda_core_layout(int key) {
+  if (key == 24) return simt::SMALL_M;
+  if (key < 0 || key >= 24) return -1;
+  switch (key / 8) {
+    case 0: return simt::constant<simt::Small>(key % 8);
+    case 1: return simt::constant<simt::R64>(key % 8);
+    default: return simt::constant<simt::R128>(key % 8);
+  }
 }
 
 extern "C" int swiglu_experts_wgmma_fwd(const void* x, const void* wg, const void* wu, void* out,

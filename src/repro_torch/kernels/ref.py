@@ -11,7 +11,8 @@ backward routes (f32, and shapes the kernels do not take) compute through
 the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
 decomposition and operand rounding on the CPU, for the tests, and
-:func:`ssd_scan_bwd_phases` its backward ``wgmma_bwd``'s.
+:func:`ssd_scan_bwd_phases` its backward ``wgmma_bwd``'s;
+:func:`swiglu_ksplit_ref` the SwiGLU ``cuda_core`` small class's split sum.
 """
 from __future__ import annotations
 
@@ -471,6 +472,24 @@ def swiglu_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Ten
     """silu(x @ wg) * (x @ wu), f32 accumulation."""
     g = torch.einsum("md,df->mf", x.to(F32), wg.to(F32))
     u = torch.einsum("md,df->mf", x.to(F32), wu.to(F32))
+    return (F.silu(g) * u).to(x.dtype)
+
+
+def swiglu_ksplit_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, bk: int,
+                      ksplit: int) -> torch.Tensor:
+    """silu(x wg) (x wu) with each product summed as the ``cuda_core``
+    kernel's small class sums it: k group s of ``ksplit`` takes k rows [s
+    bk / ksplit, (s + 1) bk / ksplit) of every stage of ``bk`` rows, each
+    group's partial in f32 (f64 for f64 inputs), then the partials added in
+    group order.  One product or a leading expert dim."""
+    acc = torch.promote_types(x.dtype, F32)
+    group = torch.arange(x.shape[-1]) % bk // (bk // ksplit)
+    g = u = None
+    for s in range(ksplit):
+        rows = group == s
+        xs = x[..., rows].to(acc)
+        pg, pu = xs @ wg[..., rows, :].to(acc), xs @ wu[..., rows, :].to(acc)
+        g, u = (pg, pu) if g is None else (g + pg, u + pu)
     return (F.silu(g) * u).to(x.dtype)
 
 

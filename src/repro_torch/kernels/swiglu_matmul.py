@@ -13,7 +13,16 @@ shapes and the dtype alone:
 - ``decode``: bf16 decode (M < ``PREFILL_MIN_M``), a weight stream on
   ``mma.sync`` with K split across a thread-block cluster;
 - ``cuda_core``: f32, and bf16 whose D or F is not a multiple of 8 (TMA and
-  16-byte copies need 16-byte row strides); any M, D, F.
+  16-byte copies need 16-byte row strides); any M, D, F.  FFMA on the CUDA
+  cores, in IEEE f32, fed by a ring of shared-memory stages.  Two load paths, picked from the operands before the launch: the
+  fast one (f32, F a multiple of 4, wg, wu and out on 16-byte boundaries)
+  copies the weights 16 bytes at a time by ``cp.async`` and x 4 bytes at a
+  time, transposed on the way in; the general one (any other f32 call, and
+  bf16) loads element by element and converts to f32.  Three tile classes
+  (``CUDA_CORE_CLASSES``): ``small`` for M <= ``CUDA_CORE_SMALL_M``, bound
+  by the weights' bytes, else ``r64`` or ``r128``, whichever a wave-count
+  model over the card's SMs prefers (:func:`cuda_core_plan`, which repeats
+  the C side's choice).
 
 :func:`swiglu_experts` computes ``out[e] = silu(x[e] @ wg[e]) * (x[e] @
 wu[e])`` for ``x [E, M, D]`` and ``wg, wu [E, D, F]`` in one launch: the
@@ -61,10 +70,22 @@ from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import swiglu_derivative, swiglu_experts_ref, swiglu_ref
 
 __all__ = ["swiglu_matmul", "swiglu_experts", "swiglu_vjp", "swiglu_grads", "select_variant",
-           "select_experts_variant", "select_bwd_variant", "work", "work_bwd", "LIBRARY",
-           "PREFILL_MIN_M"]
+           "select_experts_variant", "select_bwd_variant", "cuda_core_plan", "work", "work_bwd",
+           "LIBRARY", "PREFILL_MIN_M", "CUDA_CORE_CLASSES", "CUDA_CORE_SMALL_M"]
 
 PREFILL_MIN_M = 64  # rows from which the bf16 product is bound by operations
+# The CUDA-core kernel's tile classes (csrc/swiglu_matmul.cu, namespace
+# simt), in the order of their C index, as its C function
+# swiglu_cuda_core_layout gives them (a card test holds the two equal): rows
+# and columns of a CTA's tile, k rows of a stage, k groups (whose partial sums
+# are added in group order), threads, the CTAs an SM it is built for, and the
+# stages of its ring.
+CUDA_CORE_CLASSES = {
+    "small": dict(bm=16, bn=32, bk=32, ksplit=4, threads=128, ctas=4, stages=4),
+    "r64": dict(bm=64, bn=64, bk=8, ksplit=1, threads=64, ctas=6, stages=4),
+    "r128": dict(bm=128, bn=64, bk=8, ksplit=1, threads=128, ctas=3, stages=4),
+}
+CUDA_CORE_SMALL_M = 16  # rows up to which the small class runs
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P]  # x, wg, wu, out, M, D, F, stream
 _EXPERT_TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]  # x, wg, wu, out, E, M, D, F, stream
@@ -106,6 +127,33 @@ def select_bwd_variant(M: int, D: int, F: int, dtype: torch.dtype, experts: bool
     if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
         return "experts_wgmma_bwd" if experts else "wgmma_bwd"
     return "vjp"
+
+
+def cuda_core_plan(E: int, M: int, D: int, F: int, dtype: torch.dtype, aligned: bool = True,
+                   sms: int = 132) -> tuple:
+    """(tile class, load path) of a ``cuda_core`` / ``experts_cuda_core``
+    call of E products of M rows (E = 1: one product) on a card with ``sms``
+    SMs, as the C side (``swiglu_cuda_core_plan``) picks them before the
+    launch.  ``aligned``: wg, wu and out start on 16-byte boundaries.
+
+    The class: ``small`` for M <= ``CUDA_CORE_SMALL_M``; else ``r64`` or
+    ``r128``, whichever costs less in a wave-count model, ``r128`` on a tie.
+    A wave is one CTA on each of a class's ``ctas`` slots of every SM and
+    takes as long as an SM needs for ``ctas`` tiles' outputs; the call's
+    tiles take ceil(tiles / (sms ctas)) waves.  The path: ``fast`` for f32
+    with F a multiple of 4 and aligned operands (x goes 4 bytes at a time,
+    so D is free), else ``general``."""
+    if min(E, M, D, F) <= 0 or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"no CUDA-core plan for E={E} M={M} D={D} F={F} {dtype}")
+    path = "fast" if dtype == torch.float32 and F % 4 == 0 and aligned else "general"
+    if M <= CUDA_CORE_SMALL_M:
+        return "small", path
+
+    def cost(c):
+        tiles = E * -(-M // c["bm"]) * -(-F // c["bn"])
+        return -(-tiles // (sms * c["ctas"])) * c["ctas"] * c["bm"] * c["bn"]
+    r64, r128 = CUDA_CORE_CLASSES["r64"], CUDA_CORE_CLASSES["r128"]
+    return ("r64" if cost(r64) < cost(r128) else "r128"), path
 
 
 def work(M: int, D: int, F: int, elem: int, E: int = 1) -> tuple:

@@ -67,7 +67,20 @@ def test_flash_kernel(card, dtype, causal, Sq, Sk, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,D,F", [(8, 256, 96), (200, 256, 96), (5, 100, 70)])
+@pytest.mark.parametrize("M,D,F", [(8, 256, 96), (200, 256, 96), (5, 100, 70),
+                                   # f32: the CUDA-core kernel's tile classes at their
+                                   # boundaries (small to 16 rows; 64- and 128-row tiles
+                                   # ± 1; 576 takes the 64-row class)
+                                   (16, 256, 96), (17, 256, 96), (63, 256, 96), (64, 256, 96),
+                                   (65, 256, 96), (127, 256, 96), (128, 256, 96),
+                                   (129, 256, 96), (576, 512, 5632),
+                                   # K tails that are not a multiple of a stage's 8 or 32
+                                   # k rows (fast path in f32; D % 8 != 0: the CUDA cores
+                                   # in bf16), the general path (F % 4 != 0) on each class
+                                   (8, 2050, 96), (200, 2050, 96), (8, 2050, 5630),
+                                   (200, 2050, 98), (576, 300, 70),
+                                   # the path shapes: M 512 and M 8 at TinyLlama's widths
+                                   (512, 2048, 5632), (8, 2048, 5632)])
 def test_swiglu_kernel(card, dtype, M, D, F):
     x, wg, wu = _inputs(card, 1, [(M, D), (D, F), (D, F)], dtype, scales=[1.0, D ** -0.5, D ** -0.5])
     before = SWIGLU_LIBRARY.launches
@@ -138,7 +151,12 @@ def test_flash_value_head_dim(card, dtype, causal, Sq, Sk, D, Dv):
 @pytest.mark.parametrize("E,M,D,F", [(64, 120, 2048, 1408), (64, 8, 2048, 1408),
                                      (5, 64, 256, 96), (5, 79, 2056, 200), (3, 63, 256, 96),
                                      (4, 1, 256, 96), (1, 200, 256, 96), (1, 8, 256, 96),
-                                     (3, 7, 100, 70), (3, 24, 256, 96), (64, 48, 2048, 1408)])
+                                     (3, 7, 100, 70), (3, 24, 256, 96), (64, 48, 2048, 1408),
+                                     # f32: the tile classes at their boundaries (64
+                                     # experts of 64 rows take the 64-row class), a K
+                                     # tail, the general path (F % 4 != 0)
+                                     (3, 16, 256, 96), (3, 17, 256, 96), (64, 64, 256, 1408),
+                                     (3, 129, 256, 96), (4, 20, 2050, 96), (4, 130, 2050, 98)])
 def test_swiglu_experts_kernel(card, dtype, E, M, D, F):
     """x [E, M, D], wg, wu [E, D, F] through the expert entry the selector
     picks (bf16: decode below 64 rows an expert, in 1, 2 or 4 row tiles of
@@ -879,6 +897,68 @@ def test_swiglu_wgmma_bwd(card, E, M, D, F):
         torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=2e-2)
     again = sw._launch_bwd(x, wg, wu, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (E or None, M, D, F, dtype): each tile class of the CUDA-core kernel on
+# each load path, both entries
+CUDA_CORE_CASES = [(None, 8, 2048, 5632, torch.float32), (None, 512, 2048, 5632, torch.float32),
+                   (None, 576, 512, 5632, torch.float32), (64, 120, 2048, 1408, torch.float32),
+                   (3, 8, 300, 70, torch.float32), (None, 200, 2050, 98, torch.float32),
+                   (None, 8, 100, 70, torch.bfloat16), (4, 200, 100, 70, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("E,M,D,F,dtype", CUDA_CORE_CASES)
+def test_cuda_core_same_bits(card, E, M, D, F, dtype):
+    """``cuda_core`` and ``experts_cuda_core`` give the same bits on two
+    launches: each output is one thread's FFMA chain over k in order, or
+    (the small class) four such chains added in group order; no atomics."""
+    import importlib
+
+    sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
+    lead = () if E is None else (E,)
+    x, wg, wu = _inputs(card, 43, [(*lead, M, D), (*lead, D, F), (*lead, D, F)], dtype,
+                        scales=[1.0, D ** -0.5, D ** -0.5])
+    variant = ("cuda_core" if E is None else "experts_cuda_core")
+    before = SWIGLU_LIBRARY.counts[variant]
+    first, second = sw._launch(x, wg, wu), sw._launch(x, wg, wu)
+    assert SWIGLU_LIBRARY.counts[variant] == before + 2
+    assert torch.equal(first, second)
+
+
+def test_cuda_core_layout_matches_the_model(card):
+    """The CUDA-core kernel's constants, as its C function
+    ``swiglu_cuda_core_layout`` gives them, equal the Python mirror's
+    (``CUDA_CORE_CLASSES``, ``CUDA_CORE_SMALL_M``);
+    the card fits at least the CTAs an SM each class is built for (its
+    registers and shared memory allow them: the wave model counts on it);
+    and the C side's plan
+    (``swiglu_cuda_core_plan``: tile class and load path) equals
+    ``cuda_core_plan`` over the class boundaries, both entries, both
+    dtypes, aligned or not, with the card's SM count."""
+    from repro_torch.kernels.swiglu_matmul import (
+        CUDA_CORE_CLASSES, CUDA_CORE_SMALL_M, cuda_core_plan,
+    )
+
+    def layout(key):
+        return SWIGLU_LIBRARY.size("swiglu_cuda_core_layout", key)
+
+    fields = ("bm", "bn", "bk", "ksplit", "threads", "ctas", None, "stages")
+    for c, (name, cls) in enumerate(CUDA_CORE_CLASSES.items()):
+        assert {f: layout(8 * c + i) for i, f in enumerate(fields) if f} == cls, name
+        assert layout(8 * c + 6) >= cls["ctas"], f"{name}: the card fits {layout(8 * c + 6)}"
+    assert (layout(24), layout(25), layout(-1)) == (CUDA_CORE_SMALL_M, -1, -1)
+    names = list(CUDA_CORE_CLASSES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for E in (1, 3, 64):
+        for M in (1, 8, 16, 17, 63, 64, 65, 120, 127, 128, 129, 512, 576, 1000, 4096):
+            for D, F in ((2048, 5632), (2050, 1408), (100, 70), (64, 98)):
+                for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                    for aligned in (True, False):
+                        got = SWIGLU_LIBRARY.size("swiglu_cuda_core_plan", E, M, D, F, code,
+                                                  int(aligned))
+                        cls, path = cuda_core_plan(E, M, D, F, dtype, aligned, sms=sms)
+                        assert got == 2 * names.index(cls) + (path == "fast"), (E, M, D, F, dtype)
+    assert SWIGLU_LIBRARY.size("swiglu_cuda_core_plan", 1, 0, 64, 64, 0, 1) == -1
 
 
 def test_swiglu_bwd_layout_matches_the_model(card):
