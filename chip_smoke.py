@@ -691,6 +691,125 @@ def backward_paths(torch, timer, rows, randn) -> None:
         torch.cuda.empty_cache()
 
 
+# (BH, Sq, Sk, D): the CPU tests' sweep, ragged ends, Sq != Sk both ways,
+# a head dim that is not a multiple of 16 (bf16 on the CUDA cores),
+# HuBERT's 80 (the mma tile of 128, masked past 80) ragged, and 300 rows
+# (five 64-key tiles: each of a row block's two walks takes more than one,
+# so alpha counts); f32 goes to the CUDA-core kernel, bf16 with D % 16 == 0
+# to the tensor cores
+FLASH_CASES = [(2, 128, 128, 64), (3, 256, 256, 128), (1, 64, 64, 32), (2, 96, 96, 64),
+               (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40),
+               (2, 100, 100, 80), (2, 77, 130, 80), (2, 130, 77, 80), (2, 300, 300, 64)]
+# (BH, Sq, Sk, D, Dv): a value head dim Dv != D (MLA's prefill: 192 / 128),
+# ragged and Sq != Sk, on the mma tiles (192/128, 64/64) and, off the
+# multiples of 16, the CUDA cores
+FLASH_DV_CASES = [(2, 100, 100, 192, 128), (2, 130, 100, 192, 128), (2, 100, 130, 192, 128),
+                  (1, 200, 200, 64, 32), (2, 96, 96, 40, 24)]
+# (BH, Sq, Sk, D, Dv, offset): the CUDA-core kernel's (class, path) pairs
+# the two lists above leave out: the general path of the 32/32, 128/128 and
+# 192/128 classes (bf16 with D % 16 != 0; f32 with D % 4 != 0) and of f32
+# operands one element off their 16-byte boundaries (offset 1)
+FLASH_PLAN_CASES = [(2, 150, 150, 30, 30, 0), (2, 150, 150, 120, 72, 0),
+                    (2, 150, 150, 180, 120, 0), (2, 150, 150, 64, 64, 1)]
+# every (tile class, load path) of the flash CUDA-core kernel, as its C plan
+# (flash_cuda_core_plan) numbers them: class 2 c + 1 on the fast path
+FLASH_CUDA_CORE_PLANS = {(c, p) for c in ("d32", "d64", "d128", "d192")
+                         for p in ("fast", "general")}
+# planted faults in copies of csrc/flash_attention.cu's CUDA-core kernel,
+# each of which the flash sweep must see: (name, ((old, new), ...))
+FLASH_CUDA_CORE_FAULTS = (
+    ("the last KV stage dropped", (("for (int h = 0; h < nh; ++h) {",
+                                    "for (int h = 0; h < nh - 2; ++h) {"),)),
+    ("a ring stage read one step early", (
+        ("const float* tile = own + h % C::NS * C::SLOT;",
+         "const float* tile = own + (h + 1) % C::NS * C::SLOT;"),)),
+    ("alpha not applied", (("for (int j = 0; j < C::TV; ++j) acc[i][j] *= alpha;",
+                            "for (int j = 0; j < C::TV; ++j) acc[i][j] *= 1.f;"),)),
+)
+
+
+def flash_sweep_cases(torch):
+    """Every case of the flash sweep: (BH, Sq, Sk, D, Dv, offset, dtype,
+    causal); operands off their boundaries in f32 only (the tensor-core
+    kernel, which bf16 with D % 16 == 0 takes, refuses them)."""
+    cases = ([(BH, Sq, Sk, D, D, 0) for BH, Sq, Sk, D in FLASH_CASES]
+             + [(*c, 0) for c in FLASH_DV_CASES] + list(FLASH_PLAN_CASES))
+    return [(*c, dtype, causal) for c in cases for dtype in (torch.float32, torch.bfloat16)
+            for causal in (True, False) if not (c[-1] and dtype == torch.bfloat16)]
+
+
+def flash_inputs(torch, randn, BH, Sq, Sk, D, Dv, offset, dtype):
+    """q, k, v, each a contiguous view ``offset`` elements into its storage
+    (1: off the 16-byte boundaries the CUDA-core kernel's fast path needs)."""
+    out = []
+    for shape in ((BH, Sq, D), (BH, Sk, D), (BH, Sk, Dv)):
+        t = randn(*shape, dtype=dtype)
+        if offset:
+            buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+            buf[offset:].copy_(t.reshape(-1))
+            t = buf[offset:].view(shape)
+        out.append(t)
+    return out
+
+
+def flash_cuda_core_plan_of(torch, lib, k, v, o) -> tuple:
+    """(tile class, load path) the C side picked for a flash CUDA-core
+    launch on these operands (``flash_cuda_core_plan``)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k, v, o))
+    code = lib.size("flash_cuda_core_plan", k.shape[-1], v.shape[-1],
+                    int(k.dtype == torch.bfloat16), int(aligned))
+    return ("d32", "d64", "d128", "d192")[code // 2], ("general", "fast")[code % 2]
+
+
+def flash_sweep(torch, randn, hit: set) -> set:
+    """Every case of ``flash_sweep_cases`` through the wrapper, held against
+    the plain version within FLASH_TOL; the variants reached go into
+    ``hit``.  Returns the CUDA-core kernel's (class, path) pairs reached."""
+    from repro_torch.kernels import FLASH_LIBRARY, flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    reached = set()
+    for BH, Sq, Sk, D, Dv, offset, dtype, causal in flash_sweep_cases(torch):
+        q, k, v = flash_inputs(torch, randn, BH, Sq, Sk, D, Dv, offset, dtype)
+        o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
+        hit.add(variant)
+        if variant == "cuda_core":
+            reached.add(flash_cuda_core_plan_of(torch, FLASH_LIBRARY, k, v, o))
+        r = flash_attention_ref(q, k, v, causal=causal)
+        tol = FLASH_TOL[str(dtype)]
+        if o.shape != r.shape or not within(o, r, tol):
+            raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D, Dv, offset)} "
+                                 f"{dtype} causal={causal}: max err {max_err(o, r):.3g} > {tol}")
+    return reached
+
+
+def flash_cuda_core_fault_sweep(torch, randn, lib) -> tuple:
+    """The flash sweep's CUDA-core cases launched from ``lib`` (a copy of the
+    library with a planted fault): (cases outside FLASH_TOL, cases, largest
+    error)."""
+    from repro_torch.kernels._build import stream_handle
+    from repro_torch.kernels.flash_attention import select_variant
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    failed = total = 0
+    worst = 0.0
+    for BH, Sq, Sk, D, Dv, offset, dtype, causal in flash_sweep_cases(torch):
+        if select_variant(D, Dv, dtype) != "cuda_core":
+            continue
+        q, k, v = flash_inputs(torch, randn, BH, Sq, Sk, D, Dv, offset, dtype)
+        o = torch.empty((BH, Sq, Dv), dtype=dtype, device="cuda")
+        lib.launch("cuda_core", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq,
+                   Sk, D, Dv, D ** -0.5, int(causal), int(dtype == torch.bfloat16),
+                   stream_handle(q))
+        torch.cuda.synchronize()
+        r = flash_attention_ref(q, k, v, causal=causal)
+        total += 1
+        err = max_err(o, r)
+        worst = max(worst, err if math.isfinite(err) else math.inf)
+        failed += not within(o, r, FLASH_TOL[str(dtype)])
+    return failed, total, worst
+
+
 # (M, D, F): the CPU tests' sweep, then a K tail (D = 2056) with F not a
 # multiple of the column tiles at both ends of the bf16 row range; bf16 goes
 # to the decode kernel below 64 rows and to wgmma from 64, f32 and unaligned
@@ -825,43 +944,20 @@ def check_kernels(torch, timer):
 
     rows = {}
     f32, bf16 = torch.float32, torch.bfloat16
-    # (BH, Sq, Sk, D): the CPU tests' sweep, ragged ends, Sq != Sk both ways,
-    # a head dim that is not a multiple of 16 (bf16 on the CUDA cores),
-    # HuBERT's 80 (the mma tile of 128, masked past 80) ragged; f32
-    # goes to the CUDA-core kernel, bf16 with D % 16 == 0 to the tensor cores
-    flash_cases = [(2, 128, 128, 64), (3, 256, 256, 128), (1, 64, 64, 32), (2, 96, 96, 64),
-                   (2, 100, 100, 16), (2, 64, 128, 64), (2, 128, 64, 64), (2, 100, 130, 40),
-                   (2, 100, 100, 80), (2, 77, 130, 80), (2, 130, 77, 80)]
     hit = {FLASH_LIBRARY.name: set(), SWIGLU_LIBRARY.name: set(), SSD_LIBRARY.name: set()}
-    for (BH, Sq, Sk, D) in flash_cases:
-        for dtype in (f32, bf16):
-            for causal in (True, False):
-                q, k, v = (randn(BH, s, D, dtype=dtype) for s in (Sq, Sk, Sk))
-                o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
-                hit[FLASH_LIBRARY.name].add(variant)
-                r = flash_attention_ref(q, k, v, causal=causal)
-                tol = FLASH_TOL[str(dtype)]
-                if not within(o, r, tol):
-                    raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D)} {dtype} "
-                                         f"causal={causal}: max err {max_err(o, r):.3g} > tol {tol}")
-    # a value head dim Dv != D (MLA's prefill: 192 / 128), ragged and Sq != Sk,
-    # on the mma tiles (192/128, 64/64) and, off the multiples of 16, the CUDA cores
-    flash_dv_cases = [(2, 100, 100, 192, 128), (2, 130, 100, 192, 128), (2, 100, 130, 192, 128),
-                      (1, 200, 200, 64, 32), (2, 96, 96, 40, 24)]
-    for (BH, Sq, Sk, D, Dv) in flash_dv_cases:
-        for dtype in (f32, bf16):
-            for causal in (True, False):
-                q, k = (randn(BH, s, D, dtype=dtype) for s in (Sq, Sk))
-                v = randn(BH, Sk, Dv, dtype=dtype)
-                o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=causal))
-                hit[FLASH_LIBRARY.name].add(variant)
-                r = flash_attention_ref(q, k, v, causal=causal)
-                tol = FLASH_TOL[str(dtype)]
-                if o.shape != r.shape or not within(o, r, tol):
-                    raise AssertionError(f"flash_attention[{variant}] {(BH, Sq, Sk, D, Dv)} {dtype} "
-                                         f"causal={causal}: max err {max_err(o, r):.3g} > tol {tol}")
-    log(f"flash_attention: {(len(flash_cases) + len(flash_dv_cases)) * 4} sweep cases within "
-        f"tolerance (variants {sorted(hit[FLASH_LIBRARY.name])})")
+    flash_reached = flash_sweep(torch, randn, hit[FLASH_LIBRARY.name])
+    if flash_reached != FLASH_CUDA_CORE_PLANS:
+        raise AssertionError(f"the flash sweep reached the CUDA-core kernel's (class, path) "
+                             f"{sorted(flash_reached)}, not {sorted(FLASH_CUDA_CORE_PLANS)}")
+    log(f"flash_attention: {len(flash_sweep_cases(torch))} sweep cases within tolerance "
+        f"(variants {sorted(hit[FLASH_LIBRARY.name])}; cuda_core classes and load paths "
+        f"{sorted(flash_reached)})")
+    for name, lib in flash_cuda_core_fault_libraries().items():
+        failed, cases, worst = flash_cuda_core_fault_sweep(torch, randn, lib)
+        log(f"flash cuda_core planted fault ({name}): {failed} of {cases} CUDA-core sweep cases "
+            f"outside tolerance (largest error {worst:.3g})")
+        if not failed:
+            raise AssertionError(f"the flash sweep does not see the planted fault: {name}")
     # the serving path's prefill shapes (32 heads, head dim 64): the bf16
     # tensor-core kernel, and the CUDA-core kernel on the same shapes in f32
     # (its route); the yardstick is SDPA on 4-D views, forced onto a named
@@ -885,6 +981,32 @@ def check_kernels(torch, timer):
             plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
             library=lib_name, library_ms=timer.ms(sdpa_call(torch, backend, q, k, v)),
             bound_ms=b_ms, bound_by=b_by)
+    # the CUDA-core kernel at the other tile classes a path's head dims
+    # reach, in f32: D 128 (32 heads) and MLA's 192/128 (16 heads); the
+    # yardstick SDPA's memory-efficient backend, as at D 64 (the first fused
+    # backend that takes Dv != D in f32)
+    for key, BH, D, Dv in (("d128", 32, 128, 128), ("mla", 16, 192, 128)):
+        S = 1024
+        q, k = (randn(BH, S, D, dtype=f32) for _ in range(2))
+        v = randn(BH, S, Dv, dtype=f32)
+        o, variant = launched(FLASH_LIBRARY, lambda: flash_attention(q, k, v, causal=True))
+        r = flash_attention_ref(q, k, v, causal=True)
+        tol = FLASH_TOL[str(f32)]
+        if variant != "cuda_core" or not within(o, r, tol):
+            raise AssertionError(f"flash_attention[{variant}] f32 {key}: max err "
+                                 f"{max_err(o, r):.3g} > {tol}")
+        lib_call, lib_name = ((sdpa_call(torch, SDPBackend.EFFICIENT_ATTENTION, q, k, v),
+                               "sdpa[efficient]") if D == Dv else sdpa_value_dim_call(torch, q, k, v))
+        if not within(lib_call()[0], r, tol):
+            raise AssertionError(f"{lib_name} does not compute the same function at {key}")
+        b_ms, b_by = H100.bound_ms(*flash_work(BH, S, S, D, True, 4, Dv=Dv), f32)
+        rows[("flash_attention", variant, key)] = dict(
+            shape=f"BH={BH} S={S} D={D}{f' Dv={Dv}' if Dv != D else ''} f32 causal",
+            max_abs_err=max_err(o, r), tol=list(tol),
+            ms=timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+            plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, causal=True)),
+            library=lib_name, library_ms=timer.ms(lib_call), bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, o, r
     # DeepSeek-V2-Lite's MLA prefill: 16 heads, q/k 192 (128 nope + 64 rope), v 128
     BH, S, D, Dv = 16, 1024, 192, 128
     q, k = (randn(BH, S, D, dtype=bf16) for _ in range(2))
@@ -2530,6 +2652,13 @@ def cuda_core_fault_libraries() -> dict:
             for i, (name, subs) in enumerate(CUDA_CORE_FAULTS)}
 
 
+def flash_cuda_core_fault_libraries() -> dict:
+    """The flash libraries built from copies of its source with each of
+    FLASH_CUDA_CORE_FAULTS planted in the CUDA-core kernel, by fault."""
+    return {name: source_fault_library("flash_attention", "flash_cuda_core_fault_" + str(i), subs)
+            for i, (name, subs) in enumerate(FLASH_CUDA_CORE_FAULTS)}
+
+
 def swiglu_bwd_other_box():
     """The SwiGLU kernels launched from ``swiglu_box_fault_library`` (a
     planted fault: the backward's epilogue reads dout from the other box)."""
@@ -3918,7 +4047,8 @@ def main() -> None:
 
         t0 = time.perf_counter()
         secs = build_all([*LIBRARIES, ssd_rank_fault_library(), swiglu_box_fault_library(),
-                          *cuda_core_fault_libraries().values()])
+                          *cuda_core_fault_libraries().values(),
+                          *flash_cuda_core_fault_libraries().values()])
         log(f"built {', '.join(f'{n} ({s:.1f} s)' for n, s in secs.items())} "
             f"in {time.perf_counter() - t0:.1f} s")
         for lib in LIBRARIES:
@@ -3992,6 +4122,8 @@ def main() -> None:
         picks = [("flash_attention", "mma", 1024, "tinyllama", ""),
                  ("flash_attention", "mma", "mla", "deepseek", " D=192 Dv=128"),
                  ("flash_attention", "cuda_core", 1024, "tinyllama", ""),
+                 ("flash_attention", "cuda_core", "d128", "tinyllama", " D=128"),
+                 ("flash_attention", "cuda_core", "mla", "deepseek", " D=192 Dv=128"),
                  ("swiglu_matmul", "wgmma", 512, "tinyllama", ""),
                  ("swiglu_matmul", "decode", 8, "tinyllama", ""),
                  ("swiglu_matmul", "cuda_core", 512, "tinyllama", ""),

@@ -54,12 +54,51 @@
 //    by ldmatrix (12 more ldmatrix.x4 a warp against the 80 it issues for K
 //    and V), so the scores, the 128-wide accumulator and the fragments of K
 //    and V fit in registers with no spill.
-// 2. `flash_fwd_kernel` (entry flash_attention_fwd): f32, and bf16 with other
-//    head dims.  CUDA cores, f32: one block per (bh, 64-row q tile) holds Q in
-//    shared memory and stages each 64-key K/V tile there once; scores and
-//    P·V are register-blocked (each of the 256 threads owns a 4 x 4 score
-//    block and a 4 x Dv/16 accumulator block).  Tiles 32/32, 64/64, 128/128
-//    and 192/128 as above; any D up to 192 and Dv up to 128.
+// 2. `flash_cuda_core_kernel` (entry flash_attention_fwd; namespace simt):
+//    f32, and bf16 with other head dims; any D up to 192 and Dv up to 128.
+//    FFMA on the CUDA cores in IEEE f32, nothing rounded to TF32 or bf16, so
+//    it is bound by f32 operations (BH 32, S 1024, D 64, causal: 4.30
+//    GFLOP, 0.0642 ms at 67 TFLOP/s).  The earlier kernel (4 x 4 scores a
+//    thread, scalar loads between four barriers a 64-key tile, the softmax
+//    in a pass through shared memory) ran at 0.2896 ms there, 22% of the
+//    bound: its loads cost 16-34% of a call, its softmax pass 7-13%, and its
+//    inner loops read 2 bytes of shared memory an FFMA.  The design:
+//    - tile classes by the wider head dim, 32/32, 64/64 (64-key tiles),
+//      128/128 and 192/128 (32-key tiles; q tiles of 64 rows at 192/128,
+//      whose Q and K halves leave no room for 128); one CTA a q tile, the
+//      last (longest causal) first, one CTA an SM (simt::Cls);
+//    - each block of 32 query rows (a warp's) is walked by two warps, one
+//      over the even key tiles and one over the odd, whose running maxima,
+//      denominators and accumulators merge at the end: a causal q tile
+//      keeps two warps on every scheduler to its end, where one walk a row
+//      block left the long tiles' warps alone on theirs (0.1603 ms);
+//    - a lane holds 8 rows x 8 keys of a 64-key tile's scores (8 x 4 of a
+//      32-key tile) and 8 rows x Dv / 8 output columns; every fragment is
+//      one 16-byte read: Q transposed, K as it lies (keys lx + 8 j, 4 d a
+//      read), P [key][row] in rows of 36 floats, V as it lies, 1 byte of
+//      shared memory an FFMA at D 64;
+//    - the online softmax on the score registers in base 2 (scale·log2 e
+//      folded into one multiply, -1e30·log2 e as the mask, ex2.approx), the
+//      row max by three shuffles among the row's 8 lanes, alpha applied in
+//      registers; P goes once through the warp's own tile;
+//    - K and V as half-tiles through a cp.async ring (16-byte copies for
+//      f32 with D and Dv multiples of 4 and k, v, o on 16-byte boundaries;
+//      element loads converted to f32 otherwise), each half of the warps
+//      with its own part of the ring and one barrier of its own a step;
+//    - the products' loops unrolled 8 d and 8 keys deep: wholly unrolled
+//      (~4,400 instructions a product at D 64) the first build ran 3.2x
+//      slower, out of the instruction cache.
+//    On an H100 80GB HBM3 at 700 W (scripts/flash_f32_probe.py --earlier,
+//    both in one session): 0.1360 ms at D 64 (47% of the bound; the earlier
+//    kernel 0.2896, SDPA's memory-efficient backend 0.2275), 0.2594 at D
+//    128 (49%; 0.6228; SDPA 0.2813), 0.2111 at MLA's 192/128 (38%; 0.5325;
+//    SDPA 0.2107).  Not the earlier kernel's bits (base 2, other sums); two
+//    launches agree.  What is left at D 64: the FFMAs with a quarter of
+//    their shared-memory reads and no loads alone take 0.1259 ms; the FFMA
+//    stream fills ~59% of the issue slots at 247 registers and two warps a
+//    scheduler.  Tried and left out: two CTAs of 64 rows an SM (0.1384),
+//    the products unrolled 4 or 16 deep (0.1396, 0.1349 but 11-25% slower
+//    at 128/128 and 192/128).
 // 3. `wgmma_bwd`, the backward of (1) (entry flash_attention_wgmma_bwd; the
 //    TPU kernel has no VJP, its model trains through plain jnp): dq, dk, dv
 //    from the forward's O and lse, with its masks (a masked pair has dS =
@@ -105,10 +144,14 @@
 //    (HuBERT's non-causal dQ 0.535 -> 0.360 ms, D 128's 0.158 -> 0.146 on
 //    the H100 by scripts/flash_bwd_probe.py; at D 64 they cost 6%).
 //
-// -Xptxas -v (sm_90a, nvcc 12.9; scripts/flash_bwd_probe.py prints them),
+// -Xptxas -v (sm_90a, nvcc 12.9; scripts/flash_bwd_probe.py and
+// scripts/flash_f32_probe.py print them),
 // no spills: flash_mma_kernel 117 / 127 / 215 / 195 registers for the
 // 32/32, 64/64, 128/128 and 192/128 tiles, with 24 / 48 / 96 / 128 KB of
-// dynamic shared memory; flash_fwd_kernel 64 / 80 / 104-106 / 116;
+// dynamic shared memory; flash_cuda_core_kernel 219-221 / 247-248 / 242-254
+// / 244 registers for the 32/32, 64/64, 128/128 and 192/128 classes, with
+// 164,352 / 211,968 / 205,824 / 171,008 bytes of dynamic shared memory (one
+// CTA an SM; simt::Cls::BYTES, flash_cuda_core_layout);
 // flash_wgmma_dkdv_kernel 163 / 178 / 226 / 226 registers for the 64/64,
 // 80/80, 128/128 and 192/128 classes with 82.6 / 102.6 / 162.6 / 141.8 KB
 // of dynamic shared memory (3 stages); flash_wgmma_dq_kernel 124 / 200 /
@@ -123,9 +166,6 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per staged K/V tile
-constexpr int NT = 256;   // threads per block, a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;  // the reference's finite mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -133,213 +173,458 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// ------------------------------------------------------------------------- //
+// 2. cuda_core: f32 FFMA on the score registers, fed by a cp.async ring
+// ------------------------------------------------------------------------- //
+namespace simt {
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A tile class.  A CTA takes one q tile of IR query rows of one head: WI =
+// IR / 32 row blocks of 32 (a warp's rows) times two halves of the key
+// tiles (split-KV: half 0 takes the even tiles, half 1 the odd ones, and the
+// two partial softmaxes are merged at the end), NW = 2 WI warps.  DP, DVP:
+// the q/k and v head dims as the tiles hold them (zero past D and Dv); BK:
+// the keys of a K/V tile; NS: the ring's slots, each the K halves or the V
+// halves of two tiles (one for each half of the warps, each filled and read
+// by that half alone).  Shared memory: Q
+// transposed, [DP][QLD]; the ring, a K half [BK][KLD] or a V half [BK][DVP]
+// a tile, as they lie; a [BK][32] P tile a warp.  QLD is 4 mod 32, so that
+// the transposing copies of 8 consecutive d of 4 rows land on 32 banks; KLD
+// is 4 mod 8, so that the 8 keys lx + 8 j a read of 4 d takes (one per lane
+// lx) fall on 8 different 16-byte bank groups; every fragment read is one
+// float4.
+template <int DP_, int DVP_, int BK_, int IR_, int NS_>
+struct Cls {
+  static constexpr int DP = DP_, DVP = DVP_, BK = BK_, IR = IR_, NS = NS_;
+  static constexpr int WI = IR / 32, NW = 2 * WI, NT = 32 * NW;
+  static constexpr int TN = BK / 8;   // keys a lane holds of a tile's scores
+  static constexpr int TV = DVP / 8;  // output columns a lane holds
+  static constexpr int QLD = IR + 4, KLD = DP + 4;
+  static constexpr int K_FLOATS = BK * KLD, V_FLOATS = BK * DVP;
+  static constexpr int HALF = K_FLOATS > V_FLOATS ? K_FLOATS : V_FLOATS;  // a tile's half
+  static constexpr int SLOT = 2 * HALF;
+  static constexpr int Q_FLOATS = DP * QLD;
+  static constexpr int PLD = 36;  // a key's row of P: 32 query rows, padded
+  static constexpr int P_FLOATS = BK * PLD;  // a warp's P tile
+  static constexpr int BYTES = (Q_FLOATS + NS * SLOT + NW * P_FLOATS) * 4;
+  static_assert(IR % 32 == 0 && (BK == 32 || BK == 64) && DVP % 32 == 0 && DP % 8 == 0, "tile");
+  static_assert(HALF % 4 == 0 && Q_FLOATS % 4 == 0 && QLD % 32 == 4 && KLD % 8 == 4, "layout");
+  static_assert((BK * DP / 4) % (NT / 2) == 0 && (IR * DP) % NT == 0 &&
+                    (BK * DVP / 4) % (NT / 2) == 0,
+                "copies");
+  static_assert(NS * SLOT >= WI * 32 * (16 + 8 * TV), "the merge's exchange fits in the ring");
+  static_assert(NS >= 2 && BYTES <= 232448, "shared memory");
+};
+// the classes by the wider head dim: 8 warps (4 at 192/128, whose Q and K
+// halves leave room for q tiles of 64 rows and a ring of two slots), one
+// CTA an SM
+using C32 = Cls<32, 32, 64, 128, 4>;
+using C64 = Cls<64, 64, 64, 128, 3>;
+using C128 = Cls<128, 128, 32, 128, 3>;
+using C192 = Cls<192, 128, 32, 64, 2>;
+
+__device__ __forceinline__ void put4(float* f, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int DMAX, int DVMAX>
-constexpr size_t smem_floats() {
-  // q [BQ][DMAX], k [BK][DMAX+1], v [BK][DVMAX], p [BQ][BK+1], m/l/alpha [BQ]
-  return (size_t)BQ * DMAX + (size_t)BK * (DMAX + 1) + (size_t)BK * DVMAX +
-         (size_t)BQ * (BK + 1) + 3 * BQ;
-}
-
-template <typename T, int DMAX, int DVMAX>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int D, int Dv, float scale, int causal) {
-  constexpr int DC = DVMAX / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [BQ][DMAX]
-  float* ks = qs + BQ * DMAX;              // [BK][DMAX + 1], padded: no bank conflicts
-  float* vs = ks + BK * (DMAX + 1);        // [BK][DVMAX]
-  float* ps = vs + BK * DVMAX;             // [BQ][BK + 1]
-  float* row_m = ps + BQ * (BK + 1);       // running max
-  float* row_l = row_m + BQ;               // running denominator
-  float* row_alpha = row_l + BQ;           // this tile's rescale factor
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const long long qbase = (long long)bh * Sq * D;
-  const long long kbase = (long long)bh * Sk * D;
-  const long long vbase = (long long)bh * Sk * Dv;
-  const int off = Sk - Sq;  // aligns the diagonals when Sq != Sk
-
-  for (int i = tid; i < BQ * DMAX; i += NT) {
-    const int r = i / DMAX, d = i % DMAX;
-    qs[i] = (q0 + r < Sq && d < D) ? to_f32(q[qbase + (long long)(q0 + r) * D + d]) : 0.f;
-  }
-  if (tid < BQ) {
-    row_m[tid] = NEG_INF;
-    row_l[tid] = 0.f;
-  }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal && off >= 0) {
-    // keys past the block's last row (shifted by off) are masked for every row
-    const int last_row = min(q0 + BQ, Sq) - 1;
-    n_tiles = min(n_tiles, (last_row + off) / BK + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers of ks / vs / ps are done
-    if constexpr (DMAX == DVMAX) {  // one staging loop for K and V
-      for (int i = tid; i < BK * DMAX; i += NT) {
-        const int r = i / DMAX, d = i % DMAX;
-        const bool row = k0 + r < Sk;
-        ks[r * (DMAX + 1) + d] =
-            row && d < D ? to_f32(k[kbase + (long long)(k0 + r) * D + d]) : 0.f;
-        vs[i] = row && d < Dv ? to_f32(v[vbase + (long long)(k0 + r) * Dv + d]) : 0.f;
-      }
+// R rows from row0 of a [*, D] matrix into a transposed [DP][LD] tile, zero
+// past `valid` rows and past D: copy e = tid + t NT is row (e / 8) % R, d
+// (e / (8 R)) 8 + e % 8, so 8 threads read one 32-byte sector of a row and a
+// warp's 4 rows x 8 d land on 32 banks (LD = 4 mod 32).  FAST: 4-byte
+// cp.async (f32); else element loads converted to f32.
+template <class C, int R, int LD, bool FAST, typename T>
+__device__ __forceinline__ void load_t(float* dst, const T* src, int row0, int valid, int D,
+                                       int tid) {
+  constexpr int N = R * C::DP / C::NT;
+#pragma unroll 4
+  for (int t = 0; t < N; ++t) {
+    const int e = tid + t * C::NT, r = (e >> 3) % R, d = e / (8 * R) * 8 + (e & 7);
+    const bool ok = row0 + r < valid && d < D;
+    const T* s = src + (long long)(row0 + r) * D + d;
+    if constexpr (FAST) {
+      hopper::cp_async4(dst + d * LD + r, ok ? s : src, ok);
     } else {
-      for (int i = tid; i < BK * DMAX; i += NT) {
-        const int r = i / DMAX, d = i % DMAX;
-        const bool in = (k0 + r < Sk) && d < D;
-        ks[r * (DMAX + 1) + d] = in ? to_f32(k[kbase + (long long)(k0 + r) * D + d]) : 0.f;
-      }
-      for (int i = tid; i < BK * DVMAX; i += NT) {
-        const int r = i / DVMAX, d = i % DVMAX;
-        const bool in = (k0 + r < Sk) && d < Dv;
-        vs[i] = in ? to_f32(v[vbase + (long long)(k0 + r) * Dv + d]) : 0.f;
-      }
+      dst[d * LD + r] = ok ? to_f32(*s) : 0.f;
     }
-    __syncthreads();
+  }
+}
 
-    // scores: thread (ty, tx) owns rows ty + 16 i and keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+// 2^x by the SFU's ex2.approx (2 ulp; denormal results flushed to 0, as
+// the softmax's weights below 2^-126 may be)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// BK rows from row k0 of a [*, W] matrix into a [BK][LD] tile as they lie,
+// zero past Sk and past W, by the NT / 2 threads of one half (htid):
+// FAST copies 16 bytes at a time (f32, W % 4 == 0, 16-byte aligned rows),
+// else element loads converted to f32.
+template <class C, int WP, int LD, bool FAST, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int k0, int Sk, int W,
+                                          int htid) {
+  constexpr int NTH = C::NT / 2, CPR = WP / 4, N = C::BK * CPR / NTH;
 #pragma unroll 8
-    for (int d = 0; d < DMAX; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DMAX + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * (DMAX + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+  for (int i = 0; i < N; ++i) {
+    const int c = htid + i * NTH, r = c / CPR, col = c % CPR * 4;
+    const T* s = src + (long long)(k0 + r) * W + col;
+    if constexpr (FAST) {
+      const bool ok = k0 + r < Sk && col < W;
+      hopper::cp_async16(dst + r * LD + col, ok ? s : src, ok);
+    } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        float val = s[i][j] * scale;
-        if (causal && kpos > q0 + r + off) val = NEG_INF;
-        if (kpos >= Sk) val = -INFINITY;  // past the end: not a key at all
-        ps[r * (BK + 1) + c] = val;
+        const bool ok = k0 + r < Sk && col + j < W;
+        dst[r * LD + col + j] = ok ? to_f32(s[j]) : 0.f;
       }
-    }
-    __syncthreads();
-
-    // online softmax: warp w updates rows 8 w .. 8 w + 7
-#pragma unroll
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      float* prow = ps + r * (BK + 1);
-      const float x0 = prow[lane], x1 = prow[lane + 32];
-      const float m_prev = row_m[r];
-      const float m_cur = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_cur), p1 = expf(x1 - m_cur);
-      const float sum = warp_sum(p0 + p1);
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        row_alpha[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_cur;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V: thread (ty, tx) owns rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = row_alpha[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], b[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) b[j] = vs[kk * DVMAX + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(p[i], b[j], acc[i][j]);
-    }
-  }
-  __syncthreads();  // final row_l visible to every thread
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= Sq) continue;
-    const float l = row_l[r];
-    T* orow = o + (long long)bh * Sq * Dv + (long long)(q0 + r) * Dv;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      const int d = tx + 16 * j;
-      if (d < Dv) store(orow + d, acc[i][j] / l);
     }
   }
 }
 
-template <typename T, int DMAX, int DVMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
-           int sk, int d, int dv, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_floats<DMAX, DVMAX>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX, DVMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Step h of a half's walk into its part of a ring slot, by that half's
+// threads: the K half (h even) or the V half (h odd) of its key tile 2 (h /
+// 2) + half, zero past Sk, D and Dv.
+template <class C, bool FAST, typename T>
+__device__ __forceinline__ void fetch(float* dst, const T* k, const T* v, int h, int half, int Sk,
+                                      int D, int Dv, int htid) {
+  const int k0 = ((h >> 1) * 2 + half) * C::BK;
+  if ((h & 1) == 0)
+    load_rows<C, C::DP, C::KLD, FAST>(dst, k, k0, Sk, D, htid);
+  else
+    load_rows<C, C::DVP, C::DVP, FAST>(dst, v, k0, Sk, Dv, htid);
+}
+
+// KV tiles a block of query rows [first, last] needs: all of them, or, when
+// causal and every row sees a key, up to the last row's diagonal (keys past
+// a row's diagonal are masked, so a tile past every row's diagonal adds
+// exactly zero: alpha = 1, P = 0); none for no rows.
+__device__ __forceinline__ int tiles_for(int first, int last, int Sq, int Sk, int BK,
+                                         int causal) {
+  if (first >= Sq) return 0;
+  const int all = (Sk + BK - 1) / BK, off = Sk - Sq;
+  if (!causal || first + off < 0) return all;
+  const int need = (min(last, Sq - 1) + off) / BK + 1;
+  return need < all ? need : all;
+}
+
+// softmax(q kᵀ · scale) v on the CUDA cores in f32, tile class C.  The grid
+// is (BH, n) for n = ceil(Sq / IR) q tiles a head, the last (longest causal)
+// q tile first.  Warp w holds rows 32 (w % WI) .. + 31 of the tile and walks
+// the key tiles of its half, w / WI: tiles 2 u + w / WI.  Lane (ly, lx) =
+// (lane / 8, lane % 8) holds rows 4 ly + i and 16 + 4 ly + i (i < 4) of the
+// warp's 32, keys lx + 8 j (j < BK / 8) of a tile's scores, and output
+// columns 4 lx + j + 32 g.  Per key tile two steps: (even) S = Q Kᵀ from the
+// K half, the online softmax on the score registers in base 2 (row max by
+// shuffles among the 8 lanes of a row, alpha applied to the accumulators in
+// registers), P into the warp's own P tile; (odd) O += P V from the V half.
+// Each half walks on its own, with its part of a ring of NS slots refilled
+// by cp.async (FAST) NS - 1 steps ahead and one barrier of its warps a
+// step.  At the end the half-1 warps hand their running max, denominator
+// and accumulators to the half-0 warp of the same rows through shared
+// memory, which merges them (both scaled to the larger max) and stores.
+// Every output is a fixed sequence of FFMA chains, maxima and sums: two
+// launches give the same bits.
+template <class C, bool FAST, typename T>
+__global__ void __launch_bounds__(C::NT, 1) flash_cuda_core_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int Sq, int Sk, int D, int Dv, float scale_log2, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [DP][QLD]
+  float* ring = qs + C::Q_FLOATS;          // [NS][2][HALF]
+  float* ps = ring + C::NS * C::SLOT;      // [NW][BK][32]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int half = warp / C::WI, rb = warp % C::WI;
+  const int bh = blockIdx.x, n = (Sq + C::IR - 1) / C::IR;
+  const int q0 = (n - 1 - blockIdx.y) * C::IR;  // the longest q tiles first
+  const int row0 = q0 + rb * 32;                // the warp's first row
+  const int off = Sk - Sq;  // aligns the diagonals when Sq != Sk
+  q += (long long)bh * Sq * D;
+  k += (long long)bh * Sk * D;
+  v += (long long)bh * Sk * Dv;
+  o += (long long)bh * Sq * Dv;
+
+  // the tiles the CTA walks (its last row block's, or, when a row block
+  // sees no key, all), this half's steps (two a tile of its), and the
+  // warp's own count
+  int nt = 0;
+  for (int b = 0; b < C::WI; ++b)
+    nt = max(nt, tiles_for(q0 + b * 32, q0 + b * 32 + 31, Sq, Sk, C::BK, causal));
+  const int nw = tiles_for(row0, row0 + 31, Sq, Sk, C::BK, causal);
+  const int nh = 2 * ((nt - half + 1) / 2);
+  const int htid = tid % (C::NT / 2);
+  float* own = ring + half * C::HALF;  // this half's part of slot 0
+
+  // Q (one commit group), then the half's steps 0 .. NS - 2 (one each)
+  load_t<C, C::IR, C::QLD, FAST>(qs, q, q0, Sq, D, tid);
+  hopper::cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (s < nh) fetch<C, FAST>(own + s * C::SLOT, k, v, s, half, Sk, D, Dv, htid);
+    hopper::cp_async_commit();
+  }
+  hopper::cp_async_wait<C::NS - 1>();  // this thread's copies of Q have landed ...
+  __syncthreads();                     // ... and every thread's
+
+  float acc[8][C::TV], m[8], l[8], s[8][C::TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::TV; ++j) acc[i][j] = 0.f;
+  }
+  const float* qw = qs + rb * 32 + 4 * ly;
+  float* pw = ps + warp * C::P_FLOATS;
+
+  for (int h = 0; h < nh; ++h) {
+    hopper::cp_async_wait<C::NS - 2>();        // step h has landed, and every thread
+    hopper::named_sync(1 + half, C::NT / 2);  // of the half is done with step h - 1
+    if (h + C::NS - 1 < nh)  // into the slot step h - 1 left
+      fetch<C, FAST>(own + (h + C::NS - 1) % C::NS * C::SLOT, k, v, h + C::NS - 1, half, Sk, D,
+                     Dv, htid);
+    hopper::cp_async_commit();
+    const int t = (h >> 1) * 2 + half;  // this warp's key tile
+    if (t >= nw) continue;  // past this warp's last tile (or it has no rows)
+    const float* tile = own + h % C::NS * C::SLOT;
+    if ((h & 1) == 0) {
+      // S = Q Kᵀ: per 4 d, 8 Q rows of each d (two float4 reads a d) and 4
+      // d of each of TN keys (a float4 a key), each score one FFMA chain over
+      // d in order
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) s[i][j] = 0.f;
+      const float* kw = tile + lx * C::KLD;
+#pragma unroll 2
+      for (int d = 0; d < C::DP; d += 4) {
+        float a[4][8], b[C::TN][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          put4(a[e], qw + (d + e) * C::QLD);
+          put4(a[e] + 4, qw + (d + e) * C::QLD + 16);
+        }
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) put4(b[j], kw + 8 * j * C::KLD + d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int j = 0; j < C::TN; ++j)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s[i][j] = fmaf(a[e][i], b[j][e], s[i][j]);
+      }
+      // into log2 units; mask only a tile that reaches past Sk or this
+      // warp's first row's diagonal
+      const int k0 = t * C::BK;
+      const bool edge = k0 + C::BK > Sk || (causal && k0 + C::BK - 1 > row0 + off);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) {
+          float x = s[i][j] * scale_log2;
+          if (edge) {
+            const int key = k0 + lx + 8 * j;
+            const int row = row0 + i / 4 * 16 + 4 * ly + i % 4;
+            // past Sk not a key at all; the reference's finite mask, in log2 units
+            if (key >= Sk) x = -INFINITY;
+            else if (causal && key > row + off) x = NEG_INF * LOG2E;
+          }
+          s[i][j] = x;
+        }
+      // the online softmax on the score registers
+      {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float mx = m[i];
+#pragma unroll
+          for (int j = 0; j < C::TN; ++j) mx = fmaxf(mx, s[i][j]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          const float alpha = exp2_fast(m[i] - mx);  // 0 on the warp's first tile
+          m[i] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < C::TN; ++j) {
+            s[i][j] = exp2_fast(s[i][j] - mx);
+            sum += s[i][j];
+          }
+          l[i] = l[i] * alpha + sum;  // this lane's share of the row's denominator
+#pragma unroll
+          for (int j = 0; j < C::TV; ++j) acc[i][j] *= alpha;
+        }
+      }
+      // P into the warp's tile, [key][row] with rows of PLD = 36 floats:
+      // row group g (4 rows, one float4) of key kk falls on bank group (kk +
+      // g) % 8, so that a store of the warp's 32 float4 (keys lx + 8 j of 8
+      // lanes, groups ly of 4) takes the 4 wavefronts of 512 bytes, and a
+      // read of one key's rows no more than its own
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        float* prow = pw + (lx + 8 * j) * C::PLD + 4 * ly;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float4*>(prow + 16 * hh) =
+              make_float4(s[4 * hh][j], s[4 * hh + 1][j], s[4 * hh + 2][j], s[4 * hh + 3][j]);
+      }
+    } else {
+      // O += P V: per key, 8 P rows and TV columns, two and TV / 4 float4 reads
+      const float* vw = tile + 4 * lx;
+      const float* pr = pw + 4 * ly;
+#pragma unroll 8
+      for (int kk = 0; kk < C::BK; ++kk) {
+        float a[8], b[C::TV];
+        put4(a, pr + kk * C::PLD);
+        put4(a + 4, pr + kk * C::PLD + 16);
+#pragma unroll
+        for (int g = 0; g < C::TV / 4; ++g) put4(b + 4 * g, vw + kk * C::DVP + 32 * g);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < C::TV; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  // the merge: the half-1 warp of each row block hands its running max,
+  // denominator share and accumulators, lane by lane, to the half-0 warp
+  // through the ring's memory
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  constexpr int XF = 16 + 8 * C::TV;  // floats a lane hands over, [XF][32] a row block
+  float* xw = ring + rb * 32 * XF + lane;
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      xw[32 * i] = m[i];
+      xw[32 * (8 + i)] = l[i];
+#pragma unroll
+      for (int j = 0; j < C::TV; ++j) xw[32 * (16 + C::TV * i + j)] = acc[i][j];
+    }
+  }
+  __syncthreads();
+  if (half == 1 || nw == 0) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float m1 = xw[32 * i], mx = fmaxf(m[i], m1);
+    const float a0 = exp2_fast(m[i] - mx), a1 = exp2_fast(m1 - mx);  // half 1 no tile: a1 = 0
+    l[i] = l[i] * a0 + xw[32 * (8 + i)] * a1;
+#pragma unroll
+    for (int j = 0; j < C::TV; ++j)
+      acc[i][j] = acc[i][j] * a0 + xw[32 * (16 + C::TV * i + j)] * a1;
+  }
+
+  // the row's denominator from its 8 lanes' shares; out = acc / l (IEEE)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + i / 4 * 16 + 4 * ly + i % 4;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int g = 0; g < C::TV / 4; ++g) {
+      const int col = 32 * g + 4 * lx;
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = acc[i][4 * g + j] / l[i];
+      T* out = o + (long long)row * Dv + col;
+      if constexpr (FAST) {
+        if (col < Dv) *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < Dv) store(out + j, x[j]);
+      }
+    }
+  }
+}
+
+// The tile class of head dims d, dv: 0 (32/32), 1 (64/64), 2 (128/128) or 3
+// (192/128) by the wider of the two, the smallest that holds it.
+// kernels/flash_attention.py::cuda_core_plan repeats it.
+int tile_class(int d, int dv) {
+  const int w = d > dv ? d : dv;
+  return w <= 32 ? 0 : w <= 64 ? 1 : w <= 128 ? 2 : 3;
+}
+
+// The fast load path: f32, D and Dv multiples of 4, k, v and o on 16-byte
+// boundaries (q goes 4 bytes at a time, transposed: its alignment is free).
+bool fast_path(int dtype, int d, int dv, bool aligned) {
+  return dtype == 0 && d % 4 == 0 && dv % 4 == 0 && aligned;
+}
+
+template <class C, bool FAST, typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
+           int dv, float scale, int causal, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_cuda_core_kernel<C, FAST, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DMAX, DVMAX><<<grid, NT, smem, stream>>>(
+  const int n = (sq + C::IR - 1) / C::IR;
+  if (n > 65535) return (int)cudaErrorInvalidValue;
+  flash_cuda_core_kernel<C, FAST, T><<<dim3(bh, n), C::NT, C::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, d, dv, scale, causal);
+      static_cast<T*>(o), sq, sk, d, dv, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
-// the tile is chosen by the wider of the two head dims: 32/32, 64/64,
-// 128/128, and 192/128 past 128 (Dv <= 128 is checked by the entry point)
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int bh, int sq,
-               int sk, int d, int dv, float scale, int causal, cudaStream_t stream) {
-  const int w = d > dv ? d : dv;
-  if (w <= 32) return launch<T, 32, 32>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  if (w <= 64) return launch<T, 64, 64>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  if (w <= 128) return launch<T, 128, 128>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  if (w <= 192) return launch<T, 192, 128>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, stream);
-  return (int)cudaErrorInvalidValue;
+template <class C>
+int launch_path(bool fast, int dtype, const void* q, const void* k, const void* v, void* o,
+                int bh, int sq, int sk, int d, int dv, float scale, int causal, cudaStream_t s) {
+  if (dtype == 1)
+    return launch<C, false, __nv_bfloat16>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+  if (fast) return launch<C, true, float>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+  return launch<C, false, float>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
 }
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
+             int dv, float scale, int causal, int dtype, cudaStream_t s) {
+  const bool fast = fast_path(dtype, d, dv,
+                              ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                                reinterpret_cast<uintptr_t>(o)) & 15) == 0);
+  switch (tile_class(d, dv)) {
+    case 0: return launch_path<C32>(fast, dtype, q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+    case 1: return launch_path<C64>(fast, dtype, q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+    case 2: return launch_path<C128>(fast, dtype, q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+    default:
+      return launch_path<C192>(fast, dtype, q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
+  }
+}
+
+// A class's constants (layout keys 8 c + f, below); f = 6: the CTAs an SM
+// the card gives its f32 fast-path kernel
+template <class C>
+long long constant(int f) {
+  switch (f) {
+    case 0: return C::DP;
+    case 1: return C::DVP;
+    case 2: return C::BK;
+    case 3: return C::IR;
+    case 4: return C::NT;
+    case 5: return C::NS;
+    case 6: {
+      int n = -1;
+      auto kernel = flash_cuda_core_kernel<C, true, float>;
+      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES) !=
+              cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, C::NT, C::BYTES) !=
+              cudaSuccess)
+        return -1;
+      return n;
+    }
+    case 7: return C::BYTES;
+    default: return -1;
+  }
+}
+}  // namespace simt
 
 // ------------------------------------------------------------------------- //
 // bf16 on the tensor cores: mma.sync m16n8k16, ldmatrix, cp.async (FA2's layout)
@@ -576,7 +861,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   return (int)cudaGetLastError();
 }
 
-// the tile is chosen by the wider of the two head dims, as in dispatch_d
+// the tile is chosen by the wider of the two head dims, as in simt::tile_class
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
              int sk, int d, int dv, float scale, int causal, cudaStream_t stream) {
   const int w = d > dv ? d : dv;
@@ -1161,11 +1446,36 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int causal, int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || dv <= 0 || d > 192 || dv > 128)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, dv, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return simt::dispatch(q, k, v, o, bh, sq, sk, d, dv, scale, causal, dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The CUDA-core entry's plan for head dims d, dv, dtype (0 = f32, 1 = bf16)
+// and whether k, v and o lie on 16-byte boundaries: its tile class (0 32/32, 1
+// 64/64, 2 128/128, 3 192/128) times 2, plus 1 on the fast load path; -1 for
+// head dims the entry refuses.  kernels/flash_attention.py::cuda_core_plan
+// repeats it; a card test holds the two equal.
+extern "C" long long flash_cuda_core_plan(int d, int dv, int dtype, int aligned) {
+  if (d <= 0 || dv <= 0 || d > 192 || dv > 128 || (dtype != 0 && dtype != 1)) return -1;
+  return 2LL * simt::tile_class(d, dv) + (simt::fast_path(dtype, d, dv, aligned != 0) ? 1 : 0);
+}
+
+// The CUDA-core kernel's constants, which kernels/flash_attention.py repeats
+// (CUDA_CORE_CLASSES) and a card test holds equal: key 8 c + f for tile class
+// c (0 32/32, 1 64/64, 2 128/128, 3 192/128), f = 0 its q/k head dim, 1 its v
+// head dim, 2 the keys of a K/V tile, 3 the query rows of a q tile, 4 its
+// threads (two q tiles a CTA), 5 its ring's half-tile slots, 6 the CTAs an
+// SM this card gives its f32 kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// 7 its dynamic shared memory in bytes; -1 for any other key.
+extern "C" long long flash_cuda_core_layout(int key) {
+  if (key < 0 || key >= 32) return -1;
+  switch (key / 8) {
+    case 0: return simt::constant<simt::C32>(key % 8);
+    case 1: return simt::constant<simt::C64>(key % 8);
+    case 2: return simt::constant<simt::C128>(key % 8);
+    default: return simt::constant<simt::C192>(key % 8);
+  }
 }
 
 // The bf16 tensor-core variant: same operands, bf16 only, d a multiple of 16

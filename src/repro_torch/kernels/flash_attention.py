@@ -4,8 +4,8 @@
 Port of ``repro/kernels/flash_attention.py`` (a Pallas TPU kernel).  The
 Pallas grid's sequential KV axis, with the online-softmax state carried in
 VMEM scratch, becomes a loop over shared-memory K/V tiles inside one CUDA
-thread block per (batch·head, 64-row query tile); the design note is at the
-top of the CUDA source.  The kernels mask ragged sequence ends themselves,
+thread block per (batch·head, query tile); the design note is at the top of
+the CUDA source.  The kernels mask ragged sequence ends themselves,
 so they take any ``Sq``/``Sk``; the reference's block divisibility is a
 property of the TPU grid and is kept by the padding in
 ``ops.gqa_flash_attention``.
@@ -15,7 +15,14 @@ The value head dim ``Dv`` may differ from the query/key head dim ``D``
 its own entry point and launch count (``LIBRARY.counts``);
 :func:`select_variant` picks one from the head dims and the dtype alone:
 ``mma`` (bf16, D a multiple of 16 up to 192 and Dv one up to 128: tensor
-cores) or ``cuda_core`` (f32, and bf16 with other head dims).
+cores) or ``cuda_core`` (f32, and bf16 with other head dims: FFMA on the
+CUDA cores in IEEE f32, the online softmax on the score registers, K and V
+through a ``cp.async`` ring, each block of 32 query rows walked by two
+warps over the even and the odd key tiles and merged at the end).
+``cuda_core`` has four tile classes by the wider head dim
+(``CUDA_CORE_CLASSES``) and two load paths, which :func:`cuda_core_plan`
+repeats from the C side's choice; one CTA a q tile, the longest causal q
+tiles first (:func:`cuda_core_grid`, :func:`cuda_core_waves`).
 Nothing catches a failed build or launch and tries another.  CPU tensors
 take the plain version, :func:`ref.flash_attention_ref`, and autograd runs
 through it; CUDA tensors launch a kernel or raise.  ``meta`` tensors take
@@ -63,12 +70,27 @@ from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_vjp", "select_variant", "select_bwd_variant",
-           "work", "work_bwd", "LIBRARY"]
+           "cuda_core_plan", "cuda_core_grid", "cuda_core_waves", "work", "work_bwd", "LIBRARY",
+           "CUDA_CORE_CLASSES"]
 
 MAX_HEAD_DIM = 192    # q and k
 MAX_V_HEAD_DIM = 128  # v and the output
 # f32 elements of one [BH chunk, Sq, Sk] intermediate of the VJP (64 MB)
 VJP_CHUNK_ELEMS = 1 << 24
+# The CUDA-core kernel's tile classes (csrc/flash_attention.cu, namespace
+# simt), in the order of their C index, as its C function
+# flash_cuda_core_layout gives them (a card test holds the two equal): the
+# q/k and v head dims the tiles hold (zero past D and Dv), the keys of a K/V
+# tile, the query rows of a CTA's q tile (32 a warp, each row block walked
+# by two warps, one for the even key tiles and one for the odd), its
+# threads, the slots of its ring, and its dynamic shared memory in bytes:
+# one CTA an SM.  The class is the smallest whose dp holds max(D, Dv).
+CUDA_CORE_CLASSES = {
+    "d32": dict(dp=32, dvp=32, bk=64, rows=128, threads=256, stages=4, smem=164352),
+    "d64": dict(dp=64, dvp=64, bk=64, rows=128, threads=256, stages=3, smem=211968),
+    "d128": dict(dp=128, dvp=128, bk=32, rows=128, threads=256, stages=3, smem=205824),
+    "d192": dict(dp=192, dvp=128, bk=32, rows=64, threads=128, stages=2, smem=171008),
+}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary("flash_attention", {
     # q, k, v, o, lse (or null), bh, sq, sk, d, dv, scale, causal, stream
@@ -87,6 +109,43 @@ def select_variant(D: int, Dv: int, dtype: torch.dtype) -> str:
             and Dv <= MAX_V_HEAD_DIM):
         return "mma"
     return "cuda_core"
+
+
+def cuda_core_plan(D: int, Dv: int, dtype: torch.dtype, aligned: bool = True) -> tuple:
+    """(tile class, load path) of a ``cuda_core`` call with head dims D, Dv,
+    as the C side (``flash_cuda_core_plan``) picks them before the launch.
+    ``aligned``: k, v and o start on 16-byte boundaries.  The class: the
+    smallest of ``CUDA_CORE_CLASSES`` whose q/k head dim holds max(D, Dv)
+    (Dv <= 128 everywhere).  The path: ``fast`` for f32 with D and Dv
+    multiples of 4 and aligned k, v and o (K and V come 16 bytes at a time;
+    q goes 4 bytes at a time, transposed on its way into shared memory, so
+    its alignment is free), else ``general`` (element loads converted to
+    f32)."""
+    if (min(D, Dv) <= 0 or D > MAX_HEAD_DIM or Dv > MAX_V_HEAD_DIM
+            or dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"no CUDA-core plan for D={D} Dv={Dv} {dtype}")
+    w = max(D, Dv)
+    cls = next(name for name, c in CUDA_CORE_CLASSES.items() if w <= c["dp"])
+    path = ("fast" if dtype == torch.float32 and D % 4 == 0 and Dv % 4 == 0 and aligned
+            else "general")
+    return cls, path
+
+
+def cuda_core_grid(BH: int, Sq: int, cls: str) -> list:
+    """The ``cuda_core`` kernel's CTAs in launch order (the grid's x axis,
+    the head, fastest): (head, q tile) for the n = ceil(Sq / rows) q tiles
+    of a head, the last q tile first: under a causal mask the longest CTAs
+    start first and the shortest fill the last wave's gaps."""
+    n = -(-Sq // CUDA_CORE_CLASSES[cls]["rows"])
+    return [(bh, n - 1 - y) for y in range(n) for bh in range(BH)]
+
+
+def cuda_core_waves(BH: int, Sq: int, cls: str, sms: int = 132) -> tuple:
+    """(CTAs, waves) of a ``cuda_core`` launch: one CTA a q tile and one
+    CTA an SM (each class's shared memory allows no more; the card's
+    occupancy count confirms it), so ceil(CTAs / SMs) waves."""
+    ctas = BH * -(-Sq // CUDA_CORE_CLASSES[cls]["rows"])
+    return ctas, -(-ctas // sms)
 
 
 def select_bwd_variant(D: int, Dv: int, dtype: torch.dtype) -> str:

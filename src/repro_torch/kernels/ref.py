@@ -12,7 +12,9 @@ the former and share :func:`swiglu_derivative` with the latter.  Beside them,
 :func:`ssd_scan_three_phase` emulates the ``wgmma`` SSD-scan kernel's
 decomposition and operand rounding on the CPU, for the tests, and
 :func:`ssd_scan_bwd_phases` its backward ``wgmma_bwd``'s;
-:func:`swiglu_ksplit_ref` the SwiGLU ``cuda_core`` small class's split sum.
+:func:`swiglu_ksplit_ref` the SwiGLU ``cuda_core`` small class's split sum,
+:func:`flash_attention_blocked_ref` the flash ``cuda_core`` kernel's blocked
+online softmax.
 """
 from __future__ import annotations
 
@@ -44,6 +46,66 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", p, v.to(F32)).to(q.dtype)
     return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def flash_attention_blocked_ref(q, k, v, causal: bool = True, scale: Optional[float] = None, *,
+                                bk: int = 64, alpha: bool = True) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v as the ``cuda_core`` kernel computes it, in f32,
+    for the tests: [BH, Sq, Dv] in q's dtype.
+
+    Each block of 32 query rows (two warps') needs the key tiles of ``bk``
+    up to the tile that holds its last row's diagonal when causal and its
+    first row sees a key (a tile past every row's diagonal adds exactly
+    zero), else all of them.  Two running softmaxes walk them, one the even
+    tiles and one the odd, in order.  Per tile: x = S · (scale·log2 e) in
+    f32, -inf past Sk and the reference's finite -1e30·log2 e above the
+    diagonal; m' = max(m, rowmax x), α = exp2(m - m'), P = exp2(x - m'), l
+    = l α + rowsum P, acc = acc α + P V.  The two merge at the larger max M:
+    l = l₀ 2^(m₀-M) + l₁ 2^(m₁-M), acc likewise; out = acc / l.  A row that
+    sees no key gets the uniform weights over the real keys, as the
+    reference.  ``alpha=False`` (a planted fault) leaves the accumulators
+    unscaled as a walk goes on."""
+    sc = scale if scale is not None else q.shape[-1] ** -0.5
+    sl2 = torch.tensor(sc, dtype=F32) * torch.tensor(1.4426950408889634, dtype=F32)
+    masked = torch.tensor(NEG_INF, dtype=F32) * torch.tensor(1.4426950408889634, dtype=F32)
+    BH, Sq, _ = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    off = Sk - Sq
+    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
+    rows = torch.arange(Sq, device=q.device)
+    first = rows // 32 * 32  # each row's block's first and last rows
+    last = torch.clamp(first + 31, max=Sq - 1)
+    n_all = -(-Sk // bk)
+    if causal:
+        need = torch.clamp(torch.div(last + off, bk, rounding_mode="floor") + 1, max=n_all)
+        tiles = torch.where(first + off >= 0, need, torch.full_like(need, n_all))
+    else:
+        tiles = torch.full_like(rows, n_all)
+    walks = []
+    for half in (0, 1):
+        m = torch.full((BH, Sq), -float("inf"), dtype=F32, device=q.device)
+        l = torch.zeros((BH, Sq), dtype=F32, device=q.device)
+        acc = torch.zeros((BH, Sq, Dv), dtype=F32, device=q.device)
+        for t in range(half, n_all, 2):
+            keys = torch.arange(t * bk, min((t + 1) * bk, Sk), device=q.device)
+            x = torch.einsum("bqd,bkd->bqk", qf, kf[:, keys]) * sl2
+            if causal:
+                x = torch.where(keys[None, :] > rows[:, None] + off, masked, x)
+            live = (t < tiles)[None, :]  # rows whose block reaches this tile
+            m_new = torch.where(live, torch.maximum(m, x.amax(-1)), m)
+            a = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = torch.where(live, l * a + p.sum(-1), l)
+            pv = torch.einsum("bqk,bkd->bqd", p, vf[:, keys])
+            acc = torch.where(live[..., None], (acc * a[..., None] if alpha else acc) + pv, acc)
+            m = m_new
+        walks.append((m, l, acc))
+    (m0, l0, acc0), (m1, l1, acc1) = walks
+    mx = torch.maximum(m0, m1)
+    a0, a1 = torch.exp2(m0 - mx), torch.exp2(m1 - mx)  # a walk with no tile: 0
+    l = l0 * a0 + l1 * a1
+    acc = acc0 * a0[..., None] + acc1 * a1[..., None]
+    return (acc / l[..., None]).to(q.dtype)
 
 
 def causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:

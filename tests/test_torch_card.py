@@ -19,7 +19,10 @@ is held element by element against the exact sequential recurrence, as
 held against their plain versions and launched twice for the same bits
 (``test_flash_wgmma_bwd``, ``test_swiglu_wgmma_bwd``), and through the
 autograd Functions against autograd through the plain versions
-(``test_*_vjp_on_card``).
+(``test_*_vjp_on_card``).  The CUDA-core kernels are also held at every
+tile class and load path, for the same bits on two launches, and for the
+plan and constants their C helpers report against the Python mirrors
+(``test_cuda_core_*``, ``test_flash_cuda_core_*``).
 """
 import numpy as np
 import pytest
@@ -971,6 +974,103 @@ def test_swiglu_bwd_layout_matches_the_model(card):
            for i, k in enumerate(SWIGLU_BWD_LAYOUT)}
     assert got == SWIGLU_BWD_LAYOUT
     assert SWIGLU_LIBRARY.size("swiglu_matmul_bwd_layout", len(SWIGLU_BWD_LAYOUT)) == -1
+
+
+def _offset_inputs(card, seed, shapes, dtype, offset):
+    """``_inputs``, each tensor a contiguous view ``offset`` elements into
+    its storage (1: off the 16-byte boundaries the fast load path needs)."""
+    out = []
+    for t in _inputs(card, seed, shapes, dtype):
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device=card)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+# (Sq, Sk, D, Dv, dtype, offset): the flash CUDA-core kernel's tile classes
+# at their boundaries (D and Dv 32/33, 64/65, 128/129, 192) on both load
+# paths (f32 aligned: fast; f32 one element off its boundary, D or Dv not a
+# multiple of 4, bf16: general), ragged and Sq != Sk both ways
+FLASH_CUDA_CORE_CASES = [
+    (200, 230, 32, 32, torch.float32, 0), (230, 200, 32, 32, torch.float32, 1),
+    (200, 200, 33, 33, torch.float32, 0), (130, 130, 24, 8, torch.bfloat16, 0),
+    (200, 230, 64, 64, torch.float32, 0), (230, 200, 64, 64, torch.float32, 1),
+    (150, 150, 65, 64, torch.float32, 0), (150, 150, 40, 24, torch.bfloat16, 0),
+    (200, 230, 128, 128, torch.float32, 0), (230, 200, 128, 128, torch.float32, 1),
+    (150, 150, 128, 66, torch.float32, 0), (150, 150, 120, 72, torch.bfloat16, 0),
+    (200, 230, 129, 128, torch.float32, 0), (230, 200, 192, 128, torch.float32, 0),
+    (150, 150, 192, 128, torch.float32, 1), (150, 150, 180, 120, torch.bfloat16, 0),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,Dv,dtype,offset", FLASH_CUDA_CORE_CASES)
+def test_flash_cuda_core_classes_and_paths(card, causal, Sq, Sk, D, Dv, dtype, offset):
+    """Every (tile class, load path) of ``cuda_core`` against
+    ``flash_attention_ref`` within ``FLASH_TOL`` (2e-5 + 1e-2·|ref| in f32),
+    the plan the C side reports (``flash_cuda_core_plan``) the one
+    ``cuda_core_plan`` gives for the operands."""
+    from repro_torch.kernels.flash_attention import cuda_core_plan
+
+    q, k, v = _offset_inputs(card, 47, [(2, Sq, D), (2, Sk, D), (2, Sk, Dv)], dtype, offset)
+    assert select_flash_variant(D, Dv, dtype) == "cuda_core"
+    before = FLASH_LIBRARY.counts["cuda_core"]
+    out = flash_attention(q, k, v, causal=causal)
+    assert FLASH_LIBRARY.counts["cuda_core"] == before + 1
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k, v, out))
+    cls, path = cuda_core_plan(D, Dv, dtype, aligned)
+    code = FLASH_LIBRARY.size("flash_cuda_core_plan", D, Dv, int(dtype == torch.bfloat16),
+                              int(aligned))
+    assert code == 2 * ["d32", "d64", "d128", "d192"].index(cls) + (path == "fast")
+    assert path == ("fast" if dtype == torch.float32 and offset == 0 and D % 4 == 0
+                    and Dv % 4 == 0 else "general")
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype, 2e-5, 3e-2), rtol=1e-2)
+
+
+@pytest.mark.parametrize("Sq,Sk,D,Dv,dtype,offset", FLASH_CUDA_CORE_CASES[::3])
+def test_flash_cuda_core_same_bits(card, Sq, Sk, D, Dv, dtype, offset):
+    """Two launches of ``cuda_core`` give the same bits: every output is a
+    fixed sequence of FFMA chains, maxima and sums, and the two walks of a
+    row block merge in one order; no atomics."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q, k, v = _offset_inputs(card, 53, [(3, Sq, D), (3, Sk, D), (3, Sk, Dv)], dtype, offset)
+    first, _ = fa._launch(q, k, v, True, D ** -0.5)
+    second, _ = fa._launch(q, k, v, True, D ** -0.5)
+    assert torch.equal(first, second)
+
+
+def test_flash_cuda_core_plan_matches_the_card(card):
+    """The CUDA-core kernel's constants, as its C function
+    ``flash_cuda_core_layout`` gives them, equal the Python mirror's
+    (``CUDA_CORE_CLASSES``); the card fits one CTA an SM of each class (the
+    waves model counts on it); and the C side's plan
+    (``flash_cuda_core_plan``: tile class and load path) equals
+    ``cuda_core_plan`` over the class boundaries, both dtypes, aligned or
+    not."""
+    from repro_torch.kernels.flash_attention import CUDA_CORE_CLASSES, cuda_core_plan
+
+    def layout(key):
+        return FLASH_LIBRARY.size("flash_cuda_core_layout", key)
+
+    fields = ("dp", "dvp", "bk", "rows", "threads", "stages", None, "smem")
+    for c, (name, cls) in enumerate(CUDA_CORE_CLASSES.items()):
+        assert {f: layout(8 * c + i) for i, f in enumerate(fields) if f} == cls, name
+        assert layout(8 * c + 6) == 1, f"{name}: the card fits {layout(8 * c + 6)}"
+    assert (layout(32), layout(-1)) == (-1, -1)
+    names = list(CUDA_CORE_CLASSES)
+    for D in (1, 16, 31, 32, 33, 40, 63, 64, 65, 66, 80, 127, 128, 129, 176, 191, 192):
+        for Dv in (1, 8, 24, 32, 33, 64, 65, 66, 127, 128):
+            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                for aligned in (True, False):
+                    got = FLASH_LIBRARY.size("flash_cuda_core_plan", D, Dv, code, int(aligned))
+                    cls, path = cuda_core_plan(D, Dv, dtype, aligned)
+                    assert got == 2 * names.index(cls) + (path == "fast"), (D, Dv, dtype)
+    for bad in ((0, 64, 0, 1), (193, 64, 0, 1), (64, 129, 0, 1), (64, 64, 2, 1)):
+        assert FLASH_LIBRARY.size("flash_cuda_core_plan", *bad) == -1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
