@@ -24,7 +24,10 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              every tile class and load path of its f32 CUDA-core kernel
              (asserted), and three faults planted in copies of its source
              (the last k-stage dropped, a ring stage read one step early,
-             the ragged-F store unmasked) must each fail it.
+             the ragged-F store unmasked) must each fail it; so do the
+             flash and SSD sweeps for theirs (the SSD scan's: the carry's
+             decay dropped, one chunk's state term dropped, the diagonal
+             term's decay L dropped).
 4. serve   — the LM paths, each at full width, random weights from a
              seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
              attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
@@ -727,6 +730,63 @@ FLASH_CUDA_CORE_FAULTS = (
                             "for (int j = 0; j < C::TV; ++j) acc[i][j] *= 1.f;"),)),
 )
 
+# (BH, S, P, N, offset): the SSD CUDA-core kernel's (class, path) pairs the
+# sweep's other cases leave out: the general path in f32 (P % 4 != 0) at
+# each class (N 48 on the 128 class's tiles, zero past N), and f32 operands
+# one element off their 16-byte boundaries
+SSD_PLAN_CASES = [(2, 150, 30, 16, 0), (2, 150, 30, 48, 0), (2, 150, 30, 128, 0),
+                  (2, 150, 64, 128, 1)]
+# every (tile class, load path) of the SSD CUDA-core kernel, as its C plan
+# (ssd_cuda_core_plan) numbers them: class 2 c + 1 on the fast path
+SSD_CUDA_CORE_PLANS = {(c, p) for c in ("n32", "n128") for p in ("fast", "general")}
+# the chunk at which an SSD variant's bound_ms counts the scan's work, where
+# it is not the variant's own: the CUDA-core kernel's yardstick stays at
+# chunks of 32 whatever chunk the kernel takes (the chunked form's triangle
+# work grows with the chunk, so a longer one would raise the bound with
+# nothing faster); its rows give the bound at the kernel's own chunk beside
+# it (bound_ms_own_chunk)
+SSD_BOUND_CHUNK = {"cuda_core": 32}
+# planted faults in copies of csrc/ssd_scan.cu's CUDA-core kernels, each of
+# which the SSD sweep must see: (name, ((old, new), ...))
+SSD_CUDA_CORE_FAULTS = (
+    ("the carry's decay dropped", tuple((f"h.{c} = fmaf(d[k], h.{c}, s[k].{c});",
+                                         f"h.{c} = h.{c} + s[k].{c};") for c in "xyzw")),
+    ("one chunk's state term dropped", (
+        ("  if (c > 0) {\n    __syncthreads();  // every read of S^T is done",
+         "  if (c > 1) {\n    __syncthreads();  // every read of S^T is done"),)),
+    ("the diagonal term's decay L dropped", (("cb[r][k] * expf(cs[i] - cs[j]) * dts[j]",
+                                               "cb[r][k] * dts[j]"),)),
+)
+
+
+def ssd_cuda_core_call(torch, lib, x, dt, A, B, C):
+    """y and the final state of one launch of the SSD CUDA-core kernel from
+    ``lib`` on flat [BH, S, *] operands (any dtype it takes, the ones the
+    selector sends to ``wgmma`` too), its scratch allocated from the
+    library's own count."""
+    from repro_torch.kernels._build import stream_handle
+
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    y = torch.empty_like(x)
+    h = torch.empty((BH, P, N), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(lib.size("ssd_cuda_core_scratch_floats", BH, S, P, N),
+                          dtype=torch.float32, device=x.device)
+    lib.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+               y.data_ptr(), h.data_ptr(), scratch.data_ptr(), BH, S, P, N,
+               int(x.dtype == torch.bfloat16), stream_handle(x))
+    return y, h
+
+
+def ssd_cuda_core_plan_of(torch, lib, x, B, C, y) -> tuple:
+    """(tile class, load path) the C side picked for an SSD CUDA-core launch
+    on these operands (``ssd_cuda_core_plan``)."""
+    from repro_torch.kernels.ssd_scan import cuda_core_plan_of_code
+
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C, y))
+    return cuda_core_plan_of_code(lib.size("ssd_cuda_core_plan", x.shape[-1], B.shape[-1],
+                                           int(x.dtype == torch.bfloat16), int(aligned)))
+
 
 def flash_sweep_cases(torch):
     """Every case of the flash sweep: (BH, Sq, Sk, D, Dv, offset, dtype,
@@ -924,10 +984,9 @@ def check_kernels(torch, timer):
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels import (
-        FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, ssd_mixer, ssd_scan,
-        swiglu_experts, swiglu_matmul,
+        FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, select_ssd_variant, ssd_mixer,
+        ssd_scan, swiglu_experts, swiglu_matmul,
     )
-    from repro_torch.kernels._build import stream_handle
     from repro_torch.kernels.ref import (
         flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
     )
@@ -1126,54 +1185,65 @@ def check_kernels(torch, timer):
             bound_ms=b_ms, bound_by=b_by)
         del x, wg, wu
 
-    def ssd_inputs(BH, S, P, N, dtype, dt_shift=0.0):
+    def ssd_inputs(BH, S, P, N, dtype, dt_shift=0.0, offset=0):
         """dt = softplus(normal - dt_shift): at 0 a chunk of 64 decays by
         ~e^-50, so the state carried across chunks is negligible; at 4 (dt
-        ~0.02, as in trained models) by 0.1-0.4, and it counts."""
+        ~0.02, as in trained models) by 0.1-0.4, and it counts.  x, B and C
+        are contiguous views ``offset`` elements into their storage (1: off
+        the 16-byte boundaries the CUDA-core kernel's fast path needs)."""
         x = randn(BH, S, P, dtype=dtype)
         dt = torch.nn.functional.softplus(randn(BH, S, dtype=f32) - dt_shift)
         A = -torch.exp(randn(BH, dtype=f32, scale=0.5))
         B, C = randn(BH, S, N, dtype=dtype, scale=0.5), randn(BH, S, N, dtype=dtype, scale=0.5)
+        if offset:
+            def off(t):
+                buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+                buf[offset:].copy_(t.reshape(-1))
+                return buf[offset:].view(t.shape)
+            x, B, C = off(x), off(B), off(C)
         return x, dt, A, B, C
 
     worst = {"y": 0.0, "state": 0.0}  # largest error over its tolerance, element by element
 
-    def ssd_hold(what, out, ref, dtype):
-        """Hold y and the final state to tolerance, element by element;
-        return y's max error and its (atol, rtol)."""
+    def ssd_ratios(out, ref, dtype):
+        """Each of y's and the final state's largest error over its
+        tolerance, element by element (NaN where one is not finite), and
+        their (atol, rtol)."""
         (y, h), (ry, rh) = out, ref
         atol, rtol = SSD_Y_TOL[str(dtype)]
         tols = {"y": (atol * max(float(ry.float().abs().max()), 1.0), rtol),
                 "state": (SSD_STATE_TOL * max(float(rh.abs().max()), 1.0), 0.0)}
+        ratios = {}
         for name, o, r in (("y", y, ry), ("state", h, rh)):
             o, r = o.float(), r.float()
             a, rt = tols[name]
-            ratio = float(((o - r).abs() / (a + rt * r.abs())).max())
-            if ratio > 1:
+            ratios[name] = float(((o - r).abs() / (a + rt * r.abs())).max())
+        return ratios, tols
+
+    def ssd_hold(what, out, ref, dtype):
+        """Hold y and the final state to tolerance, element by element;
+        return y's max error and its (atol, rtol)."""
+        ratios, tols = ssd_ratios(out, ref, dtype)
+        for name, o, r in (("y", out[0], ref[0]), ("state", out[1], ref[1])):
+            if not ratios[name] <= 1:
+                a, rt = tols[name]
                 raise AssertionError(
-                    f"ssd_scan {what} {dtype}: {name} max err {max_err(o, r):.3g} is {ratio:.3g} "
-                    f"times its tolerance (atol {a:.3g}, rtol {rt:.3g}; max |ref| "
-                    f"{float(r.abs().max()):.3g})")
-            worst[name] = max(worst[name], ratio)
-        return max_err(y, ry), tols["y"]
+                    f"ssd_scan {what} {dtype}: {name} max err {max_err(o, r):.3g} is "
+                    f"{ratios[name]:.3g} times its tolerance (atol {a:.3g}, rtol {rt:.3g}; max "
+                    f"|ref| {float(r.float().abs().max()):.3g})")
+            worst[name] = max(worst[name], ratios[name])
+        return max_err(out[0], ref[0]), tols["y"]
+
+    ssd_reached = set()  # the CUDA-core kernel's (class, path) pairs the sweep reached
 
     def ssd_check(what, args, dtype):
         out, variant = launched(SSD_LIBRARY, lambda: ssd_scan(*args, return_state=True))
         hit[SSD_LIBRARY.name].add(variant)
+        if variant == "cuda_core":
+            ssd_reached.add(ssd_cuda_core_plan_of(torch, SSD_LIBRARY, args[0], args[3], args[4],
+                                                  out[0]))
         return ssd_hold(f"[{variant}] {what}", out, ssd_scan_ref(*args, return_state=True),
                         dtype), variant
-
-    def cuda_core_bf16(x, dt, A, B, C):
-        """The CUDA-core kernel on bf16 operands the selector now sends to
-        wgmma: the earlier kernel of the mamba2 path, timed beside the new
-        one in the same run (the call the wrapper made before)."""
-        BH, S, P = x.shape
-        y = torch.empty_like(x)
-        h = torch.empty((BH, P, B.shape[-1]), dtype=f32, device="cuda")
-        SSD_LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                           C.data_ptr(), y.data_ptr(), h.data_ptr(), BH, S, P, B.shape[-1], 1,
-                           stream_handle(x))
-        return y, h
 
     # (BH, S, P, N): the CPU tests' sweep, then ragged S and P; f32 and bf16
     # with P != 64 or N % 16 != 0 go to the CUDA-core kernel, bf16 with
@@ -1192,15 +1262,46 @@ def check_kernels(torch, timer):
         if variant != "wgmma":
             raise AssertionError(f"ssd_scan {(BH, S, P, N)} bf16 took {variant}, not wgmma")
     # slow decay, where the state carried from chunk to chunk counts: both
-    # variants
+    # variants; the CUDA-core kernel at ragged S, N 16 and P 24 too
     slow_cases = [(2, 1000, 64, 128, bf16), (3, 256, 64, 128, bf16), (2, 300, 64, 16, bf16),
-                  (2, 300, 64, 128, f32)]
+                  (2, 300, 64, 128, f32), (2, 1000, 64, 16, f32), (3, 300, 24, 16, f32)]
     for (BH, S, P, N, dtype) in slow_cases:
         ssd_check(f"{(BH, S, P, N)} slow decay", ssd_inputs(BH, S, P, N, dtype, dt_shift=4.0),
                   dtype)
+    # the CUDA-core kernel's general path in f32 at each class, and off the
+    # 16-byte boundaries
+    for (BH, S, P, N, offset) in SSD_PLAN_CASES:
+        _, variant = ssd_check(f"{(BH, S, P, N)} offset {offset}",
+                               ssd_inputs(BH, S, P, N, f32, offset=offset), f32)
+        if variant != "cuda_core":
+            raise AssertionError(f"ssd_scan {(BH, S, P, N)} f32 took {variant}, not cuda_core")
     # the backward kernel: backward_paths
     if hit[SSD_LIBRARY.name] != {v for v in SSD_LIBRARY.variants if not v.endswith("_bwd")}:
         raise AssertionError(f"ssd_scan: the sweep reached {sorted(hit[SSD_LIBRARY.name])}")
+    if ssd_reached != SSD_CUDA_CORE_PLANS:
+        raise AssertionError(f"the SSD sweep reached the CUDA-core kernel's (class, path) "
+                             f"{sorted(ssd_reached)}, not {sorted(SSD_CUDA_CORE_PLANS)}")
+    # every CUDA-core case of the sweep, launched from copies of the source
+    # with a fault planted: each fault must fail some
+    ssd_cc_cases = ([(BH, S, P, N, dtype, 0.0, 0) for (BH, S, P, N) in ssd_cases
+                     for dtype in (f32, bf16) if select_ssd_variant(P, N, dtype) == "cuda_core"]
+                    + [(BH, S, P, N, dtype, 4.0, 0) for (BH, S, P, N, dtype) in slow_cases
+                       if select_ssd_variant(P, N, dtype) == "cuda_core"]
+                    + [(BH, S, P, N, f32, 0.0, offset) for (BH, S, P, N, offset) in SSD_PLAN_CASES])
+    for name, lib in ssd_cuda_core_fault_libraries().items():
+        failed, largest = 0, 0.0
+        for (BH, S, P, N, dtype, shift, offset) in ssd_cc_cases:
+            args = ssd_inputs(BH, S, P, N, dtype, shift, offset)
+            out = ssd_cuda_core_call(torch, lib, *args)
+            torch.cuda.synchronize()
+            ratios, _ = ssd_ratios(out, ssd_scan_ref(*args, return_state=True), dtype)
+            ratio = max(v if math.isfinite(v) else math.inf for v in ratios.values())
+            failed += ratio > 1
+            largest = max(largest, ratio)
+        log(f"ssd_scan cuda_core planted fault ({name}): {failed} of {len(ssd_cc_cases)} "
+            f"CUDA-core sweep cases outside tolerance (largest error over it {largest:.3g})")
+        if not failed:
+            raise AssertionError(f"the SSD sweep does not see the planted fault: {name}")
 
     def conv_views(Bsz, S, H, G, P, N, scale=1.0):
         """x, dt, A, B, C in the mixer's layout: x, B and C strided views of
@@ -1222,9 +1323,23 @@ def check_kernels(torch, timer):
         raise AssertionError(f"ssd_mixer on strided views took {variant}, not wgmma")
     ref = ssd_mixer(*(t.cpu() for t in args), return_state=True)
     ssd_hold("[wgmma] mixer B=2 S=150 H=8 G=2 strided", (out[0].cpu(), out[1].cpu()), ref, bf16)
-    log(f"ssd_scan: {len(ssd_cases) * 2 + len(wgmma_cases) + len(slow_cases)} sweep cases and "
-        f"a strided grouped "
-        f"mixer within tolerance (y and final state; variants {sorted(hit[SSD_LIBRARY.name])})")
+    log(f"ssd_scan: {len(ssd_cases) * 2 + len(wgmma_cases) + len(slow_cases)} sweep cases, "
+        f"{len(SSD_PLAN_CASES)} plan cases and a strided grouped mixer within tolerance (y and "
+        f"final state; variants {sorted(hit[SSD_LIBRARY.name])}; cuda_core classes and load "
+        f"paths {sorted(ssd_reached)})")
+
+    def ssd_bound(BH, S, P, N, dtype, variant):
+        """bound_ms and bound_by of a flat [BH, S, *] scan at the chunk
+        its variant's yardstick counts at (SSD_BOUND_CHUNK), and, where that
+        is not the kernel's own chunk, the bound at the kernel's own."""
+        elem = torch.empty((), dtype=dtype).element_size()
+        chunk = SSD_BOUND_CHUNK.get(variant, SSD_CHUNK[variant])
+        b_ms, b_by = H100.bound_ms(*ssd_work(BH, BH, S, P, N, elem, chunk), dtype)
+        out = dict(bound_ms=b_ms, bound_by=b_by)
+        if chunk != SSD_CHUNK[variant]:
+            out["bound_ms_own_chunk"] = H100.bound_ms(
+                *ssd_work(BH, BH, S, P, N, elem, SSD_CHUNK[variant]), dtype)[0]
+        return out
 
     # mamba2-370m's prefill: 32 heads, head dim 64, state 128 (one group).
     # [BH, S, *] rows: wgmma in bf16, the CUDA-core kernel in f32 (its route)
@@ -1233,24 +1348,34 @@ def check_kernels(torch, timer):
         BH, P, N = 32, 64, 128
         args = ssd_inputs(BH, S, P, N, dtype)
         (err, tol), variant = ssd_check(f"path S={S}", args, dtype)
-        b_ms, b_by = H100.bound_ms(
-            *ssd_work(BH, BH, S, P, N, args[0].element_size(), SSD_CHUNK[variant]), dtype)
         rows[("ssd_scan", variant, S)] = dict(
             shape=f"BH={BH} S={S} P={P} N={N} {str(dtype)[6:]}", max_abs_err=err, tol=list(tol),
             ms=timer.ms(lambda: ssd_scan(*args, return_state=True)),
             plain_ms=timer.ms(lambda: ssd_scan_ref(*args, return_state=True), reps=5),
             library=None, library_ms=None,  # no single PyTorch call computes an SSD scan
-            bound_ms=b_ms, bound_by=b_by)
+            **ssd_bound(BH, S, P, N, dtype, variant))
         if S == 1024 and dtype == bf16:
-            out = cuda_core_bf16(*args)
+            # the CUDA-core kernel on the bf16 operands the selector sends to
+            # wgmma: its element path, timed beside wgmma in the same run
+            out = ssd_cuda_core_call(torch, SSD_LIBRARY, *args)
             err, tol = ssd_hold("[cuda_core] path S=1024", out,
                                 ssd_scan_ref(*args, return_state=True), bf16)
-            b_ms, b_by = H100.bound_ms(*ssd_work(BH, BH, S, P, N, 2, SSD_CHUNK["cuda_core"]),
-                                       bf16)
             rows[("ssd_scan", "cuda_core", "bf16")] = dict(
-                rows[("ssd_scan", variant, S)], shape=f"BH={BH} S={S} P={P} N={N} bf16, earlier",
+                rows[("ssd_scan", variant, S)],
+                shape=f"BH={BH} S={S} P={P} N={N} bf16, element path",
                 max_abs_err=err, tol=list(tol),
-                ms=timer.ms(lambda: cuda_core_bf16(*args)), bound_ms=b_ms, bound_by=b_by)
+                ms=timer.ms(lambda: ssd_cuda_core_call(torch, SSD_LIBRARY, *args)),
+                **ssd_bound(BH, S, P, N, bf16, "cuda_core"))
+    # Jamba's heads in f32 (the CUDA-core kernel's route; its N <= 32 class)
+    BH, S, P, N = 128, 1024, 64, 16
+    args = ssd_inputs(BH, S, P, N, f32)
+    (err, tol), variant = ssd_check(f"Jamba's heads S={S}", args, f32)
+    rows[("ssd_scan", variant, "jamba f32")] = dict(
+        shape=f"BH={BH} S={S} P={P} N={N} float32", max_abs_err=err, tol=list(tol),
+        ms=timer.ms(lambda: ssd_scan(*args, return_state=True)),
+        plain_ms=timer.ms(lambda: ssd_scan_ref(*args, return_state=True), reps=5),
+        library=None, library_ms=None, **ssd_bound(BH, S, P, N, f32, variant))
+    del args
     # the serving layout: x, B and C views of mamba2's conv output [1, S,
     # 2048 + 2·128], one group; the bound counts the bytes this layout needs
     S, H, G, P, N = 1024, 32, 1, 64, 128
@@ -2659,6 +2784,13 @@ def flash_cuda_core_fault_libraries() -> dict:
             for i, (name, subs) in enumerate(FLASH_CUDA_CORE_FAULTS)}
 
 
+def ssd_cuda_core_fault_libraries() -> dict:
+    """The SSD libraries built from copies of its source with each of
+    SSD_CUDA_CORE_FAULTS planted in the CUDA-core kernels, by fault."""
+    return {name: source_fault_library("ssd_scan", "ssd_cuda_core_fault_" + str(i), subs)
+            for i, (name, subs) in enumerate(SSD_CUDA_CORE_FAULTS)}
+
+
 def swiglu_bwd_other_box():
     """The SwiGLU kernels launched from ``swiglu_box_fault_library`` (a
     planted fault: the backward's epilogue reads dout from the other box)."""
@@ -4048,7 +4180,8 @@ def main() -> None:
         t0 = time.perf_counter()
         secs = build_all([*LIBRARIES, ssd_rank_fault_library(), swiglu_box_fault_library(),
                           *cuda_core_fault_libraries().values(),
-                          *flash_cuda_core_fault_libraries().values()])
+                          *flash_cuda_core_fault_libraries().values(),
+                          *ssd_cuda_core_fault_libraries().values()])
         log(f"built {', '.join(f'{n} ({s:.1f} s)' for n, s in secs.items())} "
             f"in {time.perf_counter() - t0:.1f} s")
         for lib in LIBRARIES:
@@ -4133,6 +4266,8 @@ def main() -> None:
                  ("swiglu_matmul", "experts_cuda_core", 120, "deepseek", ""),
                  ("ssd_scan", "wgmma", 1024, "mamba2", ""),
                  ("ssd_scan", "cuda_core", 1024, "mamba2", ""),
+                 ("ssd_scan", "cuda_core", "jamba f32", "jamba", " Jamba N=16"),
+                 ("ssd_scan", "cuda_core", "bf16", "mamba2", " bf16"),
                  # the hybrid, encoder, VLM and Arctic paths' shapes; each
                  # row's launches are its variant's on the path named
                  ("flash_attention", "mma", "hubert", "hubert", " D=80 non-causal"),
@@ -4179,7 +4314,7 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "library": r["library"], "shape": r["shape"],
-                **({"rel_err": r["rel_err"]} if "rel_err" in r else {}),
+                **({k: r[k] for k in ("rel_err", "bound_ms_own_chunk") if k in r}),
             })
         if any(not math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError("a kernel number is not finite")

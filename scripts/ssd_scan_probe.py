@@ -7,6 +7,7 @@ Run from the root of a checkout::
     python3 scripts/ssd_scan_probe.py phases     # or some of them
     python3 scripts/ssd_scan_probe.py faults
     python3 scripts/ssd_scan_probe.py bwd
+    python3 scripts/ssd_scan_probe.py cuda_core [--earlier DIR [--earlier-only]]
 
 ``phases``: device time of each of the variant's three kernels (profiler
 kernel names, L2 flushed before each call) and of the whole call (CUDA
@@ -35,11 +36,34 @@ share of the on-chip head sum dropped), each with its largest error over
 ``ssd_scan_vjp``'s gradients as a share of their largest magnitude
 (``chip_smoke.py`` holds the kernel to 1e-2).
 
+``cuda_core``: the f32 CUDA-core variant called through its wrapper
+``_launch_cuda_core`` (with the final state) at the three shapes its rows
+report: BH 32, S 1024, P 64, N 128 in f32 (mamba2-370m's heads), Jamba's
+BH 128, S 1024, P 64, N 16 in f32, and BH 32, S 1024, P 64, N 128 in bf16
+(the element path; the selector sends these shapes to ``wgmma``).  Each:
+y and the final state held against ``ssd_scan_ref`` element by element at
+``chip_smoke.py``'s tolerances, two launches compared bit for bit, then
+the call timed (CUDA events, median of 20, L2 flushed before each) and the
+SM clock and power sampled while it runs back to back.  Once as built and
+once from each attribution copy, timed only (their outputs are wrong by
+design): each skips one step behind a condition that is false at run time
+(``S < 0``), so that the compiler keeps the rest (``VARIANTS``; the
+earlier kernel's in ``EARLIER_VARIANTS``).  ``-Xptxas -v`` registers, spills
+and stack of every SSD kernel are printed beside each copy's times.
+``--earlier DIR`` times DIR's kernel (a checkout unpacked with ``git
+archive``, e.g. the parent commit's) and its copies the same way, in the
+same session; ``--earlier-only`` times DIR's copies alone.  Every copy
+builds at once, one ``nvcc`` each; the cases then run one copy at a time,
+each in a child process; the results go to ``build/ssd_scan_probe/
+cuda_core.json``.
+
 The copies live under ``build/ssd_scan_probe/`` (listed in ``.gitignore``);
 every copy builds its own library there.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import re
@@ -89,6 +113,112 @@ FAULT_CASES = [(2, 100, 64, 128, 0.0), (3, 256, 64, 128, 0.0), (1, 37, 64, 16, 0
                (2, 64, 64, 64, 0.0), (1, 1, 64, 128, 0.0), (2, 1000, 64, 128, 0.0),
                (32, 1024, 64, 128, 0.0), (2, 1000, 64, 128, 4.0), (3, 256, 64, 128, 4.0),
                (2, 300, 64, 16, 4.0), (32, 1024, 64, 128, 4.0)]
+
+# the CUDA-core variant's shapes: (key, BH, S, P, N, dtype name)
+CC_CASES = [("f32", 32, 1024, 64, 128, "float32"), ("jamba f32", 128, 1024, 64, 16, "float32"),
+            ("bf16", 32, 1024, 64, 128, "bfloat16")]
+# copies of this checkout's CUDA-core kernel: (name, [(text in
+# csrc/ssd_scan.cu, its replacement)]); a name with "(" is an attribution
+# copy, timed only
+_CB = ("for (int n4 = lo; n4 < hi; ++n4) {\n    float4 cv[4];",
+       "for (int n4 = lo; n4 < (hi < 0 ? hi : lo); ++n4) {\n    float4 cv[4];")
+_STATE = ("for (int j = h * Q / STAGES1; j < (h + 1) * Q / STAGES1; ++j) {",
+          "for (int j = h * Q / STAGES1; j < (h + 1) * Q / STAGES1 && S < 0; ++j) {")
+_SX = ("for (int j = 0; j < jend; ++j) {", "for (int j = 0; j < (S < 0 ? jend : 0); ++j) {")
+_CH = ("for (int n4 = H4 * h; n4 < hi; ++n4) {\n        float cv[4][4];",
+       "for (int n4 = H4 * h; n4 < (S < 0 ? hi : 0); ++n4) {\n        float cv[4][4];")
+_LOADS = ("const bool ok = r < nrows && col0 + c < ncol;",
+          "const bool ok = r < nrows && col0 + c < ncol && ncol < 0;")
+VARIANTS = {
+    "as built": [],
+    # (b) every global load of the three phases' tiles predicated off (zeros land)
+    "(b) no loads": [_LOADS, ("v[k] = r < nrows && col0 + c < ncol ?",
+                              "v[k] = r < nrows && col0 + c < ncol && ncol < 0 ?")],
+    # (c) C·Bᵀ and the masked scores skipped
+    "(c) no CB": [_CB, ("if (k >= km) break;", "if (k >= km || S > 0) break;")],
+    # (d) phase 1's state update (the rank-Q product) skipped
+    "(d) no state update": [_STATE],
+    # (e) every product's FFMAs skipped: loads, scans, exps, barriers and the state pass alone
+    "(e) no FFMAs": [_CB, _STATE, _SX, _CH],
+    # (f) the barriers of phases 1 and 3 skipped (reads race the writes)
+    "(f) no barriers": [
+        ("  __syncthreads();\n  if (tid == 0 && blockIdx.z == 0)",
+         "  if (S < 0) __syncthreads();\n  if (tid == 0 && blockIdx.z == 0)"),
+        ("__syncthreads();  // the stage has landed", "if (S < 0) __syncthreads();  // the stage"),
+        ("__syncthreads();  // columns [4 H4 h", "if (S < 0) __syncthreads();  // columns [4 H4 h"),
+        ("__syncthreads();  // every read of B is done", "if (S < 0) __syncthreads();  // B"),
+        ("__syncthreads();  // S^T and x", "if (S < 0) __syncthreads();  // S^T and x"),
+        ("__syncthreads();  // every read of S^T", "if (S < 0) __syncthreads();  // S^T"),
+        ("__syncthreads();  // rows [4 H4 h", "if (S < 0) __syncthreads();  // rows [4 H4 h")],
+    # (h) the skeleton: no loads and no FFMAs (scans, exps, barriers, the
+    # state pass, the stores)
+    "(h) no loads or FFMAs": [_LOADS, _CB, _STATE, _SX, _CH],
+    # (g) the state pass's loop skipped for this variant (phase 3 reads phase 1's terms)
+    "(g) no state pass": [("for (int c0 = 0; c0 < nch; c0 += PASS_CH) {",
+                           "for (int c0 = 0; c0 < (SIMT && nch > 0 ? 0 : nch); c0 += PASS_CH) {")],
+    # chunk_scan's bands by warp % 4 (the two warps of a scheduler on one
+    # band), not paired b and 3 - b on each scheduler
+    "bands by warp % 4": [("const int b = warp < 4 ? b0 : 3 - b0, hp = q >> 1,",
+                           "const int b = (warp & 3) + 0 * b0, hp = warp >> 2,")],
+    # the general path's element loads 16 in flight a thread, not 8
+    "element loads 16 at a time": [("BATCH = COPIES < 8 ? COPIES : 8;",
+                                    "BATCH = COPIES < 16 ? COPIES : 16;")],
+    # chunk_scan at 2 CTAs an SM in both classes (launch bounds: 128
+    # registers, no spills), not 3 at N <= 32
+    "scan at 2 CTAs an SM": [("using N32 = Cls<32, 4, 3>;", "using N32 = Cls<32, 4, 2>;")],
+    # chunk_scan's chunk-0 CTAs (they read no state) exit without waiting
+    # for the state pass, as an earlier version of the kernel did: what the
+    # wait costs
+    "chunk 0 not waiting": [("  hopper::griddep_wait();\n  if (c > 0) {\n    __syncthreads();",
+                             "  if (c > 0) {\n    hopper::griddep_wait();\n    __syncthreads();")],
+    # the three phases without programmatic dependent launch (the forward's
+    # and the backward's launches lose the attribute)
+    "without PDL": NO_PDL,
+}
+# the same attribution of the earlier kernel (one CTA of 256 threads per
+# (bh, 16 rows of P) walking the chunks of 32 in order, four __syncthreads a
+# chunk, the next chunk's operands staged in registers), for --earlier
+EARLIER_VARIANTS = {
+    "earlier": [],
+    # (b) the global loads of x, dt, B and C predicated off (zeros land)
+    "earlier (b) no loads": [
+        ("const bool in = e < Q * N && t0 + r < S;", "const bool in = e < Q * N && t0 + r < S && S < 0;"),
+        ("st.x[k] = (t0 + r < S && p < P) ?", "st.x[k] = (t0 + r < S && p < P && S < 0) ?"),
+        ("st.dt = (tid < Q && t0 + tid < S) ?", "st.dt = (tid < Q && t0 + tid < S && S < 0) ?")],
+    # (c) C·Bᵀ and the masked scores skipped
+    "earlier (c) no CB": [
+        ("for (int n4 = 0; n4 < N / 4; ++n4) {\n        const float4 cv = ci[n4];\n#pragma unroll",
+         "for (int n4 = 0; n4 < (S < 0 ? N / 4 : 0); ++n4) {\n        const float4 cv = ci[n4];\n"
+         "#pragma unroll"),
+        ("        Ss[i * (Q + 1) + j] = j <= i ?", "        if (S < 0) Ss[i * (Q + 1) + j] = j <= i ?")],
+    # (d) the state update's FFMAs skipped
+    "earlier (d) no state update": [
+        ("for (int j = 0; j < Q; ++j) {\n        const float b = Bs[j * NS + n];",
+         "for (int j = 0; j < (S < 0 ? Q : 0); ++j) {\n        const float b = Bs[j * NS + n];")],
+    # (e) every product's FFMAs skipped: loads, scans, exps and barriers alone
+    "earlier (e) no FFMAs": [
+        ("for (int n4 = 0; n4 < N / 4; ++n4) {\n        const float4 cv = ci[n4];\n#pragma unroll",
+         "for (int n4 = 0; n4 < (S < 0 ? N / 4 : 0); ++n4) {\n        const float4 cv = ci[n4];\n"
+         "#pragma unroll"),
+        ("for (int j = 0; j < Q; ++j) {\n        const float b = Bs[j * NS + n];",
+         "for (int j = 0; j < (S < 0 ? Q : 0); ++j) {\n        const float b = Bs[j * NS + n];"),
+        ("for (int j = 0; j < Q; ++j) {\n        const float s = Ss[i * (Q + 1) + j];",
+         "for (int j = 0; j < (S < 0 ? Q : 0); ++j) {\n        const float s = Ss[i * (Q + 1) + j];"),
+        ("for (int n4 = 0; n4 < N / 4; ++n4) {\n        const float4 cv = ci[n4];\n        o0 = dot4",
+         "for (int n4 = 0; n4 < (S < 0 ? N / 4 : 0); ++n4) {\n        const float4 cv = ci[n4];\n"
+         "        o0 = dot4")],
+    # (f) the four barriers a chunk skipped (reads race the writes)
+    "earlier (f) no barriers": [
+        ("if (tid < Q) dts[tid] = st.dt;\n    __syncthreads();",
+         "if (tid < Q) dts[tid] = st.dt;\n    if (S < 0) __syncthreads();"),
+        ("    __syncthreads();\n\n    // 4. S_ij", "    if (S < 0) __syncthreads();\n\n    // 4. S_ij"),
+        ("    __syncthreads();\n\n    // 5. y_i", "    if (S < 0) __syncthreads();\n\n    // 5. y_i"),
+        ("    __syncthreads();\n  }\n\n  if (h_out != nullptr && n < N) {",
+         "    if (S < 0) __syncthreads();\n  }\n\n  if (h_out != nullptr && n < N) {")],
+}
+# the CUDA-core variant's kernels (and the earlier ssd_scan_kernel) by their
+# mangled names' length-prefixed identifiers
+PTXAS_NAME = re.compile(r"\d(ssd_(?:cc_\w+?|state_pass|scan)_kernel)")
 
 
 def copy_with(name: str, subs) -> str:
@@ -220,19 +350,263 @@ def child(mode: str, src: str) -> None:
     print("RESULT " + json.dumps(res), flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# the CUDA-core variant
+# --------------------------------------------------------------------------- #
+def ptxas_summary(src: str) -> list:
+    """-Xptxas -v of every SSD kernel of the copy, from the build log of its
+    library (named, as ``kernels/_build.py`` names it, by a hash of the
+    source and the shared headers): (kernel and template arguments,
+    registers, spill stores, stack frame bytes)."""
+    csrc = os.path.join(src, "repro_torch", "csrc")
+    h = hashlib.sha256(open(os.path.join(csrc, "ssd_scan.cu"), "rb").read())
+    for header in sorted(f for f in os.listdir(csrc) if f.endswith(".cuh")):
+        h.update(open(os.path.join(csrc, header), "rb").read())
+    log = os.path.join(os.path.dirname(src), "build", "repro_torch_kernels",
+                       f"ssd_scan-{h.hexdigest()[:16]}.log")
+    if not os.path.exists(log):
+        return []
+    out, name, spill, stack = [], None, 0, 0
+    for line in open(log):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            t = PTXAS_NAME.search(name)
+            if t:
+                kind = "bf16" if "bfloat16" in name else ""
+                nums = re.findall(r"L[ib](\d+)E", name)
+                out.append((" ".join(x for x in (t.group(1), kind, "/".join(nums)) if x),
+                            int(m.group(1)), spill, stack))
+            name = None
+    return out
+
+
+def build(srcs) -> None:
+    """Build each copy's library, all at once."""
+    procs = [(src, subprocess.Popen([sys.executable, os.path.abspath(__file__), "--build", src],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for src in srcs]
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"building {src} failed:\n{out[-3000:]}")
+
+
+def cuda_core_child(src: str, checked: bool) -> None:
+    """Inside one copy: every CC_CASES shape through ``_launch_cuda_core``,
+    checked (when ``checked``) and timed."""
+    sys.path.insert(0, src)
+    import importlib
+    import threading
+    import time
+
+    import torch
+
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    build_all([ssd.LIBRARY])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            flush.zero_()
+            torch.cuda._sleep(400_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    def clocks(fn, seconds=2.0):
+        """The card's SM clock (MHz) and power draw (W), the medians of
+        nvidia-smi samples taken while ``fn`` runs back to back."""
+        samples, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                      "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True).stdout.split(",")
+                samples.append((float(out[0]), float(out[1])))
+                time.sleep(0.1)
+        th = threading.Thread(target=sample)
+        t0 = time.time()
+        th.start()
+        while time.time() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        stop.set()
+        th.join()
+        return [sorted(s[i] for s in samples)[len(samples) // 2] for i in (0, 1)]
+
+    def kernel_ms(fn, pattern, reps=10):
+        """Device ms a call of each kernel whose profiler name matches
+        ``pattern`` (group 1 its name), L2 flushed before each call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(pattern, e.key)
+            if m:
+                out[m.group(1)] = out.get(m.group(1), 0.0) + e.self_device_time_total / reps / 1e3
+        return out
+
+    def ratio(o, r, atol, rtol):
+        """Largest error over its tolerance, element by element, as
+        chip_smoke.py's ssd_hold counts it."""
+        o, r = o.float(), r.float()
+        a = atol * max(float(r.abs().max()), 1.0)
+        return float(((o - r).abs() / (a + rtol * r.abs())).max())
+
+    res = {}
+    for key, BH, S, P, N, dname in CC_CASES:
+        dtype = getattr(torch, dname)
+        x = randn(BH, S, P, dtype=dtype)
+        dt = torch.nn.functional.softplus(randn(BH, S, dtype=torch.float32))
+        A = -torch.exp(randn(BH, dtype=torch.float32, scale=0.5))
+        B, C = randn(BH, S, N, dtype=dtype, scale=0.5), randn(BH, S, N, dtype=dtype, scale=0.5)
+        views = (x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None], C[:, :, None])
+        fn = lambda: ssd._launch_cuda_core(*views, True)  # noqa: E731
+        before = ssd.LIBRARY.counts["cuda_core"]
+        (y, h), (y2, h2) = fn(), fn()
+        r = {"launches": ssd.LIBRARY.counts["cuda_core"] - before,
+             "same_bits": bool(torch.equal(y, y2) and torch.equal(h, h2)),
+             "digest": hashlib.sha256(y.float().cpu().numpy().tobytes()
+                                      + h.cpu().numpy().tobytes()).hexdigest()[:16]}
+        if checked:
+            ry, rh = ssd_scan_ref(x, dt, A, B, C, return_state=True)
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            r["ratio"] = [ratio(y[:, :, 0], ry, 1e-4, rtol), ratio(h[:, 0], rh, 1e-4, 0.0)]
+            r["within"] = max(r["ratio"]) <= 1.0
+            del ry, rh
+        del y, h, y2, h2
+        r["ms"] = ms(fn)
+        if checked:
+            r["clocks"] = clocks(fn)
+            r["phases"] = kernel_ms(
+                fn, r"(ssd_cc_state|ssd_cc_scan|ssd_state_pass|ssd_scan)_kernel")
+        res[key] = r
+        del x, dt, A, B, C, views
+        torch.cuda.empty_cache()
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def cuda_core_probe(args) -> None:
+    """Build and run every copy of the ``cuda_core`` mode; print and save
+    the results; exit 1 if a checked copy is outside tolerance or not
+    bit-stable."""
+    srcs = {}
+    if not args.earlier_only:
+        only = [n for n in args.only.split(",") if n]
+        srcs.update({name: copy_with(name, subs) if subs else os.path.join(ROOT, "src")
+                     for name, subs in VARIANTS.items() if not only or name in only})
+    if args.earlier:
+        root = os.path.abspath(args.earlier)
+        srcs.update({name: probe_copies.copy_with(WORK, CSRC, name, subs, root=root) if subs
+                     else os.path.join(root, "src") for name, subs in EARLIER_VARIANTS.items()})
+    build(srcs.values())
+    # a copy that fails is reported; the others still run
+    runs = {name: probe_copies.run_child(__file__, "cuda_core_timed" if "(" in name
+                                         else "cuda_core_checked", src, check=False)
+            for name, src in srcs.items()}
+    for name, src in srcs.items():
+        runs[name]["ptxas"] = ptxas_summary(src)
+    bad = []
+    for name, res in runs.items():
+        if "error" in res:
+            print(f"{name}: failed\n{res['error']}", flush=True)
+            bad.append(name)
+            continue
+        print(f"{name} (ms, L2 flushed):", flush=True)
+        for inst, regs, spill, stack in res["ptxas"]:
+            print(f"  ptxas {inst}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
+                  f"stack", flush=True)
+        for key, *_ in CC_CASES:
+            r = res[key]
+            line = (f"  {key:10} {r['ms']:.4f}  launches {r['launches']}  same bits "
+                    f"{r['same_bits']}")
+            if "within" in r:
+                line += (f"  error over tolerance: y {r['ratio'][0]:.3g}, state "
+                         f"{r['ratio'][1]:.3g}  (SM clock {r['clocks'][0]:.0f} MHz, "
+                         f"{r['clocks'][1]:.0f} W)")
+                if not (r["within"] and r["same_bits"] and r["launches"] == 2):
+                    bad.append(f"{name} {key}")
+            print(line, flush=True)
+            if r.get("phases"):
+                print("             kernels (profiler, device ms a call): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in r["phases"].items()), flush=True)
+    os.makedirs(WORK, exist_ok=True)
+    with open(os.path.join(WORK, "cuda_core.json"), "w") as f:
+        json.dump({"card": args.card, "runs": runs}, f, indent=1)
+    if bad:
+        print(f"ssd_scan_probe: failed, outside tolerance or not bit-stable: {bad}",
+              file=sys.stderr)
+        sys.exit(1)
+
+
 def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
-        child(sys.argv[2], sys.argv[3])
+        if sys.argv[2].startswith("cuda_core_"):
+            cuda_core_child(sys.argv[3], sys.argv[2] == "cuda_core_checked")
+        else:
+            child(sys.argv[2], sys.argv[3])
         return
+    if len(sys.argv) > 2 and sys.argv[1] == "--build":
+        sys.path.insert(0, sys.argv[2])
+        from repro_torch.kernels import SSD_LIBRARY
+        from repro_torch.kernels._build import build_all
+
+        build_all([SSD_LIBRARY])
+        return
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("modes", nargs="*", help="phases, faults, bwd, cuda_core "
+                    "(default: phases faults bwd)")
+    ap.add_argument("--earlier", help="cuda_core: another checkout whose kernel to time the "
+                    "same way")
+    ap.add_argument("--earlier-only", action="store_true",
+                    help="cuda_core: time only the --earlier checkout's copies")
+    ap.add_argument("--only", default="",
+                    help="cuda_core: comma-separated names of this checkout's copies to run")
+    args = ap.parse_args()
+    modes = args.modes or ["phases", "faults", "bwd"]
+    unknown = set(modes) - {"phases", "faults", "bwd", "cuda_core"}
+    if unknown:
+        ap.error(f"unknown modes {sorted(unknown)}")
+    if args.earlier_only and not args.earlier:
+        ap.error("--earlier-only needs --earlier")
     import torch
 
     if not torch.cuda.is_available():
         print("ssd_scan_probe: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    modes = sys.argv[1:] or ["phases", "faults", "bwd"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
+    args.card = smi
+    if "cuda_core" in modes:
+        cuda_core_probe(args)
     if "phases" in modes:
         for label, subs in (("as built", []), ("without programmatic dependent launch", NO_PDL)):
             res = run_child("phases", os.path.join(ROOT, "src") if not subs

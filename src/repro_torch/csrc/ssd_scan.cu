@@ -51,13 +51,42 @@
 //    launch: each starts while the one before drains, and waits
 //    (griddepcontrol.wait) only where it reads that phase's results.  One
 //    call of the wrapper counts as one launch of the variant.
-// 2. `ssd_scan_kernel` (entry ssd_scan_fwd, `cuda_core`): f32, and every
-//    other shape (N a multiple of 4 up to 128), on flat contiguous [BH, S, *]
-//    operands.  The TPU grid's sequential chunk axis as a loop inside one
-//    block per (bh, 16-row P tile): 32 heads × 4 tiles = 128 blocks at a
-//    batch-1 prefill; chunks of 32 (one warp-wide scan for cs); h in registers
-//    and double-buffered shared memory; the next chunk's operands prefetched
-//    into registers; f32 products on the CUDA cores.
+// 2. `cuda_core` (entry ssd_scan_fwd; namespace simt): f32, and every other
+//    shape (any P, N a multiple of 4 up to 128), on flat contiguous [BH, S,
+//    *] operands, in IEEE f32 on the CUDA cores (FFMA; no TF32, no bf16
+//    rounding of an f32 operand).  What bounds it: at 32 heads, S = 1024, P =
+//    64, N = 128 its products, 1.28 GFLOP counted at chunks of 32 (1.48 at
+//    its own 64), take 0.019 ms at 67 TFLOP/s, its 51.5 MB 0.015 ms: it is
+//    bound by operations.  The design: the three chunk-parallel phases of
+//    `wgmma` over chunks of 64 (in place of a walk over 32 chunks in series
+//    on 128 blocks), one launch of the variant:
+//    - chunk_state, grid (BH, chunk, 64 columns of P), 128 threads: cs by two
+//      warp scans; s_c^T = B^T (x ∘ w) as a rank-64 update, each thread's 8 x
+//      8 outputs (at N 128) fed by one float4 of x ∘ w and one of B a row;
+//      x and B come in four cp.async stages, each row of x scaled by w_j by
+//      the thread that copied it; into an f32 scratch [BH, chunk, N, P
+//      padded to 4] (ssd_cuda_core_scratch_floats gives its size), and the
+//      decay exp(cs_Q);
+//    - the state pass of (1), its SIMT instantiation (that layout);
+//    - chunk_scan, grid as chunk_state, eight warps: before
+//      griddepcontrol.wait, C B^T of one 16-row band a warp over only the
+//      columns the band's triangle reads (each band paired with the S x
+//      band of the other end, so that the warps' work evens out), S = C B^T
+//      ∘ L ∘ dt stored transposed, and S x; then h^T and C h^T into a second
+//      accumulator, added with exp(cs).  4 x 4 outputs a thread.  Every
+//      CTA waits for the state pass, chunk 0's too (it reads no state), so
+//      that the call's last kernel ends after the pass: a later operation
+//      on the stream, or a reuse of the scratch, cannot overtake it.
+//    Two tile classes by N (32, Jamba's 16; 128: shared memory and the N
+//    loops; N 36 to 124 take the 128 class's tiles, zero past N) and
+//    two load paths (16-byte cp.async for f32 with P % 4 == 0 on aligned
+//    operands; element loads converted to f32, 8 in flight a thread, for
+//    the rest and bf16).  Every output one FFMA chain in a fixed order, no
+//    float atomics: two launches give the same bits.  It runs at ~23% of the
+//    0.019 ms (PERF.md): what holds it is its phases' loads, stores
+//    and barriers, each phase's CTAs in step (without any FFMA a call takes
+//    63% of its time, without loads or FFMAs 34%), and the states' round
+//    trip through the scratch.
 //
 // 3. `wgmma_bwd` (entry ssd_scan_wgmma_bwd): the backward of `wgmma`, on the
 //    same layout.  The Pallas kernel has no VJP (the reference trains through
@@ -96,7 +125,10 @@
 // bounds of 4 CTAs an SM), 42,760 /
 // 34,568 bytes of dynamic shared memory; ssd_chunk_state_kernel 122 / 90
 // registers, 26,376 / 18,184 bytes; ssd_state_pass_kernel 141 registers;
-// ssd_scan_kernel 214 registers, ~60 KB of dynamic shared memory.  The
+// cuda_core (f32 fast path, at N 128 / 32): ssd_cc_state_kernel 125 / 72
+// registers, 49,664 / 25,088 bytes (4 / 7 CTAs an SM); ssd_cc_scan_kernel
+// 126 / 80 registers, 84,480 / 43,520 bytes (2 / 3 CTAs an SM; 28 bytes
+// spilled at N 32).  The
 // backward: ssd_bwd_states_kernel 128 registers (4 CTAs an SM), 50,704 bytes;
 // ssd_chunk_grad_kernel 255 registers with 16 bytes spilled / 231 (256
 // threads), 151,608 / 102,456 bytes (one CTA an SM); ssd_dA_reduce_kernel 31.
@@ -110,243 +142,12 @@
 
 namespace {
 
-constexpr int Q = 32;     // chunk length: one warp-wide scan
-constexpr int PT = 16;    // rows of h (head dim p) per block
-constexpr int NT = 256;   // threads per block
-constexpr int NMAX = 128; // largest state width N
-constexpr int BC_PER_THREAD = Q * NMAX / NT;  // B (and C) elements a thread stages
-constexpr int X_PER_THREAD = Q * PT / NT;
-constexpr int H_PER_THREAD = PT / (NT / 128); // rows of h a thread owns (8)
-static_assert(Q == 32, "the chunk's cumsum is one warp-wide scan");
-static_assert(PT == 16 && NT == 256, "thread mappings below assume 16 rows and 256 threads");
+constexpr int NMAX = 128;  // largest state width N
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// One chunk's operands, staged in registers on their way to shared memory.
-struct Staged {
-  float b[BC_PER_THREAD], c[BC_PER_THREAD], x[X_PER_THREAD], dt;
-};
-
-template <typename T>
-__device__ __forceinline__ void load_chunk(Staged& st, const T* __restrict__ x,
-                                           const float* __restrict__ dt,
-                                           const T* __restrict__ B, const T* __restrict__ C,
-                                           long long bh, int t0, int p0, int S, int P, int N) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < BC_PER_THREAD; ++k) {
-    const int e = tid + NT * k;
-    const int r = e / N, col = e - r * N;
-    const bool in = e < Q * N && t0 + r < S;
-    const long long g = (bh * S + t0 + r) * N + col;
-    st.b[k] = in ? to_f32(B[g]) : 0.f;
-    st.c[k] = in ? to_f32(C[g]) : 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < X_PER_THREAD; ++k) {
-    const int e = tid + NT * k;
-    const int r = e / PT, p = p0 + e % PT;
-    st.x[k] = (t0 + r < S && p < P) ? to_f32(x[(bh * S + t0 + r) * P + p]) : 0.f;
-  }
-  st.dt = (tid < Q && t0 + tid < S) ? dt[bh * S + t0 + tid] : 0.f;
-}
-
-// grid (BH, ceil(P / PT)), NT threads, dynamic shared memory (smem_floats(N) floats)
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) ssd_scan_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-    const T* __restrict__ B, const T* __restrict__ C, T* __restrict__ y,
-    float* __restrict__ h_out, int S, int P, int N) {
-  extern __shared__ float4 smem4[];
-  const int NS = N + 4;  // padded row of B, C and h
-  float* Bs = reinterpret_cast<float*>(smem4);  // [Q][NS]
-  float* Cs = Bs + Q * NS;                       // [Q][NS]
-  float* hs = Cs + Q * NS;                       // [2][PT][NS]: h before / after a chunk
-  float* xs = hs + 2 * PT * NS;                  // [Q][PT]
-  float* xw = xs + Q * PT;                       // [Q][PT]: x_j * w_j
-  float* Ss = xw + Q * PT;                       // [Q][Q+1]: (C B^T ∘ L)_ij dt_j
-  float* cs = Ss + Q * (Q + 1);                  // [Q]
-  float* ecs = cs + Q;                           // [Q]: exp(cs_i)
-  float* wv = ecs + Q;                           // [Q]: exp(cs_Q - cs_j) dt_j
-  float* dts = wv + Q;                           // [Q]
-  float* etot = dts + Q;                         // [1]: exp(cs_Q)
-
-  const int tid = threadIdx.x;
-  const long long bh = blockIdx.x;
-  const int p0 = blockIdx.y * PT;
-  const float a = A[bh];
-  const int nchunks = (S + Q - 1) / Q;
-
-  // C·B^T and y: row i of the chunk; C·B^T columns tj + 8m, y rows p0 + pp, + 8
-  const int i = tid >> 3, tj = tid & 7, pp = tid & 7;
-  // state: thread owns h[pg*8 + k][n] for k < 8
-  const int n = tid & 127, pg = tid >> 7;
-  float hr[H_PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < H_PER_THREAD; ++k) hr[k] = 0.f;
-  for (int e = tid; e < PT * NS; e += NT) hs[e] = 0.f;
-
-  Staged st;
-  load_chunk(st, x, dt, B, C, bh, 0, p0, S, P, N);
-
-  for (int c = 0; c < nchunks; ++c) {
-    const int t0 = c * Q;
-    const float* hcur = hs + (c & 1) * PT * NS;
-    float* hnext = hs + ((c + 1) & 1) * PT * NS;
-
-    // 1. staged operands -> shared memory
-#pragma unroll
-    for (int k = 0; k < BC_PER_THREAD; ++k) {
-      const int e = tid + NT * k;
-      if (e < Q * N) {
-        const int r = e / N, col = e - r * N;
-        Bs[r * NS + col] = st.b[k];
-        Cs[r * NS + col] = st.c[k];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < X_PER_THREAD; ++k) xs[tid + NT * k] = st.x[k];
-    if (tid < Q) dts[tid] = st.dt;
-    __syncthreads();
-
-    // 2. the next chunk's loads are in flight while this one computes
-    if (c + 1 < nchunks) load_chunk(st, x, dt, B, C, bh, t0 + Q, p0, S, P, N);
-
-    // 3. cs = cumsum(dt·A) in warp 0; C·B^T for this thread's 4 entries
-    if (tid < 32) {
-      const float d = dts[tid];
-      float v = d * a;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if (tid >= o) v += u;
-      }
-      const float total = __shfl_sync(0xffffffffu, v, 31);
-      cs[tid] = v;
-      ecs[tid] = expf(v);
-      wv[tid] = expf(total - v) * d;
-      if (tid == 0) etot[0] = expf(total);
-    }
-    float cb[4] = {0.f, 0.f, 0.f, 0.f};
-    {
-      const float4* ci = reinterpret_cast<const float4*>(Cs + i * NS);
-#pragma unroll 4
-      for (int n4 = 0; n4 < N / 4; ++n4) {
-        const float4 cv = ci[n4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          cb[m] = dot4(cv, reinterpret_cast<const float4*>(Bs + (tj + 8 * m) * NS)[n4], cb[m]);
-      }
-    }
-    __syncthreads();
-
-    // 4. S_ij = (C B^T)_ij exp(cs_i - cs_j) dt_j below the diagonal; x·w
-    {
-      const float csi = cs[i];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = tj + 8 * m;
-        Ss[i * (Q + 1) + j] = j <= i ? cb[m] * expf(csi - cs[j]) * dts[j] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < X_PER_THREAD; ++k) {
-        const int e = tid + NT * k;
-        xw[e] = xs[e] * wv[e / PT];
-      }
-    }
-    __syncthreads();
-
-    // 5. y_i = sum_j S_ij x_j + exp(cs_i) C_i · h  (h as it was before the chunk)
-    {
-      float y0 = 0.f, y1 = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < Q; ++j) {
-        const float s = Ss[i * (Q + 1) + j];
-        y0 = fmaf(s, xs[j * PT + pp], y0);
-        y1 = fmaf(s, xs[j * PT + pp + 8], y1);
-      }
-      float o0 = 0.f, o1 = 0.f;
-      const float4* ci = reinterpret_cast<const float4*>(Cs + i * NS);
-      const float4* h0 = reinterpret_cast<const float4*>(hcur + pp * NS);
-      const float4* h1 = reinterpret_cast<const float4*>(hcur + (pp + 8) * NS);
-#pragma unroll 4
-      for (int n4 = 0; n4 < N / 4; ++n4) {
-        const float4 cv = ci[n4];
-        o0 = dot4(cv, h0[n4], o0);
-        o1 = dot4(cv, h1[n4], o1);
-      }
-      const float e = ecs[i];
-      const int t = t0 + i;
-      if (t < S) {
-        T* yrow = y + (bh * S + t) * P;
-        if (p0 + pp < P) store(yrow + p0 + pp, fmaf(e, o0, y0));
-        if (p0 + pp + 8 < P) store(yrow + p0 + pp + 8, fmaf(e, o1, y1));
-      }
-    }
-
-    // 6. h <- exp(cs_Q) h + sum_j (x_j w_j) B_j, into the other h buffer
-    if (n < N) {
-      const float et = etot[0];
-#pragma unroll
-      for (int k = 0; k < H_PER_THREAD; ++k) hr[k] *= et;
-#pragma unroll 4
-      for (int j = 0; j < Q; ++j) {
-        const float b = Bs[j * NS + n];
-        const float4 w0 = reinterpret_cast<const float4*>(xw + j * PT + pg * 8)[0];
-        const float4 w1 = reinterpret_cast<const float4*>(xw + j * PT + pg * 8)[1];
-        hr[0] = fmaf(w0.x, b, hr[0]);
-        hr[1] = fmaf(w0.y, b, hr[1]);
-        hr[2] = fmaf(w0.z, b, hr[2]);
-        hr[3] = fmaf(w0.w, b, hr[3]);
-        hr[4] = fmaf(w1.x, b, hr[4]);
-        hr[5] = fmaf(w1.y, b, hr[5]);
-        hr[6] = fmaf(w1.z, b, hr[6]);
-        hr[7] = fmaf(w1.w, b, hr[7]);
-      }
-#pragma unroll
-      for (int k = 0; k < H_PER_THREAD; ++k) hnext[(pg * 8 + k) * NS + n] = hr[k];
-    }
-    __syncthreads();
-  }
-
-  if (h_out != nullptr && n < N) {
-#pragma unroll
-    for (int k = 0; k < H_PER_THREAD; ++k) {
-      const int p = p0 + pg * 8 + k;
-      if (p < P) h_out[(bh * P + p) * N + n] = hr[k];
-    }
-  }
-}
-
-size_t smem_bytes(int N) {
-  const int NS = N + 4;
-  return sizeof(float) * (size_t)(2 * Q * NS + 2 * PT * NS + 2 * Q * PT + Q * (Q + 1) + 4 * Q + 4);
-}
-
-template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
-           void* h_out, int BH, int S, int P, int N, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(BH, (P + PT - 1) / PT);
-  ssd_scan_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
-      static_cast<float*>(h_out), S, P, N);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------------------- //
 // wgmma variant: three chunk-parallel phases on the tensor cores
@@ -514,12 +315,15 @@ __global__ void __launch_bounds__(NT) ssd_chunk_state_kernel(
 // over the chunks, float4 by float4; states[bh, c] (c >= 1) is overwritten
 // with h_c, the state chunk c starts from, and h_nch goes to h_out
 // ([batch·H, P, N], natural order) if asked.  Each group of PASS_CH chunks
-// starts all its loads before the chain of FMAs.
+// starts all its loads before the chain of FMAs.  SIMT: the same pass for
+// the cuda_core variant (namespace simt), whose states are [N][PP] (P
+// padded to a multiple of 4), on the grid (batch·H, PN4 / PASS_NT).
+template <bool SIMT>
 __global__ void __launch_bounds__(PASS_NT) ssd_state_pass_kernel(
     float* __restrict__ states, const float* __restrict__ decay, float* __restrict__ h_out,
-    int PN4, int N, int nch) {
-  const int e = blockIdx.x * PASS_NT + threadIdx.x;
-  const long long bh = blockIdx.y;
+    int PN4, int N, int nch, int Pv) {
+  const int e = (SIMT ? blockIdx.y : blockIdx.x) * PASS_NT + threadIdx.x;
+  const long long bh = SIMT ? blockIdx.x : blockIdx.y;
   hopper::griddep_launch_dependents();
   hopper::griddep_wait();  // phase 1's states and decays
   if (e >= PN4) return;
@@ -548,6 +352,16 @@ __global__ void __launch_bounds__(PASS_NT) ssd_state_pass_kernel(
     }
   }
   if (h_out == nullptr) return;
+  if constexpr (SIMT) {
+    // float4 e is row n, columns p .. p + 3 of the [N][PP] state
+    const int p4 = PN4 / N, n = e / p4, p = 4 * (e % p4);
+    float* o = h_out + (bh * Pv + p) * N + n;
+    const float v[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (p + k < Pv) o[k * N] = v[k];
+    return;
+  }
   // float4 g of thread t: (row p0, columns n, n + 1) and (row p0 + 8, the same)
   const int t = e % NT, q = e / NT;
   const int p0 = 16 * (t >> 5) + ((t & 31) >> 2), n = 8 * q + 2 * (t & 3);
@@ -1542,8 +1356,8 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   cfg.gridDim = dim3((PN4 + PASS_NT - 1) / PASS_NT, batch * H);
   cfg.blockDim = dim3(PASS_NT);
   cfg.dynamicSmemBytes = 0;
-  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_kernel, st, static_cast<const float*>(dec),
-                           static_cast<float*>(h_out), PN4, N, nch);
+  err = cudaLaunchKernelEx(&cfg, ssd_state_pass_kernel<false>, st, static_cast<const float*>(dec),
+                           static_cast<float*>(h_out), PN4, N, nch, P);
   if (err != cudaSuccess) return (int)err;
   cfg.gridDim = grid;
   cfg.blockDim = dim3(NT);
@@ -1628,21 +1442,605 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* B, cons
 }
 }  // namespace tc
 
+// ------------------------------------------------------------------------- //
+// cuda_core variant: three chunk-parallel phases on the CUDA cores (f32 FFMA)
+// ------------------------------------------------------------------------- //
+namespace simt {
+constexpr int Q = 64;        // chunk length: two warp-wide scans
+constexpr int PT = 64;       // columns of P a CTA takes (the grid's z axis walks P)
+constexpr int NT = 128;      // threads of a phase 1 CTA: four warps
+constexpr int NT3 = 256;     // threads of a phase 3 CTA: eight warps
+constexpr int STAGES1 = 4;   // phase 1's cp.async groups of Q / STAGES1 rows of x and B
+
+// A tile class: NP, the state width its tiles hold (zero past N).  Phase 1
+// (chunk_state): thread (tp, tn) = (tid % NTP, tid / NTP) holds s^T[n][p]
+// for p in the TPB float4 groups 4 tp + PH g and n in the TNB groups 4 tn +
+// NH g, so that each fragment read is one 16-byte float4 (TPB + TNB of them
+// feed 16 TPB TNB FFMA) and a warp's stores of a row n cover 8 consecutive
+// float4.  Phase 3 (chunk_scan) is the same for every class but for its K
+// loops over n.  CTAS1, CTAS3: the CTAs an SM the phases are built for
+// (__launch_bounds__; shared memory allows them).
+template <int NP_, int CTAS1_, int CTAS3_>
+struct Cls {
+  static constexpr int NP = NP_, CTAS1 = CTAS1_, CTAS3 = CTAS3_;
+  static constexpr int TPB = NP >= 64 ? 2 : 1, TNB = NP == 128 ? 2 : 1;
+  static constexpr int NTP = PT / (4 * TPB), NTN = NP / (4 * TNB);
+  static constexpr int PH = PT / TPB, NH = NP / TNB;
+  static_assert(NTP * NTN == NT, "phase 1 covers [PT, NP] with NT threads");
+  static constexpr int LD = NP + 4;  // a row of C and of B in phase 3 (rows on distinct banks)
+  static constexpr int SL = Q + 4;   // a row of S^T
+  // phase 3's second region: B [Q][LD], then S^T [Q][SL], then h^T [NP][PT]
+  static constexpr int R2 = Q * LD > Q * SL ? (Q * LD > NP * PT ? Q * LD : NP * PT)
+                                            : (Q * SL > NP * PT ? Q * SL : NP * PT);
+  // dynamic shared memory in bytes: phase 1 x [Q][PT], B [Q][NP], cs and dt;
+  // phase 3 C [Q][LD], the second region, x [Q][PT], cs and dt
+  static constexpr int STATE_BYTES = 4 * (Q * PT + Q * NP + 2 * Q);
+  static constexpr int SCAN_BYTES = 4 * (Q * LD + R2 + Q * PT + 2 * Q);
+  static_assert(CTAS3 * SCAN_BYTES <= 232448 && CTAS1 * STATE_BYTES <= 232448, "shared memory");
+};
+using N32 = Cls<32, 4, 3>;
+using N128 = Cls<128, 4, 2>;
+
+__device__ __forceinline__ void put4(float* f, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Rows r0 .. r0 + R - 1 of a chunk's tile [Q][W] in shared memory (a row LDW
+// floats apart) from rows row0 + r of a row-major global array (ld elements
+// a row), by the TH threads of the CTA: columns col0 .. col0 + W - 1, zero
+// at rows r >= nrows and columns >= ncol.  The fast path copies 16 bytes at
+// a time by cp.async (f32; ld, col0 and ncol multiples of 4, the array on 16
+// bytes); the general path loads elements, converts them to f32 and stores
+// them.  Copy e = tid + TH k
+// of a thread is row r0 + e / (W / 4), float4 e % (W / 4) (fast) or row r0 +
+// e / W, column e % W (general): scale_rows walks the same copies.
+template <bool FAST, int R, int W, int LDW, int TH = NT, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, long long row0,
+                                          int nrows, int r0, long long ld, int col0, int ncol) {
+  const int tid = threadIdx.x;
+  if constexpr (FAST) {
+    constexpr int C4 = W / 4, COPIES = R * C4 / TH;
+    static_assert(COPIES * TH == R * C4, "copies");
+#pragma unroll
+    for (int k = 0; k < COPIES; ++k) {
+      const int e = tid + TH * k, r = r0 + e / C4, c = 4 * (e % C4);
+      const bool ok = r < nrows && col0 + c < ncol;
+      hopper::cp_async16(dst + r * LDW + c, ok ? src + (row0 + r) * ld + col0 + c : src, ok);
+    }
+  } else {
+    // batches of up to 8 loads in flight before their stores
+    constexpr int COPIES = R * W / TH, BATCH = COPIES < 8 ? COPIES : 8;
+    static_assert(COPIES * TH == R * W && COPIES % BATCH == 0, "copies");
+#pragma unroll 1
+    for (int k0 = 0; k0 < COPIES; k0 += BATCH) {
+      float v[BATCH];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int e = tid + TH * (k0 + k), r = r0 + e / W, c = e % W;
+        v[k] = r < nrows && col0 + c < ncol ? to_f32(src[(row0 + r) * ld + col0 + c]) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int e = tid + TH * (k0 + k);
+        dst[(r0 + e / W) * LDW + e % W] = v[k];
+      }
+    }
+  }
+}
+
+// cp.async.wait_group for a count the unrolled loops below know at compile
+// time only after unrolling (0 to 3)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: hopper::cp_async_wait<0>(); break;
+    case 1: hopper::cp_async_wait<1>(); break;
+    case 2: hopper::cp_async_wait<2>(); break;
+    default: hopper::cp_async_wait<3>(); break;
+  }
+}
+
+// Each row j of this thread's copies of rows r0 .. r0 + R - 1 (load_rows'
+// mapping) times w_j = exp(cs_Q - cs_j) dt_j, in place: the thread's own
+// copies have landed once it has waited for them, so no barrier is needed
+// before it.
+template <bool FAST, int R, int W>
+__device__ __forceinline__ void scale_rows(float* tile, const float* cs, const float* dts,
+                                           int r0) {
+  const int tid = threadIdx.x;
+  const float total = cs[Q - 1];
+  if constexpr (FAST) {
+    constexpr int C4 = W / 4;
+#pragma unroll
+    for (int k = 0; k < R * C4 / NT; ++k) {
+      const int e = tid + NT * k, r = r0 + e / C4;
+      float4* v = reinterpret_cast<float4*>(tile + r * W + 4 * (e % C4));
+      const float w = expf(total - cs[r]) * dts[r];
+      float4 t = *v;
+      t.x *= w;
+      t.y *= w;
+      t.z *= w;
+      t.w *= w;
+      *v = t;
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < R * W / NT; ++k) {
+      const int e = tid + NT * k, r = r0 + e / W;
+      tile[r * W + e % W] *= expf(total - cs[r]) * dts[r];
+    }
+  }
+}
+
+// cs = cumsum(dt·A) over the chunk (dt = 0 past S) and dt, into shared
+// memory, by threads 0 .. Q - 1: a warp-wide scan of each half, the second
+// offset by the first half's total, which warp 1 scans again for itself (the
+// same sum, bit for bit), so that one barrier after this suffices.  Both
+// phases call it: their cs agree bit for bit.
+__device__ __forceinline__ void chunk_cs(float* cs, float* dts, const float* __restrict__ dt,
+                                         long long row, int t0, int S, float a) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid >= Q) return;
+  auto scan = [&](float v) {
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    return v;
+  };
+  const float d = t0 + tid < S ? dt[row + t0 + tid] : 0.f;
+  float v = scan(d * a);
+  if (tid >= 32) {
+    const float first = scan((t0 + lane < S ? dt[row + t0 + lane] : 0.f) * a);
+    v += __shfl_sync(0xffffffffu, first, 31);
+  }
+  cs[tid] = v;
+  dts[tid] = d;
+}
+
+// Phase 1, grid (batch·H, chunk, P tile): the chunk's own contribution to
+// the state, transposed,
+//   s^T = B^T (x ∘ w),  w_j = exp(cs_Q - cs_j) dt_j   ([N][PP], f32),
+// into states[bh, c] (columns p0 .. p0 + PT - 1, PP = P padded to a multiple
+// of 4, zero in the padding), and its decay exp(cs_Q) into decay[bh, c] (P
+// tile 0).  x and B come in STAGES1 groups of the chunk's rows, the later
+// ones in flight while the earlier ones' FFMAs run; each row j of x is scaled
+// by w_j in shared memory, by the thread that copied it.  The product is a
+// rank-Q update: per row j, the thread's x ∘ w and B fragments (float4s of
+// row j) and 16 TPB TNB FFMA.
+template <class C, bool FAST, typename T>
+__global__ void __launch_bounds__(NT, C::CTAS1) ssd_cc_state_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ B, float* __restrict__ states, float* __restrict__ decay, int S, int P,
+    int N, int PP, int nch) {
+  extern __shared__ __align__(16) float sm[];
+  float* xs = sm;              // [Q][PT]: x, then x ∘ w
+  float* bs = xs + Q * PT;     // [Q][NP]
+  float* cs = bs + Q * C::NP;  // [Q]
+  float* dts = cs + Q;         // [Q]
+  const long long bh = blockIdx.x;
+  const int c = blockIdx.y, p0 = blockIdx.z * PT, t0 = c * Q, tid = threadIdx.x;
+  const long long row0 = bh * S + t0;
+  hopper::griddep_launch_dependents();
+#pragma unroll
+  for (int h = 0; h < STAGES1; ++h) {
+    load_rows<FAST, Q / STAGES1, PT, PT>(xs, x, row0, S - t0, h * Q / STAGES1, P, p0, P);
+    load_rows<FAST, Q / STAGES1, C::NP, C::NP>(bs, B, row0, S - t0, h * Q / STAGES1, N, 0, N);
+    hopper::cp_async_commit();
+  }
+  chunk_cs(cs, dts, dt, bh * S, t0, S, A[bh]);
+  __syncthreads();
+  if (tid == 0 && blockIdx.z == 0) decay[bh * nch + c] = expf(cs[Q - 1]);
+
+  const int tp = tid % C::NTP, tn = tid / C::NTP;
+  float acc[4 * C::TPB][4 * C::TNB];  // [p][n]
+#pragma unroll
+  for (int i = 0; i < 4 * C::TPB; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * C::TNB; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int h = 0; h < STAGES1; ++h) {
+    cp_async_wait_upto(STAGES1 - 1 - h);
+    scale_rows<FAST, Q / STAGES1, PT>(xs, cs, dts, h * Q / STAGES1);
+    __syncthreads();  // the stage has landed and is scaled, for every thread
+#pragma unroll 4
+    for (int j = h * Q / STAGES1; j < (h + 1) * Q / STAGES1; ++j) {
+      float a[4 * C::TPB], b[4 * C::TNB];
+#pragma unroll
+      for (int g = 0; g < C::TPB; ++g) put4(a + 4 * g, xs + j * PT + 4 * tp + C::PH * g);
+#pragma unroll
+      for (int g = 0; g < C::TNB; ++g) put4(b + 4 * g, bs + j * C::NP + 4 * tn + C::NH * g);
+#pragma unroll
+      for (int i = 0; i < 4 * C::TPB; ++i)
+#pragma unroll
+        for (int k = 0; k < 4 * C::TNB; ++k) acc[i][k] = fmaf(a[i], b[k], acc[i][k]);
+    }
+  }
+  float* out = states + (bh * nch + c) * N * PP;
+#pragma unroll
+  for (int k = 0; k < 4 * C::TNB; ++k) {
+    const int n = 4 * tn + C::NH * (k / 4) + k % 4;
+    if (n >= N) continue;
+#pragma unroll
+    for (int g = 0; g < C::TPB; ++g) {
+      const int p = p0 + 4 * tp + C::PH * g;
+      if (p < PP)
+        *reinterpret_cast<float4*>(out + (long long)n * PP + p) =
+            make_float4(acc[4 * g][k], acc[4 * g + 1][k], acc[4 * g + 2][k], acc[4 * g + 3][k]);
+    }
+  }
+}
+
+// C B^T for the 4 rows i = i0 + 4 r (r < 4) and the columns j = j0 + 8 k (k
+// < KM) of a thread, over n in [4 lo, 4 hi), both operands as they lie (rows
+// of LD floats): per 4 n, 4 C float4s and KM B float4s feed 16 KM FFMA.
+template <int LD, int KM>
+__device__ __forceinline__ void cb_rows(float (&cb)[4][4], const float* cm, const float* bm,
+                                        int i0, int j0, int lo, int hi) {
+#pragma unroll 2
+  for (int n4 = lo; n4 < hi; ++n4) {
+    float4 cv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      cv[r] = *reinterpret_cast<const float4*>(cm + (i0 + 4 * r) * LD + 4 * n4);
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+      const float4 bv = *reinterpret_cast<const float4*>(bm + (j0 + 8 * k) * LD + 4 * n4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) cb[r][k] = dot4(cv[r], bv, cb[r][k]);
+    }
+  }
+}
+
+// Phase 3, grid (batch·H, chunk, P tile): the chunk's output
+//   y = (C B^T ∘ L ∘ dt) x + exp(cs) ∘ (C h^T),   L_ij = exp(cs_i - cs_j), j <= i,
+// with h the state the chunk starts from (phase 2's; zero for chunk 0), by
+// NT3 threads: eight warps, each on y's rows in one band b, [16 b, 16 b +
+// 16), and one half of its columns, [32 hp, 32 hp + 32).  Lane (ri, g) =
+// (lane / 8, lane % 8) takes the rows i0 + 4 r (i0 = 16 b + ri, r < 4), so
+// that a warp's 4 rows of C an instruction lie on distinct banks, and the
+// columns p0 + 32 hp + 4 g + k (k < 4), so that its x and h^T reads are 8
+// consecutive float4s.  Before phase 2 is waited for: C B^T of band 3 - b's
+// rows (cb_rows, the same lane mapping; only the columns j < 16 (3 - b) + 16
+// that band's triangle reads, half of them a warp), the masked scores S = C
+// B^T ∘ L ∘ dt stored transposed (S^T [j][16 band + 4 ri + r], so that a
+// thread's 4 rows are one float4) in B's place, and S x as a rank-1 update
+// per j < 16 b + 16.  Band b's C B^T and S x both grow with b: a warp takes
+// the C B^T of the band at the other end from its S x, and the two warps
+// that share a scheduler (w, w + 4) take bands b and 3 - b, so that every
+// scheduler gets the same work between two barriers.  Then h^T (rows n,
+// columns p: phase 1's layout) comes into that place and C h^T runs over n,
+// per 4 n 4 C float4s and 4 h^T float4s feeding 64 FFMA into a second
+// accumulator, added to y with exp(cs_i).  One FFMA chain an output, in a
+// fixed order: two launches give the same bits.
+template <class C, bool FAST, typename T>
+__global__ void __launch_bounds__(NT3, C::CTAS3) ssd_cc_scan_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ B, const T* __restrict__ Cin, const float* __restrict__ states,
+    T* __restrict__ y, int S, int P, int N, int PP, int nch) {
+  extern __shared__ __align__(16) float sm[];
+  float* cm = sm;              // [Q][LD]: C
+  float* r2 = cm + Q * C::LD;  // B [Q][LD]; S^T [Q][SL]; h^T [NP][PT]
+  float* xs = r2 + C::R2;      // [Q][PT]
+  float* cs = xs + Q * PT;     // [Q]
+  float* dts = cs + Q;         // [Q]
+  const long long bh = blockIdx.x;
+  const int c = blockIdx.y, p0 = blockIdx.z * PT, t0 = c * Q;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row0 = bh * S + t0;
+  // C and B in two groups of columns (C B^T starts on the first), then x
+  constexpr int H4 = C::NP / 8;  // float4s of a half row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    load_rows<FAST, Q, C::NP / 2, C::LD, NT3>(cm + 4 * H4 * h, Cin, row0, S - t0, 0, N, 4 * H4 * h,
+                                              N);
+    load_rows<FAST, Q, C::NP / 2, C::LD, NT3>(r2 + 4 * H4 * h, B, row0, S - t0, 0, N, 4 * H4 * h,
+                                              N);
+    hopper::cp_async_commit();
+  }
+  load_rows<FAST, Q, PT, PT, NT3>(xs, x, row0, S - t0, 0, P, p0, P);
+  hopper::cp_async_commit();
+  chunk_cs(cs, dts, dt, bh * S, t0, S, A[bh]);
+
+  // warps w and w + 4 share a scheduler: give them bands b and 3 - b, so
+  // that each scheduler's C B^T and S x add up to the same work
+  const int q = warp & 3, b0 = (q == 1 || q == 2) ? 1 : 0;
+  const int b = warp < 4 ? b0 : 3 - b0, hp = q >> 1, ri = lane >> 3, g = lane & 7;
+  const int i0 = 16 * b + ri, pc = 32 * hp + 4 * g, N4 = N / 4;
+  {
+    // C B^T for the rows of band 3 - b, this warp's half of its columns
+    const int band = 3 - b, ib = 16 * band + ri, km = band + 1, j0 = g + 8 * km * hp;
+    float cb[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cb[r][k] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cp_async_wait_upto(2 - h);
+      __syncthreads();  // columns [4 H4 h, 4 H4 (h + 1)) of C and B (and cs)
+      const int lo = H4 * h, hi = h ? N4 : (N4 < H4 ? N4 : H4);
+      switch (band) {
+        case 0: cb_rows<C::LD, 1>(cb, cm, r2, ib, j0, lo, hi); break;
+        case 1: cb_rows<C::LD, 2>(cb, cm, r2, ib, j0, lo, hi); break;
+        case 2: cb_rows<C::LD, 3>(cb, cm, r2, ib, j0, lo, hi); break;
+        default: cb_rows<C::LD, 4>(cb, cm, r2, ib, j0, lo, hi); break;
+      }
+    }
+    __syncthreads();  // every read of B is done: S^T takes its place
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= km) break;
+      const int j = j0 + 8 * k;
+      float s[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ib + 4 * r;
+        s[r] = j <= i ? cb[r][k] * expf(cs[i] - cs[j]) * dts[j] : 0.f;
+      }
+      *reinterpret_cast<float4*>(r2 + j * C::SL + 16 * band + 4 * ri) =
+          make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // S^T and x
+
+  float acc[4][4];  // y [i0 + 4 r][pc + q]
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+  const int jend = 16 * b + 16;
+#pragma unroll 4
+  for (int j = 0; j < jend; ++j) {
+    float s[4], xv[4];
+    put4(s, r2 + j * C::SL + 16 * b + 4 * ri);
+    put4(xv, xs + j * PT + pc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(s[r], xv[q], acc[r][q]);
+  }
+
+  // phase 2's states; chunk 0 reads none, but waits all the same, so that
+  // this grid ends after phase 2 (see the design note)
+  hopper::griddep_wait();
+  if (c > 0) {
+    __syncthreads();  // every read of S^T is done: h^T takes its place
+    // h^T in two groups of rows (C h^T starts on the first)
+    const float* hs = states + (bh * nch + c) * N * PP;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      load_rows<true, C::NP / 2, PT, PT, NT3>(r2, hs, 0, N, C::NP / 2 * h, PP, p0, PP);
+      hopper::cp_async_commit();
+    }
+    float ch[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ch[r][q] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cp_async_wait_upto(1 - h);
+      __syncthreads();  // rows [4 H4 h, 4 H4 (h + 1)) of h^T
+      const int hi = h ? N4 : (N4 < H4 ? N4 : H4);
+#pragma unroll 2
+      for (int n4 = H4 * h; n4 < hi; ++n4) {
+        float cv[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) put4(cv[r], cm + (i0 + 4 * r) * C::LD + 4 * n4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float hv[4];
+          put4(hv, r2 + (4 * n4 + kk) * PT + pc);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ch[r][q] = fmaf(cv[r][kk], hv[q], ch[r][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float e = expf(cs[i0 + 4 * r]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(e, ch[r][q], acc[r][q]);
+    }
+  }
+
+  const int p = p0 + pc;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = t0 + i0 + 4 * r;
+    if (t >= S) continue;
+    T* yrow = y + (bh * S + t) * P;
+    if constexpr (FAST) {
+      if (p < P)
+        *reinterpret_cast<float4*>(yrow + p) = make_float4(acc[r][0], acc[r][1], acc[r][2],
+                                                           acc[r][3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (p + k < P) store(yrow + p + k, acc[r][k]);
+    }
+  }
+}
+
+// f32 elements of the scratch a call takes: the chunks' states [BH][nch][N][PP]
+// (phase 1 writes each chunk's own term, phase 2 overwrites it with the
+// state the chunk starts from), then their decays [BH][nch]
+long long scratch_floats(long long BH, long long S, long long P, long long N) {
+  const long long nch = (S + Q - 1) / Q, PP = (P + 3) / 4 * 4;
+  return BH * nch * N * PP + BH * nch;
+}
+
+template <class C, bool FAST, typename T>
+int launch(const void* x, const void* dt, const void* A, const void* B, const void* Cin, void* y,
+           void* h_out, void* scratch, int BH, int S, int P, int N, cudaStream_t stream) {
+  static bool attributes_set = false;  // per instantiation, once per process
+  cudaError_t err = cudaSuccess;
+  if (!attributes_set) {
+    err = cudaFuncSetAttribute(ssd_cc_state_kernel<C, FAST, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::STATE_BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_cc_scan_kernel<C, FAST, T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, C::SCAN_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    attributes_set = true;
+  }
+  const int nch = (S + Q - 1) / Q, PP = (P + 3) / 4 * 4;
+  float* states = static_cast<float*>(scratch);
+  float* decay = states + (long long)BH * nch * N * PP;
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const dim3 grid(BH, nch, (P + PT - 1) / PT);
+  ssd_cc_state_kernel<C, FAST, T><<<grid, NT, C::STATE_BYTES, stream>>>(
+      static_cast<const T*>(x), dtf, Af, static_cast<const T*>(B), states, decay, S, P, N, PP,
+      nch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // phases 2 and 3 start while the phase before them drains (griddep_wait)
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const int PN4 = N * PP / 4;
+  cfg.gridDim = dim3(BH, (PN4 + tc::PASS_NT - 1) / tc::PASS_NT);
+  cfg.blockDim = dim3(tc::PASS_NT);
+  cfg.dynamicSmemBytes = 0;
+  err = cudaLaunchKernelEx(&cfg, tc::ssd_state_pass_kernel<true>, states,
+                           static_cast<const float*>(decay), static_cast<float*>(h_out), PN4, N,
+                           nch, P);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT3);
+  cfg.dynamicSmemBytes = C::SCAN_BYTES;
+  err = cudaLaunchKernelEx(&cfg, ssd_cc_scan_kernel<C, FAST, T>, static_cast<const T*>(x), dtf,
+                           Af, static_cast<const T*>(B), static_cast<const T*>(Cin),
+                           static_cast<const float*>(states), static_cast<T*>(y), S, P, N, PP,
+                           nch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The tile class of a state width N: 0 (N32) up to 32, 1 (N128) beyond:
+// the smallest whose tiles hold N.
+// kernels/ssd_scan.py::cuda_core_plan repeats it.
+int tile_class(int N) { return N <= 32 ? 0 : 1; }
+
+// The fast load path: f32, P % 4 == 0 (x's and y's rows are whole float4s)
+// and x, B, C and y on 16-byte boundaries.
+bool fast_path(int dtype, int P, bool aligned) { return dtype == 0 && P % 4 == 0 && aligned; }
+
+bool aligned16(const void* x, const void* B, const void* C, const void* y) {
+  return ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(B) |
+           reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+}
+
+template <class C>
+int launch_path(bool fast, int dtype, const void* x, const void* dt, const void* A, const void* B,
+                const void* Cin, void* y, void* h_out, void* scratch, int BH, int S, int P, int N,
+                cudaStream_t s) {
+  if (dtype == 1)
+    return launch<C, false, __nv_bfloat16>(x, dt, A, B, Cin, y, h_out, scratch, BH, S, P, N, s);
+  if (fast) return launch<C, true, float>(x, dt, A, B, Cin, y, h_out, scratch, BH, S, P, N, s);
+  return launch<C, false, float>(x, dt, A, B, Cin, y, h_out, scratch, BH, S, P, N, s);
+}
+
+int dispatch(const void* x, const void* dt, const void* A, const void* B, const void* Cin, void* y,
+             void* h_out, void* scratch, int BH, int S, int P, int N, int dtype, cudaStream_t s) {
+  const bool fast = fast_path(dtype, P, aligned16(x, B, Cin, y));
+  if (tile_class(N) == 0)
+    return launch_path<N32>(fast, dtype, x, dt, A, B, Cin, y, h_out, scratch, BH, S, P, N, s);
+  return launch_path<N128>(fast, dtype, x, dt, A, B, Cin, y, h_out, scratch, BH, S, P, N, s);
+}
+
+// A class's constants (layout keys 8 c + f, below); f = 6 and 7: the CTAs an
+// SM the card gives its f32 fast-path phase 1 and phase 3 kernels
+template <class C>
+long long constant(int f) {
+  auto occupancy = [](auto kernel, int threads, int bytes) -> long long {
+    int n = -1;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes) != cudaSuccess)
+      return -1;
+    return n;
+  };
+  switch (f) {
+    case 0: return C::NP;
+    case 1: return Q;
+    case 2: return PT;
+    case 3: return NT3;
+    case 4: return C::STATE_BYTES;
+    case 5: return C::SCAN_BYTES;
+    case 6: return occupancy(ssd_cc_state_kernel<C, true, float>, NT, C::STATE_BYTES);
+    case 7: return occupancy(ssd_cc_scan_kernel<C, true, float>, NT3, C::SCAN_BYTES);
+    default: return -1;
+  }
+}
+}  // namespace simt
+
 }  // namespace
 
 // x: [BH, S, P]; dt: [BH, S] f32; A: [BH] f32; B, C: [BH, S, N]; y: [BH, S, P];
 // h_out: [BH, P, N] f32 or null; all contiguous; x, B, C, y of one dtype
-// (0 = f32, 1 = bf16); N a multiple of 4, at most 128.
-// Returns cudaGetLastError() after the launch (0 on success).
+// (0 = f32, 1 = bf16); N a multiple of 4, at most 128.  scratch: f32, as many
+// elements as ssd_cuda_core_scratch_floats(BH, S, P, N), on 16 bytes.
+// Enqueues three kernels on `stream`; returns cudaGetLastError() after them
+// (0 on success).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, void* y, void* h_out, int BH, int S, int P, int N,
-                            int dtype, void* stream) {
-  if (BH <= 0 || S <= 0 || P <= 0 || N <= 0 || N > NMAX || N % 4 != 0)
+                            const void* C, void* y, void* h_out, void* scratch, int BH, int S,
+                            int P, int N, int dtype, void* stream) {
+  if (BH <= 0 || S <= 0 || P <= 0 || N <= 0 || N > NMAX || N % 4 != 0 || scratch == nullptr ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, dt, A, B, C, y, h_out, BH, S, P, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, dt, A, B, C, y, h_out, BH, S, P, N, s);
-  return (int)cudaErrorInvalidValue;
+  return simt::dispatch(x, dt, A, B, C, y, h_out, scratch, BH, S, P, N, dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// f32 elements of the scratch ssd_scan_fwd takes for BH sequences of S
+// positions, head dim P and state width N: each chunk's state [N][P padded to
+// a multiple of 4], then each chunk's decay.  kernels/ssd_scan.py allocates
+// it from this count and repeats it (cuda_core_scratch_floats).
+extern "C" long long ssd_cuda_core_scratch_floats(int BH, int S, int P, int N) {
+  if (BH <= 0 || S <= 0 || P <= 0 || N <= 0) return -1;
+  return simt::scratch_floats(BH, S, P, N);
+}
+
+// The CUDA-core entry's plan for head dim P, state width N, dtype (0 = f32,
+// 1 = bf16) and whether x, B, C and y lie on 16-byte boundaries: its tile
+// class (0 N <= 32, 1 N <= 128) times 2, plus 1 on the fast load
+// path; -1 for shapes the entry refuses.  kernels/ssd_scan.py::cuda_core_plan
+// repeats it; a card test holds the two equal.
+extern "C" long long ssd_cuda_core_plan(int P, int N, int dtype, int aligned) {
+  if (P <= 0 || N <= 0 || N > NMAX || N % 4 != 0 || (dtype != 0 && dtype != 1)) return -1;
+  return 2LL * simt::tile_class(N) + (simt::fast_path(dtype, P, aligned != 0) ? 1 : 0);
+}
+
+// The CUDA-core kernels' constants, which kernels/ssd_scan.py repeats
+// (CUDA_CORE_CLASSES) and a card test holds equal: key 8 c + f for tile class
+// c (0 N32, 1 N128), f = 0 its state width NP, 1 the chunk length,
+// 2 the columns of P a CTA takes, 3 phase 3's threads (phase 1's are 128), 4
+// and 5 phase 1's and phase 3's dynamic shared memory in bytes, 6 and 7 the
+// CTAs an SM this card gives their f32 fast-path kernels
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 for any other key.
+extern "C" long long ssd_cuda_core_layout(int key) {
+  if (key < 0 || key >= 16) return -1;
+  return key < 8 ? simt::constant<simt::N32>(key) : simt::constant<simt::N128>(key % 8);
 }
 
 // The wgmma variant, on the mixer's layout (bf16 x, B, C and y; f32 dt, A):

@@ -306,23 +306,28 @@ def ssd_scan_three_phase(
     Cm: torch.Tensor,  # [B, S, G, N]
     return_state: bool = False,
     lo: bool = True,
+    chunk: int = 64,
+    split: bool = True,
 ):
-    """The ``wgmma`` kernel's arithmetic on the CPU, for the tests (not a
-    plain version: that is :func:`ssd_scan_ref`).  Its three phases over
-    chunks of 64 positions, head h reading group h // (H/G):
+    """The chunk-parallel kernels' arithmetic on the CPU, for the tests (not
+    a plain version: that is :func:`ssd_scan_ref`).  Their three phases over
+    chunks of ``chunk`` positions, head h reading group h // (H/G):
 
     1. s_c = (x∘w)^T B with w_j = exp(cs_Q - cs_j) dt_j, and decay_c = exp(cs_Q);
     2. h_0 = 0, h_{c+1} = decay_c h_c + s_c;
     3. y = (C B^T ∘ L ∘ dt) x + exp(cs) ∘ (C h_c^T).
 
-    Each f32 operand the kernel feeds to the bf16 tensor cores (x∘w, the
-    masked scores, h_c) enters as hi + lo bf16 halves, two products summed in
-    f32; ``lo=False`` drops the lo halves (a planted fault).  The inputs x, B
-    and C enter as they are.  Returns y [B, S, H, P] in x's dtype and, with
-    ``return_state``, the final state [B, H, P, N] in f32."""
+    The defaults are the ``wgmma`` kernel's: chunks of 64, and each f32
+    operand it feeds to the bf16 tensor cores (x∘w, the masked scores, h_c)
+    entering as hi + lo bf16 halves, two products summed in f32; ``lo=False``
+    drops the lo halves (a planted fault).  ``split=False`` is the
+    ``cuda_core`` kernel's: every product in f32 on the operands as they are
+    (chunks of 64 too).  The inputs x, B and C enter as they are.  Returns y
+    [B, S, H, P] in x's dtype and, with ``return_state``, the final state
+    [B, H, P, N] in f32."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    Q = 64
+    Q = chunk
     nc = -(-S // Q)
     pad = nc * Q - S
 
@@ -330,15 +335,20 @@ def ssd_scan_three_phase(
         t = F.pad(t.to(F32), [0, 0] * (t.ndim - 2) + [0, pad])
         return t.reshape(Bsz, nc, Q, *t.shape[2:])
 
-    split = _split_bf16 if lo else (lambda t: (t.to(torch.bfloat16).to(F32), None))
+    if not split:
+        halves = lambda t: (t, None)  # noqa: E731
+    elif lo:
+        halves = _split_bf16
+    else:
+        halves = lambda t: (t.to(torch.bfloat16).to(F32), None)  # noqa: E731
 
     def mm(eq, a, b, split_a=False, split_b=False):
         """einsum in f32 with a or b entering as its hi + lo halves."""
         if split_a:
-            hi, low = split(a)
+            hi, low = halves(a)
             return torch.einsum(eq, hi, b) + (0 if low is None else torch.einsum(eq, low, b))
         if split_b:
-            hi, low = split(b)
+            hi, low = halves(b)
             return torch.einsum(eq, a, hi) + (0 if low is None else torch.einsum(eq, a, low))
         return torch.einsum(eq, a, b)
 

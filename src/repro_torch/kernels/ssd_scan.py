@@ -14,9 +14,16 @@ holds two variants, each with its own entry point and launch count
   ``[B, S, H]``, B and C ``[B, S, G, N]`` (head h reads group h // (H/G)),
   so :func:`ssd_mixer` passes the views the model slices from its conv
   output as they are.
-- ``cuda_core``: f32, and every other shape.  One block per (batch·head,
-  16-row tile of P) walks the chunks in order on the CUDA cores, on flat
-  contiguous ``[BH, S, *]`` operands.
+- ``cuda_core``: f32, and every other shape, on flat contiguous ``[BH, S,
+  *]`` operands.  The same three chunk-parallel phases over chunks of 64 on
+  the CUDA cores in IEEE f32 (one launch of the variant): chunk_state (each
+  chunk's own state term, transposed, and its decay, into a scratch whose
+  size the CUDA source gives), the state pass, and chunk_scan (C Bᵀ, the
+  masked scores and their product with x before the state pass is waited
+  for, then C hᵀ).  Two tile classes by the state width
+  (``CUDA_CORE_CLASSES``) and two load paths, which :func:`cuda_core_plan`
+  repeats from the C side's choice and :func:`cuda_core_plan_of_code` reads
+  from its code; :func:`cuda_core_waves` counts the phases' CTAs and waves.
 
 Both mask a ragged end themselves, so they take any ``S``: the reference's
 ``S % block_s == 0`` is a property of the TPU grid, and nothing pads for it.
@@ -60,10 +67,27 @@ from repro_torch.kernels._work import record, uncounted
 from repro_torch.kernels.ref import on_flat_heads, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_mixer", "ssd_scan_vjp", "select_variant", "select_bwd_variant",
-           "wgmma_operands", "work", "work_bwd", "LIBRARY", "CHUNK", "VJP_CHUNK"]
+           "wgmma_operands", "cuda_core_plan", "cuda_core_plan_of_code",
+           "cuda_core_scratch_floats", "cuda_core_waves",
+           "work", "work_bwd", "LIBRARY", "CHUNK", "VJP_CHUNK", "CUDA_CORE_CLASSES"]
 
 MAX_STATE = 128
-CHUNK = {"wgmma": 64, "cuda_core": 32}  # each variant's chunk length
+CHUNK = {"wgmma": 64, "cuda_core": 64}  # each variant's chunk length
+# The CUDA-core kernels' tile classes (csrc/ssd_scan.cu, namespace simt), in
+# the order of their C index, as its C function ssd_cuda_core_layout gives
+# them (a card test holds the two equal): the state width the tiles hold
+# (zero past N), the chunk length, the columns of P a CTA takes (the grid's z
+# axis walks P), chunk_scan's threads (chunk_state's are 128), phase 1's
+# (chunk_state) and phase 3's (chunk_scan) dynamic shared memory in bytes,
+# and the CTAs an SM the card gives each phase's f32 kernel (its registers
+# and shared memory; at least the count its launch bounds name).  The class
+# is the smallest whose np holds N.
+CUDA_CORE_CLASSES = {
+    "n32": dict(np=32, chunk=64, p_tile=64, scan_threads=256, state_smem=25088, scan_smem=43520,
+                state_ctas=7, scan_ctas=3),
+    "n128": dict(np=128, chunk=64, p_tile=64, scan_threads=256, state_smem=49664, scan_smem=84480,
+                 state_ctas=4, scan_ctas=2),
+}
 VJP_CHUNK = 64  # the backward's chunk length (any length gives the same gradients)
 # the backward works on slices of (batch, group, head in group) whose
 # [..., chunk, chunk] intermediates hold at most this many elements (64 MB in f32)
@@ -73,8 +97,8 @@ LIBRARY = KernelLibrary("ssd_scan", {
     # x, dt, A, B, C, y, h_out, states, decay, batch, S, H, G, P, N, strides, stream
     "wgmma": ("ssd_scan_wgmma_fwd",
               [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), _P]),
-    # x, dt, A, B, C, y, h_out, BH, S, P, N, dtype, stream
-    "cuda_core": ("ssd_scan_fwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, dt, A, B, C, y, h_out, scratch, BH, S, P, N, dtype, stream
+    "cuda_core": ("ssd_scan_fwd", [_P] * 8 + [_I] * 5 + [_P]),
     # x, dt, A, B, C, dy, dh_final, dx, ddt, dA, dB, dC, h0s, dh1s, part_a,
     # batch, S, H, G, P, N, strides, stream
     "wgmma_bwd": ("ssd_scan_wgmma_bwd",
@@ -88,6 +112,53 @@ def select_variant(P: int, N: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16 and P == 64 and N % 16 == 0 and 16 <= N <= MAX_STATE:
         return "wgmma"
     return "cuda_core"
+
+
+def cuda_core_plan(P: int, N: int, dtype: torch.dtype, aligned: bool = True) -> tuple:
+    """(tile class, load path) of a ``cuda_core`` call with head dim P and
+    state width N, as the C side (``ssd_cuda_core_plan``) picks them before
+    the launch.  ``aligned``: x, B, C and y start on 16-byte boundaries.  The
+    class: the smallest of ``CUDA_CORE_CLASSES`` whose state width holds N.
+    The path: ``fast`` for f32 with P a multiple of 4 and aligned operands
+    (x, B, C and the states come 16 bytes at a time by ``cp.async``, y goes
+    out 16 bytes at a time), else ``general`` (element loads converted to
+    f32; the states still by 16 bytes)."""
+    if P <= 0 or N <= 0 or N > MAX_STATE or N % 4 or dtype not in (torch.float32,
+                                                                    torch.bfloat16):
+        raise ValueError(f"no CUDA-core plan for P={P} N={N} {dtype}")
+    cls = next(name for name, c in CUDA_CORE_CLASSES.items() if N <= c["np"])
+    path = "fast" if dtype == torch.float32 and P % 4 == 0 and aligned else "general"
+    return cls, path
+
+
+def cuda_core_plan_of_code(code: int) -> tuple:
+    """(tile class, load path) from the C side's plan code
+    (``ssd_cuda_core_plan``): the class's index in ``CUDA_CORE_CLASSES``
+    times 2, plus 1 on the fast path."""
+    if not 0 <= code < 2 * len(CUDA_CORE_CLASSES):
+        raise ValueError(f"no CUDA-core plan has code {code}")
+    return list(CUDA_CORE_CLASSES)[code // 2], ("general", "fast")[code % 2]
+
+
+def cuda_core_scratch_floats(BH: int, S: int, P: int, N: int) -> int:
+    """f32 elements of a ``cuda_core`` call's scratch, as the C side
+    (``ssd_cuda_core_scratch_floats``, which the wrapper allocates from)
+    counts them: each chunk's state [N, P padded to a multiple of 4], then
+    each chunk's decay."""
+    nch = -(-S // CHUNK["cuda_core"])
+    return BH * nch * N * (-(-P // 4) * 4) + BH * nch
+
+
+def cuda_core_waves(BH: int, S: int, P: int, N: int, sms: int = 132) -> dict:
+    """(CTAs, waves) of a ``cuda_core`` call's two product phases: one CTA
+    a (sequence, chunk, 64 columns of P), ``state_ctas`` / ``scan_ctas`` of
+    them an SM (the class's shared memory and launch bounds; the card's
+    occupancy count confirms it), so ceil(CTAs / (SMs · CTAs an SM))
+    waves each.  The state pass between them has a CTA per 1,024 elements
+    of a state and sequence."""
+    c = CUDA_CORE_CLASSES[cuda_core_plan(P, N, torch.float32)[0]]
+    ctas = BH * -(-S // c["chunk"]) * -(-P // c["p_tile"])
+    return {phase: (ctas, -(-ctas // (sms * c[f"{phase}_ctas"]))) for phase in ("state", "scan")}
 
 
 def select_bwd_variant(P: int, N: int, dtype: torch.dtype) -> str:
@@ -257,9 +328,11 @@ def _launch_cuda_core(x, dt, A2, Bm, Cm, return_state):
     if x.is_meta:
         LIBRARY.account("cuda_core")
     else:
+        scratch = torch.empty(LIBRARY.size("ssd_cuda_core_scratch_floats", BH, S, P, N),
+                              dtype=torch.float32, device=x.device)
         LIBRARY.launch("cuda_core", x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                        Cm.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
-                       BH, S, P, N, dtype, stream_handle(x))
+                       scratch.data_ptr(), BH, S, P, N, dtype, stream_handle(x))
     return y[:, :, None], (h[:, None] if return_state else None)
 
 

@@ -329,13 +329,15 @@ def test_ssd_scan_wgmma(card, BH, S, P, N):
     torch.testing.assert_close(ssd_scan(x, dt, A, B, C), y, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("dtype,N", [(torch.bfloat16, 128), (torch.bfloat16, 16),
-                                     (torch.float32, 128)])
+@pytest.mark.parametrize("dtype,N,P", [(torch.bfloat16, 128, 64), (torch.bfloat16, 16, 64),
+                                       (torch.float32, 128, 64), (torch.float32, 16, 64),
+                                       (torch.float32, 16, 24), (torch.float32, 128, 24)])
 @pytest.mark.parametrize("S", [300, 1000])
-def test_ssd_scan_slow_decay(card, dtype, N, S):
-    """Both variants where the carried state counts (dt ~0.02)."""
-    x, dt, A, B, C = _ssd_inputs(card, 10, 2, S, 64, N, dtype, dt_shift=4.0)
-    variant = select_ssd_variant(64, N, dtype)
+def test_ssd_scan_slow_decay(card, dtype, N, P, S):
+    """Both variants where the carried state counts (dt ~0.02), at ragged S;
+    the CUDA-core kernel also at N 16 (its N <= 32 class) and P 24."""
+    x, dt, A, B, C = _ssd_inputs(card, 10, 2, S, P, N, dtype, dt_shift=4.0)
+    variant = select_ssd_variant(P, N, dtype)
     before = SSD_LIBRARY.counts[variant]
     y, h = ssd_scan(x, dt, A, B, C, return_state=True)
     assert SSD_LIBRARY.counts[variant] == before + 1
@@ -1072,6 +1074,109 @@ def test_flash_cuda_core_plan_matches_the_card(card):
     for bad in ((0, 64, 0, 1), (193, 64, 0, 1), (64, 129, 0, 1), (64, 64, 2, 1)):
         assert FLASH_LIBRARY.size("flash_cuda_core_plan", *bad) == -1
 
+
+# (P, N, dtype, offset): the SSD CUDA-core kernel's tile classes at their
+# boundaries (N 4/32, 36/128; 64 and 68 on the 128 class's tiles, zero past
+# N) on both load paths (f32 aligned with P % 4 == 0: fast; f32 with P % 4
+# != 0 or one element off its boundary, and bf16: general), over a ragged S
+# of three chunks
+SSD_CUDA_CORE_CASES = [
+    (64, 4, torch.float32, 0), (64, 32, torch.float32, 0), (64, 36, torch.float32, 0),
+    (64, 64, torch.float32, 0), (64, 68, torch.float32, 0), (64, 128, torch.float32, 0),
+    (130, 16, torch.float32, 0), (30, 16, torch.float32, 0), (30, 48, torch.float32, 0),
+    (30, 128, torch.float32, 0), (64, 128, torch.float32, 1), (24, 16, torch.float32, 1),
+    (24, 16, torch.bfloat16, 0), (40, 48, torch.bfloat16, 0), (24, 128, torch.bfloat16, 0),
+    (64, 8, torch.bfloat16, 0),
+]
+
+
+def _ssd_offset_inputs(card, seed, BH, S, P, N, dtype, offset, dt_shift=0.0):
+    """``_ssd_inputs`` with x, B and C as contiguous views ``offset``
+    elements into their storage."""
+    x, dt, A, B, C = _ssd_inputs(card, seed, BH, S, P, N, dtype, dt_shift)
+    out = []
+    for t in (x, B, C):
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device=card)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out[0], dt, A, out[1], out[2]
+
+
+@pytest.mark.parametrize("P,N,dtype,offset", SSD_CUDA_CORE_CASES)
+@pytest.mark.parametrize("dt_shift", [0.0, 4.0])
+def test_ssd_cuda_core_classes_and_paths(card, P, N, dtype, offset, dt_shift):
+    """Every tile class and load path of the CUDA-core kernel against the
+    sequential recurrence, element by element (``_ssd_close``), at fast and
+    slow decay; one launch; the plan the C side reports
+    (``ssd_cuda_core_plan``) the one ``cuda_core_plan`` gives."""
+    from repro_torch.kernels.ssd_scan import cuda_core_plan, cuda_core_plan_of_code
+
+    x, dt, A, B, C = _ssd_offset_inputs(card, 31, 2, 150, P, N, dtype, offset, dt_shift)
+    assert select_ssd_variant(P, N, dtype) == "cuda_core"
+    before = SSD_LIBRARY.counts["cuda_core"]
+    y, h = ssd_scan(x, dt, A, B, C, return_state=True)
+    assert SSD_LIBRARY.counts["cuda_core"] == before + 1
+    ry, rh = ssd_scan_ref(x, dt, A, B, C, return_state=True)
+    _ssd_close(y, ry)
+    _ssd_close(h, rh)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C, y))
+    cls, path = cuda_core_plan(P, N, dtype, aligned)
+    code = SSD_LIBRARY.size("ssd_cuda_core_plan", P, N, int(dtype == torch.bfloat16), int(aligned))
+    assert cuda_core_plan_of_code(code) == (cls, path)
+    assert (path == "fast") == (dtype == torch.float32 and P % 4 == 0 and not offset)
+
+
+@pytest.mark.parametrize("P,N,dtype,offset", [(64, 128, torch.float32, 0),
+                                              (64, 16, torch.float32, 0),
+                                              (30, 48, torch.float32, 0),
+                                              (64, 128, torch.bfloat16, 0),
+                                              (24, 16, torch.float32, 1)])
+def test_ssd_cuda_core_same_bits(card, P, N, dtype, offset):
+    """Two launches give the same bits (one FFMA chain an output in a fixed
+    order, no float atomics), y and the final state, where the carried
+    state counts."""
+    from repro_torch.kernels.ssd_scan import _launch_cuda_core
+
+    x, dt, A, B, C = _ssd_offset_inputs(card, 32, 3, 1000, P, N, dtype, offset, dt_shift=4.0)
+    views = (x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None], C[:, :, None])
+    y1, h1 = _launch_cuda_core(*views, True)
+    y2, h2 = _launch_cuda_core(*views, True)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssd_cuda_core_plan_matches_the_card(card):
+    """The CUDA-core kernels' constants, as their C function
+    ``ssd_cuda_core_layout`` gives them (the CTAs an SM from the card's
+    occupancy count), equal the Python mirror's (``CUDA_CORE_CLASSES``); the
+    C side's plan (``ssd_cuda_core_plan``) equals ``cuda_core_plan`` over the
+    class boundaries of N, P's remainders, both dtypes, aligned or not; and
+    the scratch the wrapper allocates (``ssd_cuda_core_scratch_floats``)
+    equals ``cuda_core_scratch_floats``."""
+    from repro_torch.kernels.ssd_scan import (
+        CUDA_CORE_CLASSES, cuda_core_plan, cuda_core_plan_of_code, cuda_core_scratch_floats,
+    )
+
+    def layout(key):
+        return SSD_LIBRARY.size("ssd_cuda_core_layout", key)
+
+    fields = ("np", "chunk", "p_tile", "scan_threads", "state_smem", "scan_smem", "state_ctas",
+              "scan_ctas")
+    for c, (name, cls) in enumerate(CUDA_CORE_CLASSES.items()):
+        assert {f: layout(8 * c + i) for i, f in enumerate(fields)} == cls, name
+    assert (layout(8 * len(CUDA_CORE_CLASSES)), layout(-1)) == (-1, -1)
+    for P in (1, 3, 4, 24, 30, 64, 65, 128, 130):
+        for N in (4, 8, 16, 20, 28, 32, 36, 60, 64, 68, 124, 128):
+            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+                for aligned in (True, False):
+                    got = SSD_LIBRARY.size("ssd_cuda_core_plan", P, N, code, int(aligned))
+                    assert (cuda_core_plan_of_code(got)
+                            == cuda_core_plan(P, N, dtype, aligned)), (P, N, dtype)
+    for bad in ((0, 16, 0, 1), (64, 0, 0, 1), (64, 6, 0, 1), (64, 132, 0, 1), (64, 16, 2, 1)):
+        assert SSD_LIBRARY.size("ssd_cuda_core_plan", *bad) == -1
+    for BH, S, P, N in ((32, 1024, 64, 128), (128, 1024, 64, 16), (2, 100, 30, 8), (3, 1, 130, 36)):
+        assert (SSD_LIBRARY.size("ssd_cuda_core_scratch_floats", BH, S, P, N)
+                == cuda_core_scratch_floats(BH, S, P, N))
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_dh", [True, False])
