@@ -34,6 +34,7 @@ from repro_torch.kernels.ops import (
     fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention, swiglu_experts,
 )
 from repro_torch.parallel.sharding import ParamDef
+from repro_torch.runtime import spans
 
 F32 = torch.float32
 NEG_INF = -1e30  # finite, as in the reference: a fully masked row stays finite
@@ -428,7 +429,26 @@ def expert_products(p: Params, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(swiglu_experts(xe, p["wg"], p["wu"]), p["wd"])
 
 
-def _moe_chunk_einsum(p: Params, m: MoESpec, xc: torch.Tensor) -> torch.Tensor:
+def moe_tally(tally: Optional[tuple], m: MoESpec, C: int, kept: torch.Tensor) -> None:
+    """Count one dispatch where ``tally`` = (phase, tokens of each sequence)
+    is given: ``moe.rows.<phase>`` the expert rows computed (E·G·C),
+    ``moe.routed.<phase>`` the top-k choices of real tokens and
+    ``moe.kept.<phase>`` (on the device) those that got a capacity slot.
+    kept [G, s]: each token's choices that got a slot; a sequence's groups
+    are consecutive, its padding last in its last group."""
+    if tally is None:
+        return
+    phase, S = tally
+    G, s = kept.shape
+    groups = -(-S // s)
+    B = G // groups
+    spans.count(f"moe.rows.{phase}", m.n_experts * G * C)
+    spans.count(f"moe.routed.{phase}", B * S * m.top_k)
+    spans.count_device(f"moe.kept.{phase}", kept.reshape(B, groups * s)[:, :S].sum())
+
+
+def _moe_chunk_einsum(p: Params, m: MoESpec, xc: torch.Tensor,
+                      tally: Optional[tuple] = None) -> torch.Tensor:
     """GShard per-group one-hot dispatch: xc [G, s, D] -> [G, s, D].
 
     Capacity C = ceil(top_k·s/E·capacity_factor) per group; a token's k-th
@@ -436,29 +456,39 @@ def _moe_chunk_einsum(p: Params, m: MoESpec, xc: torch.Tensor) -> torch.Tensor:
     overflow is dropped (combine weight zero), as in the reference.  A token
     picks an expert at most once, so the reference's [G, s, K, E, C] one-hot
     summed over K is built here directly as [G, s, E, C].  The experts see
-    [E, G·C, D]: the groups fold into each expert's rows."""
+    [E, G·C, D]: the groups fold into each expert's rows.  ``tally``: see
+    :func:`moe_tally`."""
     G, s, D = xc.shape
     E, C = m.n_experts, moe_capacity(m, s)
-    gate_k, idx_k = moe_route(p, m, xc)
-    onehot = F.one_hot(idx_k, E).to(F32)                              # [G, s, K, E]
-    chosen = onehot.sum(2)                                            # [G, s, E]: 0 or 1
-    pos = expert_arrivals(chosen) * chosen - 1.0                      # [G, s, E]; -1: not chosen
-    gate = (onehot * gate_k[..., None]).sum(2)                        # [G, s, E]
-    disp = (pos[..., None] == torch.arange(C, device=xc.device, dtype=F32))  # [G, s, E, C]
-    comb = disp * gate[..., None]
-    xe = torch.einsum("gsec,gsd->egcd", disp.to(xc.dtype), xc).reshape(E, G * C, D).contiguous()
-    ye = expert_products(p, xe).reshape(E, G, C, D)
-    return torch.einsum("gsec,egcd->gsd", comb.to(xc.dtype), ye)
+    with spans.span("model.moe.route"):
+        gate_k, idx_k = moe_route(p, m, xc)
+    with spans.span("model.moe.dispatch"):
+        onehot = F.one_hot(idx_k, E).to(F32)                          # [G, s, K, E]
+        chosen = onehot.sum(2)                                        # [G, s, E]: 0 or 1
+        pos = expert_arrivals(chosen) * chosen - 1.0                  # [G, s, E]; -1: not chosen
+        gate = (onehot * gate_k[..., None]).sum(2)                    # [G, s, E]
+        disp = (pos[..., None] == torch.arange(C, device=xc.device, dtype=F32))  # [G, s, E, C]
+        comb = disp * gate[..., None]
+        xe = torch.einsum("gsec,gsd->egcd", disp.to(xc.dtype), xc).reshape(E, G * C, D)
+        xe = xe.contiguous()
+        if tally is not None:
+            moe_tally(tally, m, C, ((pos >= 0) & (pos < C)).sum(-1))
+    with spans.span("model.moe.experts"):
+        ye = expert_products(p, xe).reshape(E, G, C, D)
+    with spans.span("model.moe.combine"):
+        return torch.einsum("gsec,egcd->gsd", comb.to(xc.dtype), ye)
 
 
-def moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, impl: str = "einsum") -> torch.Tensor:
+def moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, impl: str = "einsum",
+              mode: str = "train") -> torch.Tensor:
     """Routed experts over chunks of ``router_chunk`` tokens, plus the shared
     experts and the dense residual where the config has them.
 
     The reference scans the chunks with no carry; here every chunk of every
     sequence is one group of a single call (G = B·n_chunks), which gives the
     same values.  Padding sits last in the last chunk, so it never takes a
-    slot before a real token."""
+    slot before a real token.  While spans record, a ``"prefill"`` or
+    ``"decode"`` ``mode`` counts the dispatch (:func:`moe_tally`)."""
     m = cfg.moe
     B, S, D = x.shape
     chunk = min(m.router_chunk, S)
@@ -470,7 +500,8 @@ def moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, impl: str = "einsum")
         from repro_torch.models.moe_scatter import moe_chunk_scatter as fn
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
-    y = fn(p, m, xp.reshape(-1, chunk, D)).reshape(B, S + pad, D)[:, :S]
+    tally = (mode, S) if mode in ("prefill", "decode") and spans.active() else None
+    y = fn(p, m, xp.reshape(-1, chunk, D), tally).reshape(B, S + pad, D)[:, :S]
     if m.n_shared:
         y = y + mlp(p["shared"], x)
     if m.dense_residual:

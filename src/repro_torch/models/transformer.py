@@ -46,6 +46,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.parallel.sharding import ParamDef, abstract_tree, tree_map_defs
+from repro_torch.runtime import spans
 
 __all__ = ["Transformer", "Block", "SSMBlock", "LayerSlot", "segments", "layer_plan",
            "block_defs", "model_defs", "cache_defs_for", "cache_model_defs", "named_defs",
@@ -233,13 +234,17 @@ def _add_leaves(block: nn.Module, defs: Dict[str, Any], device, dtype) -> None:
         setattr(block, name, (MoEParams if name == "moe" else _pdict)(sub, device, dtype))
 
 
-def _apply_ffn(block: nn.Module, cfg: ArchConfig, x: torch.Tensor, moe_impl: str):
-    """``_apply_ffn`` of the reference: the residual FFN, if the layer has one."""
+def _apply_ffn(block: nn.Module, cfg: ArchConfig, x: torch.Tensor, moe_impl: str,
+               mode: str = "train"):
+    """``_apply_ffn`` of the reference: the residual FFN, if the layer has one
+    (``mode`` names the MoE layer's counters)."""
     if hasattr(block, "moe"):
-        h = L.rmsnorm(block.ln2, x, cfg.norm_eps)
-        return x + L.moe_layer(block.moe, cfg, h, impl=moe_impl)
+        with spans.span("model.moe"):
+            h = L.rmsnorm(block.ln2, x, cfg.norm_eps)
+            return x + L.moe_layer(block.moe, cfg, h, impl=moe_impl, mode=mode)
     if hasattr(block, "mlp"):
-        return x + L.mlp(block.mlp, L.rmsnorm(block.ln2, x, cfg.norm_eps))
+        with spans.span("model.mlp"):
+            return x + L.mlp(block.mlp, L.rmsnorm(block.ln2, x, cfg.norm_eps))
     return x
 
 
@@ -253,17 +258,19 @@ class Block(nn.Module):
         _add_leaves(self, block_defs(cfg, "attn", ffn), device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
-        h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
-        mla = cfg.mla is not None
-        if mode == "decode":
-            attend = L.mla_attention_decode if mla else L.attention_decode
-            o, _ = attend(self.attn, cfg, h, cache, pos)
-        elif mode == "prefill":
-            attend = L.mla_attention_prefill if mla else L.attention_prefill
-            o, _ = attend(self.attn, cfg, h, cache)
-        else:
-            o = (L.mla_attention_full if mla else L.attention_full)(self.attn, cfg, h)
-        return _apply_ffn(self, cfg, x + o, moe_impl)
+        with spans.span("model.attn"):
+            h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
+            mla = cfg.mla is not None
+            if mode == "decode":
+                attend = L.mla_attention_decode if mla else L.attention_decode
+                o, _ = attend(self.attn, cfg, h, cache, pos)
+            elif mode == "prefill":
+                attend = L.mla_attention_prefill if mla else L.attention_prefill
+                o, _ = attend(self.attn, cfg, h, cache)
+            else:
+                o = (L.mla_attention_full if mla else L.attention_full)(self.attn, cfg, h)
+            x = x + o
+        return _apply_ffn(self, cfg, x, moe_impl, mode)
 
 
 class SSMBlock(nn.Module):
@@ -278,8 +285,11 @@ class SSMBlock(nn.Module):
         _add_leaves(self, block_defs(cfg, "ssm", ffn), device, dtype)
 
     def forward(self, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str = "einsum"):
-        o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos, mode)
-        return _apply_ffn(self, cfg, x + o, moe_impl)
+        with spans.span("model.ssm"):
+            o, _ = S.ssm_block(self.ssm, cfg, L.rmsnorm(self.ln1, x, cfg.norm_eps), cache, pos,
+                               mode)
+            x = x + o
+        return _apply_ffn(self, cfg, x, moe_impl, mode)
 
 
 class LayerSlot(NamedTuple):
@@ -418,12 +428,13 @@ def _run_layers(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str,
 def _run_group(params: Transformer, cfg: ArchConfig, x, cache, pos, mode: str, moe_impl: str,
                idx):
     for i in idx:
-        slot, block = params.plan[i], params.layers[i]
-        layer_cache = None
-        if cache is not None:
-            leaves = cache["segments"][slot.segment][f"p{slot.j}"]
-            layer_cache = {n: t[slot.k] for n, t in leaves.items()}
-        x = block(cfg, x, layer_cache, pos, mode, moe_impl)
+        with spans.span("model.layer"):
+            slot, block = params.plan[i], params.layers[i]
+            layer_cache = None
+            if cache is not None:
+                leaves = cache["segments"][slot.segment][f"p{slot.j}"]
+                layer_cache = {n: t[slot.k] for n, t in leaves.items()}
+            x = block(cfg, x, layer_cache, pos, mode, moe_impl)
     return x
 
 
@@ -441,10 +452,12 @@ def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor
         raise ValueError(f"unknown mode {mode!r}")
     if remat and mode != "train":
         raise ValueError("remat applies to mode='train'")
-    x = _embed(params, inputs)
+    with spans.span("model.embed"):
+        x = _embed(params, inputs)
     x = _run_layers(params, cfg, x, cache if mode == "prefill" else None, None, mode, moe_impl,
                     remat)
-    logits = _unembed(params, cfg, x)
+    with spans.span("model.unembed"):
+        logits = _unembed(params, cfg, x)
     if mode == "prefill":
         cache["pos"] = torch.tensor(x.shape[1], dtype=torch.int64, device=x.device)
         return logits, cache
@@ -454,9 +467,11 @@ def forward(params: Transformer, cfg: ArchConfig, inputs: Dict[str, torch.Tensor
 def decode_step(params: Transformer, cfg: ArchConfig, cache, tokens: torch.Tensor,
                 moe_impl: str = "einsum"):
     """One decode step: tokens [B,1] -> (logits [B,1,V], cache updated in place)."""
-    x = params.embed[tokens]
+    with spans.span("model.embed"):
+        x = params.embed[tokens]
     pos = cache["pos"]
     x = _run_layers(params, cfg, x, cache, pos, "decode", moe_impl)
-    logits = _unembed(params, cfg, x)
+    with spans.span("model.unembed"):
+        logits = _unembed(params, cfg, x)
     cache["pos"] = pos + 1
     return logits, cache

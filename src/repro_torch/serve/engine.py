@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.runtime import spans
 
 __all__ = ["ServeConfig", "Request", "Engine", "make_prefill_step", "make_decode_step"]
 
@@ -78,6 +79,7 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    submitted_ns: int = dataclasses.field(default_factory=time.perf_counter_ns)
 
 
 class Engine:
@@ -149,19 +151,23 @@ class Engine:
                     return
                 admitted += 1
                 r = self.queue.pop(0)
-                # per-slot prefill with a single-sequence cache
-                tmp_cache = _conv_in(
-                    T.init_cache(self.cfg, 1, self.scfg.max_seq, device=self.device),
-                    self._act_dtype)
-                toks = torch.tensor(r.prompt, dtype=torch.int64, device=self.device)[None, :]
-                last, tmp_cache = self._prefill1(self.params, tmp_cache, {"tokens": toks})
-                tok0 = int(torch.argmax(last[0]))
+                spans.mark("engine.queue", r.submitted_ns, rid=r.rid)
+                with spans.span("engine.prefill", rid=r.rid, n=len(r.prompt)):
+                    # per-slot prefill with a single-sequence cache
+                    tmp_cache = _conv_in(
+                        T.init_cache(self.cfg, 1, self.scfg.max_seq, device=self.device),
+                        self._act_dtype)
+                    toks = torch.tensor(r.prompt, dtype=torch.int64, device=self.device)[None, :]
+                    last, tmp_cache = self._prefill1(self.params, tmp_cache, {"tokens": toks})
+                with spans.span("engine.first_token", rid=r.rid):
+                    tok0 = int(torch.argmax(last[0]))
                 r.out.append(tok0)
                 if len(r.out) >= r.max_new:
                     r.done = True  # finished at prefill; slot s stays free
                     continue
-                self.cache = _splice_cache(self.cache, tmp_cache, s)
-                self.next_tok[s, 0] = tok0
+                with spans.span("engine.splice", rid=r.rid):
+                    self.cache = _splice_cache(self.cache, tmp_cache, s)
+                    self.next_tok[s, 0] = tok0
                 self.slot_req[s] = r
                 self.slot_pos[s] = len(r.prompt)
                 break
@@ -197,22 +203,35 @@ class Engine:
 
     def tick(self) -> int:
         """One engine iteration: admit + decode one token for all live slots."""
-        t0 = time.perf_counter()
-        self._ticks += 1
-        if self.monitor is not None and self._ticks % self.check_every == 0:
-            self.check_health()
-        self._admit()
-        live = [s for s in range(self.scfg.slots) if self.slot_req[s] is not None]
-        if not live:
+        with spans.span("engine.tick"):
+            t0 = time.perf_counter()
+            self._ticks += 1
+            if self.monitor is not None and self._ticks % self.check_every == 0:
+                self.check_health()
+            with spans.span("engine.admit"):
+                self._admit()
+            live = [s for s in range(self.scfg.slots) if self.slot_req[s] is not None]
+            if not live:
+                self._record_tick(t0)
+                return 0
+            with spans.span("engine.decode"):
+                self._decode_live(live)
             self._record_tick(t0)
-            return 0
-        # a single fixed-shape decode step serves every slot (idle slots too);
-        # per-slot positions make ragged continuous batching exact
-        self.cache["pos"] = torch.tensor(self.slot_pos, dtype=torch.int64, device=self.device)
-        self.cache = _conv_in(self.cache, self._act_dtype)
-        logits, self.cache = self._decode(self.params, self.cache, self.next_tok)
-        toks = torch.argmax(logits, dim=-1)
-        host = toks.tolist()
+            return len(live)
+
+    def _decode_live(self, live: List[int]) -> None:
+        """Decode one token for every slot and hand it to the live ones.
+
+        A single fixed-shape decode step serves every slot (idle slots
+        too); per-slot positions make ragged continuous batching exact."""
+        with spans.span("engine.decode_step"):
+            self.cache["pos"] = torch.tensor(self.slot_pos, dtype=torch.int64,
+                                             device=self.device)
+            self.cache = _conv_in(self.cache, self._act_dtype)
+            logits, self.cache = self._decode(self.params, self.cache, self.next_tok)
+            toks = torch.argmax(logits, dim=-1)
+        with spans.span("engine.readback"):
+            host = toks.tolist()
         for s in live:
             r = self.slot_req[s]
             r.out.append(host[s])
@@ -221,8 +240,6 @@ class Engine:
                 r.done = True
                 self.slot_req[s] = None
         self.next_tok = toks[:, None]
-        self._record_tick(t0)
-        return len(live)
 
     def _record_tick(self, t0: float) -> None:
         """Feed the monitor this tick's timings: every worker's own time from

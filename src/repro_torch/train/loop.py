@@ -28,6 +28,7 @@ from repro_torch.convert import named_from_tree, reference_tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.runtime import spans
 
 F32 = torch.float32
 
@@ -78,42 +79,58 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
     ``tcfg.microbatches`` accumulation steps run one after the other; their
     gradients are summed in f32, each divided by the count, then cast to
     the parameters' dtype.  A parameter the loss does not read gets a zero
-    gradient, as under ``jax.grad``."""
+    gradient, as under ``jax.grad``.
+
+    Spans (``runtime.spans``, each with device time): ``train.step`` holds
+    a ``train.microbatch`` per microbatch (``train.forward``,
+    ``train.backward``, ``train.accumulate``) and ``train.update`` (the
+    final cast, the global norm, the clip and AdamW); the accumulators'
+    allocation is a ``train.accumulate`` of the step's own."""
 
     def grads_of(params: T.Transformer, batch):
         for p in params.parameters():
             p.grad = None
-        loss, metrics = loss_fn(params, cfg, batch.get("tokens"), batch["labels"],
-                                moe_impl=tcfg.moe_impl, remat=tcfg.remat,
-                                embeds=batch.get("embeds"))
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.named_parameters()}
+        with spans.span("train.forward", device=True):
+            loss, metrics = loss_fn(params, cfg, batch.get("tokens"), batch["labels"],
+                                    moe_impl=tcfg.moe_impl, remat=tcfg.remat,
+                                    embeds=batch.get("embeds"))
+        with spans.span("train.backward", device=True):
+            loss.backward()
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in params.named_parameters()}
         for p in params.parameters():
             p.grad = None
         return grads, metrics
 
     def step(params: T.Transformer, opt_state, batch):
-        params.requires_grad_(True)
-        named = dict(params.named_parameters())
-        acc = tcfg.microbatches
-        if acc == 1:
-            grads, metrics = grads_of(params, batch)
-        else:
-            mb_batch = {k: v.reshape(acc, v.shape[0] // acc, *v.shape[1:])
-                        for k, v in batch.items() if v is not None}
-            grads = {n: torch.zeros(p.shape, dtype=F32, device=p.device) for n, p in named.items()}
-            dev = params.embed.device
-            metrics = {k: torch.zeros((), dtype=F32, device=dev) for k in ("loss", "accuracy")}
-            for i in range(acc):
-                g, m = grads_of(params, {k: v[i] for k, v in mb_batch.items()})
-                for n, a in grads.items():
-                    a += g.pop(n).to(F32) / acc
-                metrics = {k: a + m[k] / acc for k, a in metrics.items()}
-        grads = {n: grads.pop(n).to(p.dtype) for n, p in named.items()}
-        _, opt_state, om = adamw_update(named, grads, opt_state, tcfg.optim)
-        metrics = dict(metrics, **om)
-        return params, opt_state, metrics
+        with spans.span("train.step", device=True):
+            params.requires_grad_(True)
+            named = dict(params.named_parameters())
+            acc = tcfg.microbatches
+            if acc == 1:
+                with spans.span("train.microbatch", device=True):
+                    grads, metrics = grads_of(params, batch)
+            else:
+                mb_batch = {k: v.reshape(acc, v.shape[0] // acc, *v.shape[1:])
+                            for k, v in batch.items() if v is not None}
+                with spans.span("train.accumulate", device=True):
+                    grads = {n: torch.zeros(p.shape, dtype=F32, device=p.device)
+                             for n, p in named.items()}
+                    dev = params.embed.device
+                    metrics = {k: torch.zeros((), dtype=F32, device=dev)
+                               for k in ("loss", "accuracy")}
+                for i in range(acc):
+                    with spans.span("train.microbatch", device=True):
+                        g, m = grads_of(params, {k: v[i] for k, v in mb_batch.items()})
+                        with spans.span("train.accumulate", device=True):
+                            for n, a in grads.items():
+                                a += g.pop(n).to(F32) / acc
+                            metrics = {k: a + m[k] / acc for k, a in metrics.items()}
+            with spans.span("train.update", device=True):
+                grads = {n: grads.pop(n).to(p.dtype) for n, p in named.items()}
+                _, opt_state, om = adamw_update(named, grads, opt_state, tcfg.optim)
+                metrics = dict(metrics, **om)
+            return params, opt_state, metrics
 
     return step
 

@@ -1514,3 +1514,37 @@ def test_card_count_equals_meta_count(card, arch, kind):
     assert sum(n for row in got["launches"].values() for n in row.values()) == sum(
         row["calls"] for row in got["kernels"].values())
     assert analysis.finite(got["outputs"])
+
+
+def test_spans_leave_no_device_echo(card):
+    """A span (``runtime.spans``) is a host event of its name in the
+    profiler's trace and leaves no CUDA-typed event of that name: the
+    device echo the profiler gives a user annotation (``record_function``,
+    held here as the control) would count as device work in a reading of
+    the device timeline.  A device span's CUDA events time its kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.runtime import spans
+
+    spans.clear()
+    x = torch.ones(1 << 22, device=card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with spans.span("card.outer", device=True):
+            with spans.span("card.inner"):
+                for _ in range(8):
+                    x = x * 1.0001
+        with record_function("card.user"):
+            x = x * 1.0001
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    named = [(e.name(), e.device_type() == cuda) for e in events if e.name().startswith("card.")]
+    assert ("card.outer", False) in named and ("card.inner", False) in named
+    assert ("card.outer", True) not in named and ("card.inner", True) not in named
+    assert ("card.user", True) in named  # the control: a user annotation's echo
+    assert any(e.device_type() == cuda and not e.name().startswith("card.") for e in events)
+    snap = spans.snapshot()
+    outer = next(s for s in snap["spans"] if s["name"] == "card.outer")
+    assert outer["device_ms"] > 0
+    spans.clear()
