@@ -27,7 +27,9 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              the ragged-F store unmasked) must each fail it; so do the
              flash and SSD sweeps for theirs (the SSD scan's: the carry's
              decay dropped, one chunk's state term dropped, the diagonal
-             term's decay L dropped).
+             term's decay L dropped).  The causal conv's kernels are held
+             and timed at mamba2's training layout and Jamba's prefill and
+             decode beside the eager passes they replace.
 4. serve   — the LM paths, each at full width, random weights from a
              seeded generator, bf16: TinyLlama-1.1B (22 layers; flash
              attention and fused SwiGLU) and Mamba2-370M (48 layers; the SSD
@@ -76,7 +78,8 @@ Phases, each of which exits non-zero (and prints no result) on failure:
              through its launch: no carry across chunks, dB and dC swapped,
              dA dropped); (c) with dt_bias at -4 so the carried state counts;
              (e) 192 ``wgmma`` and 96 ``wgmma_bwd`` launches a step, the SSD
-             VJP called 0 times.  Then one Jamba-v0.1 period (8 layers, full
+             VJP called 0 times, and the causal conv's 192 ``fwd``, 96
+             ``bwd`` and 96 ``bwd_reduce``.  Then one Jamba-v0.1 period (8 layers, full
              width, experts cut from 16 to 4, AdamW with bf16 moments): (a)
              with every kernel's backward gone as the fault, 5 counted steps,
              no PyTorch VJP called, the loss falling.
@@ -212,7 +215,7 @@ LOGIT_TOL = 0.25
 # cached, is held to 0.5, and every step to 2.0 (PERF.md, PR 12).
 MAMBA_LOGIT_TOL, MAMBA_HANDOFF_TOL = 2.0, 0.5
 # name fragments of the kernels in src/repro_torch/csrc, for the profiles
-PORT_KERNELS = ("flash_", "swiglu_", "ssd_")
+PORT_KERNELS = ("flash_", "swiglu_", "ssd_", "conv_silu_")
 N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = 16, 32, 8, 2048
 
 
@@ -529,6 +532,111 @@ def train_paths(torch, timer, rows, randn, conv_views, ssd_hold) -> None:
         plain_ms=timer.ms(lambda: ssd_mixer_ref(*args, return_state=True), reps=5),
         library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by)
     log(f"train path: ssd_scan wgmma B={Bsz} S={S} H={H} N={N} within tolerance")
+
+
+def conv_paths(torch, timer, rows, randn) -> None:
+    """The causal conv's kernels (``csrc/causal_conv.cu``) at the paths'
+    shapes, held against the eager passes they replace
+    (``ref.causal_conv_ref``, the plain version, with the window's copy
+    where it is written: also the yardstick, ``library_ms``) and timed into
+    ``rows``: the forward at mamba2's training layout (B 16, S 2048, CH
+    2304), Jamba's prefill (one prompt of 4096, CH 8224, the window written)
+    and Jamba's decode (16 slots, the window read and rewritten in place),
+    within one bf16 ulp, the window bit for bit; the backward and its
+    reduction at the training layout beside autograd through the eager
+    passes, dx at SwiGLU's bf16 tolerance, dw and db within 1e-2 of their
+    largest magnitude, two launches bit for bit."""
+    import importlib
+
+    from repro_torch.kernels import CONV_LIBRARY, causal_conv
+    from repro_torch.kernels._build import stream_handle
+    from repro_torch.kernels.ref import causal_conv_ref
+    from repro_torch.launch.roofline_model import H100
+
+    cc = importlib.import_module("repro_torch.kernels.causal_conv")
+    bf16 = torch.bfloat16
+    tol = (1e-6, 2 ** -7)  # one bf16 ulp
+
+    def eager(x, w, b, carry, window):
+        out, new = causal_conv_ref(x, w, b, carry)
+        if window is not None:
+            window.copy_(new)
+        return out
+
+    for key, B, S, CH, reads, writes in (("train", 16, 2048, 2304, False, False),
+                                         ("jamba", 1, 4096, 8224, False, True),
+                                         ("decode", 16, 1, 8224, True, True)):
+        x = randn(B, S, CH, dtype=bf16)
+        w, b = randn(4, CH, dtype=bf16, scale=0.5), randn(CH, dtype=bf16, scale=0.25)
+        carry = randn(B, 3, CH, dtype=bf16) if reads else None
+        window = (carry.clone() if reads else torch.empty((B, 3, CH), dtype=bf16, device="cuda")
+                  ) if writes else None
+        want, want_window = causal_conv_ref(x, w, b, carry)
+        out, variant = launched(CONV_LIBRARY, lambda: causal_conv(
+            x, w, b, window if reads else None, window))
+        if variant != "fwd" or not within(out, want, tol) or (
+                writes and not torch.equal(window, want_window)):
+            raise AssertionError(f"causal_conv[{variant}] {key}: max err {max_err(out, want):.3g}")
+        log(f"causal_conv[{variant}] {key} B={B} S={S} CH={CH}: max err {max_err(out, want):.3g}")
+        b_ms, b_by = H100.bound_ms(*cc.work(B, S, CH, 2, 2 if reads or writes else 0, reads,
+                                            writes), bf16)
+        lib_ms = timer.ms(lambda: eager(x, w, b, window if reads else None, window))
+        rows[("causal_conv", variant, key)] = dict(
+            shape=f"B={B} S={S} CH={CH} bf16{', window' if writes else ''}"
+                  f"{' read' if reads else ''}",
+            max_abs_err=max_err(out, want), tol=list(tol),
+            ms=timer.ms(lambda: causal_conv(x, w, b, window if reads else None, window)),
+            plain_ms=lib_ms, library="eager passes", library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by)
+        del x, w, b, carry, window, out, want
+    B, S, CH = 16, 2048, 2304
+    x, dy = randn(B, S, CH, dtype=bf16), randn(B, S, CH, dtype=bf16)
+    w, b = randn(4, CH, dtype=bf16, scale=0.5), randn(CH, dtype=bf16, scale=0.25)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    graph = causal_conv_ref(*leaves)[0]
+    want = torch.autograd.grad(graph, leaves, dy, retain_graph=True)
+    got = cc._launch_bwd(x, w, b, dy)
+    if not all(torch.equal(g, a) for g, a in zip(got, cc._launch_bwd(x, w, b, dy))):
+        raise AssertionError("causal_conv[bwd]: two launches differ")
+    shares = [float((g.float() - r.float()).abs().max() / r.float().abs().max())
+              for g, r in zip(got[1:], want[1:])]
+    if not within(got[0], want[0], SWIGLU_TOL[str(bf16)]) or max(shares) > 1e-2:
+        raise AssertionError(f"causal_conv[bwd]: dx max err {max_err(got[0], want[0]):.3g}, "
+                             f"dw and db {shares}")
+    log(f"causal_conv[bwd] train: dx max err {max_err(got[0], want[0]):.3g}, dw and db "
+        f"{shares[0]:.3g}, {shares[1]:.3g} of their largest")
+    lib_ms = timer.ms(lambda: torch.autograd.grad(graph, leaves, dy, retain_graph=True))
+    rows[("causal_conv", "bwd", "train")] = dict(
+        shape=f"B={B} S={S} CH={CH} bf16, both kernels", max_abs_err=max_err(got[0], want[0]),
+        tol=list(SWIGLU_TOL[str(bf16)]), ms=timer.ms(lambda: cc._launch_bwd(x, w, b, dy)),
+        plain_ms=lib_ms, library="autograd of the eager passes", library_ms=lib_ms,
+        **dict(zip(("bound_ms", "bound_by"), H100.bound_ms(*cc.work_bwd(B, S, CH, 2, 2), bf16))))
+    # the reduction alone, over the partials of one backward launch
+    part = torch.empty(CONV_LIBRARY.size("conv_silu_bwd_scratch_floats", B, S, CH),
+                       dtype=torch.float32, device="cuda")
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)
+    CONV_LIBRARY.launch("bwd", x.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr(), part.data_ptr(), B, S, CH, 1, stream_handle(x))
+
+    def reduce():
+        CONV_LIBRARY.launch("bwd_reduce", part.data_ptr(), dw.data_ptr(), db.data_ptr(), B, S, CH,
+                            1, stream_handle(x))
+
+    def plain():
+        return part.view(-1, 5, CH).sum(0).to(bf16)
+
+    reduce()
+    sums = plain()
+    # the two sum in other orders, then round to bf16: one ulp, or a
+    # thousandth of the largest sum near zero
+    red_tol = (1e-3 * float(sums.float().abs().max()), 2 ** -7)
+    if not within(torch.cat([dw, db[None]]), sums, red_tol):
+        raise AssertionError("causal_conv[bwd_reduce]: not the sum of the partials")
+    rows[("causal_conv", "bwd_reduce", "train")] = dict(
+        shape=f"B={B} S={S} CH={CH}: {part.numel() // (5 * CH)} partials",
+        max_abs_err=max_err(torch.cat([dw, db[None]]), sums), tol=list(red_tol),
+        ms=timer.ms(reduce), plain_ms=timer.ms(plain), library=None, library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), H100.bound_ms(*cc.work_reduce(B, S, CH, 2), bf16))))
 
 
 def backward_paths(torch, timer, rows, randn) -> None:
@@ -1399,6 +1507,7 @@ def check_kernels(torch, timer):
     slice_paths(torch, timer, rows, randn, conv_views, ssd_hold)
     train_paths(torch, timer, rows, randn, conv_views, ssd_hold)
     backward_paths(torch, timer, rows, randn)
+    conv_paths(torch, timer, rows, randn)
 
     log(f"{'kernel':26} {'shape':32} {'max_err':>9} {'(atol, rtol)':>14} {'ms':>9} "
         f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} bound_by  library")
@@ -1440,7 +1549,11 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
     per attention layer one flash ``wgmma_bwd``, per mamba2 mixer one SSD
     ``wgmma_bwd``, per SwiGLU call of the forward one ``wgmma_bwd``
     (``experts_wgmma_bwd``), each through the variant ``select_bwd_variant``
-    picks (a ``"vjp"`` backward, PyTorch, launches nothing)."""
+    picks (a ``"vjp"`` backward, PyTorch, launches nothing).
+
+    Every mamba2 mixer also launches the causal conv's ``fwd`` in each
+    forward, prefill and decode tick alike, and its ``bwd`` and
+    ``bwd_reduce`` in each backward."""
     n_backward = 0
     if train is not None:
         tcfg, global_batch, seq_len = train
@@ -1479,6 +1592,9 @@ def expected_launches(torch, cfg, prompt_lens=(), n_decode: int = 0, slots: int 
             if prefill and slot.mixer == "ssm":
                 count("ssd_scan", (select_ssd_bwd_variant if backward else select_ssd_variant)(
                     cfg.ssm.head_dim, cfg.ssm.d_state, bf16))
+            if slot.mixer == "ssm":
+                for variant in (("bwd", "bwd_reduce") if backward else ("fwd",)):
+                    count("causal_conv", variant)
             for f in mlps[slot.ffn]:
                 count("swiglu_matmul", select_swiglu_bwd_variant(rows, cfg.d_model, f, bf16)
                       if backward else select_swiglu_variant(rows, cfg.d_model, f, bf16))
@@ -2069,13 +2185,12 @@ def splice_without(engine_mod, left_out):
 
 
 def stale_conv(ssm_mod):
-    """An SSM ``_causal_conv`` that hands back the window it was given (a
+    """An SSM ``_causal_conv`` that leaves the window it read as it was (a
     planted fault: a decode whose conv window does not roll)."""
     conv = ssm_mod._causal_conv
 
-    def stale(p, xBC, carry=None):
-        out, new = conv(p, xBC, carry)
-        return out, (new if carry is None else carry.to(new.dtype))
+    def stale(p, xBC, carry=None, carry_out=None):
+        return conv(p, xBC, carry, carry_out if carry is None else None)
     return stale
 
 
@@ -4296,13 +4411,22 @@ def main() -> None:
                   " train Jamba E=4"),
                  ("ssd_scan", "wgmma_bwd", "train", "train_mamba2", " train B=4"),
                  ("ssd_scan", "wgmma_bwd", "train_jamba", "train_jamba",
-                  " train Jamba H=128 N=16")]
+                  " train Jamba H=128 N=16"),
+                 # the causal conv: mamba2's train layout, Jamba's prefill and
+                 # decode; the backward and its reduction at the train layout
+                 ("causal_conv", "fwd", "train", "train_mamba2", " train B=16 S=2048"),
+                 ("causal_conv", "fwd", "jamba", "jamba", " Jamba prefill S=4096"),
+                 ("causal_conv", "fwd", "decode", "jamba", " Jamba decode 16 slots"),
+                 ("causal_conv", "bwd", "train", "train_mamba2", " train B=16 S=2048"),
+                 ("causal_conv", "bwd_reduce", "train", "train_mamba2", " train B=16 S=2048")]
         if {(n, v) for n, v, *_ in picks} != {(lib.name, v) for lib in LIBRARIES
                                                for v in lib.variants}:
             raise AssertionError("the report misses a kernel variant")
         replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:81",
                     "swiglu_matmul": "src/repro/kernels/swiglu_matmul.py:50",
-                    "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
+                    "ssd_scan": "src/repro/kernels/ssd_scan.py:75",
+                    # no TPU kernel: the reference's conv is jnp, which XLA fuses
+                    "causal_conv": "none (src/repro/models/ssm.py:67, jnp)"}
         sources = {lib.name: lib.source for lib in LIBRARIES}
         kernels = []
         for name, variant, pick, path, suffix in picks:

@@ -13,11 +13,12 @@ from repro_torch.kernels.swiglu_matmul import swiglu_matmul, swiglu_vjp
 from repro_torch.kernels.swiglu_matmul import select_experts_variant
 from repro_torch.kernels.swiglu_matmul import select_variant as select_swiglu_variant
 from repro_torch.kernels.swiglu_matmul import select_bwd_variant as select_swiglu_bwd_variant
+from repro_torch.kernels.causal_conv import LIBRARY as CONV_LIBRARY, causal_conv
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import flash_attention_bwd_ref, swiglu_bwd_ref
 
 # every kernel library of the port, in the order chip_smoke.py reports them
-LIBRARIES = (FLASH_LIBRARY, SWIGLU_LIBRARY, SSD_LIBRARY)
+LIBRARIES = (FLASH_LIBRARY, SWIGLU_LIBRARY, SSD_LIBRARY, CONV_LIBRARY)
 
 __all__ = [
     "gqa_flash_attention",
@@ -27,6 +28,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_vjp",
     "ssd_scan",
+    "causal_conv",
     "swiglu_matmul",
     "swiglu_experts",
     "swiglu_vjp",
@@ -43,5 +45,6 @@ __all__ = [
     "FLASH_LIBRARY",
     "SSD_LIBRARY",
     "SWIGLU_LIBRARY",
+    "CONV_LIBRARY",
     "LIBRARIES",
 ]

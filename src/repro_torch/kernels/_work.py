@@ -2,7 +2,8 @@
 kernel call, and the peak of the memory it allocates.
 
 Each public entry of the kernel modules (``flash_attention``,
-``swiglu_matmul``, ``swiglu_experts``, ``ssd_scan``, ``ssd_mixer``) calls
+``swiglu_matmul``, ``swiglu_experts``, ``ssd_scan``, ``ssd_mixer``,
+``causal_conv``) calls
 :func:`record` once a call, with the variant that a CUDA call of those
 shapes and dtype launches (its module's ``select_variant``) and that
 call's operations and bytes (its module's ``work``).  So a call counts the

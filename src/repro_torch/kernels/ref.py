@@ -14,7 +14,9 @@ decomposition and operand rounding on the CPU, for the tests, and
 :func:`ssd_scan_bwd_phases` its backward ``wgmma_bwd``'s;
 :func:`swiglu_ksplit_ref` the SwiGLU ``cuda_core`` small class's split sum,
 :func:`flash_attention_blocked_ref` the flash ``cuda_core`` kernel's blocked
-online softmax.
+online softmax.  :func:`causal_conv_ref` is the Mamba-2 mixer's conv, bias
+and SiLU as the model computed them in eager passes before
+``csrc/causal_conv.cu`` (which has no TPU counterpart).
 """
 from __future__ import annotations
 
@@ -699,3 +701,23 @@ def swiglu_experts_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> t
     g = torch.einsum("emd,edf->emf", x.to(F32), wg.to(F32))
     u = torch.einsum("emd,edf->emf", x.to(F32), wu.to(F32))
     return (F.silu(g) * u).to(x.dtype)
+
+
+def causal_conv_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    carry: Optional[torch.Tensor] = None):
+    """silu(depthwise causal conv + bias) over x [B, S, CH] with taps w [W, CH]
+    and bias b [CH], the W - 1 positions before x given by ``carry`` [B, W - 1,
+    CH] (zeros without), as ``repro/models/ssm.py::_causal_conv``: each tap's
+    product and sum in f32, in order from the oldest position.  Returns the
+    output in x's dtype and the new window, the last W - 1 positions of
+    carry + x, in x's dtype."""
+    W = w.shape[0]
+    B, S, CH = x.shape
+    if carry is None:
+        carry = torch.zeros((B, W - 1, CH), dtype=x.dtype, device=x.device)
+    padded = torch.cat([carry.to(x.dtype), x], dim=1)
+    out = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for i in range(W):
+        out = out + padded[:, i:i + S].to(F32) * w[i].to(F32)
+    out = F.silu(out + b.to(F32)).to(x.dtype)
+    return out, padded[:, padded.shape[1] - (W - 1):]

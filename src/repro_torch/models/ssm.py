@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.causal_conv import causal_conv
 from repro_torch.kernels.ops import ssd_mixer
 from repro_torch.parallel.sharding import ParamDef
 
@@ -82,19 +83,13 @@ def _project(p: Params, cfg: ArchConfig, x: torch.Tensor):
     return z, torch.cat([xs, Bm, Cm], dim=-1), dt
 
 
-def _causal_conv(p: Params, xBC: torch.Tensor, carry: torch.Tensor = None):
-    """Depthwise causal conv over [B,S,CH]; carry: [B,w-1,CH] history.
-    Returns the conv output and the new carry, both in xBC's dtype."""
-    w = p["conv_w"].shape[0]
-    B, S, CH = xBC.shape
-    if carry is None:
-        carry = torch.zeros((B, w - 1, CH), dtype=xBC.dtype, device=xBC.device)
-    padded = torch.cat([carry.to(xBC.dtype), xBC], dim=1)
-    out = torch.zeros(xBC.shape, dtype=F32, device=xBC.device)
-    for i in range(w):
-        out = out + padded[:, i:i + S].to(F32) * p["conv_w"][i].to(F32)
-    out = F.silu(out + p["conv_b"].to(F32)).to(xBC.dtype)
-    return out, padded[:, padded.shape[1] - (w - 1):]
+def _causal_conv(p: Params, xBC: torch.Tensor, carry: torch.Tensor = None,
+                 carry_out: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise causal conv, bias and SiLU over [B,S,CH] in xBC's dtype
+    (``kernels/causal_conv.py``: one kernel on the card); carry: [B,w-1,CH]
+    history (zeros without).  The new window, the last w-1 positions of
+    history + xBC, is written into ``carry_out`` in place where given."""
+    return causal_conv(xBC, p["conv_w"], p["conv_b"], carry, carry_out)
 
 
 def _split(cfg: ArchConfig, conv_out: torch.Tensor):
@@ -118,7 +113,7 @@ def ssm_block(p: Params, cfg: ArchConfig, x: torch.Tensor, cache=None, pos=None,
     A = -torch.exp(p["A_log"])
     if mode == "decode":
         # one-token recurrence, as the reference (no kernel)
-        conv_out, conv_carry = _causal_conv(p, xBC, cache["conv"])
+        conv_out = _causal_conv(p, xBC, cache["conv"], cache["conv"])
         xh, Bm, Cm = _split(cfg, conv_out)
         dA = torch.exp(dt[:, 0] * A)  # [B,H]
         rep = H // G
@@ -130,17 +125,15 @@ def ssm_block(p: Params, cfg: ArchConfig, x: torch.Tensor, cache=None, pos=None,
         y = torch.einsum("bhn,bhpn->bhp", Ch.to(F32), h)
         y = y + p["Dskip"][None, :, None] * xh[:, 0].to(F32)
         y = y.reshape(B_, 1, d_in).to(x.dtype)
-        cache["conv"].copy_(conv_carry)
         cache["ssd"].copy_(h)
     else:
         S = x.shape[1]
-        conv_out, conv_carry = _causal_conv(p, xBC)
+        conv_out = _causal_conv(p, xBC, None, cache["conv"] if mode == "prefill" else None)
         xh, Bm, Cm = _split(cfg, conv_out)
         y, h_final = ssd_mixer(xh, dt, A, Bm, Cm, return_state=True)
         y = y.to(F32) + p["Dskip"][None, None, :, None] * xh.to(F32)
         y = y.reshape(B_, S, d_in).to(x.dtype)
         if mode == "prefill":
-            cache["conv"].copy_(conv_carry)
             cache["ssd"].copy_(h_final)
 
     # gated rmsnorm + output projection

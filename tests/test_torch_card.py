@@ -22,19 +22,23 @@ autograd Functions against autograd through the plain versions
 (``test_*_vjp_on_card``).  The CUDA-core kernels are also held at every
 tile class and load path, for the same bits on two launches, and for the
 plan and constants their C helpers report against the Python mirrors
-(``test_cuda_core_*``, ``test_flash_cuda_core_*``).
+(``test_cuda_core_*``, ``test_flash_cuda_core_*``).  The causal conv's
+kernels (``test_conv_*``) are held against the eager passes they replace
+(``ref.causal_conv_ref`` and autograd through it) at the paths' shapes, for
+the same bits on two launches, and against two faults planted in copies of
+their source.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (
-    FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
+    CONV_LIBRARY, FLASH_LIBRARY, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
     gqa_flash_attention, select_experts_variant, select_flash_variant, select_ssd_variant,
-    select_swiglu_variant, ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul,
+    select_swiglu_variant, ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul, causal_conv,
 )
 from repro_torch.kernels.ref import (
-    flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
+    causal_conv_ref, flash_attention_ref, ssd_scan_ref, swiglu_experts_ref, swiglu_ref,
 )
 
 
@@ -1548,3 +1552,166 @@ def test_spans_leave_no_device_echo(card):
     outer = next(s for s in snap["spans"] if s["name"] == "card.outer")
     assert outer["device_ms"] > 0
     spans.clear()
+
+
+# --------------------------------------------------------------------------- #
+# the causal conv (csrc/causal_conv.cu)
+# --------------------------------------------------------------------------- #
+# (B, S, CH, reads the carry, writes the carry, dtype, carry dtype): mamba2's
+# training layout; Jamba's prefill (the window written) and decode (16 slots,
+# the cache's window read and rewritten in place); S < 3 without a carry;
+# CH % 8 != 0 (the scalar path); f32 (scalar), with an f32 or a bf16 window
+CONV_CASES = [
+    (16, 2048, 2304, False, False, torch.bfloat16, None),
+    (1, 1024, 8224, False, True, torch.bfloat16, torch.bfloat16),
+    (1, 4096, 8224, False, True, torch.bfloat16, torch.bfloat16),
+    (16, 1, 8224, True, True, torch.bfloat16, torch.bfloat16),
+    (16, 1, 2304, True, True, torch.bfloat16, torch.bfloat16),
+    (3, 2, 2304, False, False, torch.bfloat16, None),
+    (2, 1, 64, False, True, torch.bfloat16, torch.bfloat16),
+    (2, 2, 72, False, False, torch.float32, None),
+    (2, 300, 2300, False, True, torch.bfloat16, torch.bfloat16),
+    (3, 1, 2300, True, True, torch.bfloat16, torch.bfloat16),
+    (2, 517, 100, False, True, torch.float32, torch.float32),
+    (4, 1, 264, True, True, torch.float32, torch.bfloat16),
+    (2, 3, 24, True, True, torch.float32, torch.float32),
+]
+# the faults planted in copies of the source: the taps applied newest first,
+# and the window before t = 0 read as zeros whatever the carry holds
+CONV_FAULTS = {
+    "taps reversed": (("acc = __fadd_rn(acc, __fmul_rn(win[i], w[i]));",
+                       "acc = __fadd_rn(acc, __fmul_rn(win[i], w[W - 1 - i]));"),
+                      ("acc = __fadd_rn(acc, __fmul_rn(cur, w[W - 1]));",
+                       "acc = __fadd_rn(acc, __fmul_rn(cur, w[0]));")),
+    "carry ignored": (("row[v] = carry_in == nullptr", "row[v] = true"),),
+}
+
+
+def _conv_case(card, B, S, CH, reads, writes, dtype, cdtype, seed=0):
+    x, w, b = _inputs(card, seed, [(B, S, CH), (4, CH), (CH,)], dtype, scales=[1.0, 0.5, 0.25])
+    carry = _inputs(card, seed + 1, [(B, 3, CH)], cdtype)[0] if reads else None
+    return x, w, b, carry
+
+
+def _ulps(a, b):
+    """The distance of a from b in units in the last place of their dtype
+    (0 where they are equal, zeros of either sign included)."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    d = (a.view(bits).long() - b.view(bits).long()).abs()
+    return int(torch.where(a == b, torch.zeros_like(d), d).max())
+
+
+def _conv_forward(card, B, S, CH, reads, writes, dtype, cdtype, seed=0):
+    """(output, window written or None) of the kernel, and the plain
+    version's (its window in the carry's dtype)."""
+    x, w, b, carry = _conv_case(card, B, S, CH, reads, writes, dtype, cdtype, seed)
+    window = None
+    if writes:
+        window = carry.clone() if reads else torch.full((B, 3, CH), float("nan"), device=card,
+                                                          dtype=cdtype)
+    want, want_window = causal_conv_ref(x, w, b, carry)
+    import importlib
+
+    lib = importlib.import_module("repro_torch.kernels.causal_conv").LIBRARY
+    before = dict(lib.counts)
+    # decode passes the cache's one window as both carries
+    out = causal_conv(x, w, b, window if reads else None, window)
+    assert lib.counts["fwd"] == before["fwd"] + 1 and lib.launches == sum(before.values()) + 1
+    return (out, window), (want, None if window is None else want_window.to(cdtype))
+
+
+@pytest.mark.parametrize("B,S,CH,reads,writes,dtype,cdtype", CONV_CASES)
+def test_conv_forward(card, B, S, CH, reads, writes, dtype, cdtype):
+    """The forward against the eager passes: within one ulp of the output's
+    dtype (the same f32 operations in the same order; SiLU's exp may round
+    its last bit otherwise), the window written bit for bit, and the same
+    bits on a second launch."""
+    (out, window), (want, want_window) = _conv_forward(card, B, S, CH, reads, writes, dtype,
+                                                       cdtype)
+    assert out.dtype == dtype and _ulps(out, want) <= 1
+    if writes:
+        assert torch.equal(window, want_window)
+    (again, window2), _ = _conv_forward(card, B, S, CH, reads, writes, dtype, cdtype)
+    assert torch.equal(out, again) and (window is None or torch.equal(window, window2))
+
+
+def _conv_grads(card, B, S, CH, dtype, seed=0):
+    x, w, b, _ = _conv_case(card, B, S, CH, False, False, dtype, None, seed)
+    dy = _inputs(card, seed + 2, [(B, S, CH)], dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = torch.autograd.grad(causal_conv_ref(*leaves)[0], leaves, dy)
+    return (x, w, b, dy), want
+
+
+CONV_BWD_CASES = sorted({(B, S, CH, dt) for B, S, CH, r, _, dt, _ in CONV_CASES if not r},
+                        key=str)
+
+
+@pytest.mark.parametrize("B,S,CH,dtype", CONV_BWD_CASES)
+def test_conv_backward(card, B, S, CH, dtype):
+    """The backward kernels against autograd through the eager passes: dx at
+    SwiGLU's tolerance of its dtype (the eager backward rounds each tap's
+    share of dx to the input's dtype before summing them), dw and db within
+    1e-2 of each gradient's largest magnitude (sums over B·S in another
+    order); through the Function as through the launch; two launches the
+    same bits."""
+    import importlib
+
+    cc = importlib.import_module("repro_torch.kernels.causal_conv")
+    (x, w, b, dy), want = _conv_grads(card, B, S, CH, dtype)
+    before = dict(CONV_LIBRARY.counts)
+    got = cc._launch_bwd(x, w, b, dy)
+    assert CONV_LIBRARY.counts["bwd"] == before["bwd"] + 1
+    assert CONV_LIBRARY.counts["bwd_reduce"] == before["bwd_reduce"] + 1
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               atol=_tol(dtype, 1e-4, 5e-2), rtol=2e-2)
+    for name, g, r in zip(("dw", "db"), got[1:], want[1:]):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        err = float((g.float() - r.float()).abs().max() / r.float().abs().max())
+        assert err <= 1e-2, (name, err)
+    again = cc._launch_bwd(x, w, b, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    through = torch.autograd.grad(causal_conv(*leaves), leaves, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, through))
+
+
+def test_conv_carry_with_a_gradient_raises(card):
+    x, w, b, carry = _conv_case(card, 2, 1, 64, True, True, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(ValueError, match="takes no carry"):
+        causal_conv(x, w, b, carry.requires_grad_())
+
+
+def _conv_fault_library(name, subs):
+    """The conv library built from a copy of its source with ``subs``
+    planted, under ``build/causal_conv_fault_<n>``."""
+    import importlib
+    import shutil
+
+    from repro_torch.kernels._build import BUILD_DIR, CSRC, KernelLibrary
+
+    text = (CSRC / "causal_conv.cu").read_text()
+    for old, new in subs:
+        assert old in text, old
+        text = text.replace(old, new)
+    folder = BUILD_DIR.parent / f"causal_conv_fault_{list(CONV_FAULTS).index(name)}"
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / "causal_conv.cu").write_text(text)
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, folder / header.name)
+    lib = KernelLibrary("causal_conv",
+                        importlib.import_module("repro_torch.kernels.causal_conv").LIBRARY.variants)
+    lib.source = folder / "causal_conv.cu"
+    return lib
+
+
+@pytest.mark.parametrize("fault", list(CONV_FAULTS))
+def test_conv_planted_faults_fail(card, monkeypatch, fault):
+    """Each fault, built from a copy of the source, fails the forward's
+    comparison at Jamba's decode shape (the carry read)."""
+    import importlib
+
+    cc = importlib.import_module("repro_torch.kernels.causal_conv")
+    monkeypatch.setattr(cc, "LIBRARY", _conv_fault_library(fault, CONV_FAULTS[fault]))
+    (out, window), (want, want_window) = _conv_forward(card, *CONV_CASES[3])
+    assert _ulps(out, want) > 1

@@ -17,10 +17,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import (
-    FLASH_LIBRARY, LIBRARIES, SSD_LIBRARY, SWIGLU_LIBRARY, flash_attention, fused_swiglu,
-    gqa_bidirectional_attention, gqa_flash_attention, select_experts_variant,
-    select_flash_variant, select_ssd_variant, select_swiglu_variant, ssd_mixer, ssd_scan,
-    swiglu_experts, swiglu_matmul,
+    CONV_LIBRARY, FLASH_LIBRARY, LIBRARIES, SSD_LIBRARY, SWIGLU_LIBRARY, causal_conv,
+    flash_attention, fused_swiglu, gqa_bidirectional_attention, gqa_flash_attention,
+    select_experts_variant, select_flash_variant, select_ssd_variant, select_swiglu_variant,
+    ssd_mixer, ssd_scan, swiglu_experts, swiglu_matmul,
 )
 from repro_torch.kernels.swiglu_matmul import PREFILL_MIN_M
 
@@ -169,6 +169,7 @@ def test_variant_names():
                                             "experts_wgmma_bwd"}
     assert set(FLASH_LIBRARY.variants) == {"mma", "cuda_core", "wgmma_bwd"}
     assert set(SSD_LIBRARY.variants) == {"wgmma", "cuda_core", "wgmma_bwd"}
+    assert set(CONV_LIBRARY.variants) == {"fwd", "bwd", "bwd_reduce"}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -198,4 +199,7 @@ def test_cpu_tensors_launch_nothing(dtype, M):
     B = torch.randn(2, M, 128, generator=g).to(dtype)
     ssd_scan(q, dt, -torch.ones(2), B, B, return_state=True)
     ssd_mixer(q.movedim(0, 1)[None], dt.T[None], -torch.ones(2), B[:1, :, None], B[:1, :, None])
+    # the causal conv at a width of 8 channels, its window read and written
+    window = torch.zeros(2, 3, 64, dtype=dtype)
+    causal_conv(q, w[:4, :64], w[4, :64], window, window)
     assert {lib.name: dict(lib.counts) for lib in LIBRARIES} == before

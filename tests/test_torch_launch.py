@@ -390,8 +390,9 @@ def test_meta_count_equals_cpu_count(family, kind):
 
 def test_train_counts_the_vjps_on_meta_and_the_plain_versions_on_the_cpu():
     """The two counts differ by design: on ``meta`` (as on the card) the
-    flash and SwiGLU backwards are kernels (``flash_attention[wgmma_bwd]``,
-    ``swiglu_matmul[wgmma_bwd]``, ``[experts_wgmma_bwd]``; the SwiGLU's four
+    flash, SwiGLU and causal conv backwards are kernels
+    (``flash_attention[wgmma_bwd]``, ``swiglu_matmul[wgmma_bwd]``,
+    ``[experts_wgmma_bwd]``, ``causal_conv[bwd]`` and ``[bwd_reduce]``; the SwiGLU's four
     products around its kernel,
     and the SSD scan's backward, PyTorch, recorded as ``<kernel>.vjp``); on
     the CPU autograd runs through the plain versions, whose backward aten
@@ -399,21 +400,27 @@ def test_train_counts_the_vjps_on_meta_and_the_plain_versions_on_the_cpu():
     cfg = get_config("jamba-v0.1-52b").reduced()
     shape = ShapeSpec("s", "train", 64, 2)
     meta, cpu = _count(cfg, shape, "meta"), _count(cfg, shape, "cpu")
-    bwd = {k: row for k, row in meta["kernels"].items() if k.endswith("_bwd]")}
+    bwd = {k: row for k, row in meta["kernels"].items()
+           if k.endswith(("_bwd]", "[bwd]", "[bwd_reduce]"))}
     assert set(bwd) == {"flash_attention[wgmma_bwd]", "swiglu_matmul[wgmma_bwd]",
-                        "swiglu_matmul[experts_wgmma_bwd]"}
+                        "swiglu_matmul[experts_wgmma_bwd]", "causal_conv[bwd]",
+                        "causal_conv[bwd_reduce]"}
     # the forwards (twice: remat) alike
     assert {k: row for k, row in meta["kernels"].items() if k not in bwd} == cpu["kernels"]
     plan = layer_plan(cfg)
     assert bwd["flash_attention[wgmma_bwd]"]["calls"] == sum(s.mixer == "attn" for s in plan)
     assert meta["launches"]["flash_attention"]["wgmma_bwd"] == sum(s.mixer == "attn" for s in plan)
+    mixers = sum(s.mixer == "ssm" for s in plan)
+    assert bwd["causal_conv[bwd]"]["calls"] == bwd["causal_conv[bwd_reduce]"]["calls"] == mixers
+    assert meta["launches"]["causal_conv"] == {"fwd": 2 * mixers, "bwd": mixers,
+                                               "bwd_reduce": mixers}
     vjps = {k for k in meta["components"] if k.endswith(".vjp")}
     assert vjps == {"swiglu_matmul.vjp", "ssd_scan.vjp"}
     assert not {k for k in cpu["components"] if k.endswith(".vjp")}
     assert A.finite(cpu["outputs"]) and torch.isfinite(cpu["outputs"][2]["loss"])
 
 
-@pytest.mark.parametrize("module", ["flash_attention", "swiglu_matmul", "ssd_scan"])
+@pytest.mark.parametrize("module", ["flash_attention", "swiglu_matmul", "ssd_scan", "causal_conv"])
 def test_an_entry_that_records_no_work_is_caught(monkeypatch, module):
     """Planted fault: one kernel module's entries record nothing on the
     device under test; its count then differs from the meta count."""
@@ -554,7 +561,9 @@ def test_validate_probe_ratios():
                                                ShapeSpec("p", "prefill", 256, 2))
     rec = A.validate_probe("mamba2-370m", "decode", "meta", seq=256, batch=2,
                            timer=lambda call: 1.5)
-    assert rec["ms"] == 1.5 and rec["count"]["kernels"] == {}
+    # decode's one kernel: the causal conv, once in each of the two mixers
+    assert rec["ms"] == 1.5 and list(rec["count"]["kernels"]) == ["causal_conv[fwd]"]
+    assert rec["count"]["kernels"]["causal_conv[fwd]"]["calls"] == 2
 
 
 def test_analyze_cell_on_a_production_mesh_runs_nothing():

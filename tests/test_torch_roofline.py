@@ -35,6 +35,7 @@ from repro_torch.parallel import sharding
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 sw = importlib.import_module("repro_torch.kernels.swiglu_matmul")
 ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+conv = importlib.import_module("repro_torch.kernels.causal_conv")
 # the reference's TPU constants, read from the reference itself (the port
 # writes none of them down)
 REF_CHIP = R.Chip("the reference's chip", jax_roofline.PEAK_FLOPS, jax_roofline.HBM_BW,
@@ -148,6 +149,13 @@ TABLE = [
     ("ssd wgmma_bwd train layout", ssd.work_bwd(128, 4, 1024, 64, 128, 2), BF16, "0.0166",
      "bytes"),
     ("ssd wgmma_bwd Jamba train layout", ssd.work_bwd(256, 2, 1024, 64, 16, 2), BF16, "0.0308",
+     "bytes"),
+    ("conv fwd train layout", conv.work(16, 2048, 2304, 2), BF16, "0.0902", "bytes"),
+    ("conv fwd Jamba prefill", conv.work(1, 4096, 8224, 2, 2, False, True), BF16, "0.0403",
+     "bytes"),
+    ("conv fwd Jamba decode", conv.work(16, 1, 8224, 2, 2, True, True), BF16, "0.0007", "bytes"),
+    ("conv bwd train layout", conv.work_bwd(16, 2048, 2304, 2, 2), BF16, "0.1352", "bytes"),
+    ("conv bwd_reduce train layout", conv.work_reduce(16, 2048, 2304, 2), BF16, "0.0035",
      "bytes"),
 ]
 

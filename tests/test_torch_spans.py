@@ -56,7 +56,7 @@ def test_off_records_nothing():
         spans.mark("e", time.perf_counter_ns())
     snap = spans.snapshot()
     assert snap["spans"] == [] and snap["counters"] == {}
-    assert set(snap["launches"]) == {"flash_attention", "swiglu_matmul", "ssd_scan"}
+    assert set(snap["launches"]) == {"flash_attention", "swiglu_matmul", "ssd_scan", "causal_conv"}
 
 
 def test_spans_are_host_events_under_the_profiler():
